@@ -1,0 +1,251 @@
+"""RoundEngine — the packed federated round of the port.
+
+A round is the reference's pipeline with the upload transform off:
+
+    gather -> masked budgeted local SGD -> aggregate
+
+  1. GATHER      the cohort's [K, max_n] windows out of the packed
+                 federation, always through ``kernels.ops.fed_cohort_gather``
+                 (the Hopper kernel on a CUDA tensor);
+  2. LOCAL SGD   heterogeneous budgets: client k updates for its first
+                 ``n_iters_k`` slots.  MCLR with ``sampling="iid"`` goes
+                 through ``kernels.ops.fed_local_sgd_mclr``; every other
+                 step or sampling takes the plain path below, which
+                 differentiates ``LocalStep.loss`` with ``torch.func`` and
+                 batches the clients with ``vmap``;
+  3. AGGREGATE   the pluggable aggregator over the [K, ...] stack, weighted
+                 by sample counts of clients that trained >= 1 step.
+
+The clients' minibatch draws come from a ``torch.Generator`` on the
+device: ``iid`` draws ``idx [K, max_iters, B]`` uniform in
+``[0, max(n_k, 1))``, ``shuffle`` draws ``u [K, max_n]`` uniform for the
+epoch permutation.  Torch cannot reproduce the reference's threefry bits,
+so the round function takes ``draws=`` to replace them: that is how the
+parity tests replay the reference's batches.
+
+The plain path stops its loop at the cohort's largest budget rather than
+at ``max_iters``: a slot past every budget is ``p - lr * 0 * g``, an
+identity update whenever the gradient is finite, so the result is the
+same for finite data and the round costs one host read of the budgets.
+
+Not ported yet: upload compression (ROADMAP A8), fault injection and the
+upload screen (A9), the mesh-sharded and multi-round drivers (A12).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.core.aggregation import FedAvg
+from repro_torch.kernels import ops as kops
+
+SAMPLINGS = ("shuffle", "iid")
+
+
+def budget_iters(e_eff, n, batch_size: int, max_iters: int):
+    """n_iters_k = min(round(e_eff_k * ceil(n_k / B)), max_iters), in
+    float32 as the reference's traceable twin (round half to even)."""
+    tau = torch.ceil(torch.as_tensor(n).to(torch.float32)
+                     / torch.tensor(batch_size, dtype=torch.float32))
+    e = torch.as_tensor(e_eff).to(torch.float32)
+    return torch.clamp(torch.round(e * tau), max=max_iters).to(torch.int32)
+
+
+def iid_indices(gen: torch.Generator, n, max_iters: int, batch_size: int):
+    """idx [K, max_iters, B] int32, uniform in [0, max(n_k, 1))."""
+    nk = torch.clamp(n.long(), min=1)[:, None, None]
+    r = torch.rand((n.shape[0], max_iters, batch_size), generator=gen,
+                   device=n.device)
+    return torch.minimum((r * nk).long(), nk - 1).to(torch.int32)
+
+
+def _rows(x, idx):
+    """x [K, M, ...], idx [K, B] -> x[k, idx[k]] as [K, B, ...]."""
+    kk = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[kk, idx.long()]
+
+
+class RoundEngine:
+    """Executor of the packed round with pluggable aggregation.
+
+    lr         local-SGD learning rate
+    aggregator callable from ``repro_torch.core.aggregation`` (FedAvg)
+    prox_mu    proximal weight of every local objective; defaults to the
+               aggregator's own ``prox_mu`` (FedProx carries it)
+    """
+
+    def __init__(self, lr: float, aggregator=None,
+                 prox_mu: Optional[float] = None):
+        self.lr = float(lr)
+        self.aggregator = aggregator if aggregator is not None else FedAvg()
+        self.prox_mu = float(prox_mu if prox_mu is not None
+                             else getattr(self.aggregator, "prox_mu", 0.0))
+
+    def _prox(self, loss, params, global_params):
+        if not self.prox_mu:
+            return loss
+        sq = sum(torch.sum((params[k] - global_params[k]) ** 2)
+                 for k in sorted(params))
+        return loss + 0.5 * self.prox_mu * sq
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _cohort_gather(max_n: int) -> Callable:
+        """gather(flat_x, flat_y, offs [K], n [K]) -> (x [K, max_n, ...],
+        y [K, max_n], mask [K, max_n]) through the kernel op."""
+        def gather(flat_x, flat_y, offs, n):
+            return kops.fed_cohort_gather(flat_x, flat_y, offs, n, max_n)
+        return gather
+
+    def _sgd_loop(self, model, global_params, batch_at, n_iters,
+                  n_steps: int):
+        """The plain budgeted loop, clients batched by ``vmap``: slot i
+        updates client k iff i < n_iters_k.  Returns (params_k, losses
+        [n_steps, K])."""
+        def loss_fn(p, batch):
+            return self._prox(model.loss(p, batch), p, global_params)
+
+        vgrad = vmap(grad_and_value(loss_fn))
+        K = n_iters.shape[0]
+        params = {k: v.expand((K,) + tuple(v.shape)).clone()
+                  for k, v in global_params.items()}
+        losses = []
+        for i in range(n_steps):
+            g, loss = vgrad(params, batch_at(i))
+            step = self.lr * (i < n_iters).to(torch.float32)
+            params = {k: p - step.view((K,) + (1,) * (p.dim() - 1)) * g[k]
+                      for k, p in params.items()}
+            losses.append(loss)
+        return params, losses
+
+    def _local_sgd(self, model, batch_size: int, max_iters: int,
+                   sampling: str = "shuffle") -> Callable:
+        """local_train(global_params, x, y, mask, n, n_iters, draws) ->
+        (params_k, losses [K]).
+
+        shuffle  one random epoch permutation per round (``draws`` = its
+                 sort keys u [K, max_n]); batches walk it modulo n_k and
+                 the reported loss is a post-training pass over the full
+                 local shard.
+        iid      uniform minibatches with replacement (``draws`` = idx
+                 [K, max_iters, B]); the reported loss is the mean
+                 minibatch loss over executed iterations.
+        """
+        if sampling not in SAMPLINGS:
+            raise ValueError(f"unknown sampling {sampling!r}")
+        B = batch_size
+
+        def local_train(global_params, x, y, mask, n, n_iters, draws):
+            K = n.shape[0]
+            dev = x.device
+            nk_safe = torch.clamp(n.long(), min=1)
+            bmask = (torch.arange(B, device=dev)[None, :]
+                     < nk_safe[:, None]).to(torch.float32)
+            n_steps = min(max_iters, int(n_iters.max())) if K else 0
+            if sampling == "iid":
+                idx = draws.long()
+
+                def batch_at(i):
+                    return {"x": _rows(x, idx[:, i]),
+                            "y": _rows(y, idx[:, i]), "mask": bmask}
+
+                params, losses = self._sgd_loop(model, global_params,
+                                                batch_at, n_iters, n_steps)
+                msk = (torch.arange(n_steps, device=dev)[:, None]
+                       < n_iters.long()[None, :]).to(torch.float32)
+                total = ((torch.stack(losses) * msk).sum(0) if n_steps
+                         else torch.zeros(K, device=dev))
+                return params, total / torch.clamp(msk.sum(0), min=1.0)
+
+            perm = torch.argsort(draws + (1.0 - mask) * 1e9, dim=1,
+                                 stable=True)
+            walk = (torch.arange(max_iters * B, device=dev)
+                    .reshape(1, max_iters, B) % nk_safe[:, None, None])
+            idx = torch.gather(perm, 1, walk.reshape(K, -1)).reshape(
+                K, max_iters, B)
+
+            def batch_at(i):
+                return {"x": _rows(x, idx[:, i]), "y": _rows(y, idx[:, i]),
+                        "mask": _rows(mask, idx[:, i]) * bmask}
+
+            params, _ = self._sgd_loop(model, global_params, batch_at,
+                                       n_iters, n_steps)
+            final = vmap(model.loss)(params, {"x": x, "y": y, "mask": mask})
+            return params, final
+
+        return local_train
+
+    def _fused_sgd(self, model, global_params, x, y, n, n_iters, idx):
+        """Budgeted local SGD through the fused kernel for ``model.kind``;
+        only MCLR has one in this slice."""
+        if getattr(model, "kind", None) != "mclr":
+            raise ValueError(
+                f"no fused local-SGD kernel for step kind "
+                f"{getattr(model, 'kind', None)!r}")
+        w_k, b_k, losses = kops.fed_local_sgd_mclr(
+            x, y, idx.to(torch.int32).contiguous(), global_params["w"],
+            global_params["b"], n.to(torch.int32), n_iters.to(torch.int32),
+            lr=self.lr, prox_mu=self.prox_mu)
+        return {"w": w_k, "b": b_k}, losses
+
+    @staticmethod
+    def _upload_weights(n, n_iters):
+        """A client contributes its sample count iff it trained >= 1 step."""
+        return n.to(torch.float32) * (n_iters > 0).to(torch.float32)
+
+    def _finish(self, global_params, params_k, weights):
+        """Aggregate (the upload screen is not ported: ROADMAP A9).
+        Returns (new_global, uploaded_any)."""
+        new_global = self.aggregator(params_k, global_params, weights)
+        return new_global, weights.sum() > 0
+
+    # ------------------------------------------------------------------
+    def make_packed_round(self, model, batch_size: int, max_iters: int,
+                          max_n: int, sampling: str = "shuffle") -> Callable:
+        """Device-resident round over the packed federation.
+
+        round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
+                 n_iters, gen=None, draws=None)
+            -> (new_global_params, client_losses [K], uploaded_any)
+
+        ``ids``/``n_iters`` are the [K] cohort and its budgets on the
+        device; ``gen`` is the ``torch.Generator`` the minibatch draws come
+        from, unless ``draws`` supplies them (idx [K, max_iters, B] int for
+        iid, u [K, max_n] float32 for shuffle)."""
+        if sampling not in SAMPLINGS:
+            raise ValueError(f"unknown sampling {sampling!r}")
+        fuse_sgd = kops.fused_sgd_eligible(model, sampling)
+        local_train = None if fuse_sgd else \
+            self._local_sgd(model, batch_size, max_iters, sampling)
+        gather = self._cohort_gather(max_n)
+
+        @torch.no_grad()
+        def round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
+                     n_iters, gen=None, draws=None):
+            ids = ids.long()
+            offs = offsets[ids]
+            n = torch.clamp(lengths[ids], max=max_n)
+            x, y, mask = gather(flat_x, flat_y, offs, n)
+            if draws is None:
+                if gen is None:
+                    raise ValueError("pass gen= or draws=")
+                draws = (iid_indices(gen, n, max_iters, batch_size)
+                         if sampling == "iid"
+                         else torch.rand((n.shape[0], max_n), generator=gen,
+                                         device=x.device))
+            elif not torch.is_tensor(draws):
+                draws = torch.from_numpy(np.array(draws)).to(x.device)
+            if fuse_sgd:
+                params_k, losses = self._fused_sgd(
+                    model, global_params, x, y, n, n_iters, draws)
+            else:
+                params_k, losses = local_train(global_params, x, y, mask, n,
+                                               n_iters, draws)
+            new_global, any_up = self._finish(
+                global_params, params_k, self._upload_weights(n, n_iters))
+            return new_global, losses, any_up
+
+        return round_fn

@@ -1,0 +1,49 @@
+"""Public kernel ops of the port and the fused-SGD eligibility rule.
+
+Both ops are forward-only, as in the reference: rounds are never
+differentiated through, and the local-SGD kernel computes its softmax-xent
+gradient in closed form.  Each op goes to its wrapper, which runs the plain
+version on a CPU tensor and the hand-written kernel on a CUDA tensor.
+"""
+from __future__ import annotations
+
+import math
+
+from repro_torch.kernels import fed_gather, fed_local_sgd
+
+
+def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
+    """Fused gather + mask over the packed federation.  ``flat_x`` may have
+    any feature shape; it is flattened to [rows, feat] for the kernel and
+    the gathered x comes back as [K, max_n, ...feat].
+
+    flat_x/flat_y must carry >= max_n rows of tail slack after the last
+    client's samples (``FederatedDataset.packed`` pads at upload)."""
+    feat_shape = tuple(flat_x.shape[1:])
+    feat = math.prod(feat_shape)
+    x, y, mask = fed_gather.fed_cohort_gather(
+        flat_x.reshape(flat_x.shape[0], feat), flat_y, starts, ns, max_n)
+    return x.reshape((x.shape[0], max_n) + feat_shape), y, mask
+
+
+def fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters, lr: float,
+                       prox_mu: float = 0.0):
+    """Fused masked budgeted MCLR local SGD.
+    Returns (w_k [K, d, C], b_k [K, C], losses [K])."""
+    return fed_local_sgd.fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters,
+                                            lr, prox_mu)
+
+
+# the step families a fused local-SGD kernel exists for, by LocalStep.kind
+# (the reference also fuses "mlp"; its kernel is not ported yet)
+FUSED_SGD_KINDS = ("mclr",)
+
+
+def fused_sgd_eligible(step, sampling: str) -> bool:
+    """A fused local-SGD kernel applies iff the step's ``kind`` is in
+    ``FUSED_SGD_KINDS`` and minibatches follow the iid rule (indices drawn
+    outside the kernel).  Every other step or sampling rule takes the
+    engine's plain autodiff path; the cohort gather stays fused either way.
+    """
+    return (sampling == "iid"
+            and getattr(step, "kind", None) in FUSED_SGD_KINDS)

@@ -1,0 +1,103 @@
+"""Local-step models for the port's round engine.
+
+The engine's model seam is ``LocalStep``: ``init_params(generator)``
+builds a params dict of tensors in the reference's layout (MCLR:
+``{"w": [d, C], "b": [C]}``, logits ``x @ w + b``), ``loss(params,
+batch)`` maps params plus a padded batch (``x``/``y`` plus a 0/1 ``mask``
+over padded rows) to a masked-mean scalar, and ``kind`` names families the
+kernel layer has a fused implementation for.  The engine differentiates
+``loss`` with ``torch.func`` and maps the SGD update over the dict.
+
+This slice ports MCLR, the paper's convex model.  The MLP, the LSTM and
+the architectures adapted through ``models.api.from_model`` are ROADMAP
+items A7 and A13.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def mclr_init(generator: torch.Generator, n_features: int, n_classes: int,
+              device: Optional[torch.device] = None):
+    """N(0, 0.01^2) weights and zero bias, drawn from ``generator`` (which
+    must live on ``device``).  Torch cannot reproduce the reference's
+    threefry init; parity runs hand the reference's params in instead
+    (``repro_torch.convert.params_from_reference``)."""
+    w = torch.randn((n_features, n_classes), generator=generator,
+                    device=device) * 0.01
+    return {"w": w, "b": torch.zeros((n_classes,), device=device)}
+
+
+def mclr_logits(params, x):
+    return x @ params["w"] + params["b"]
+
+
+def mclr_loss(params, batch):
+    logits = mclr_logits(params, batch["x"])
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, batch["y"].long()[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def mclr_accuracy(params, batch):
+    pred = torch.argmax(mclr_logits(params, batch["x"]), dim=-1)
+    hit = (pred == batch["y"].long()).to(torch.float32)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(hit)
+    return (hit * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+class LocalStep:
+    """The model protocol ``RoundEngine`` consumes.
+
+    * ``init_params(generator)`` — build the params dict of tensors.
+    * ``loss(params, batch)`` — masked-mean scalar loss; the engine takes
+      its gradient with ``torch.func`` and applies the SGD update.
+    * ``accuracy(params, batch)`` — optional; only evaluation uses it.
+    * ``kind`` — the family tag the kernel layer dispatches on
+      (``repro_torch.kernels.ops.fused_sgd_eligible``).
+    """
+
+    def __init__(self, init_params, loss, accuracy=None, kind=None):
+        self.init_params = init_params
+        self.loss = loss
+        self.accuracy = accuracy
+        self.kind = kind
+
+
+def make_mclr(n_features: int, n_classes: int) -> LocalStep:
+    return LocalStep(
+        init_params=lambda gen: mclr_init(gen, n_features, n_classes,
+                                          gen.device),
+        loss=mclr_loss, accuracy=mclr_accuracy, kind="mclr")
+
+
+def resolve_local_step(spec, dataset) -> LocalStep:
+    """Resolve a model spec to a ``LocalStep`` sized for ``dataset``.
+
+    ``spec`` may be ``None`` (the dataset default), ``"mclr"``, or an
+    already-built ``LocalStep`` (returned unchanged).  The other specs the
+    reference accepts raise ``NotImplementedError`` until their ROADMAP
+    item lands."""
+    if isinstance(spec, LocalStep):
+        return spec
+    text = getattr(dataset, "task", "classification") == "text"
+    if spec is None:
+        spec = "lstm" if text else "mclr"
+    if spec == "mclr":
+        x0 = dataset.clients_x[0]
+        n_features = int(x0.shape[-1]) if x0.ndim > 1 else 1
+        return make_mclr(n_features, int(dataset.n_classes))
+    if spec in ("mlp", "lstm"):
+        raise NotImplementedError(
+            f"model={spec!r} is not ported yet (ROADMAP A7: MLP + LSTM "
+            "steps); the port trains mclr")
+    raise NotImplementedError(
+        f"model={spec!r}: architecture ids need models.api.from_model and "
+        "the LM stack, which are not ported yet (ROADMAP A13)")

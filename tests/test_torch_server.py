@@ -1,0 +1,196 @@
+"""Port server algebra and host driver against the reference.
+
+Bitwise: Ira/Fassa/outcomes (numpy float64 copies), HeterogeneitySim draws
+and the selection strategies given equal numpy generators, and — over
+three host rounds with ``selection="random"`` — cohorts and L/H/theta.
+Within 2e-5: params and losses (local SGD sums in another order).  Test
+accuracy within 2/test_n: a sample on the decision boundary may flip.
+Without injected draws, final accuracy within a 0.03 band.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.core import prediction as jpred
+from repro.core import selection as jsel
+from repro.core.heterogeneity import HeterogeneitySim as JHet
+from repro.core.server import FedSAEServer as JServer
+from repro.core.server import ServerConfig as JConfig
+from repro.data import federated as jfed
+from repro.data.federated import make_femnist_like as jfemnist
+from repro_torch.core import prediction as tpred
+from repro_torch.core import selection as tsel
+from repro_torch.core.heterogeneity import HeterogeneitySim as THet
+from repro_torch.core.server import FedSAEServer as TServer
+from repro_torch.core.server import HISTORY_KEYS
+from repro_torch.core.server import ServerConfig as TConfig
+from repro_torch.data import federated as tfed
+from repro_torch.data.federated import make_femnist_like as tfemnist
+from repro_torch.launch import fl_train
+from repro_torch.models.fl_models import resolve_local_step
+
+TOL = 2e-5
+
+
+def _pairs(seed=0, n=64):
+    rng = np.random.default_rng(seed)
+    L = rng.uniform(0.25, 10, n)
+    H = L + rng.uniform(0.001, 8, n)
+    E = np.r_[rng.uniform(0, 20, n - 4), L[-4:-2], H[-2:]]   # ties on bounds
+    theta = rng.uniform(0, 15, n)
+    return L, H, E, theta
+
+
+def test_prediction_bitwise():
+    L, H, E, theta = _pairs()
+    np.testing.assert_array_equal(tpred.outcomes(L, H, E),
+                                  jpred.outcomes(L, H, E))
+    np.testing.assert_array_equal(tpred.uploaded_epochs(L, H, E),
+                                  jpred.uploaded_epochs(L, H, E))
+    for h_cap in (0.0, 24.0):
+        for a, b in zip(tpred.ira_predict(L, H, E, U=10.0, h_cap=h_cap),
+                        jpred.ira_predict(L, H, E, U=10.0, h_cap=h_cap)):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(
+                tpred.fassa_predict(L, H, E, theta, 3.0, 1.0, h_cap=h_cap),
+                jpred.fassa_predict(L, H, E, theta, 3.0, 1.0, h_cap=h_cap)):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(tpred.fassa_threshold(theta, E, 0.95),
+                                  jpred.fassa_threshold(theta, E, 0.95))
+    assert (tpred.COMPLETED_H, tpred.COMPLETED_L, tpred.DROPPED) == (
+        jpred.COMPLETED_H, jpred.COMPLETED_L, jpred.DROPPED)
+
+
+def test_heterogeneity_draws_bitwise():
+    a, b = THet(50, seed=3), JHet(50, seed=3)
+    np.testing.assert_array_equal(a.mu, b.mu)
+    np.testing.assert_array_equal(a.sigma, b.sigma)
+    for _ in range(3):
+        np.testing.assert_array_equal(a.sample_round(), b.sample_round())
+
+
+@pytest.mark.parametrize("name", ["random", "active", "loss_proportional"])
+def test_selection_bitwise(name):
+    v = np.random.default_rng(1).uniform(0, 40, 30)
+    ra, rb = np.random.default_rng(9), np.random.default_rng(9)
+    for _ in range(3):
+        np.testing.assert_array_equal(
+            tsel.get_selection(name)(ra, v, 30, 5, 0.01),
+            jsel.get_selection(name)(rb, v, 30, 5, 0.01))
+    np.testing.assert_array_equal(tsel.selection_probs(v, 0.05),
+                                  jsel.selection_probs(v, 0.05))
+    sizes = np.arange(1, 31, dtype=np.float64)
+    ta, tb = tsel.ValueTracker(30, sizes), jsel.ValueTracker(30, sizes)
+    for t in (ta, tb):
+        t.update([3, 7], [0.5, 1.25])
+        t.update([], [])
+    np.testing.assert_array_equal(ta.v, tb.v)
+
+
+DS_KW = dict(n_clients=20, total=600, dim=16, max_size=24)
+CFG_KW = dict(n_selected=5, lr=0.05, batch_size=4, rounds=3, h_cap=6.0,
+              fixed_epochs=4.0, selection="random")
+
+
+def _reference_draws(seed, T, max_iters, B, max_n, sampling):
+    """Per-round minibatch draws exactly as the reference's host driver
+    makes them: data_rng, sub = split(data_rng) each round, then the
+    round's per-client keys and randint/uniform calls."""
+    subs, key = [], jax.random.PRNGKey(seed)
+    for _ in range(T):
+        key, sub = jax.random.split(key)
+        subs.append(sub)
+
+    def draws(t, ids, n):
+        keys = jax.random.split(subs[t], len(ids))
+        if sampling == "iid":
+            return np.asarray(jax.vmap(lambda k, nk: jax.random.randint(
+                k, (max_iters, B), 0, jnp.maximum(nk, 1)))(
+                keys, jnp.asarray(n, jnp.int32)))
+        return np.asarray(jax.vmap(
+            lambda k: jax.random.uniform(k, (max_n,)))(keys))
+
+    return draws
+
+
+@pytest.mark.parametrize("algo,sampling", [("ira", "iid"),
+                                           ("fassa", "shuffle"),
+                                           ("fedprox", "iid")])
+def test_three_host_rounds_match_reference(algo, sampling):
+    jcfg = JConfig(algo=algo, sampling=sampling, **CFG_KW)
+    jsrv = JServer(jfemnist(**DS_KW), cfg=jcfg)
+    init = jax.tree.map(np.asarray, jsrv.params)
+    jhist = jsrv.run()
+
+    tds = tfemnist(**DS_KW)
+    tcfg = TConfig(algo=algo, sampling=sampling, device="cpu", **CFG_KW)
+    max_n = int(tds.sizes.max())
+    tsrv = TServer(tds, cfg=tcfg, init_params=init,
+                   data_draws=_reference_draws(
+                       0, 3, jsrv.max_iters, 4, max_n, sampling))
+    assert tsrv.max_iters == jsrv.max_iters
+    thist = tsrv.run()
+
+    for a, b in zip(tsrv.cohorts, jsrv.cohorts):
+        np.testing.assert_array_equal(a, b)
+    for name in ("L", "H", "theta"):
+        np.testing.assert_array_equal(getattr(tsrv, name),
+                                      getattr(jsrv, name))
+    for k in init:
+        np.testing.assert_allclose(tsrv.params[k].numpy(),
+                                   np.asarray(jsrv.params[k]),
+                                   rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(tsrv.values.v, jsrv.values.v, rtol=TOL,
+                               atol=TOL)
+    assert list(thist) == list(HISTORY_KEYS) == list(jhist)
+    for k in ("dropout", "assigned", "uploaded", "true_workload",
+              "overflowed", "dropped"):
+        np.testing.assert_array_equal(thist[k], jhist[k])
+    np.testing.assert_allclose(thist["train_loss"], jhist["train_loss"],
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(thist["test_loss"], jhist["test_loss"],
+                               rtol=TOL, atol=TOL)
+    test_n = len(tds.test_y)
+    assert np.max(np.abs(np.subtract(thist["acc"], jhist["acc"]))) \
+        <= 2.0 / test_n
+
+
+def test_cli_smoke_on_cpu(capsys):
+    hist = fl_train.main(["--device", "cpu", "--rounds", "2", "--quiet"])
+    assert len(hist["acc"]) == 2 and np.isfinite(hist["train_loss"]).all()
+    assert "final: acc=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("driver", "scan", "A12"), ("rng_impl", "device", "A12"),
+    ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
+    ("prefetch", "double_buffer", "A12"), ("upload_compress", "topk_q8",
+                                           "A8"),
+    ("faults", object(), "A9"), ("upload_screen", "on", "A9"),
+    ("quarantine_threshold", 0.5, "A9")])
+def test_unported_config_raises(field, value, item):
+    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
+        TConfig(**{field: value})
+
+
+@pytest.mark.parametrize("spec,item", [("mlp", "A7"), ("lstm", "A7"),
+                                       ("llama3.2-3b", "A13")])
+def test_unported_models_raise(spec, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        resolve_local_step(spec, tfemnist(**DS_KW))
+
+
+@pytest.mark.parametrize("name,kw,lr,sampling", [
+    ("synthetic", dict(n_clients=20, total=1500, max_size=150), 0.01, "iid"),
+    ("mnist", dict(n_clients=40, total=2400, dim=32, max_size=100), 0.03,
+     "shuffle")])
+def test_uninjected_final_accuracy_within_band(name, kw, lr, sampling):
+    """Without injection the port draws its own init and minibatches, so
+    runs differ draw by draw; after 10 rounds the final test accuracy must
+    still sit within 0.03 of the reference's (observed gap <= 0.002)."""
+    cfg = dict(rounds=10, n_selected=5, lr=lr, sampling=sampling)
+    ref_acc = JServer(jfed.DATASETS[name](**kw), cfg=JConfig(**cfg)).run()
+    port_acc = TServer(tfed.DATASETS[name](**kw),
+                       cfg=TConfig(device="cpu", **cfg)).run()
+    assert abs(port_acc["acc"][-1] - ref_acc["acc"][-1]) <= 0.03
