@@ -9,9 +9,13 @@ where ``params_k`` is the client-params dict with a leading cohort axis K,
 float32 vector (0 = the client uploaded nothing).  Everything stays on the
 device: no aggregator reads a value back to the host.
 
-This slice ports ``fedavg`` and ``fedprox``.  The robust aggregators of
+This package ports ``fedavg`` and ``fedprox``.  The robust aggregators of
 the reference's registry (trimmed_mean, median, krum, geometric_median,
 bulyan) are ROADMAP item A6.
+
+``_flatten_clients`` / ``_unflatten_like`` are the reference's one flatten
+contract: leaves in ``jax.tree.leaves`` order, which for a params dict is
+its SORTED keys (MLP: b1, b2, w1, w2), never its insertion order.
 """
 from __future__ import annotations
 
@@ -50,6 +54,27 @@ class FedProx(FedAvg):
         if prox_mu < 0:
             raise ValueError(f"prox_mu must be >= 0, got {prox_mu}")
         self.prox_mu = float(prox_mu)
+
+
+def _flatten_clients(params_k):
+    """Stacked client params dict [K, ...] -> [K, P] float32 matrix, leaves
+    in sorted-key order."""
+    leaves = [params_k[name] for name in sorted(params_k)]
+    K = leaves[0].shape[0]
+    return torch.cat([v.reshape(K, -1).to(torch.float32) for v in leaves],
+                     dim=1)
+
+
+def _unflatten_like(vec, global_params):
+    """[..., P] float32 -> dict shaped/dtyped like ``global_params`` with
+    ``vec``'s leading axes in front, read in sorted-key order."""
+    lead, out, pos = tuple(vec.shape[:-1]), {}, 0
+    for name in sorted(global_params):
+        leaf = global_params[name]
+        out[name] = vec[..., pos:pos + leaf.numel()].reshape(
+            lead + tuple(leaf.shape)).to(leaf.dtype)
+        pos += leaf.numel()
+    return out
 
 
 AGGREGATORS: Dict[str, type] = {"fedavg": FedAvg, "fedprox": FedProx}

@@ -1,20 +1,34 @@
 """RoundEngine — the packed federated round of the port.
 
-A round is the reference's pipeline with the upload transform off:
+A round is the reference's four-stage pipeline:
 
-    gather -> masked budgeted local SGD -> aggregate
+    gather -> masked budgeted local SGD -> upload transform -> aggregate
 
   1. GATHER      the cohort's [K, max_n] windows out of the packed
                  federation, always through ``kernels.ops.fed_cohort_gather``
                  (the Hopper kernel on a CUDA tensor);
   2. LOCAL SGD   heterogeneous budgets: client k updates for its first
-                 ``n_iters_k`` slots.  MCLR with ``sampling="iid"`` goes
-                 through ``kernels.ops.fed_local_sgd_mclr``; every other
-                 step or sampling takes the plain path below, which
+                 ``n_iters_k`` slots.  MCLR and the MLP with
+                 ``sampling="iid"`` go through their fused kernels
+                 (``kernels.ops.fed_local_sgd_mclr`` / ``_dense``); every
+                 other step or sampling takes the plain path below, which
                  differentiates ``LocalStep.loss`` with ``torch.func`` and
                  batches the clients with ``vmap``;
-  3. AGGREGATE   the pluggable aggregator over the [K, ...] stack, weighted
+  3. UPLOAD      with ``compress="topk_q8"`` each uploading client's delta
+                 plus its error-feedback residual is top-k sparsified and
+                 int8 quantised (``core.compression``, through
+                 ``kernels.ops.fed_compress_topk_q8``); the server
+                 aggregates the dense reconstruction and the quantisation
+                 error becomes the client's next residual.  Off, the stage
+                 does nothing;
+  4. AGGREGATE   the pluggable aggregator over the [K, ...] stack, weighted
                  by sample counts of clients that trained >= 1 step.
+
+The error-feedback residual is per-client state, a [N, P] float32 tensor
+the caller owns: a compressing round function takes it as ``residual=``
+and returns the updated one as its fourth output.  Uploading rows are the
+clients with ``n_iters > 0``; every other row keeps its residual bit for
+bit.
 
 The clients' minibatch draws come from a ``torch.Generator`` on the
 device: ``iid`` draws ``idx [K, max_iters, B]`` uniform in
@@ -28,8 +42,8 @@ at ``max_iters``: a slot past every budget is ``p - lr * 0 * g``, an
 identity update whenever the gradient is finite, so the result is the
 same for finite data and the round costs one host read of the budgets.
 
-Not ported yet: upload compression (ROADMAP A8), fault injection and the
-upload screen (A9), the mesh-sharded and multi-round drivers (A12).
+Not ported yet: fault injection and the upload screen (ROADMAP A9), the
+mesh-sharded and multi-round drivers (A12).
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.core import compression as comp
 from repro_torch.core.aggregation import FedAvg
 from repro_torch.kernels import ops as kops
 
@@ -75,14 +90,26 @@ class RoundEngine:
     aggregator callable from ``repro_torch.core.aggregation`` (FedAvg)
     prox_mu    proximal weight of every local objective; defaults to the
                aggregator's own ``prox_mu`` (FedProx carries it)
+    compress   upload transform, "none" | "topk_q8"; with "topk_q8" the
+               round function takes and returns the error-feedback residual
+    topk_frac  kept-coordinate fraction for "topk_q8"
+               (k = ceil(topk_frac * n_params))
     """
 
     def __init__(self, lr: float, aggregator=None,
-                 prox_mu: Optional[float] = None):
+                 prox_mu: Optional[float] = None, compress: str = "none",
+                 topk_frac: float = 0.1):
         self.lr = float(lr)
         self.aggregator = aggregator if aggregator is not None else FedAvg()
         self.prox_mu = float(prox_mu if prox_mu is not None
                              else getattr(self.aggregator, "prox_mu", 0.0))
+        self.compress = comp.check_compress(compress)
+        self.topk_frac = float(topk_frac)
+        comp.resolve_k(self.topk_frac, 1)   # validate the fraction eagerly
+
+    @property
+    def compressing(self) -> bool:
+        return self.compress != "none"
 
     def _prox(self, loss, params, global_params):
         if not self.prox_mu:
@@ -179,15 +206,22 @@ class RoundEngine:
         return local_train
 
     def _fused_sgd(self, model, global_params, x, y, n, n_iters, idx):
-        """Budgeted local SGD through the fused kernel for ``model.kind``;
-        only MCLR has one in this slice."""
-        if getattr(model, "kind", None) != "mclr":
+        """Budgeted local SGD through the fused kernel for ``model.kind``:
+        the MCLR kernel or the dense two-layer MLP kernel."""
+        kind = getattr(model, "kind", None)
+        idx = idx.to(torch.int32).contiguous()
+        n, n_iters = n.to(torch.int32), n_iters.to(torch.int32)
+        if kind == "mlp":
+            gp = global_params
+            w1_k, b1_k, w2_k, b2_k, losses = kops.fed_local_sgd_dense(
+                x, y, idx, gp["w1"], gp["b1"], gp["w2"], gp["b2"], n,
+                n_iters, lr=self.lr, prox_mu=self.prox_mu)
+            return {"w1": w1_k, "b1": b1_k, "w2": w2_k, "b2": b2_k}, losses
+        if kind != "mclr":
             raise ValueError(
-                f"no fused local-SGD kernel for step kind "
-                f"{getattr(model, 'kind', None)!r}")
+                f"no fused local-SGD kernel for step kind {kind!r}")
         w_k, b_k, losses = kops.fed_local_sgd_mclr(
-            x, y, idx.to(torch.int32).contiguous(), global_params["w"],
-            global_params["b"], n.to(torch.int32), n_iters.to(torch.int32),
+            x, y, idx, global_params["w"], global_params["b"], n, n_iters,
             lr=self.lr, prox_mu=self.prox_mu)
         return {"w": w_k, "b": b_k}, losses
 
@@ -202,19 +236,49 @@ class RoundEngine:
         new_global = self.aggregator(params_k, global_params, weights)
         return new_global, weights.sum() > 0
 
+    def _upload_transform(self, global_params, params_k, residual_rows,
+                          uploaded):
+        """Stage 3: compress the trained stack's deltas against
+        ``residual_rows`` [K, P] and reconstruct them densely.
+        ``uploaded`` rows transmit; the rest reconstruct to exactly
+        ``global`` and keep their residual bit for bit."""
+        k = comp.resolve_k(self.topk_frac, comp.n_params_of(global_params))
+        rec, new_rows, _ = comp.apply_upload_compress(
+            global_params, params_k, residual_rows, uploaded, k)
+        return rec, new_rows
+
+    def _finish_round(self, global_params, params_k, losses, n, n_iters,
+                      ids, residual=None):
+        """Stages 3 and 4.  Returns (new_global, losses, any_up) and, when
+        compressing, the updated [N, P] residual as a fourth output (a new
+        tensor: the caller's is not written)."""
+        weights = self._upload_weights(n, n_iters)
+        if not self.compressing:
+            new_global, any_up = self._finish(global_params, params_k,
+                                              weights)
+            return new_global, losses, any_up
+        params_k, new_rows = self._upload_transform(
+            global_params, params_k, residual[ids], n_iters > 0)
+        residual = residual.index_copy(0, ids, new_rows)   # ids distinct
+        new_global, any_up = self._finish(global_params, params_k, weights)
+        return new_global, losses, any_up, residual
+
     # ------------------------------------------------------------------
     def make_packed_round(self, model, batch_size: int, max_iters: int,
                           max_n: int, sampling: str = "shuffle") -> Callable:
         """Device-resident round over the packed federation.
 
         round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
-                 n_iters, gen=None, draws=None)
-            -> (new_global_params, client_losses [K], uploaded_any)
+                 n_iters, gen=None, draws=None, residual=None)
+            -> (new_global_params, client_losses [K], uploaded_any
+                [, new_residual])
 
         ``ids``/``n_iters`` are the [K] cohort and its budgets on the
         device; ``gen`` is the ``torch.Generator`` the minibatch draws come
         from, unless ``draws`` supplies them (idx [K, max_iters, B] int for
-        iid, u [K, max_n] float32 for shuffle)."""
+        iid, u [K, max_n] float32 for shuffle).  A compressing engine needs
+        ``residual`` ([N, P] float32, the whole federation's error-feedback
+        rows) and returns the updated one."""
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
         fuse_sgd = kops.fused_sgd_eligible(model, sampling)
@@ -224,7 +288,9 @@ class RoundEngine:
 
         @torch.no_grad()
         def round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
-                     n_iters, gen=None, draws=None):
+                     n_iters, gen=None, draws=None, residual=None):
+            if self.compressing and residual is None:
+                raise ValueError("a compressing round needs residual=")
             ids = ids.long()
             offs = offsets[ids]
             n = torch.clamp(lengths[ids], max=max_n)
@@ -244,8 +310,7 @@ class RoundEngine:
             else:
                 params_k, losses = local_train(global_params, x, y, mask, n,
                                                n_iters, draws)
-            new_global, any_up = self._finish(
-                global_params, params_k, self._upload_weights(n, n_iters))
-            return new_global, losses, any_up
+            return self._finish_round(global_params, params_k, losses, n,
+                                      n_iters, ids, residual)
 
         return round_fn

@@ -4,7 +4,8 @@ Per round the server (1) draws every client's affordable workload and
 selects a cohort (AL during the first ``al_rounds``, then the configured
 strategy), (2) predicts each participant's task pair with Ira/Fassa (or
 applies a baseline's fixed workload), (3) runs the packed round on the
-device — gather, masked budgeted local SGD, aggregation — and (4) updates
+device — gather, masked budgeted local SGD, the optional upload transform,
+aggregation — and (4) updates
 the history and the training values from the uploaded losses.  Baselines:
 FedAvg (fixed workload, stragglers upload nothing), FedProx (ideal partial
 work) and an oracle skyline.
@@ -16,10 +17,15 @@ seeds.  Only the model init and the minibatch draws come from torch
 generators; ``init_params=`` and ``data_draws=`` replace them so a test can
 replay the reference's threefry draws.
 
+With ``upload_compress="topk_q8"`` every uploading client's delta is
+top-k sparsified and int8 quantised with error feedback
+(``core.compression``); the server keeps the [N, P] float32 residual on
+its device and replaces it with each round's output.
+
 Not ported yet, and refused with a ValueError naming the ROADMAP item when
 set to anything but the default: the scan driver, device rng streams,
-mesh sharding, capacity compaction and prefetch (A12), upload compression
-(A8), fault injection, the upload screen and quarantine (A9).
+mesh sharding, capacity compaction and prefetch (A12), fault injection,
+the upload screen and quarantine (A9).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.convert import params_from_reference
+from repro_torch.core import compression as comp
 from repro_torch.core import prediction as pred
 from repro_torch.core.aggregation import get_aggregator
 from repro_torch.core.engine import RoundEngine
@@ -57,7 +64,6 @@ _NOT_PORTED = {
     "mesh_shards": (0, "A12 (client-axis sharding)"),
     "cohort_capacity": ("full", "A12 (capacity compaction)"),
     "prefetch": ("off", "A12 (double-buffered prefetch)"),
-    "upload_compress": ("none", "A8 (upload compression)"),
     "faults": (None, "A9 (faults + screen + quarantine)"),
     "quarantine_threshold": (0.0, "A9 (faults + screen + quarantine)"),
 }
@@ -83,11 +89,14 @@ class ServerConfig:
     aggregator: str = "fedavg"   # fedavg | fedprox
     selection: str = "random"    # post-AL strategy (core.selection)
     sampling: str = "shuffle"    # shuffle (paper default) | iid (fused
-                                 # MCLR local-SGD kernel)
+                                 # MCLR / MLP local-SGD kernels)
     seed: int = 0
     selection_seed: int = 1234   # fixed across frameworks (paper §IV-A)
     eval_every: int = 1
-    model: object = None         # None | "mclr" | a LocalStep
+    model: object = None         # None | "mclr" | "mlp" | a LocalStep
+    upload_compress: str = "none"  # none | topk_q8 (top-k + int8 with
+                                   # error feedback: core.compression)
+    topk_frac: float = 0.1       # kept-coordinate fraction for "topk_q8"
     device: Optional[str] = None  # None = cuda; "cpu" on request
     # reference features not ported yet (must stay at their defaults)
     driver: str = "host"
@@ -95,7 +104,6 @@ class ServerConfig:
     mesh_shards: int = 0
     cohort_capacity: object = "full"
     prefetch: str = "off"
-    upload_compress: str = "none"
     faults: object = None
     upload_screen: str = "auto"  # auto | off ("on" is ROADMAP A9)
     quarantine_threshold: float = 0.0
@@ -165,7 +173,19 @@ class FedSAEServer:
         self.engine = RoundEngine(
             lr=cfg.lr, aggregator=get_aggregator(cfg.aggregator,
                                                  **agg_kwargs),
-            prox_mu=cfg.prox_mu if cfg.algo == "fedprox" else None)
+            prox_mu=cfg.prox_mu if cfg.algo == "fedprox" else None,
+            compress=cfg.upload_compress, topk_frac=cfg.topk_frac)
+        # error-feedback state: one [P] float32 row per client (None when
+        # the upload transform is off)
+        n_params = comp.n_params_of(self.params)
+        self.residual = (
+            torch.zeros((dataset.n_clients, n_params), dtype=torch.float32,
+                        device=self.device)
+            if self.engine.compressing else None)
+        self.bytes_per_client = comp.upload_bytes_per_client(
+            n_params, cfg.upload_compress, cfg.topk_frac)
+        self.dense_bytes_per_client = comp.upload_bytes_per_client(
+            n_params, "none")
         self.round_fn = self.engine.make_packed_round(
             self.model, cfg.batch_size, self.max_iters, self.packed.max_n,
             sampling=cfg.sampling)
@@ -240,11 +260,14 @@ class FedSAEServer:
         draws = (None if self.data_draws is None
                  else self.data_draws(t, np.asarray(ids), n))
         pk = self.packed
-        self.params, losses, _ = self.round_fn(
+        out = self.round_fn(
             self.params, pk.x, pk.y, pk.offsets, pk.lengths,
             torch.as_tensor(np.asarray(ids), device=self.device),
             torch.as_tensor(n_iters.astype(np.int32), device=self.device),
-            gen=self.data_gen, draws=draws)
+            gen=self.data_gen, draws=draws, residual=self.residual)
+        self.params, losses = out[0], out[1]
+        if self.residual is not None:
+            self.residual = out[3]
         losses = losses.cpu().numpy()     # the per-round host sync
         uploaders = n_iters > 0
         self.cohorts.append(np.asarray(ids))

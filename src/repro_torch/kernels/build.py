@@ -46,6 +46,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fed_local_sgd_mclr_smem_bytes": ([I, I, I, I], ctypes.c_longlong),
         "fed_local_sgd_mclr_error_string": ([I], ctypes.c_char_p),
     },
+    "fed_local_sgd_dense": {
+        "fed_local_sgd_dense_launch":
+            ([P] * 14 + [I] * 8 + [ctypes.c_float, ctypes.c_float, P], I),
+        "fed_local_sgd_dense_smem_bytes": ([I] * 5, ctypes.c_longlong),
+        "fed_local_sgd_dense_error_string": ([I], ctypes.c_char_p),
+    },
+    "fed_compress": {
+        "fed_compress_topk_q8_launch": ([P, P, P, I, I, I, P], I),
+        "fed_compress_topk_q8_error_string": ([I], ctypes.c_char_p),
+    },
 }
 
 

@@ -1,15 +1,16 @@
 """Public kernel ops of the port and the fused-SGD eligibility rule.
 
-Both ops are forward-only, as in the reference: rounds are never
-differentiated through, and the local-SGD kernel computes its softmax-xent
-gradient in closed form.  Each op goes to its wrapper, which runs the plain
+Every op is forward-only, as in the reference: rounds are never
+differentiated through, and the local-SGD kernels compute their gradients
+in closed form.  Each op goes to its wrapper, which runs the plain
 version on a CPU tensor and the hand-written kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
 import math
 
-from repro_torch.kernels import fed_gather, fed_local_sgd
+from repro_torch.kernels import fed_compress, fed_gather, fed_local_sgd
+from repro_torch.kernels import fed_local_sgd_dense as dense_sgd
 
 
 def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
@@ -34,9 +35,22 @@ def fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters, lr: float,
                                             lr, prox_mu)
 
 
+def fed_local_sgd_dense(x, y, idx, w1, b1, w2, b2, ns, n_iters, lr: float,
+                        prox_mu: float = 0.0):
+    """Fused masked budgeted dense-MLP (tanh) local SGD.  Returns
+    (w1_k [K, d, H], b1_k [K, H], w2_k [K, H, C], b2_k [K, C], losses [K])."""
+    return dense_sgd.fed_local_sgd_dense(
+        x, y, idx, w1, b1, w2, b2, ns, n_iters, lr, prox_mu)
+
+
+def fed_compress_topk_q8(ef, k: int):
+    """Top-k + int8 compression of the [K, P] error-feedback rows.
+    Returns (q [K, P] int8, scale [K] f32)."""
+    return fed_compress.fed_compress_topk_q8(ef, k)
+
+
 # the step families a fused local-SGD kernel exists for, by LocalStep.kind
-# (the reference also fuses "mlp"; its kernel is not ported yet)
-FUSED_SGD_KINDS = ("mclr",)
+FUSED_SGD_KINDS = ("mclr", "mlp")
 
 
 def fused_sgd_eligible(step, sampling: str) -> bool:

@@ -78,3 +78,113 @@ def fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters, *, lr: float,
         total = torch.zeros(K, device=dev)
     return (w.contiguous(), b.contiguous(),
             total / torch.clamp(msk.sum(1), min=1.0))
+
+
+def fed_compress_topk_q8(ef, *, k: int):
+    """Top-k + int8 upload compression over per-client delta rows, bitwise
+    the reference's ``ref.fed_compress_topk_q8``.
+
+    ef: [K, P] f32 error-feedback deltas; ``k`` kept-coordinate count ->
+    (q [K, P] int8, zero off the per-row top-k mask; scale [K] f32, the
+    per-client symmetric scale).  Transmitted value = q * scale.
+
+      scale = max|e| * float32(1/127)     (a multiply, as the reference)
+      thr   = sort(|e|)[P - k]            (k-th largest magnitude)
+      mask  = (|e| > thr) | the earliest (|e| == thr) ties, exactly k
+      q     = clip(round_half_even(e / scale), -127, 127) on the mask"""
+    K, P = ef.shape
+    e = ef.to(torch.float32)
+    a = torch.abs(e)
+    amax = (torch.amax(a, dim=-1) if P
+            else torch.zeros(K, dtype=torch.float32, device=e.device))
+    scale = amax * torch.tensor(1.0 / 127.0, dtype=torch.float32,
+                                device=e.device)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    if k <= 0:
+        mask = torch.zeros(e.shape, dtype=torch.bool, device=e.device)
+    elif k >= P:
+        mask = torch.ones(e.shape, dtype=torch.bool, device=e.device)
+    else:
+        thr = torch.sort(a, dim=-1).values[:, P - k]
+        gt = a > thr[:, None]
+        eq = a == thr[:, None]
+        # exactly k coordinates: all strictly above plus the EARLIEST ties
+        need = k - torch.sum(gt.to(torch.int32), dim=-1)
+        take = eq & (torch.cumsum(eq.to(torch.int32), dim=-1)
+                     <= need[:, None])
+        mask = gt | take
+    q = torch.where(mask & (scale[:, None] > 0),
+                    torch.clamp(torch.round(e / safe[:, None]), -127.0,
+                                127.0),
+                    torch.zeros((), device=e.device)).to(torch.int8)
+    return q, scale
+
+
+def fed_local_sgd_dense(x, y, idx, w10, b10, w20, b20, ns, n_iters, *,
+                        lr: float, prox_mu: float = 0.0):
+    """Masked budgeted two-layer (tanh MLP) local SGD over precomputed iid
+    minibatch indices.  x: [K, max_n, d] f32; y: [K, max_n] i32; idx:
+    [K, max_iters, B] i32; w10: [d, H]; b10: [H]; w20: [H, C]; b20: [C];
+    ns/n_iters: [K] i32 -> (w1_k [K, d, H], b1_k [K, H], w2_k [K, H, C],
+    b2_k [K, C], losses [K] f32).
+
+    The backward pass is the closed-form two-layer backprop of the
+    reference's oracle; every client runs all ``max_iters`` slots with
+    updates masked past ``n_iters_k``, the clients a batch dimension in
+    place of ``vmap``."""
+    K, max_n, d = x.shape
+    max_iters, B = idx.shape[1], idx.shape[2]
+    H, C = w20.shape
+    dev = x.device
+    nk_safe = torch.clamp(ns.long(), min=1)
+    bmask = (torch.arange(B, device=dev)[None, :]
+             < nk_safe[:, None]).to(torch.float32)                 # [K, B]
+    bsum = torch.clamp(bmask.sum(1), min=1.0)                      # [K]
+    idx = torch.clamp(idx.long(), 0, max_n - 1)
+    oy = torch.nn.functional.one_hot(y.long(), C).to(torch.float32)
+    init = [t.to(torch.float32) for t in (w10, b10, w20, b20)]
+    w1, b1, w2, b2 = (t.expand((K,) + tuple(t.shape)) for t in init)
+    w10f, b10f, w20f, b20f = w1, b1, w2, b2
+    iters = n_iters.long()
+    losses = []
+    for i in range(max_iters):
+        idx_row = idx[:, i, :]                                     # [K, B]
+        xb = torch.gather(x.to(torch.float32), 1,
+                          idx_row[:, :, None].expand(K, B, d))
+        oyb = torch.gather(oy, 1, idx_row[:, :, None].expand(K, B, C))
+        h = torch.tanh(torch.bmm(xb, w1) + b1[:, None, :])          # [K,B,H]
+        logits = torch.bmm(h, w2) + b2[:, None, :]
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.sum(logp * oyb, dim=-1)
+        loss = torch.sum(nll * bmask, dim=1) / bsum
+        err = (torch.exp(logp) - oyb) * bmask[:, :, None] / bsum[:, None,
+                                                                 None]
+        gw2 = torch.bmm(h.transpose(1, 2), err)
+        gb2 = err.sum(1)
+        dpre = torch.bmm(err, w2.transpose(1, 2)) * (1.0 - h * h)
+        gw1 = torch.bmm(xb.transpose(1, 2), dpre)
+        gb1 = dpre.sum(1)
+        if prox_mu:
+            loss = loss + 0.5 * prox_mu * (
+                torch.sum((w1 - w10f) ** 2, dim=(1, 2))
+                + torch.sum((b1 - b10f) ** 2, dim=1)
+                + torch.sum((w2 - w20f) ** 2, dim=(1, 2))
+                + torch.sum((b2 - b20f) ** 2, dim=1))
+            gw1 = gw1 + prox_mu * (w1 - w10f)
+            gb1 = gb1 + prox_mu * (b1 - b10f)
+            gw2 = gw2 + prox_mu * (w2 - w20f)
+            gb2 = gb2 + prox_mu * (b2 - b20f)
+        active = (i < iters).to(torch.float32)
+        w1 = w1 - lr * active[:, None, None] * gw1
+        b1 = b1 - lr * active[:, None] * gb1
+        w2 = w2 - lr * active[:, None, None] * gw2
+        b2 = b2 - lr * active[:, None] * gb2
+        losses.append(loss)
+    msk = (torch.arange(max_iters, device=dev)[None, :]
+           < iters[:, None]).to(torch.float32)
+    if max_iters:
+        total = (torch.stack(losses, 1) * msk).sum(1)
+    else:
+        total = torch.zeros(K, device=dev)
+    return (w1.contiguous(), b1.contiguous(), w2.contiguous(),
+            b2.contiguous(), total / torch.clamp(msk.sum(1), min=1.0))

@@ -4,6 +4,11 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_train --dataset femnist \
       --paper-scale --sampling iid
 
+  # the MLP with top-k + int8 upload compression (dense local-SGD and
+  # compression kernels):
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --dataset femnist \
+      --paper-scale --model mlp --sampling iid --compress topk_q8
+
   # reduced scale on the CPU (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
       --rounds 3
@@ -35,7 +40,9 @@ def build_server(args) -> FedSAEServer:
                        n_selected=min(10, ds.n_clients),
                        al_rounds=args.al_rounds, h_cap=24.0,
                        aggregator=args.aggregator, selection=args.selection,
-                       sampling=args.sampling, device=args.device)
+                       sampling=args.sampling, model=args.model,
+                       upload_compress=args.compress,
+                       topk_frac=args.topk_frac, device=args.device)
     return FedSAEServer(ds, cfg=cfg)
 
 
@@ -50,11 +57,24 @@ def main(argv=None):
     ap.add_argument("--selection", default="random",
                     choices=("random", "active", "loss_proportional"),
                     help="cohort selection after the AL warm-up rounds")
+    ap.add_argument("--model", default=None, choices=("mclr", "mlp"),
+                    help="local step trained on each client (default: the "
+                         "dataset's, mclr)")
     ap.add_argument("--sampling", default="shuffle",
                     choices=("shuffle", "iid"),
                     help="local minibatch rule: shuffle is the paper's "
-                         "epoch walk; iid runs the fused MCLR local-SGD "
-                         "kernel")
+                         "epoch walk; iid runs the fused MCLR / MLP "
+                         "local-SGD kernels")
+    ap.add_argument("--compress", default="none",
+                    choices=("none", "topk_q8"),
+                    help="upload transform between local SGD and "
+                         "aggregation: topk_q8 ships each client's delta as "
+                         "top-k int8 coordinates with a per-client scale "
+                         "and carries the quantisation error as an "
+                         "error-feedback residual")
+    ap.add_argument("--topk-frac", type=float, default=0.1,
+                    help="kept coordinate fraction for --compress topk_q8: "
+                         "k = ceil(frac * n_params) per client per round")
     ap.add_argument("--lr", type=float, default=None,
                     help="override the dataset default learning rate")
     ap.add_argument("--paper-scale", action="store_true")

@@ -8,9 +8,9 @@ over padded rows) to a masked-mean scalar, and ``kind`` names families the
 kernel layer has a fused implementation for.  The engine differentiates
 ``loss`` with ``torch.func`` and maps the SGD update over the dict.
 
-This slice ports MCLR, the paper's convex model.  The MLP, the LSTM and
-the architectures adapted through ``models.api.from_model`` are ROADMAP
-items A7 and A13.
+This package ports MCLR, the paper's convex model, and the two-layer tanh
+MLP.  The LSTM and the architectures adapted through
+``models.api.from_model`` are ROADMAP items A7 and A13.
 """
 from __future__ import annotations
 
@@ -35,7 +35,14 @@ def mclr_logits(params, x):
 
 
 def mclr_loss(params, batch):
-    logits = mclr_logits(params, batch["x"])
+    return _masked_nll(mclr_logits(params, batch["x"]), batch)
+
+
+def mclr_accuracy(params, batch):
+    return _masked_accuracy(mclr_logits(params, batch["x"]), batch)
+
+
+def _masked_nll(logits, batch):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["y"].long()[..., None])[..., 0]
     mask = batch.get("mask")
@@ -44,13 +51,39 @@ def mclr_loss(params, batch):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def mclr_accuracy(params, batch):
-    pred = torch.argmax(mclr_logits(params, batch["x"]), dim=-1)
+def _masked_accuracy(logits, batch):
+    pred = torch.argmax(logits, dim=-1)
     hit = (pred == batch["y"].long()).to(torch.float32)
     mask = batch.get("mask")
     if mask is None:
         mask = torch.ones_like(hit)
     return (hit * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def mlp_init(generator: torch.Generator, n_features: int, hidden: int,
+             n_classes: int, device: Optional[torch.device] = None):
+    """N(0, 1/fan_in) weights and zero biases, drawn from ``generator``
+    (which must live on ``device``), in the reference's insertion order
+    w1, b1, w2, b2."""
+    w1 = torch.randn((n_features, hidden), generator=generator,
+                     device=device) * n_features ** -0.5
+    w2 = torch.randn((hidden, n_classes), generator=generator,
+                     device=device) * hidden ** -0.5
+    return {"w1": w1, "b1": torch.zeros((hidden,), device=device),
+            "w2": w2, "b2": torch.zeros((n_classes,), device=device)}
+
+
+def mlp_logits(params, x):
+    h = torch.tanh(x @ params["w1"] + params["b1"])
+    return h @ params["w2"] + params["b2"]
+
+
+def mlp_loss(params, batch):
+    return _masked_nll(mlp_logits(params, batch["x"]), batch)
+
+
+def mlp_accuracy(params, batch):
+    return _masked_accuracy(mlp_logits(params, batch["x"]), batch)
 
 
 class LocalStep:
@@ -78,26 +111,34 @@ def make_mclr(n_features: int, n_classes: int) -> LocalStep:
         loss=mclr_loss, accuracy=mclr_accuracy, kind="mclr")
 
 
+def make_mlp(n_features: int, n_classes: int, hidden: int = 64) -> LocalStep:
+    return LocalStep(
+        init_params=lambda gen: mlp_init(gen, n_features, hidden, n_classes,
+                                         gen.device),
+        loss=mlp_loss, accuracy=mlp_accuracy, kind="mlp")
+
+
 def resolve_local_step(spec, dataset) -> LocalStep:
     """Resolve a model spec to a ``LocalStep`` sized for ``dataset``.
 
-    ``spec`` may be ``None`` (the dataset default), ``"mclr"``, or an
-    already-built ``LocalStep`` (returned unchanged).  The other specs the
-    reference accepts raise ``NotImplementedError`` until their ROADMAP
-    item lands."""
+    ``spec`` may be ``None`` (the dataset default), ``"mclr"``, ``"mlp"``
+    or an already-built ``LocalStep`` (returned unchanged).  The other
+    specs the reference accepts raise ``NotImplementedError`` until their
+    ROADMAP item lands."""
     if isinstance(spec, LocalStep):
         return spec
     text = getattr(dataset, "task", "classification") == "text"
     if spec is None:
         spec = "lstm" if text else "mclr"
-    if spec == "mclr":
+    if spec in ("mclr", "mlp"):
         x0 = dataset.clients_x[0]
         n_features = int(x0.shape[-1]) if x0.ndim > 1 else 1
-        return make_mclr(n_features, int(dataset.n_classes))
-    if spec in ("mlp", "lstm"):
+        make = make_mclr if spec == "mclr" else make_mlp
+        return make(n_features, int(dataset.n_classes))
+    if spec == "lstm":
         raise NotImplementedError(
-            f"model={spec!r} is not ported yet (ROADMAP A7: MLP + LSTM "
-            "steps); the port trains mclr")
+            "model='lstm' is not ported yet (ROADMAP A7: the LSTM step); "
+            "the port trains mclr and mlp")
     raise NotImplementedError(
         f"model={spec!r}: architecture ids need models.api.from_model and "
         "the LM stack, which are not ported yet (ROADMAP A13)")

@@ -1,10 +1,13 @@
 """``import repro_torch`` and every submodule pulls in neither JAX nor any
-module of the reference package ``repro`` (checked in a fresh process)."""
+module of the reference package ``repro`` (checked in a fresh process),
+and ``chip_smoke.py`` imports neither (checked on its source)."""
+import ast
 import os
 import subprocess
 import sys
 
-SRC = os.path.join(os.path.dirname(__file__), "..", "src")
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+SRC = os.path.join(ROOT, "src")
 
 CHECK = r"""
 import importlib, pkgutil, sys
@@ -30,5 +33,19 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 15
+    assert int(n_modules) >= 25
     assert bad == "", f"port pulled in: {bad}"
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "repro_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)

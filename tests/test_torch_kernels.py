@@ -2,13 +2,16 @@
 Pallas kernels (interpret mode, via ``repro.kernels.ops``) and its jnp
 oracles (``repro.kernels.ref``) on the same numpy-made inputs.
 
-Tolerances: the gather is pure data movement, so bitwise.  MCLR local SGD
-sums in another order than the reference (batched matmuls, torch's
-log_softmax), so it is held to the reference's own kernel-vs-XLA bound,
-rtol = atol = 2e-5.
+Tolerances: the gather is pure data movement, so bitwise.  MCLR and
+dense-MLP local SGD sum in another order than the reference (batched
+matmuls, torch's log_softmax), so they are held to the reference's own
+kernel-vs-XLA bound, rtol = atol = 2e-5, at a few iterations.  The
+compressor is bitwise (tests/test_torch_compression.py holds the plain
+version against the reference).
 
 The hand-written CUDA kernels run only on the card: the tests marked
-``cuda`` hold them against the plain versions there and skip elsewhere.
+``cuda``, in tests/test_torch_cuda.py, hold them against the plain
+versions there and skip elsewhere.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,26 +20,16 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import build, fed_gather, fed_local_sgd
+from repro_torch.kernels import (build, fed_compress, fed_gather,
+                                 fed_local_sgd, fed_local_sgd_dense)
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels import ref as tref
+from torch_cases import dense_case, gather_case, sgd_case
 
 TOL = 2e-5
 
 
-def _gather_case():
-    rng = np.random.default_rng(0)
-    max_n, d, rows = 8, 5, 30
-    flat = rng.normal(size=(rows + max_n, d)).astype(np.float32)
-    flat_y = rng.integers(0, 4, rows + max_n).astype(np.int32)
-    # interior, n == max_n, n == 0, a start past rows - max_n (clamped)
-    starts = np.array([0, 4, 12, 20, 30, 35], np.int32)
-    ns = np.array([4, 8, 0, 6, 0, 3], np.int32)
-    return flat, flat_y, starts, ns, max_n
-
-
 def test_gather_bitwise_vs_pallas_and_oracle():
-    flat, flat_y, starts, ns, max_n = _gather_case()
+    flat, flat_y, starts, ns, max_n = gather_case()
     got = tops.fed_cohort_gather(torch.from_numpy(flat),
                                  torch.from_numpy(flat_y),
                                  torch.from_numpy(starts),
@@ -68,23 +61,9 @@ def test_gather_higher_rank_and_int_features():
     np.testing.assert_array_equal(mask.numpy(), np.asarray(mr))
 
 
-def _sgd_case(seed=2, K=4, max_n=24, d=16, C=5, max_iters=12, B=4):
-    rng = np.random.default_rng(seed)
-    x = rng.normal(size=(K, max_n, d)).astype(np.float32)
-    y = rng.integers(0, C, (K, max_n)).astype(np.int32)
-    # full / n_k < B / empty / ragged
-    ns = np.array([max_n, 3, 0, 17], np.int32)[:K]
-    n_iters = np.array([max_iters, 7, 0, 5], np.int32)[:K]
-    idx = (rng.random((K, max_iters, B))
-           * np.maximum(ns, 1)[:, None, None]).astype(np.int32)
-    w0 = (rng.normal(size=(d, C)) * 0.1).astype(np.float32)
-    b0 = (rng.normal(size=C) * 0.1).astype(np.float32)
-    return x, y, idx, w0, b0, ns, n_iters
-
-
 @pytest.mark.parametrize("prox_mu", [0.0, 0.2])
 def test_local_sgd_close_to_pallas_and_oracle(prox_mu):
-    args = _sgd_case()
+    args = sgd_case()
     got = tops.fed_local_sgd_mclr(*[torch.from_numpy(a) for a in args],
                                   lr=0.1, prox_mu=prox_mu)
     ja = [jnp.asarray(a) for a in args]
@@ -96,7 +75,7 @@ def test_local_sgd_close_to_pallas_and_oracle(prox_mu):
 
 
 def test_local_sgd_zero_budget_keeps_globals_and_zero_loss():
-    x, y, idx, w0, b0, ns, _ = _sgd_case(seed=3)
+    x, y, idx, w0, b0, ns, _ = sgd_case(seed=3)
     w, b, loss = tops.fed_local_sgd_mclr(
         *[torch.from_numpy(a) for a in (x, y, idx, w0, b0, ns)],
         torch.zeros(len(ns), dtype=torch.int32), lr=0.5)
@@ -106,17 +85,52 @@ def test_local_sgd_zero_budget_keeps_globals_and_zero_loss():
     np.testing.assert_array_equal(loss.numpy(), np.zeros(len(ns)))
 
 
+@pytest.mark.parametrize("prox_mu", [0.0, 0.1])
+@pytest.mark.parametrize("seed", [4, 5])
+def test_dense_sgd_close_to_pallas_and_oracle(prox_mu, seed):
+    args = dense_case(seed)
+    got = tops.fed_local_sgd_dense(*[torch.from_numpy(a) for a in args],
+                                   lr=0.1, prox_mu=prox_mu)
+    ja = [jnp.asarray(a) for a in args]
+    for want in (jops.fed_local_sgd_dense(*ja, lr=0.1, prox_mu=prox_mu),
+                 jref.fed_local_sgd_dense(*ja, lr=0.1, prox_mu=prox_mu)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       rtol=TOL, atol=TOL)
+    # the zero-budget lane (3) keeps the globals bitwise and reports loss 0
+    for g, init in zip(got[:4], args[3:7]):
+        np.testing.assert_array_equal(g[3].numpy(), init)
+    assert float(got[4][3]) == 0.0
+
+
+def test_dense_sgd_zero_budget_keeps_globals_and_zero_loss():
+    args = list(dense_case(6))
+    args[-1] = np.zeros_like(args[-1])
+    got = tops.fed_local_sgd_dense(*[torch.from_numpy(a) for a in args],
+                                   lr=0.5, prox_mu=0.1)
+    for g, init in zip(got[:4], args[3:7]):
+        for k in range(len(args[-1])):
+            np.testing.assert_array_equal(g[k].numpy(), init)
+    np.testing.assert_array_equal(got[4].numpy(), np.zeros(len(args[-1])))
+
+
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
-    fed_gather.fed_cohort_gather.launches = 0
-    fed_local_sgd.fed_local_sgd_mclr.launches = 0
-    flat, flat_y, starts, ns, max_n = _gather_case()
+    wrappers = (fed_gather.fed_cohort_gather,
+                fed_local_sgd.fed_local_sgd_mclr,
+                fed_local_sgd_dense.fed_local_sgd_dense,
+                fed_compress.fed_compress_topk_q8)
+    for w in wrappers:
+        w.launches = 0
+    flat, flat_y, starts, ns, max_n = gather_case()
     tops.fed_cohort_gather(torch.from_numpy(flat), torch.from_numpy(flat_y),
                            torch.from_numpy(starts), torch.from_numpy(ns),
                            max_n)
-    tops.fed_local_sgd_mclr(*[torch.from_numpy(a) for a in _sgd_case()],
+    tops.fed_local_sgd_mclr(*[torch.from_numpy(a) for a in sgd_case()],
                             lr=0.1)
-    assert fed_gather.fed_cohort_gather.launches == 0
-    assert fed_local_sgd.fed_local_sgd_mclr.launches == 0
+    tops.fed_local_sgd_dense(*[torch.from_numpy(a) for a in dense_case()],
+                             lr=0.1)
+    tops.fed_compress_topk_q8(torch.ones((2, 5)), 2)
+    assert [w.launches for w in wrappers] == [0, 0, 0, 0]
 
 
 def test_nvcc_command_targets_sm_90a():
@@ -140,34 +154,17 @@ def test_shared_memory_budget_at_paper_shapes():
     assert fed_local_sgd.smem_bytes(4096, 26, 10) > fed_local_sgd.SMEM_LIMIT
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the hand-written kernels have no "
-                    "CPU mode")
-    return torch.device("cuda")
+def test_dense_shared_memory_budget_at_paper_shapes():
+    # w1 stays in global memory, so the FEMNIST MLP (d=784, H=64, C=26,
+    # B=10) and the synthetic one (d=60, C=10) fit; a wide d does not
+    limit = fed_local_sgd_dense.SMEM_LIMIT
+    assert fed_local_sgd_dense.smem_bytes(784, 64, 26, 10) <= limit
+    assert fed_local_sgd_dense.smem_bytes(60, 64, 10, 10) <= limit
+    assert fed_local_sgd_dense.split_count(784, 64) == 16
+    assert fed_local_sgd_dense.smem_bytes(8192, 64, 26, 10) > limit
 
 
-@pytest.mark.cuda
-def test_cuda_gather_kernel_bitwise_vs_plain(cuda_device):
-    flat, flat_y, starts, ns, max_n = _gather_case()
-    t = [torch.from_numpy(a).to(cuda_device)
-         for a in (flat, flat_y, starts, ns)]
-    before = fed_gather.fed_cohort_gather.launches
-    got = fed_gather.fed_cohort_gather(*t, max_n)
-    want = tref.fed_cohort_gather(*t, max_n=max_n)
-    assert fed_gather.fed_cohort_gather.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("prox_mu", [0.0, 0.2])
-def test_cuda_local_sgd_kernel_vs_plain(cuda_device, prox_mu):
-    t = [torch.from_numpy(a).to(cuda_device) for a in _sgd_case()]
-    before = fed_local_sgd.fed_local_sgd_mclr.launches
-    got = fed_local_sgd.fed_local_sgd_mclr(*t, 0.1, prox_mu)
-    want = tref.fed_local_sgd_mclr(*t, lr=0.1, prox_mu=prox_mu)
-    assert fed_local_sgd.fed_local_sgd_mclr.launches == before + 1
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=TOL, atol=TOL)
+def test_dense_wrapper_refuses_a_shape_over_the_budget():
+    fed_local_sgd_dense.checked_smem_bytes(784, 64, 26, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        fed_local_sgd_dense.checked_smem_bytes(8192, 64, 26, 10)

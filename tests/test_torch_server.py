@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.core import prediction as jpred
 from repro.core import selection as jsel
@@ -156,8 +157,50 @@ def test_three_host_rounds_match_reference(algo, sampling):
         <= 2.0 / test_n
 
 
-def test_cli_smoke_on_cpu(capsys):
-    hist = fl_train.main(["--device", "cpu", "--rounds", "2", "--quiet"])
+def test_three_compressed_mlp_host_rounds_match_reference():
+    """model="mlp", sampling="iid", upload_compress="topk_q8": cohorts and
+    L/H/theta bitwise, losses within 2e-5; the residual is the [N, P]
+    state the reference keeps, zero for never-uploading clients."""
+    kw = dict(CFG_KW, model="mlp", sampling="iid",
+              upload_compress="topk_q8", topk_frac=0.1)
+    jsrv = JServer(jfemnist(**DS_KW), cfg=JConfig(algo="ira", **kw))
+    init = jax.tree.map(np.asarray, jsrv.params)
+    jhist = jsrv.run()
+    tds = tfemnist(**DS_KW)
+    tsrv = TServer(tds, cfg=TConfig(algo="ira", device="cpu", **kw),
+                   init_params=init,
+                   data_draws=_reference_draws(0, 3, jsrv.max_iters, 4,
+                                               int(tds.sizes.max()), "iid"))
+    thist = tsrv.run()
+    for a, b in zip(tsrv.cohorts, jsrv.cohorts):
+        np.testing.assert_array_equal(a, b)
+    for name in ("L", "H", "theta"):
+        np.testing.assert_array_equal(getattr(tsrv, name),
+                                      getattr(jsrv, name))
+    np.testing.assert_allclose(thist["train_loss"], jhist["train_loss"],
+                               rtol=TOL, atol=TOL)
+    assert tsrv.residual.shape == jsrv.residual.shape
+    assert tsrv.residual.dtype == torch.float32
+    touched = np.unique(np.concatenate(tsrv.cohorts))
+    rest = np.setdiff1d(np.arange(tds.n_clients), touched)
+    assert not tsrv.residual.numpy()[rest].any()
+    assert np.isfinite(tsrv.residual.numpy()).all()
+    assert tsrv.residual.numpy()[touched].any()
+    assert (tsrv.bytes_per_client, tsrv.dense_bytes_per_client) == (
+        jsrv._bytes_per_client, jsrv._dense_bytes_per_client)
+
+
+def test_uncompressed_server_keeps_no_residual():
+    srv = TServer(tfemnist(**DS_KW), cfg=TConfig(device="cpu", **CFG_KW))
+    assert srv.residual is None
+    assert srv.bytes_per_client == srv.dense_bytes_per_client
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--model", "mlp", "--sampling", "iid", "--compress", "topk_q8"]])
+def test_cli_smoke_on_cpu(capsys, extra):
+    hist = fl_train.main(["--device", "cpu", "--rounds", "2", "--quiet"]
+                         + extra)
     assert len(hist["acc"]) == 2 and np.isfinite(hist["train_loss"]).all()
     assert "final: acc=" in capsys.readouterr().out
 
@@ -165,31 +208,42 @@ def test_cli_smoke_on_cpu(capsys):
 @pytest.mark.parametrize("field,value,item", [
     ("driver", "scan", "A12"), ("rng_impl", "device", "A12"),
     ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
-    ("prefetch", "double_buffer", "A12"), ("upload_compress", "topk_q8",
-                                           "A8"),
-    ("faults", object(), "A9"), ("upload_screen", "on", "A9"),
-    ("quarantine_threshold", 0.5, "A9")])
+    ("prefetch", "double_buffer", "A12"), ("faults", object(), "A9"),
+    ("upload_screen", "on", "A9"), ("quarantine_threshold", 0.5, "A9")])
 def test_unported_config_raises(field, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         TConfig(**{field: value})
 
 
-@pytest.mark.parametrize("spec,item", [("mlp", "A7"), ("lstm", "A7"),
-                                       ("llama3.2-3b", "A13")])
+@pytest.mark.parametrize("field,value,item", [
+    ("mesh_shards", 2, "A12"), ("driver", "scan", "A12"),
+    ("faults", object(), "A9")])
+def test_compression_with_an_unported_feature_raises(field, value, item):
+    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
+        TConfig(upload_compress="topk_q8", **{field: value})
+
+
+@pytest.mark.parametrize("spec,item", [("lstm", "A7"),
+                                       ("llama3.2-3b", "A13"),
+                                       ("falcon-mamba-7b", "A13")])
 def test_unported_models_raise(spec, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         resolve_local_step(spec, tfemnist(**DS_KW))
 
 
-@pytest.mark.parametrize("name,kw,lr,sampling", [
-    ("synthetic", dict(n_clients=20, total=1500, max_size=150), 0.01, "iid"),
+@pytest.mark.parametrize("name,kw,lr,sampling,extra", [
+    ("synthetic", dict(n_clients=20, total=1500, max_size=150), 0.01, "iid",
+     {}),
     ("mnist", dict(n_clients=40, total=2400, dim=32, max_size=100), 0.03,
-     "shuffle")])
-def test_uninjected_final_accuracy_within_band(name, kw, lr, sampling):
+     "shuffle", {}),
+    ("synthetic", dict(n_clients=20, total=1500, max_size=150), 0.01, "iid",
+     dict(model="mlp", upload_compress="topk_q8"))])
+def test_uninjected_final_accuracy_within_band(name, kw, lr, sampling,
+                                               extra):
     """Without injection the port draws its own init and minibatches, so
     runs differ draw by draw; after 10 rounds the final test accuracy must
-    still sit within 0.03 of the reference's (observed gap <= 0.002)."""
-    cfg = dict(rounds=10, n_selected=5, lr=lr, sampling=sampling)
+    still sit within 0.03 of the reference's."""
+    cfg = dict(rounds=10, n_selected=5, lr=lr, sampling=sampling, **extra)
     ref_acc = JServer(jfed.DATASETS[name](**kw), cfg=JConfig(**cfg)).run()
     port_acc = TServer(tfed.DATASETS[name](**kw),
                        cfg=TConfig(device="cpu", **cfg)).run()

@@ -1,0 +1,46 @@
+"""Seeded numpy inputs shared by the port's kernel tests (the CPU parity
+tests in test_torch_kernels.py and the card tests in test_torch_cuda.py).
+Imports neither JAX nor the reference, so the card tests run where JAX is
+not installed."""
+import numpy as np
+
+
+def gather_case():
+    rng = np.random.default_rng(0)
+    max_n, d, rows = 8, 5, 30
+    flat = rng.normal(size=(rows + max_n, d)).astype(np.float32)
+    flat_y = rng.integers(0, 4, rows + max_n).astype(np.int32)
+    # interior, n == max_n, n == 0, a start past rows - max_n (clamped)
+    starts = np.array([0, 4, 12, 20, 30, 35], np.int32)
+    ns = np.array([4, 8, 0, 6, 0, 3], np.int32)
+    return flat, flat_y, starts, ns, max_n
+
+
+def sgd_case(seed=2, K=4, max_n=24, d=16, C=5, max_iters=12, B=4):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(K, max_n, d)).astype(np.float32)
+    y = rng.integers(0, C, (K, max_n)).astype(np.int32)
+    # full / n_k < B / empty / ragged
+    ns = np.array([max_n, 3, 0, 17], np.int32)[:K]
+    n_iters = np.array([max_iters, 7, 0, 5], np.int32)[:K]
+    idx = (rng.random((K, max_iters, B))
+           * np.maximum(ns, 1)[:, None, None]).astype(np.int32)
+    w0 = (rng.normal(size=(d, C)) * 0.1).astype(np.float32)
+    b0 = (rng.normal(size=C) * 0.1).astype(np.float32)
+    return x, y, idx, w0, b0, ns, n_iters
+
+
+def dense_case(seed=4, K=5, max_n=20, d=24, H=12, C=5, max_iters=8, B=4):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(K, max_n, d)).astype(np.float32)
+    y = rng.integers(0, C, (K, max_n)).astype(np.int32)
+    # full / n_k < B / empty / ragged / ragged
+    ns = np.array([max_n, 3, 0, 13, 7], np.int32)[:K]
+    n_iters = np.array([max_iters, 5, 3, 0, 6], np.int32)[:K]
+    idx = (rng.random((K, max_iters, B))
+           * np.maximum(ns, 1)[:, None, None]).astype(np.int32)
+    w1 = (rng.normal(size=(d, H)) * d ** -0.5).astype(np.float32)
+    b1 = (rng.normal(size=H) * 0.1).astype(np.float32)
+    w2 = (rng.normal(size=(H, C)) * H ** -0.5).astype(np.float32)
+    b2 = (rng.normal(size=C) * 0.1).astype(np.float32)
+    return x, y, idx, w1, b1, w2, b2, ns, n_iters
