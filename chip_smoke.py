@@ -24,10 +24,22 @@ last line):
      MLP) and 20,410 (MCLR), planted threshold ties, a zero row, k=0,
      k=P; library ``torch.topk`` of |ef| (timing only: its tie rule
      differs);
+   - flash-attention forward (out and lse) at Llama-3.2-3B's full width
+     (24 q / 8 kv heads, hd=128, bf16, causal) at B=1 and at the serving
+     path's B=4, both S=2048, plus a window, a non-causal, a ragged
+     S=1000 and a float32 case: 2e-2 in bf16, 2e-5 in float32; library
+     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
+     (timing only); bound: its causal bf16 flop at 989 TFLOP/s or its
+     bytes, whichever is larger;
+   - the selective scan at Falcon-Mamba-7B's width (d=8192, N=16) for
+     B=4 at S=512, at the serving path's S=1024 and at decode's S=1,
+     within 1e-4; no library call computes it; bound: its bytes;
 3. check the port end to end on small federations: the same server on
    the card and on the CPU, with the same init and minibatch draws, picks
    the same cohorts and workloads; MCLR ends within 2e-5, the MLP with
-   top-k + int8 compression within 2/test_n of final accuracy;
+   top-k + int8 compression within 2/test_n of final accuracy; and serve
+   both LM smoke configs in float32 on the card and on the CPU from the
+   same params: the same greedy tokens, logits within 1e-4;
 4. the main paths, each with every kernel's launch count set to 0 just
    before and read just after: ``FedSAEServer`` on FEMNIST at paper scale
    (200 clients, K=10, algo="ira"), MCLR for 5 rounds with sampling="iid"
@@ -35,14 +47,23 @@ last line):
    sampling="iid" and upload_compress="topk_q8" (topk_frac 0.1) for 5
    rounds, whose gather, dense-SGD and compress launches must each be 5
    and whose last round must keep ``transmitted + residual' == delta +
-   residual`` bitwise; losses, params and residual must be finite;
-5. profile one steady round of each path (torch.profiler): host wall,
-   device time and the kernels that take it.
+   residual`` bitwise; losses, params and residual must be finite; then
+   ``repro_torch.launch.serve.generate`` at full width with random
+   weights, one model after the other: Llama-3.2-3B (batch 4, prompt
+   2048, 32 greedy tokens; 28 flash launches, one per layer of the
+   prefill) and Falcon-Mamba-7B (batch 4, prompt 1024, 32 tokens; 64
+   scan launches for the prefill and for each decode step), with finite
+   logits, prefill ms and decode tokens/s;
+5. profile one steady round of each FL path and one prefill plus four
+   decode steps of each LM (torch.profiler): host wall, device time and
+   the kernels that take it.
 
 It then prints one JSON line with every kernel's launches, error, times
 and roofline bound, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
-repo's ``src/`` beside it, it exits non-zero and prints no result.
+repo's ``src/`` beside it, it exits non-zero and prints no result.  It
+needs one card with ~45 GB free (Falcon-Mamba-7B's float32 weights are
+29 GB).
 """
 from __future__ import annotations
 
@@ -56,8 +77,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 TOL = 2e-5                 # the reference's local-SGD kernel-vs-XLA bound
 DENSE_RTOL, DENSE_ATOL = 5e-4, 5e-5   # its MLP pallas-vs-xla bound
+LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # flash vs plain, by dtype
+SCAN_TOL = 1e-4            # the reference's selective-scan kernel bound
+SERVE_TOL = 1e-4           # float32 logits, card vs CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
 
 
 def nvidia_smi() -> str:
@@ -99,10 +124,243 @@ def time_ms(torch, fn, reps: int, flush=None) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_flash(torch, fa, ref, gen, dev):
+    """Phase 2: flash attention against its plain version at Llama-3.2-3B's
+    widths, then times at the serving path's shape.  Returns the kernel's
+    JSON fields (launches filled in later)."""
+    import torch.nn.functional as F
+    Hq, Hkv, hd = 24, 8, 128
+    cases = [  # (label, B, S, causal, window, dtype)
+        ("llama B=1 S=2048 causal bf16", 1, 2048, True, 0, torch.bfloat16),
+        ("llama B=4 S=2048 causal bf16", 4, 2048, True, 0, torch.bfloat16),
+        ("window 512", 1, 2048, True, 512, torch.bfloat16),
+        ("non-causal", 1, 2048, False, 0, torch.bfloat16),
+        ("ragged S=1000", 2, 1000, True, 0, torch.bfloat16),
+        ("float32", 1, 1024, True, 0, torch.float32),
+    ]
+    err = 0.0
+    for label, B, S, causal, window, dtype in cases:
+        q = torch.randn((B, S, Hq, hd), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        out, lse = fa(q, k, v, causal, window)
+        want, want_lse = ref.attention_lse(q, k, v, causal=causal,
+                                           window=window)
+        torch.cuda.synchronize()
+        tol = LM_TOL[str(dtype).split(".")[-1]]
+        e_out = float((out.float() - want.float()).abs().max())
+        e_lse = float((lse - want_lse).abs().max())
+        print(f"flash_attention_fwd {label} q={tuple(q.shape)} "
+              f"{str(dtype).split('.')[-1]}: out max_abs_err {e_out:.3e} "
+              f"(tol {tol}), lse {e_lse:.3e} (tol 2e-5 rel)", flush=True)
+        if not (torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
+                and torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5)):
+            raise RuntimeError(f"flash kernel differs from plain ({label})")
+        if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+            raise RuntimeError(f"flash kernel: non-finite ({label})")
+        err = max(err, e_out)
+        if label.startswith("llama B=4"):
+            main = (q, k, v)
+    q, k, v = main
+    B, S = q.shape[:2]
+    qt, kt, vt = (t.transpose(1, 2) for t in main)
+    spin(torch)
+    ms = time_ms(torch, lambda: fa(q, k, v, True, 0), 20)
+    plain = time_ms(torch, lambda: ref.attention_lse(q, k, v, causal=True),
+                    3)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    pairs = B * Hq * S * (S + 1) // 2          # unmasked (q, k) pairs
+    flops = 4 * hd * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    print(f"flash_attention_fwd B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16 "
+          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {flops} flop, {nbytes} B)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def check_scan(torch, ss, ref, gen, dev):
+    """Phase 2: the selective scan against its plain version at
+    Falcon-Mamba-7B's width, then times at the serving path's shape."""
+    B, d, N = 4, 8192, 16
+    err = 0.0
+    for S in (512, 1024, 1):
+        dt = torch.rand((B, S, d), generator=gen, device=dev) * 0.1 + 1e-3
+        A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
+            d, N).contiguous()
+        Bm = torch.randn((B, S, N), generator=gen, device=dev)
+        Cm = torch.randn((B, S, N), generator=gen, device=dev)
+        x = torch.randn((B, S, d), generator=gen, device=dev)
+        h0 = torch.randn((B, d, N), generator=gen, device=dev)
+        args = (dt, A, Bm, Cm, x, h0)
+        y, hT = ss(*args)
+        wy, wh = ref.selective_scan(*args)
+        torch.cuda.synchronize()
+        e = max(float((y - wy).abs().max()), float((hT - wh).abs().max()))
+        print(f"selective_scan_fwd B={B} S={S} d={d} N={N}: max_abs_err "
+              f"{e:.3e} (tol {SCAN_TOL})", flush=True)
+        if not (torch.allclose(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+                and torch.allclose(hT, wh, rtol=SCAN_TOL, atol=SCAN_TOL)):
+            raise RuntimeError(f"scan kernel differs from plain (S={S})")
+        if not (torch.isfinite(y).all() and torch.isfinite(hT).all()):
+            raise RuntimeError(f"scan kernel: non-finite (S={S})")
+        err = max(err, e)
+        if S == 1024:
+            main = args
+    S = main[0].shape[1]
+    spin(torch)
+    ms = time_ms(torch, lambda: ss(*main), 20)
+    plain = time_ms(torch, lambda: ref.selective_scan(*main), 3)
+    nbytes = 4 * (3 * B * S * d + 2 * B * S * N + d * N + 2 * B * d * N)
+    flops = 6 * B * S * d * N        # dt*A, h update (3), y fma (2); + exp
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"selective_scan_fwd B={B} S={S} d={d} N={N}: kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
+          f"{flops} flop and {B * S * d * N} exp)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def serve_card_vs_cpu(torch, get_config, build_model, serve, arch):
+    """Phase 3: one smoke config served in float32 on the card and on the
+    CPU from the same params (drawn on the CPU): same tokens, close
+    logits."""
+    from repro_torch.convert import params_from_reference, params_to_numpy
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cpu").manual_seed(0))
+    on_card = params_from_reference(params_to_numpy(params), "cuda")
+    runs = []
+    for p, where in ((on_card, "cuda"), (params, "cpu")):
+        tokens = serve.prompt_tokens(cfg, 3, 40, where)
+        runs.append(serve.generate(model, p, tokens, 6))
+    (tok_card, lg_card, _), (tok_cpu, lg_cpu, _) = runs
+    err = float((lg_card.cpu() - lg_cpu).abs().max())
+    if not torch.equal(tok_card.cpu(), tok_cpu):
+        raise RuntimeError(f"{arch} smoke: card and CPU generated different "
+                           f"tokens:\n{tok_card.cpu()}\n{tok_cpu}")
+    if not torch.allclose(lg_card.cpu(), lg_cpu, rtol=SERVE_TOL,
+                          atol=SERVE_TOL):
+        raise RuntimeError(f"{arch} smoke: card and CPU logits differ by "
+                           f"{err}")
+    print(f"serve {arch} smoke float32, batch 3, prompt 40, 6 tokens, card "
+          f"vs CPU: same tokens {tok_cpu[0].tolist()}, last logits "
+          f"max_abs_err {err:.3e} (tol {SERVE_TOL})", flush=True)
+
+
+def profiled(torch, fn):
+    """(host wall ms, device ms, top kernels) of one call of ``fn`` under
+    torch.profiler, ending in a device sync.  Device time sums the events
+    that ran on the card (kernels, copies), each once: the CPU op that
+    launched a kernel reports the same time again, so CPU events are
+    left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU]
+    device = sum(t for _, t in events) / 1e3
+    top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+    return wall, device, [(k[:60], t / 1e3) for k, t in top[:6]]
+
+
+def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
+               gen, counted, want):
+    """Phase 4 (and 5): ``serve.generate`` at full width with random
+    weights.  Every kernel's count is set to 0 just before the counted run
+    and read just after; ``want`` maps kernel name -> launches."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    tokens = serve.prompt_tokens(cfg, batch, prompt, dev)
+    serve.generate(model, params, tokens[:, :64], 2)      # warm-up
+    for fn in counted.values():
+        fn.launches = 0
+    out, logits, times = serve.generate(model, params, tokens, gen)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    if tuple(out.shape) != (batch, gen + 1) or tuple(logits.shape) != (
+            batch, cfg.vocab_size):
+        raise RuntimeError(f"{arch}: generated {tuple(out.shape)}, logits "
+                           f"{tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError(f"{arch}: non-finite logits")
+    if not bool(((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise RuntimeError(f"{arch}: token ids out of range")
+    got = {k: launches[k] for k in want}
+    if got != want or any(launches[k] for k in launches if k not in want):
+        raise RuntimeError(f"{arch}: launched {launches}, wanted {want}")
+    summary = dict(
+        params=n_params, init_s=init_s, batch=batch, prompt=prompt, gen=gen,
+        prefill_ms=times["prefill_s"] * 1e3,
+        prefill_tokens_per_s=batch * prompt / times["prefill_s"],
+        decode_s=times["decode_s"],
+        decode_tokens_per_s=batch * gen / times["decode_s"],
+        decode_ms_per_step=times["decode_s"] / gen * 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        sample=out[0, :8].tolist(), launches=launches)
+    print(f"main path serve {arch} (full width, {n_params} params f32, "
+          f"{cfg.dtype} compute): batch {batch}, prompt {prompt}: prefill "
+          f"{summary['prefill_ms']:.1f} ms "
+          f"({summary['prefill_tokens_per_s']:.0f} tok/s), {gen} greedy "
+          f"steps in {times['decode_s'] * 1e3:.1f} ms "
+          f"({summary['decode_tokens_per_s']:.1f} tok/s, "
+          f"{summary['decode_ms_per_step']:.2f} ms/step), peak "
+          f"{summary['peak_gib']:.1f} GiB, logits finite, sample "
+          f"{summary['sample']}; launches {json.dumps(launches)}",
+          flush=True)
+
+    with torch.inference_mode():
+        state = {}
+
+        def prefill():
+            state["logits"], state["cache"] = model.prefill(
+                params, {"tokens": tokens})
+
+        def decode4():
+            tok = torch.argmax(state["logits"], -1)[:, None].to(torch.int32)
+            for i in range(4):
+                lg, state["cache"] = model.decode_step(
+                    params, state["cache"], tok, prompt + i)
+                tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+
+        prof = {}
+        for label, fn in (("prefill", prefill), ("decode x4", decode4)):
+            wall, device, top = profiled(torch, fn)
+            prof[label] = dict(wall_ms=wall, device_ms=device,
+                               device_busy=device / wall,
+                               top_kernels_ms=top)
+            print(f"profile {arch} {label}: {json.dumps(prof[label])}",
+                  flush=True)
+    summary["profile"] = prof
+    return summary
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -125,8 +383,12 @@ def main() -> int:
     from repro_torch.data.federated import (make_femnist_like,
                                             make_synthetic)
     from repro_torch.device import resolve_device
+    from repro_torch.configs import get_config
     from repro_torch.kernels import (build, fed_compress, fed_gather,
-                                     fed_local_sgd, fed_local_sgd_dense, ref)
+                                     fed_local_sgd, fed_local_sgd_dense,
+                                     flash_attention, ref, selective_scan)
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
 
     card = nvidia_smi()
     print(f"card: {card}", flush=True)
@@ -336,6 +598,11 @@ def main() -> int:
           f"{c_lib:.4f} ms, bound {c_bound:.4f} ms ({c_by}, {c_bytes} B)",
           flush=True)
 
+    fa = flash_attention.flash_attention_fwd
+    ss = selective_scan.selective_scan_fwd
+    flash_row = check_flash(torch, fa, ref, gen, dev)
+    scan_row = check_scan(torch, ss, ref, gen, dev)
+
     # -- 3. end to end on a small federation: card vs CPU -----------------
     small = make_femnist_like(n_clients=30, total=900, dim=64, max_size=40)
     small_cfg = dict(rounds=3, n_selected=6, sampling="iid", batch_size=4,
@@ -404,10 +671,14 @@ def main() -> int:
           f"vs {h_cpu['acc'][-1]:.4f} (limit {2.0 / len(small.test_y):.4f}),"
           f" params max_abs_err {mlp_err:.3e}", flush=True)
 
+    for arch in ("llama3.2-3b", "falcon-mamba-7b"):
+        serve_card_vs_cpu(torch, get_config, build_model, serve, arch)
+
     # -- 4. the main paths ------------------------------------------------
     counted = {"fed_cohort_gather": gather, "fed_local_sgd_mclr": sgd,
                "fed_local_sgd_dense": dense,
-               "fed_compress_topk_q8": compress}
+               "fed_compress_topk_q8": compress,
+               "flash_attention_fwd": fa, "selective_scan_fwd": ss}
     summary, path_launches = {}, {}
 
     def drive(label, rounds, **cfg):
@@ -477,7 +748,8 @@ def main() -> int:
     finally:
         comp.apply_upload_compress = inner_stage
     want = {"fed_cohort_gather": 5, "fed_local_sgd_mclr": 0,
-            "fed_local_sgd_dense": 5, "fed_compress_topk_q8": 5}
+            "fed_local_sgd_dense": 5, "fed_compress_topk_q8": 5,
+            "flash_attention_fwd": 0, "selective_scan_fwd": 0}
     if path_launches["mlp_topk_q8"] != want:
         raise RuntimeError(f"MLP + topk_q8 path launched "
                            f"{path_launches['mlp_topk_q8']}, not {want}")
@@ -496,6 +768,21 @@ def main() -> int:
           f"transmitted + residual' == delta + residual bitwise on "
           f"{int(up.sum())} uploading rows (k={stage['k']}, values sent "
           f"{n_sent}); non-uploaders kept their residual", flush=True)
+    # the LM serving paths, one model after the other (each frees its
+    # weights on return)
+    gen_steps = 32
+    serving = {}
+    serving["llama3.2-3b"] = serve_path(
+        torch, get_config, build_model, serve, "llama3.2-3b", 4, 2048,
+        gen_steps, counted, {"flash_attention_fwd": 28})
+    path_launches["serve_llama3.2-3b"] = serving["llama3.2-3b"]["launches"]
+    torch.cuda.empty_cache()
+    serving["falcon-mamba-7b"] = serve_path(
+        torch, get_config, build_model, serve, "falcon-mamba-7b", 4, 1024,
+        gen_steps, counted, {"selective_scan_fwd": 64 * (1 + gen_steps)})
+    path_launches["serve_falcon-mamba-7b"] = \
+        serving["falcon-mamba-7b"]["launches"]
+    torch.cuda.empty_cache()
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
@@ -504,7 +791,6 @@ def main() -> int:
             raise RuntimeError(f"the main paths never launched {name}")
 
     # -- 5. where a steady round's time goes (outside the counted run) ---
-    from torch.profiler import ProfilerActivity, profile
     profiles = {}
     for label, cfg in (("iid", dict(sampling="iid")),
                        ("shuffle", dict(sampling="shuffle")),
@@ -519,24 +805,16 @@ def main() -> int:
         srv.run_round(1)
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            row = srv.run_round(2)
-            torch.cuda.synchronize()
-            prof_wall = time.perf_counter() - t0
-        events = [(e.key, getattr(e, "self_device_time_total",
-                                  getattr(e, "self_cuda_time_total", 0.0)))
-                  for e in prof.key_averages()]
-        device_ms = sum(t for _, t in events) / 1e3
-        top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
+        row = {}
+        prof_wall, device_ms, top = profiled(
+            torch, lambda: row.update(srv.run_round(2)))
         profiles[label] = dict(
             round1_wall_ms=plain_wall * 1e3,
             round2_budgets=[int(v) for v in row["n_iters"]],
-            round2_wall_ms_profiled=prof_wall * 1e3,
+            round2_wall_ms_profiled=prof_wall,
             round2_device_ms=device_ms,
-            round2_device_busy=device_ms / (prof_wall * 1e3),
-            top_kernels_ms=[(k[:60], t / 1e3) for k, t in top[:5]])
+            round2_device_busy=device_ms / prof_wall,
+            top_kernels_ms=top[:5])
         print(f"profile {label}: {json.dumps(profiles[label])}",
               flush=True)
 
@@ -565,10 +843,18 @@ def main() -> int:
          "launches": launches["fed_compress_topk_q8"], "max_abs_err": 0.0,
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
          "bound_by": c_by, "library_ms": c_lib},
+        {"name": "flash_attention_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:70",
+         "launches": launches["flash_attention_fwd"], **flash_row},
+        {"name": "selective_scan_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+         "replaces": "src/repro/kernels/selective_scan.py:49",
+         "launches": launches["selective_scan_fwd"], **scan_row},
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
-                      "profile": profiles}))
+                      "profile": profiles, "serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

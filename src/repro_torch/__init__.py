@@ -10,6 +10,15 @@ JAX nor anything of ``repro``.  Typical use:
         rounds=50, sampling="iid"))          # device defaults to cuda
     hist = srv.run()
 
+    from repro_torch import build_model, get_config
+    from repro_torch.launch.serve import generate, prompt_tokens
+
+    cfg = get_config("llama3.2-3b")         # full width; smoke=True: tiny
+    model = build_model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    out, logits, times = generate(model, params,
+                                  prompt_tokens(cfg, 4, 2048, "cuda"), 32)
+
 Every attribute resolves lazily (PEP 562), as in ``repro``: importing the
 package pulls in nothing heavy.
 """
@@ -25,6 +34,8 @@ _EXPORTS = {
     "FederatedDataset": "repro_torch.data.federated",
     "params_from_reference": "repro_torch.convert",
     "params_to_numpy": "repro_torch.convert",
+    "get_config": "repro_torch.configs.base",
+    "build_model": "repro_torch.models.api",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -1,0 +1,191 @@
+"""Configuration system of the port: architecture and input-shape configs.
+
+The port's own copy of ``repro/configs/base.py``: the same ``ArchConfig``
+fields and defaults, with torch dtypes behind ``compute_dtype`` and
+``params_dtype``.  ``get_config`` resolves the architectures the port
+serves (``PORTED_ARCHS``); every other architecture of the reference, and
+every config field value the port does not honour, raises a ``ValueError``
+that names the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """Architecture hyperparameters for one model family member."""
+
+    name: str
+    family: str  # dense | moe | vlm | ssm | hybrid | audio | mclr | lstm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # --- MoE ---
+    n_experts: int = 0
+    experts_per_token: int = 0
+    moe_every: int = 1          # apply MoE FFN every k-th layer (1 = all layers)
+    capacity_factor: float = 1.25
+
+    # --- SSM (mamba-1) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_dt_rank: int = 0        # 0 -> ceil(d_model / 16)
+
+    # --- hybrid (jamba): one attention layer per `attn_period` layers ---
+    attn_period: int = 0        # 0 -> not hybrid
+
+    # --- attention flavour ---
+    attention: str = "full"     # full | sliding_window
+    window_size: int = 4096
+
+    # --- encoder-decoder (whisper-style) ---
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    max_decoder_len: int = 448
+
+    # --- VLM ---
+    n_patches: int = 0          # >0 -> expects patch-embedding prefix
+
+    # --- numerics ---
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    tie_embeddings: bool = False
+
+    # --- runtime switches (kept for config parity; the port routes every
+    # kernel by device, so use_pallas is not read, and remat is training) ---
+    use_pallas: bool = False
+    remat: bool = True
+    ssm_scan: str = "chunked"
+    ssm_input_dtype: str = "float32"
+    ssm_chunk: int = 256
+    citation: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def params_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
+    def replace(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        if self.n_experts <= 0:
+            return False
+        return (layer_idx % self.moe_every) == (self.moe_every - 1)
+
+    def is_attn_layer(self, layer_idx: int) -> bool:
+        """For hybrid archs: attention once per attn_period; else per family."""
+        if self.family == "ssm":
+            return False
+        if self.attn_period:
+            return (layer_idx % self.attn_period) == (self.attn_period - 1)
+        return True
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+#: every architecture id of the reference, and the ROADMAP item that ports
+#: the ones this package does not serve yet (None: ported)
+ARCH_ITEMS = {
+    "minitron-8b": "A13 (ii): configs beyond the two served archs",
+    "granite-moe-1b-a400m": "A13 (ii): MoE (moe.py)",
+    "internvl2-2b": "A13 (ii): VLM",
+    "mistral-large-123b": "A13 (ii): configs beyond the two served archs",
+    "whisper-tiny": "A13 (ii): the encoder-decoder (encdec.py)",
+    "llama3.2-3b": None,
+    "granite-8b": "A13 (ii): configs beyond the two served archs",
+    "kimi-k2-1t-a32b": "A13 (ii): MoE (moe.py)",
+    "falcon-mamba-7b": None,
+    "jamba-1.5-large-398b": "A13 (ii): the jamba hybrid with MoE",
+}
+ARCH_IDS = tuple(ARCH_ITEMS)
+PORTED_ARCHS = tuple(a for a, item in ARCH_ITEMS.items() if item is None)
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ArchConfig:
+    """Resolve ``--arch <id>`` to its config (or reduced smoke variant)."""
+    if arch_id not in ARCH_ITEMS:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
+    item = ARCH_ITEMS[arch_id]
+    if item is not None:
+        raise ValueError(f"arch {arch_id!r} is not ported yet (ROADMAP "
+                         f"{item}); the port serves {PORTED_ARCHS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_module_name(arch_id)}")
+    return mod.SMOKE_CONFIG if smoke else mod.CONFIG
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise a ``ValueError`` naming its ROADMAP item for every feature of
+    ``cfg`` the port does not implement yet."""
+    unported = []
+    if cfg.is_encoder_decoder:
+        unported.append("the encoder-decoder (ROADMAP A13 (ii))")
+    if cfg.n_experts:
+        unported.append("MoE FFNs (ROADMAP A13 (ii))")
+    if cfg.n_patches:
+        unported.append("the VLM patch prefix (ROADMAP A13 (ii))")
+    if cfg.ssm_input_dtype != "float32":
+        unported.append(f"ssm_input_dtype={cfg.ssm_input_dtype!r} (only "
+                        "float32; the bf16 scan inputs are a reference perf "
+                        "variant, ROADMAP A13 (ii))")
+    if cfg.ssm_scan != "chunked":
+        unported.append(f"ssm_scan={cfg.ssm_scan!r} (the port's scan is "
+                        "sequential on every device: the step loop on the "
+                        "CPU, the CUDA kernel on the card)")
+    if cfg.dtype not in ("bfloat16", "float32") or cfg.param_dtype not in (
+            "bfloat16", "float32"):
+        unported.append(f"dtype={cfg.dtype!r}/param_dtype="
+                        f"{cfg.param_dtype!r} (bfloat16 or float32)")
+    if unported:
+        raise ValueError(f"{cfg.name}: not ported: " + "; ".join(unported))

@@ -56,6 +56,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fed_compress_topk_q8_launch": ([P, P, P, I, I, I, P], I),
         "fed_compress_topk_q8_error_string": ([I], ctypes.c_char_p),
     },
+    "flash_attention": {
+        "flash_attention_fwd_launch":
+            ([P] * 5 + [I] * 8 + [ctypes.c_float, I, P], I),
+        "flash_attention_fwd_smem_bytes": ([I], ctypes.c_longlong),
+        "flash_attention_fwd_error_string": ([I], ctypes.c_char_p),
+    },
+    "selective_scan": {
+        "selective_scan_fwd_launch": ([P] * 8 + [I] * 4 + [P], I),
+        "selective_scan_fwd_error_string": ([I], ctypes.c_char_p),
+    },
 }
 
 

@@ -1,16 +1,19 @@
 """Public kernel ops of the port and the fused-SGD eligibility rule.
 
-Every op is forward-only, as in the reference: rounds are never
-differentiated through, and the local-SGD kernels compute their gradients
-in closed form.  Each op goes to its wrapper, which runs the plain
+Every op is forward-only.  Federated rounds are never differentiated
+through (the local-SGD kernels compute their gradients in closed form), and
+the model ops serve: prefill and decode differentiate nothing (the
+backward of flash attention comes with the training slice).  Each op goes to its wrapper, which runs the plain
 version on a CPU tensor and the hand-written kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
 import math
 
-from repro_torch.kernels import fed_compress, fed_gather, fed_local_sgd
+from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
+                                 flash_attention as fa)
 from repro_torch.kernels import fed_local_sgd_dense as dense_sgd
+from repro_torch.kernels import selective_scan as ss
 
 
 def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
@@ -47,6 +50,18 @@ def fed_compress_topk_q8(ef, k: int):
     """Top-k + int8 compression of the [K, P] error-feedback rows.
     Returns (q [K, P] int8, scale [K] f32)."""
     return fed_compress.fed_compress_topk_q8(ef, k)
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Online-softmax attention with native GQA.  q: [B, S, Hq, hd];
+    k/v: [B, T, Hkv, hd] -> out [B, S, Hq, hd] in q's dtype."""
+    return fa.flash_attention_fwd(q, k, v, causal, window)[0]
+
+
+def selective_scan(dt, A, Bmat, Cmat, x, h0):
+    """Mamba-1 recurrence.  dt/x: [B, S, d]; A: [d, N]; Bmat/Cmat:
+    [B, S, N]; h0: [B, d, N] -> (y [B, S, d] f32, hT [B, d, N] f32)."""
+    return ss.selective_scan_fwd(dt, A, Bmat, Cmat, x, h0)
 
 
 # the step families a fused local-SGD kernel exists for, by LocalStep.kind

@@ -8,6 +8,77 @@ from __future__ import annotations
 
 import torch
 
+#: the masked score of the reference's attention (a finite -1e30, not -inf)
+NEG_INF = -1e30
+
+
+def _attention_scores(q, k, *, causal: bool, window: int):
+    """Masked scaled scores [B, Hkv, G, S, T] in float32 (GQA: q head h
+    reads kv head h // G)."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, S, Hkv, G, hd).to(torch.float32)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.to(torch.float32)) \
+        * hd ** -0.5
+    q_pos = torch.arange(S, device=q.device)[:, None]
+    k_pos = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    return torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+
+
+def attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
+    """Naive full-softmax attention with GQA, op for op the reference's
+    ``ref.attention``, plus the per-row log-sum-exp of the masked scores:
+    the two outputs of the flash-attention forward kernel (its backward
+    pass recomputes the probabilities from lse).
+
+    q: [B, S, Hq, hd]; k/v: [B, T, Hkv, hd] -> (out [B, S, Hq, hd] in q's
+    dtype, lse [B, Hq, S] f32)."""
+    B, S, Hq, hd = q.shape
+    s = _attention_scores(q, k, causal=causal, window=window)
+    lse = torch.logsumexp(s, dim=-1).reshape(B, Hq, S)
+    o = torch.einsum("bkgqt,btkd->bqkgd", torch.softmax(s, dim=-1),
+                     v.to(torch.float32))
+    return o.reshape(B, S, Hq, hd).to(q.dtype), lse
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """The output of ``attention_lse`` alone (the reference oracle's
+    signature)."""
+    return attention_lse(q, k, v, causal=causal, window=window)[0]
+
+
+def selective_scan(dt, A, Bmat, Cmat, x, h0):
+    """Step-by-step Mamba-1 recurrence, op for op the reference's
+    ``ref.selective_scan``:
+
+      h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t,   y_t = h_t . C_t
+
+    dt/x: [B, S, d]; A: [d, N]; Bmat/Cmat: [B, S, N]; h0: [B, d, N] ->
+    (y [B, S, d] f32, hT [B, d, N] f32)."""
+    dt = dt.to(torch.float32)
+    x = x.to(torch.float32)
+    A = A.to(torch.float32)
+    Bmat = Bmat.to(torch.float32)
+    Cmat = Cmat.to(torch.float32)
+    h = h0.to(torch.float32)
+    ys = []
+    for t in range(dt.shape[1]):
+        dt_t, x_t = dt[:, t], x[:, t]                          # [B, d]
+        dA = torch.exp(dt_t[..., None] * A)                    # [B, d, N]
+        h = dA * h + (dt_t * x_t)[..., None] * Bmat[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, Cmat[:, t]))
+    if ys:
+        y = torch.stack(ys, dim=1)
+    else:
+        y = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
+    return y, h
+
 
 def fed_cohort_gather(flat_x, flat_y, starts, ns, *, max_n: int):
     """Windowed cohort gather: for each client k, rows

@@ -1,0 +1,206 @@
+"""Decoder-only LM (dense attention and Mamba stacks), the port's copy of
+``repro/models/decoder.py`` for serving.
+
+Layers are ``n_groups`` repetitions of a ``period``-layer block pattern
+(period 1 for uniform stacks).  Per-position params are stacked on a
+leading group axis, as in the reference, and ``forward`` walks the groups
+with a Python loop where the reference scans.  MoE FFNs, the VLM prefix
+and the training loss raise for their ROADMAP items (A13 (ii) and (i)).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import check_ported
+from repro_torch.models import layers as L
+from repro_torch.models import mamba as Mb
+
+
+def block_kinds(cfg, pos: int) -> Tuple[str, str]:
+    """(mixer_kind, ffn_kind) for block position ``pos`` within a group."""
+    mixer = "attn" if cfg.is_attn_layer(pos) else "mamba"
+    if cfg.d_ff <= 0:
+        ffn = "none"
+    elif cfg.is_moe_layer(pos):
+        ffn = "moe"
+    else:
+        ffn = "dense"
+    return mixer, ffn
+
+
+def n_groups(cfg) -> int:
+    period = cfg.attn_period or 1
+    if cfg.n_layers % period:
+        raise ValueError(f"n_layers={cfg.n_layers} is not a multiple of "
+                         f"attn_period={period}")
+    return cfg.n_layers // period
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _init_one_pos(generator, cfg, pos: int, device, G: int):
+    mixer, ffn = block_kinds(cfg, pos)
+    params: Dict[str, Any] = {}
+    if mixer == "attn":
+        params["mixer"] = L.init_attention(generator, cfg, device, stack=G)
+    else:
+        params["mixer"] = Mb.init_mamba(generator, cfg, device, stack=G)
+    if ffn == "dense":
+        params["ffn"] = L.init_ffn(generator, cfg, device=device, stack=G)
+    return params
+
+
+def init_params(generator: torch.Generator, cfg):
+    """Params on the generator's device, per-position leaves stacked over
+    the groups: {"embeddings": {...}, "blocks": {"pos<p>": {"mixer",
+    "ffn"}}}, the reference's tree.  Torch cannot reproduce the reference's
+    threefry draws; parity runs hand its params in instead
+    (``repro_torch.convert.params_from_reference``)."""
+    check_ported(cfg)
+    device = generator.device
+    period = cfg.attn_period or 1
+    G = n_groups(cfg)
+    params: Dict[str, Any] = {
+        "embeddings": L.init_embeddings(generator, cfg, device)}
+    params["blocks"] = {f"pos{p}": _init_one_pos(generator, cfg, p, device,
+                                                 G) for p in range(period)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(pparams, cfg, pos, h, positions, mode, cache, cur_index):
+    mixer, ffn = block_kinds(cfg, pos)
+    if mixer == "attn":
+        if mode == "decode":
+            out, new_mixer_cache = L.attn_decode(
+                pparams["mixer"], cfg, h, cache, cur_index)
+        else:
+            out, kv = L.attn_forward(pparams["mixer"], cfg, h, positions)
+            new_mixer_cache = _kv_to_cache(cfg, kv, positions)
+    else:
+        out, new_mixer_cache = Mb.mamba_forward(
+            pparams["mixer"], cfg, h, cache=cache if mode == "decode" else None)
+    h = h + out
+    if ffn == "dense":
+        h = h + L.ffn_forward(pparams["ffn"], cfg, h)
+    elif ffn == "moe":
+        raise ValueError("MoE FFNs are not ported (ROADMAP A13 (ii))")
+    return h, new_mixer_cache
+
+
+def _kv_to_cache(cfg, kv, positions):
+    """Full-sequence prefill K/V in the decode cache layout: S slots, or
+    the trailing window of a sliding-window arch aligned so that slot =
+    pos % W."""
+    k, v = kv
+    window = cfg.window_size if cfg.attention == "sliding_window" else 0
+    S = k.shape[1]
+    if window and S > window:
+        k, v = k[:, -window:], v[:, -window:]
+        S0 = int(positions[0, 0]) + (positions.shape[1] - window)
+        roll = S0 % window
+        k = torch.roll(k, roll, dims=1)
+        v = torch.roll(v, roll, dims=1)
+    return {"k": k.to(cfg.compute_dtype), "v": v.to(cfg.compute_dtype)}
+
+
+def _cache_init_pos(cfg, pos: int, batch: int, max_len: int, device):
+    mixer, _ = block_kinds(cfg, pos)
+    if mixer == "attn":
+        return L.attn_cache_init(cfg, batch, max_len, device)
+    return Mb.mamba_cache_init(cfg, batch, device=device)
+
+
+def init_cache(cfg, batch: int, max_len: int, device=None):
+    """Stacked decode cache: {pos<p>: cache stacked over groups}."""
+    period = cfg.attn_period or 1
+    G = n_groups(cfg)
+    return {f"pos{p}": {k: t[None].expand((G,) + t.shape).contiguous()
+                        for k, t in _cache_init_pos(cfg, p, batch, max_len,
+                                                    device).items()}
+            for p in range(period)}
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+
+def _group(tree, g: int):
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def forward(params, cfg, h, positions, mode: str, cache=None, cur_index=None):
+    """h: [B, S, d] embeddings.  Returns (h_out, new_cache).
+
+    mode: "prefill" (cache emitted) or "decode" (cache consumed and
+    updated; S == 1).  "train" comes with the training slice."""
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r} is not ported (training is ROADMAP "
+                         "A13 (i))")
+    period = cfg.attn_period or 1
+    new_cache: Dict[str, Dict[str, torch.Tensor]] = {
+        f"pos{p}": {} for p in range(period)}
+    G = n_groups(cfg)
+    for g in range(G):
+        for p in range(period):
+            key = f"pos{p}"
+            pc = None if cache is None else _group(cache[key], g)
+            h, nc = _apply_block(_group(params["blocks"][key], g), cfg, p, h,
+                                 positions, mode, pc, cur_index)
+            for name, t in nc.items():
+                if name not in new_cache[key]:
+                    new_cache[key][name] = torch.empty(
+                        (G,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+                new_cache[key][name][g] = t
+    return h, new_cache
+
+
+# ---------------------------------------------------------------------------
+# public model surface (used by api.Model)
+# ---------------------------------------------------------------------------
+
+
+def embed_inputs(params, cfg, batch):
+    """Input embeddings from a batch dict (no VLM prefix: ROADMAP A13
+    (ii))."""
+    if cfg.n_patches or "patches" in batch:
+        raise ValueError("the VLM patch prefix is not ported (ROADMAP A13 "
+                         "(ii))")
+    return L.embed_tokens(params["embeddings"], cfg, batch["tokens"])
+
+
+def train_loss(params, cfg, batch):
+    raise ValueError("train_loss is not ported (ROADMAP A13 (i), the "
+                     "training slice)")
+
+
+def prefill(params, cfg, batch):
+    """batch["tokens"]: [B, S] -> (logits [B, V] for the next position,
+    cache with S slots per attention layer)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    h = embed_inputs(params, cfg, batch)
+    S = h.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None].expand(B, S)
+    h, cache = forward(params, cfg, h, positions, "prefill")
+    return L.logits_fn(params["embeddings"], cfg, h[:, -1]), cache
+
+
+def decode_step(params, cfg, cache, tokens, cur_index):
+    """tokens: [B, 1]; cur_index: tokens already in the cache."""
+    h = L.embed_tokens(params["embeddings"], cfg, tokens)
+    h, cache = forward(params, cfg, h, None, "decode", cache, int(cur_index))
+    return L.logits_fn(params["embeddings"], cfg, h[:, -1]), cache

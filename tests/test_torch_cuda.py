@@ -7,16 +7,20 @@ on a machine that has only PyTorch:
 
 Tolerances: the gather and the compressor are bitwise; MCLR local SGD
 rtol = atol = 2e-5 (the reference's kernel-vs-XLA bound); dense-MLP local
-SGD rtol 5e-4, atol 5e-5 (the reference's MLP pallas-vs-xla bound).
+SGD rtol 5e-4, atol 5e-5 (the reference's MLP pallas-vs-xla bound); flash
+attention 2e-5 in float32 and 2e-2 in bfloat16, the selective scan 1e-4
+(the reference's kernel-vs-oracle bounds, tests/test_kernels.py).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
-                                 fed_local_sgd_dense)
+                                 fed_local_sgd_dense, flash_attention,
+                                 selective_scan)
 from repro_torch.kernels import ref as tref
-from torch_cases import dense_case, gather_case, sgd_case
+from torch_cases import (attention_case, dense_case, gather_case, scan_case,
+                         sgd_case)
 
 TOL = 2e-5
 
@@ -80,3 +84,74 @@ def test_cuda_compress_kernel_bitwise_vs_plain(cuda_device, k):
     wq, ws = tref.fed_compress_topk_q8(t, k=k)
     assert fed_compress.fed_compress_topk_q8.launches == before + 1
     assert torch.equal(q, wq) and torch.equal(scale, ws)
+
+
+# (B, S, T, Hq, Hkv, hd, causal, window, dtype): GQA, window, non-causal,
+# ragged S and T off the 64-row tile, S = 1, S != T, head dims 32-128
+FLASH_CASES = [
+    (1, 128, 128, 2, 2, 32, True, 0, torch.float32),
+    (2, 256, 256, 4, 1, 64, True, 64, torch.float32),
+    (1, 128, 128, 8, 8, 32, False, 0, torch.float32),
+    (1, 1000, 1000, 4, 2, 128, True, 0, torch.float32),
+    (2, 1, 1, 4, 2, 128, True, 0, torch.float32),
+    (1, 77, 100, 4, 2, 48, False, 0, torch.float32),
+    (1, 256, 256, 2, 2, 128, True, 128, torch.bfloat16),
+    (1, 300, 300, 24, 8, 128, True, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window,dtype", FLASH_CASES)
+def test_cuda_flash_attention_kernel_vs_plain(cuda_device, B, S, T, Hq, Hkv,
+                                              hd, causal, window, dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attention_case(B, S, T, Hq, Hkv, hd))
+    fa = flash_attention.flash_attention_fwd
+    before = fa.launches
+    out, lse = fa(q, k, v, causal, window)
+    want, want_lse = tref.attention_lse(q, k, v, causal=causal,
+                                        window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attention_case(1, 8, 8, 2, 1, 16))
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_fwd(q.transpose(1, 2), k, v)
+    big = torch.zeros((1, 8, 2, 160), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention.flash_attention_fwd(big, big[:, :, :1].contiguous(),
+                                            big[:, :, :1].contiguous())
+
+
+# (B, S, d, N): one chunk, ragged S and d, decode's S = 1, N = 64, N = 3
+SCAN_CASES = [
+    (1, 256, 128, 8),
+    (2, 300, 200, 16),
+    (4, 1, 256, 16),
+    (1, 64, 96, 64),
+    (2, 40, 50, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,N", SCAN_CASES)
+def test_cuda_selective_scan_kernel_vs_plain(cuda_device, B, S, d, N):
+    t = [torch.from_numpy(a).to(cuda_device) for a in scan_case(B, S, d, N)]
+    ss = selective_scan.selective_scan_fwd
+    before = ss.launches
+    y, hT = ss(*t)
+    want_y, want_h = tref.selective_scan(*t)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hT, want_h, rtol=1e-4, atol=1e-4)

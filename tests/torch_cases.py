@@ -44,3 +44,24 @@ def dense_case(seed=4, K=5, max_n=20, d=24, H=12, C=5, max_iters=8, B=4):
     w2 = (rng.normal(size=(H, C)) * H ** -0.5).astype(np.float32)
     b2 = (rng.normal(size=C) * 0.1).astype(np.float32)
     return x, y, idx, w1, b1, w2, b2, ns, n_iters
+
+
+def attention_case(B, S, T, Hq, Hkv, hd, seed=42):
+    """q [B, S, Hq, hd], k/v [B, T, Hkv, hd] float32 from N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=shape).astype(np.float32)
+                 for shape in ((B, S, Hq, hd), (B, T, Hkv, hd),
+                               (B, T, Hkv, hd)))
+
+
+def scan_case(B, S, d, N, seed=7):
+    """(dt, A, Bmat, Cmat, x, h0) float32 with the reference test's ranges:
+    dt in [0.01, 0.5), A in -[0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    dt = rng.uniform(0.01, 0.5, (B, S, d)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, (d, N)).astype(np.float32)
+    Bm = rng.normal(size=(B, S, N)).astype(np.float32)
+    Cm = rng.normal(size=(B, S, N)).astype(np.float32)
+    x = rng.normal(size=(B, S, d)).astype(np.float32)
+    h0 = rng.normal(size=(B, d, N)).astype(np.float32)
+    return dt, A, Bm, Cm, x, h0
