@@ -6,8 +6,8 @@
 Phases, each of which must pass (any failure exits non-zero before the
 last line):
 
-1. print the card (nvidia-smi name and power limit) and build the four
-   CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc for
+1. print the card (nvidia-smi name and power limit) and build the eight
+   CUDA sources from ``src/repro_torch/kernels/csrc`` with nvcc for
    sm_90a, one nvcc per source, started together;
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time kernel, plain version and, where one
@@ -34,12 +34,25 @@ last line):
    - the selective scan at Falcon-Mamba-7B's width (d=8192, N=16) for
      B=4 at S=512, at the serving path's S=1024 and at decode's S=1,
      within 1e-4; no library call computes it; bound: its bytes;
+   - flash-attention backward (dq, dk, dv) at Llama-3.2-3B's training
+     shape (B=1, S=2048, 24/8 heads, hd=128, bf16 causal), plus a window
+     of 512, a non-causal, a ragged S=1000 and a float32 case: 2e-2 in
+     bf16, atol 2e-5 / rtol 2e-4 in float32; library: the backward of
+     ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
+     bound: FlashAttention-2's five products per unmasked pair in bf16;
+   - the fused cross-entropy at Llama's loss chunk (T=1,024, d=3,072,
+     V=128,256, bf16), a ragged vocabulary (V=50,257) and float32, within
+     1e-4; library ``logsumexp(h.float() @ W.float()) - gold``; bound:
+     2 T d V flop in bf16;
 3. check the port end to end on small federations: the same server on
    the card and on the CPU, with the same init and minibatch draws, picks
    the same cohorts and workloads; MCLR ends within 2e-5, the MLP with
-   top-k + int8 compression within 2/test_n of final accuracy; and serve
+   top-k + int8 compression within 2/test_n of final accuracy; serve
    both LM smoke configs in float32 on the card and on the CPU from the
-   same params: the same greedy tokens, logits within 1e-4;
+   same params: the same greedy tokens, logits within 1e-4; and train
+   them there: ``train_loss`` and every gradient leaf within 1e-4, and one
+   ``SiloFedSAE`` round with the same L, H and step budgets and losses
+   and global params within 1e-4;
 4. the main paths, each with every kernel's launch count set to 0 just
    before and read just after: ``FedSAEServer`` on FEMNIST at paper scale
    (200 clients, K=10, algo="ira"), MCLR for 5 rounds with sampling="iid"
@@ -53,17 +66,25 @@ last line):
    2048, 32 greedy tokens; 28 flash launches, one per layer of the
    prefill) and Falcon-Mamba-7B (batch 4, prompt 1024, 32 tokens; 64
    scan launches for the prefill and for each decode step), with finite
-   logits, prefill ms and decode tokens/s;
-5. profile one steady round of each FL path and one prefill plus four
-   decode steps of each LM (torch.profiler): host wall, device time and
-   the kernels that take it.
+   logits, prefill ms and decode tokens/s; then this slice's path,
+   cross-silo FedSAE training Llama-3.2-3B at full width and depth
+   (``SiloFedSAE``, K=2 silos, max_steps=4, B=1, S=2048, lr 5e-3) for 2
+   rounds, with finite losses, L <= H and per local step 56 flash-forward
+   calls (28 layers, each recomputed under remat), 28 flash-backward calls
+   and 2 fused cross-entropy calls (one per 1,024-position chunk), round
+   wall, ms per step and peak memory; and ``repro_torch.launch.train
+   --arch llama3.2-3b --smoke --steps 5`` (2, 2 and 1 calls per step);
+5. profile one steady round of each FL path, one prefill plus four
+   decode steps of each LM, and one full-width silo step (torch.profiler):
+   host wall, device time and the kernels that take it.
 
 It then prints one JSON line with every kernel's launches, error, times
 and roofline bound, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
 repo's ``src/`` beside it, it exits non-zero and prints no result.  It
-needs one card with ~45 GB free (Falcon-Mamba-7B's float32 weights are
-29 GB).
+needs one card with ~70 GB free (the full-width silo round holds the
+global params, the two silos' params and one silo's gradients, 14.4 GB
+each in float32).
 """
 from __future__ import annotations
 
@@ -80,6 +101,9 @@ DENSE_RTOL, DENSE_ATOL = 5e-4, 5e-5   # its MLP pallas-vs-xla bound
 LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # flash vs plain, by dtype
 SCAN_TOL = 1e-4            # the reference's selective-scan kernel bound
 SERVE_TOL = 1e-4           # float32 logits, card vs CPU
+BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}  # atol, rtol
+XENT_TOL = 1e-4            # the reference's fused-xent bound
+TRAIN_TOL = 1e-4           # float32 losses, grads and silo params, card/CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
@@ -228,6 +252,276 @@ def check_scan(torch, ss, ref, gen, dev):
           f"{flops} flop and {B * S * d * N} exp)", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_flash_bwd(torch, fa, ref, gen, dev):
+    """Phase 2: the flash-attention backward against its plain version at
+    Llama-3.2-3B's training shape, then times."""
+    import torch.nn.functional as F
+    Hq, Hkv, hd = 24, 8, 128
+    cases = [  # (label, B, S, causal, window, dtype)
+        ("llama B=1 S=2048 causal bf16", 1, 2048, True, 0, torch.bfloat16),
+        ("window 512", 1, 2048, True, 512, torch.bfloat16),
+        ("non-causal", 1, 2048, False, 0, torch.bfloat16),
+        ("ragged S=1000", 1, 1000, True, 0, torch.bfloat16),
+        ("float32", 1, 1024, True, 0, torch.float32),
+    ]
+    err = 0.0
+    for label, B, S, causal, window, dtype in cases:
+        q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
+                                   device=dev).to(dtype)
+                       for H in (Hq, Hkv, Hkv, Hq))
+        out, lse = ref.attention_lse(q, k, v, causal=causal, window=window)
+        got = fa(q, k, v, out, lse, do, causal, window)
+        want = ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                       window=window)
+        torch.cuda.synchronize()
+        name = str(dtype).split(".")[-1]
+        atol, rtol = BWD_TOL[name]
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        print(f"flash_attention_bwd {label} q={tuple(q.shape)} {name}: "
+              f"dq/dk/dv max_abs_err {errs} (atol {atol}, rtol {rtol})",
+              flush=True)
+        for g, w in zip(got, want):
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"flash bwd kernel: non-finite ({label})")
+            if not torch.allclose(g.float(), w.float(), rtol=rtol,
+                                  atol=atol):
+                raise RuntimeError(f"flash bwd kernel differs from plain "
+                                   f"({label})")
+        err = max(err, *errs)
+        if label.startswith("llama"):
+            main = (q, k, v, out.contiguous(), lse, do)
+    q, k, v, out, lse, do = main
+    B, S = q.shape[:2]
+    spin(torch)
+    ms = time_ms(torch, lambda: fa(q, k, v, out, lse, do, True, 0), 20)
+    plain = time_ms(torch, lambda: ref.flash_attention_bwd(
+        q, k, v, out, lse, do, causal=True), 3)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                       enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib = time_ms(torch, lambda: torch.autograd.grad(
+        o, (qt, kt, vt), dot, retain_graph=True), 20)
+    pairs = B * Hq * S * (S + 1) // 2
+    flops = 10 * hd * pairs            # s, dp, dv, dk, dq: 2 hd flop each
+    # reads q, out, do, k, v and lse; writes dq, dk, dv
+    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+        + 4 * B * Hq * S
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    print(f"flash_attention_bwd B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16 "
+          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain:.4f} ms, sdpa backward {lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def check_xent(torch, fx, ref, gen, dev):
+    """Phase 2: the fused cross-entropy against its plain version at
+    Llama-3.2-3B's loss chunk, then times."""
+    cases = [  # (label, T, d, V, dtype)
+        ("llama chunk bf16", 1024, 3072, 128256, torch.bfloat16),
+        ("ragged V=50257 bf16", 256, 3072, 50257, torch.bfloat16),
+        ("float32", 300, 256, 5000, torch.float32),
+    ]
+    err = 0.0
+    for label, T, d, V, dtype in cases:
+        h = torch.randn((T, d), generator=gen, device=dev).to(dtype)
+        W = (torch.randn((d, V), generator=gen, device=dev)
+             * d ** -0.5).to(dtype)
+        labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        got = fx(h, W, labels)
+        want = ref.softmax_xent(h, W, labels)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        print(f"fused_softmax_xent_fwd {label} T={T} d={d} V={V}: max_abs_err "
+              f"{e:.3e} (tol {XENT_TOL})", flush=True)
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"xent kernel: non-finite ({label})")
+        if not torch.allclose(got, want, rtol=XENT_TOL, atol=XENT_TOL):
+            raise RuntimeError(f"xent kernel differs from plain ({label})")
+        err = max(err, e)
+        if label.startswith("llama"):
+            main = (h, W, labels)
+    h, W, labels = main
+    (T, d), V = h.shape, W.shape[1]
+
+    def library():
+        logits = h.float() @ W.float()
+        return (torch.logsumexp(logits, -1)
+                - logits.gather(1, labels.long()[:, None])[:, 0])
+
+    spin(torch)
+    ms = time_ms(torch, lambda: fx(h, W, labels), 10)
+    plain = time_ms(torch, lambda: ref.softmax_xent(h, W, labels), 5)
+    lib = time_ms(torch, library, 5)
+    flops = 2 * T * d * V
+    nbytes = 2 * (h.numel() + W.numel()) + 4 * T + 4 * T
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    print(f"fused_softmax_xent_fwd T={T} d={d} V={V} bf16: kernel {ms:.4f} "
+          f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
+          f"logsumexp(h.float() @ W.float()) - gold {lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B)", flush=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def silo_batches(torch, cfg, K, max_steps, B, S, ri, device):
+    """One round's batches as ``launch.fl_train.run_silo`` makes them:
+    its token stream, labels = the tokens."""
+    from repro_torch.launch.fl_train import silo_tokens
+    toks = torch.as_tensor(silo_tokens(ri, cfg, K, max_steps, B, S),
+                           device=device)
+    return {"tokens": toks, "labels": toks}
+
+
+def train_card_vs_cpu(torch, np, get_config, build_model, arch):
+    """Phase 3: a smoke config trained in float32 on the card and on the
+    CPU from the same params: train_loss and every gradient leaf, then one
+    SiloFedSAE round each."""
+    from repro_torch.convert import params_from_reference, params_to_numpy
+    from repro_torch.core.silo import SiloFedSAE
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    model = build_model(cfg)
+    init = params_to_numpy(model.init(torch.Generator("cpu").manual_seed(0)))
+    ri = np.random.default_rng(3)
+    toks = ri.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    runs = []
+    for where in ("cuda", "cpu"):
+        params = params_from_reference(init, where)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        t = torch.as_tensor(toks, device=where)
+        loss, _ = model.train_loss(params, {"tokens": t, "labels": t})
+        grads = torch.autograd.grad(loss, leaves)
+        runs.append((float(loss.detach()), [g.cpu() for g in grads]))
+    (l_card, g_card), (l_cpu, g_cpu) = runs
+    g_err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
+    if abs(l_card - l_cpu) > TRAIN_TOL * (1 + abs(l_cpu)) or not all(
+            torch.allclose(a, b, rtol=TRAIN_TOL, atol=TRAIN_TOL)
+            for a, b in zip(g_card, g_cpu)):
+        raise RuntimeError(f"{arch} smoke: card and CPU train_loss {l_card} "
+                           f"vs {l_cpu}, grads differ by {g_err}")
+    feds = []
+    for where in ("cuda", "cpu"):
+        fed = SiloFedSAE(model, 2, lr=5e-3, max_steps=3, init_params=init,
+                         device=where)
+        fed.run_round(silo_batches(torch, cfg, 2, 3, 2, 32,
+                                   np.random.default_rng(4), where),
+                      np.array([300, 700]))
+        feds.append(fed)
+    on_card, on_cpu = feds
+    if not (np.array_equal(on_card.L, on_cpu.L)
+            and np.array_equal(on_card.H, on_cpu.H)
+            and np.array_equal(on_card.last_n_steps, on_cpu.last_n_steps)):
+        raise RuntimeError(f"{arch} silo: card and CPU budgets differ")
+    p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree_leaves(on_card.params), tree_leaves(on_cpu.params)))
+    loss_err = abs(on_card.stats["loss"][-1] - on_cpu.stats["loss"][-1])
+    if p_err > TRAIN_TOL or loss_err > TRAIN_TOL:
+        raise RuntimeError(f"{arch} silo: card and CPU params differ by "
+                           f"{p_err}, losses by {loss_err}")
+    print(f"train {arch} smoke float32, card vs CPU: train_loss {l_card:.6f} "
+          f"vs {l_cpu:.6f}, grads max_abs_err {g_err:.3e}; one SiloFedSAE "
+          f"round (budgets {on_card.last_n_steps.tolist()}): same L/H, "
+          f"params max_abs_err {p_err:.3e}, loss diff {loss_err:.3e} (tol "
+          f"{TRAIN_TOL})", flush=True)
+
+
+def silo_path(torch, np, get_config, build_model, counted, rounds=2):
+    """Phase 4 (and 5): cross-silo FedSAE training Llama-3.2-3B at full
+    width and depth, K=2 silos, B=1, S=2048.  Every kernel's count is set
+    to 0 just before the counted rounds and read just after; each local
+    step must launch 56 flash forwards (28 layers, each recomputed under
+    remat), 28 flash backwards and 2 cross-entropy chunks."""
+    from repro_torch.core.silo import SiloFedSAE
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config("llama3.2-3b")
+    model = build_model(cfg)
+    K, max_steps, B, S = 2, 4, 1, 2048
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fed = SiloFedSAE(model, K, lr=5e-3, max_steps=max_steps, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(fed.params))
+    ri = np.random.default_rng(0)
+    sizes = np.asarray(ri.integers(100, 1000, K))
+    all_batches = [silo_batches(torch, cfg, K, max_steps, B, S, ri, "cuda")
+                   for _ in range(rounds)]
+    for fn in counted.values():
+        fn.launches = 0
+    rounds_out = []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = fed.run_round(all_batches[r], sizes)
+        torch.cuda.synchronize()
+        rounds_out.append(dict(wall_s=time.perf_counter() - t0,
+                               n_steps=fed.last_n_steps.tolist(),
+                               loss=stats["loss"][-1],
+                               L=fed.L.tolist(), H=fed.H.tolist()))
+    launches = {k: fn.launches for k, fn in counted.items()}
+    steps = sum(sum(r["n_steps"]) for r in rounds_out)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if steps <= 0:
+        raise RuntimeError("the silo rounds ran no local step")
+    if not np.isfinite(stats["loss"]).all() or not (fed.L <= fed.H).all():
+        raise RuntimeError(f"silo rounds: losses {stats['loss']}, L {fed.L},"
+                           f" H {fed.H}")
+    for t in tree_leaves(fed.params):
+        if not torch.isfinite(t).all():
+            raise RuntimeError("silo rounds: non-finite global params")
+    want = {"flash_attention_fwd": 56 * steps,
+            "flash_attention_bwd": 28 * steps,
+            "fused_softmax_xent_fwd": 2 * steps}
+    if {k: launches[k] for k in want} != want or any(
+            launches[k] for k in launches if k not in want):
+        raise RuntimeError(f"silo path launched {launches} in {steps} "
+                           f"steps, wanted {want}")
+    walls = [r["wall_s"] for r in rounds_out]
+    summary = dict(params=n_params, init_s=init_s, silos=K,
+                   max_steps=max_steps, batch=B, seq=S, rounds=rounds_out,
+                   local_steps=steps,
+                   ms_per_local_step=sum(walls) / steps * 1e3,
+                   peak_gib=peak, launches=launches)
+    print(f"main path silo llama3.2-3b (full width, {n_params} params f32, "
+          f"bf16 compute, remat): {rounds} rounds x {K} silos, B={B}, S={S}:"
+          f" round wall {[round(w, 3) for w in walls]} s, {steps} local "
+          f"steps ({summary['ms_per_local_step']:.1f} ms each, round "
+          f"overhead included), losses "
+          f"{[round(r['loss'], 4) for r in rounds_out]}, budgets "
+          f"{[r['n_steps'] for r in rounds_out]}, peak {peak:.1f} GiB; "
+          f"launches {json.dumps(launches)}", flush=True)
+
+    # phase 5: one local step alone, timed and profiled, outside the count
+    row = tree_map(torch.clone, fed.params)
+    one = tree_map(lambda b: b[0], all_batches[0])
+    train_silo = fed.round_fn.train_silo
+    train_silo(row, fed.params, one, 1)            # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_silo(row, fed.params, one, 1)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    wall, device, top = profiled(
+        torch, lambda: train_silo(row, fed.params, one, 1))
+    summary["step_ms"] = step_ms
+    summary["profile"] = dict(wall_ms=wall, device_ms=device,
+                              device_busy=device / wall,
+                              top_kernels_ms=top)
+    print(f"profile silo llama3.2-3b one local step (B=1, S=2048): step "
+          f"{step_ms:.1f} ms unprofiled; {json.dumps(summary['profile'])}",
+          flush=True)
+    del row, fed
+    return summary
 
 
 def serve_card_vs_cpu(torch, get_config, build_model, serve, arch):
@@ -386,8 +680,9 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, fed_compress, fed_gather,
                                      fed_local_sgd, fed_local_sgd_dense,
-                                     flash_attention, ref, selective_scan)
-    from repro_torch.launch import serve
+                                     flash_attention, fused_xent, ref,
+                                     selective_scan)
+    from repro_torch.launch import serve, train
     from repro_torch.models.api import build_model
 
     card = nvidia_smi()
@@ -600,8 +895,13 @@ def main() -> int:
 
     fa = flash_attention.flash_attention_fwd
     ss = selective_scan.selective_scan_fwd
+    fa_bwd = flash_attention.flash_attention_bwd
+    fx = fused_xent.fused_softmax_xent_fwd
     flash_row = check_flash(torch, fa, ref, gen, dev)
     scan_row = check_scan(torch, ss, ref, gen, dev)
+    bwd_row = check_flash_bwd(torch, fa_bwd, ref, gen, dev)
+    xent_row = check_xent(torch, fx, ref, gen, dev)
+    torch.cuda.empty_cache()
 
     # -- 3. end to end on a small federation: card vs CPU -----------------
     small = make_femnist_like(n_clients=30, total=900, dim=64, max_size=40)
@@ -673,12 +973,14 @@ def main() -> int:
 
     for arch in ("llama3.2-3b", "falcon-mamba-7b"):
         serve_card_vs_cpu(torch, get_config, build_model, serve, arch)
+        train_card_vs_cpu(torch, np, get_config, build_model, arch)
 
     # -- 4. the main paths ------------------------------------------------
     counted = {"fed_cohort_gather": gather, "fed_local_sgd_mclr": sgd,
                "fed_local_sgd_dense": dense,
                "fed_compress_topk_q8": compress,
-               "flash_attention_fwd": fa, "selective_scan_fwd": ss}
+               "flash_attention_fwd": fa, "selective_scan_fwd": ss,
+               "flash_attention_bwd": fa_bwd, "fused_softmax_xent_fwd": fx}
     summary, path_launches = {}, {}
 
     def drive(label, rounds, **cfg):
@@ -749,7 +1051,8 @@ def main() -> int:
         comp.apply_upload_compress = inner_stage
     want = {"fed_cohort_gather": 5, "fed_local_sgd_mclr": 0,
             "fed_local_sgd_dense": 5, "fed_compress_topk_q8": 5,
-            "flash_attention_fwd": 0, "selective_scan_fwd": 0}
+            "flash_attention_fwd": 0, "selective_scan_fwd": 0,
+            "flash_attention_bwd": 0, "fused_softmax_xent_fwd": 0}
     if path_launches["mlp_topk_q8"] != want:
         raise RuntimeError(f"MLP + topk_q8 path launched "
                            f"{path_launches['mlp_topk_q8']}, not {want}")
@@ -783,6 +1086,32 @@ def main() -> int:
     path_launches["serve_falcon-mamba-7b"] = \
         serving["falcon-mamba-7b"]["launches"]
     torch.cuda.empty_cache()
+    # this slice's path: cross-silo FedSAE training at full width, then the
+    # centralized training CLI on the smoke config
+    training = {"silo_llama3.2-3b": silo_path(torch, np, get_config,
+                                              build_model, counted)}
+    path_launches["silo_llama3.2-3b"] = \
+        training["silo_llama3.2-3b"]["launches"]
+    torch.cuda.empty_cache()
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    cli_losses = train.main(["--arch", "llama3.2-3b", "--smoke", "--steps",
+                             "5"])
+    torch.cuda.synchronize()
+    cli_launches = {k: fn.launches for k, fn in counted.items()}
+    want = dict({k: 0 for k in counted}, flash_attention_fwd=10,
+                flash_attention_bwd=10, fused_softmax_xent_fwd=5)
+    if cli_launches != want or not np.isfinite(cli_losses).all():
+        raise RuntimeError(f"launch.train smoke: losses {cli_losses}, "
+                           f"launched {cli_launches}, wanted {want}")
+    training["train_cli_smoke"] = dict(
+        losses=cli_losses, wall_s=time.perf_counter() - t0,
+        launches=cli_launches)
+    path_launches["train_cli_smoke"] = cli_launches
+    print(f"main path python -m repro_torch.launch.train --arch llama3.2-3b "
+          f"--smoke --steps 5: losses {[round(x, 4) for x in cli_losses]}; "
+          f"launches {json.dumps(cli_launches)}", flush=True)
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
@@ -851,10 +1180,19 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:49",
          "launches": launches["selective_scan_fwd"], **scan_row},
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:197",
+         "launches": launches["flash_attention_bwd"], **bwd_row},
+        {"name": "fused_softmax_xent_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_xent.cu",
+         "replaces": "src/repro/kernels/fused_xent.py:50",
+         "launches": launches["fused_softmax_xent_fwd"], **xent_row},
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
-                      "profile": profiles, "serving": serving}))
+                      "profile": profiles, "serving": serving,
+                      "training": training}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

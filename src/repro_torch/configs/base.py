@@ -64,7 +64,8 @@ class ArchConfig:
     tie_embeddings: bool = False
 
     # --- runtime switches (kept for config parity; the port routes every
-    # kernel by device, so use_pallas is not read, and remat is training) ---
+    # kernel by device, so use_pallas is not read; remat recomputes each
+    # layer group in the training backward, torch.utils.checkpoint) ---
     use_pallas: bool = False
     remat: bool = True
     ssm_scan: str = "chunked"

@@ -4,8 +4,9 @@ An aggregator is a callable
 
     aggregator(params_k, global_params, weights) -> new_global_params
 
-where ``params_k`` is the client-params dict with a leading cohort axis K,
-``global_params`` the current global dict and ``weights`` a ``[K]``
+where ``params_k`` is the client-params dict (nested for the LMs) with a
+leading cohort axis K on every leaf, ``global_params`` the current global
+dict and ``weights`` a ``[K]``
 float32 vector (0 = the client uploaded nothing).  Everything stays on the
 device: no aggregator reads a value back to the host.
 
@@ -41,7 +42,12 @@ class FedAvg:
             return torch.where(tot > 0, mixed,
                                g0.to(torch.float32)).to(g0.dtype)
 
-        return {k: agg(params_k[k], global_params[k]) for k in global_params}
+        def tree(pk, g):
+            if isinstance(g, dict):
+                return {k: tree(pk[k], g[k]) for k in g}
+            return agg(pk, g)
+
+        return tree(params_k, global_params)
 
 
 class FedProx(FedAvg):

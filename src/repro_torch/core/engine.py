@@ -42,6 +42,11 @@ at ``max_iters``: a slot past every budget is ``p - lr * 0 * g``, an
 identity update whenever the gradient is finite, so the result is the
 same for finite data and the round costs one host read of the budgets.
 
+The cross-silo round (``make_stream_round``) trains each silo on its own
+pre-batched stream of arbitrary batch trees (the decoder LMs through
+``core.silo.SiloFedSAE``) and aggregates through the same ``_finish``
+stage.
+
 Not ported yet: fault injection and the upload screen (ROADMAP A9), the
 mesh-sharded and multi-round drivers (A12).
 """
@@ -56,6 +61,7 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core import compression as comp
 from repro_torch.core.aggregation import FedAvg
 from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_leaves, tree_map
 
 SAMPLINGS = ("shuffle", "iid")
 
@@ -114,8 +120,8 @@ class RoundEngine:
     def _prox(self, loss, params, global_params):
         if not self.prox_mu:
             return loss
-        sq = sum(torch.sum((params[k] - global_params[k]) ** 2)
-                 for k in sorted(params))
+        sq = sum(torch.sum((a - b) ** 2) for a, b in zip(
+            tree_leaves(params), tree_leaves(global_params)))
         return loss + 0.5 * self.prox_mu * sq
 
     # ------------------------------------------------------------------
@@ -281,6 +287,11 @@ class RoundEngine:
         rows) and returns the updated one."""
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
+        if getattr(model, "kind", None) == "lm":
+            raise NotImplementedError(
+                "LM steps train through make_stream_round (the silo round); "
+                "their cross-device federation over the packed round is "
+                "ROADMAP A13 (iii)")
         fuse_sgd = kops.fused_sgd_eligible(model, sampling)
         local_train = None if fuse_sgd else \
             self._local_sgd(model, batch_size, max_iters, sampling)
@@ -313,4 +324,89 @@ class RoundEngine:
             return self._finish_round(global_params, params_k, losses, n,
                                       n_iters, ids, residual)
 
+        return round_fn
+
+    # ------------------------------------------------------------------
+    def make_stream_round(self, loss_fn, max_steps: int) -> Callable:
+        """Cross-silo round over pre-batched per-silo streams.
+
+        ``loss_fn`` is a bare ``loss(params, batch)`` callable or a
+        ``LocalStep`` (its ``loss``; its ``leaf_views``, if any, cuts the
+        params into the autograd leaves each silo trains).
+
+        round_fn(global_params, batches, n_steps, weights) ->
+            (new_global_params, silo_mean_losses [K])
+          batches: tree of tensors with leading axes [K, max_steps, ...]
+          n_steps: [K] int local-step budgets (read on the host)
+          weights: [K] f32 tensor of aggregation weights (0 = no upload)
+
+        The silos train one after another (the reference ``vmap``s them),
+        each for exactly its own ``n_steps`` steps: the compacted
+        semantics, equal to the reference's masked ``p - lr * active * g``
+        for finite gradients.  The reported loss of a silo is the mean over
+        its executed steps (0 if none).  Each silo's params live in its row
+        of one preallocated [K, ...] stack and are updated in place under
+        ``torch.no_grad``, so a round holds the global params, the stack
+        and one silo's gradients.  Aggregation runs through ``_finish``;
+        under FedProx each local objective carries the proximal term.
+        Fault injection and the upload screen are not ported (ROADMAP A9).
+        """
+        if self.compressing:
+            raise ValueError(
+                "upload compression needs the packed client axis for "
+                "residual state; the cross-silo stream round does not "
+                "support it")
+        views = getattr(loss_fn, "leaf_views", None) or (lambda p: p)
+        if not callable(loss_fn):
+            loss_fn = loss_fn.loss
+        lr = self.lr
+
+        def train_silo(params, global_params, silo_batches, steps: int):
+            """``steps`` SGD steps on ``params`` (views of the silo's stack
+            row, updated in place); returns the mean loss."""
+            tree = views(params)
+            leaves = tree_leaves(tree)
+            for p in leaves:
+                p.requires_grad_(True)
+            anchor = views(global_params) if self.prox_mu else None
+            total = torch.zeros((), dtype=torch.float32,
+                                device=leaves[0].device)
+            for i in range(steps):
+                batch = tree_map(lambda b: b[i], silo_batches)
+                loss = self._prox(loss_fn(tree, batch), tree, anchor)
+                grads = torch.autograd.grad(loss, leaves)
+                with torch.no_grad():
+                    for p, g in zip(leaves, grads):
+                        p.sub_(g.to(p.dtype) * lr)
+                total = total + loss.detach()
+                del loss, grads     # free them before the next forward
+            for p in leaves:
+                p.requires_grad_(False)
+            return total / max(steps, 1)
+
+        def round_fn(global_params, batches, n_steps, weights):
+            steps = [min(int(v), max_steps) for v in n_steps]
+            K = len(steps)
+            leaves = tree_leaves(global_params)
+            dev = leaves[0].device
+            stack = tree_map(lambda g: torch.empty(
+                (K,) + tuple(g.shape), dtype=g.dtype, device=g.device),
+                global_params)
+            losses = torch.zeros((K,), dtype=torch.float32, device=dev)
+            for k in range(K):
+                row = tree_map(lambda t: t[k], stack)
+                with torch.no_grad():
+                    for dst, src in zip(tree_leaves(row), leaves):
+                        dst.copy_(src)
+                losses[k] = train_silo(
+                    row, global_params,
+                    tree_map(lambda b: b[k], batches), steps[k])
+            with torch.no_grad():
+                new_global, _ = self._finish(global_params, stack,
+                                             weights.to(dev, torch.float32))
+            return new_global, losses
+
+        # one silo's local training alone (params updated in place), for a
+        # caller that times or profiles a step
+        round_fn.train_silo = train_silo
         return round_fn

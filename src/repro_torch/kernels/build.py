@@ -62,6 +62,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_fwd_smem_bytes": ([I], ctypes.c_longlong),
         "flash_attention_fwd_error_string": ([I], ctypes.c_char_p),
     },
+    "flash_attention_bwd": {
+        "flash_attention_bwd_launch":
+            ([P] * 9 + [I] * 8 + [ctypes.c_float, I, P], I),
+        "flash_attention_bwd_error_string": ([I], ctypes.c_char_p),
+    },
+    "fused_xent": {
+        "fused_xent_fwd_launch": ([P] * 5 + [I] * 5 + [P], I),
+        "fused_xent_fwd_error_string": ([I], ctypes.c_char_p),
+    },
     "selective_scan": {
         "selective_scan_fwd_launch": ([P] * 8 + [I] * 4 + [P], I),
         "selective_scan_fwd_error_string": ([I], ctypes.c_char_p),

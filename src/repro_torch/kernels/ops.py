@@ -1,19 +1,115 @@
 """Public kernel ops of the port and the fused-SGD eligibility rule.
 
-Every op is forward-only.  Federated rounds are never differentiated
-through (the local-SGD kernels compute their gradients in closed form), and
-the model ops serve: prefill and decode differentiate nothing (the
-backward of flash attention comes with the training slice).  Each op goes to its wrapper, which runs the plain
-version on a CPU tensor and the hand-written kernel on a CUDA tensor.
+The three model ops are differentiable, as the reference's ``custom_vjp``s
+(``repro/kernels/ops.py``) are, through ``torch.autograd.Function``s:
+
+- ``flash_attention``: forward through the flash-attention forward
+  (saving q, k, v, out and lse), backward through the flash-attention
+  backward;
+- ``selective_scan``: forward through the scan; backward by recomputing
+  the plain ``ref.selective_scan`` under autograd, as the reference's
+  ``_ss_bwd`` does (it has no backward kernel);
+- ``fused_softmax_xent``: forward through the fused cross-entropy;
+  backward by recomputing the plain ``ref.softmax_xent`` on the chunk, as
+  the reference's ``_fx_bwd`` does.
+
+The federated ops are forward-only: round functions are never
+differentiated through (the local-SGD kernels compute their gradients in
+closed form).  Every op goes to its wrapper, which runs the plain version
+on a CPU tensor and the hand-written kernel on a CUDA tensor.
 """
 from __future__ import annotations
 
 import math
 
+import torch
+
 from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
-                                 flash_attention as fa)
+                                 flash_attention as fa, fused_xent, ref)
 from repro_torch.kernels import fed_local_sgd_dense as dense_sgd
 from repro_torch.kernels import selective_scan as ss
+
+
+def _recompute_vjp(fn, inputs, grads):
+    """Gradients of ``fn(*inputs)`` (a tensor or a tuple of tensors) with
+    respect to ``inputs`` for the output cotangents ``grads`` (None for an
+    output that received none), by running the plain ``fn`` again under
+    autograd."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_(x.is_floating_point())
+              for x in inputs]
+        outs = fn(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+        wrt = [x for x in xs if x.requires_grad]
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  wrt, [g for _, g in pairs],
+                                  allow_unused=True)
+    it = iter(got)
+    return tuple(next(it) if x.requires_grad else None for x in xs)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse,
+                                            g.contiguous(), ctx.causal,
+                                            ctx.window)
+        return dq, dk, dv, None, None
+
+
+class _SelectiveScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dt, A, Bmat, Cmat, x, h0):
+        ctx.save_for_backward(dt, A, Bmat, Cmat, x, h0)
+        return ss.selective_scan_fwd(dt, A, Bmat, Cmat, x, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        return _recompute_vjp(ref.selective_scan, ctx.saved_tensors,
+                              (gy, gh))
+
+
+class _FusedSoftmaxXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, W, labels):
+        ctx.save_for_backward(h, W, labels)
+        return fused_xent.fused_softmax_xent_fwd(h, W, labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, W, labels = ctx.saved_tensors
+        dh, dW, _ = _recompute_vjp(ref.softmax_xent, (h, W, labels), (g,))
+        return dh, dW, None
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+    """Online-softmax attention with native GQA.  q: [B, S, Hq, hd];
+    k/v: [B, T, Hkv, hd] -> out [B, S, Hq, hd] in q's dtype.
+    Differentiable in q, k and v."""
+    return _FlashAttention.apply(q, k, v, causal, int(window))
+
+
+def selective_scan(dt, A, Bmat, Cmat, x, h0):
+    """Mamba-1 recurrence.  dt/x: [B, S, d]; A: [d, N]; Bmat/Cmat:
+    [B, S, N]; h0: [B, d, N] -> (y [B, S, d] f32, hT [B, d, N] f32).
+    Differentiable in every input."""
+    return _SelectiveScan.apply(dt, A, Bmat, Cmat, x, h0)
+
+
+def fused_softmax_xent(h, W, labels):
+    """Per-row cross-entropy of ``h @ W`` without the [T, V] logits.
+    h: [T, d]; W: [d, V]; labels: [T] int32 -> loss [T] f32.
+    Differentiable in h and W."""
+    return _FusedSoftmaxXent.apply(h, W, labels)
 
 
 def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
@@ -50,18 +146,6 @@ def fed_compress_topk_q8(ef, k: int):
     """Top-k + int8 compression of the [K, P] error-feedback rows.
     Returns (q [K, P] int8, scale [K] f32)."""
     return fed_compress.fed_compress_topk_q8(ef, k)
-
-
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """Online-softmax attention with native GQA.  q: [B, S, Hq, hd];
-    k/v: [B, T, Hkv, hd] -> out [B, S, Hq, hd] in q's dtype."""
-    return fa.flash_attention_fwd(q, k, v, causal, window)[0]
-
-
-def selective_scan(dt, A, Bmat, Cmat, x, h0):
-    """Mamba-1 recurrence.  dt/x: [B, S, d]; A: [d, N]; Bmat/Cmat:
-    [B, S, N]; h0: [B, d, N] -> (y [B, S, d] f32, hT [B, d, N] f32)."""
-    return ss.selective_scan_fwd(dt, A, Bmat, Cmat, x, h0)
 
 
 # the step families a fused local-SGD kernel exists for, by LocalStep.kind

@@ -12,6 +12,18 @@ import torch
 NEG_INF = -1e30
 
 
+def _attention_mask(S: int, T: int, *, causal: bool, window: int, device):
+    """[S, T] bool: True where key t is visible to query s."""
+    q_pos = torch.arange(S, device=device)[:, None]
+    k_pos = torch.arange(T, device=device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (k_pos <= q_pos)
+    if window:
+        mask = mask & (k_pos > q_pos - window)
+    return mask
+
+
 def _attention_scores(q, k, *, causal: bool, window: int):
     """Masked scaled scores [B, Hkv, G, S, T] in float32 (GQA: q head h
     reads kv head h // G)."""
@@ -21,13 +33,8 @@ def _attention_scores(q, k, *, causal: bool, window: int):
     qg = q.reshape(B, S, Hkv, G, hd).to(torch.float32)
     s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.to(torch.float32)) \
         * hd ** -0.5
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (k_pos <= q_pos)
-    if window:
-        mask = mask & (k_pos > q_pos - window)
+    mask = _attention_mask(S, T, causal=causal, window=window,
+                           device=q.device)
     return torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
 
 
@@ -51,6 +58,53 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0):
     """The output of ``attention_lse`` alone (the reference oracle's
     signature)."""
     return attention_lse(q, k, v, causal=causal, window=window)[0]
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """Plain FlashAttention-2 backward from the forward's saved lse: what
+    the reference's ``_bwd_kv_kernel`` and ``_bwd_q_kernel`` compute, with
+    GQA summed over each kv head's group of q heads.
+
+      p  = exp(s - lse) on unmasked pairs, 0 elsewhere
+      dv = p^T dO,   dp = dO v^T,   ds = p (dp - delta) * scale
+      dk = ds^T q,   dq = ds k,     delta = rowsum(dO * O)
+
+    q/out/do: [B, S, Hq, hd]; k/v: [B, T, Hkv, hd]; lse: [B, Hq, S] f32 ->
+    (dq, dk, dv) in the input dtypes, float32 inside."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = hd ** -0.5
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, S, Hkv, G, hd)
+    dof = do.to(f32).reshape(B, S, Hkv, G, hd)
+    kf, vf = k.to(f32), v.to(f32)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf, kf) * scale
+    mask = _attention_mask(S, T, causal=causal, window=window,
+                           device=q.device)
+    lse_g = lse.to(f32).reshape(B, Hkv, G, S, 1)
+    p = torch.where(mask, torch.exp(s - lse_g),
+                    torch.zeros((), dtype=f32, device=q.device))
+    delta = torch.einsum("bshd,bshd->bhs", do.to(f32), out.to(f32))
+    delta = delta.reshape(B, Hkv, G, S, 1)
+    dv = torch.einsum("bkgqt,bqkgd->btkd", p, dof)
+    dp = torch.einsum("bqkgd,btkd->bkgqt", dof, vf)
+    ds = p * (dp - delta) * scale
+    dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qf)
+    dq = torch.einsum("bkgqt,btkd->bqkgd", ds, kf).reshape(B, S, Hq, hd)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def softmax_xent(h, W, labels):
+    """Row-wise cross-entropy of the logits ``h @ W``, op for op the
+    reference's ``ref.softmax_xent``: both operands upcast to float32
+    before the product.  h: [T, d]; W: [d, V]; labels: [T] int -> [T]
+    f32."""
+    logits = h.to(torch.float32) @ W.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    return lse - gold
 
 
 def selective_scan(dt, A, Bmat, Cmat, x, h0):

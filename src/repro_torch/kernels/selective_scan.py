@@ -5,7 +5,9 @@ which replaces the reference's ``repro/kernels/selective_scan.py``
 A CPU tensor goes to the plain version (``kernels.ref.selective_scan``); a
 CUDA tensor launches the kernel or raises, for every sequence length
 S >= 1 (prefill, and decode's S = 1 from the cached state).
-``selective_scan_fwd.launches`` counts the kernel launches.  Forward only.
+``selective_scan_fwd.launches`` counts the kernel launches.  Forward
+only: the backward recomputes through the plain version
+(``kernels.ops.selective_scan``), as the reference's ``_ss_bwd`` does.
 """
 from __future__ import annotations
 

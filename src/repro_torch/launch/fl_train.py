@@ -12,6 +12,10 @@
   # reduced scale on the CPU (plain PyTorch versions of the kernels):
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
       --rounds 3
+
+  # cross-silo FedSAE over a production architecture (its smoke config):
+  PYTHONPATH=src python -m repro_torch.launch.fl_train \
+      --silo-arch llama3.2-3b --silos 4 --rounds 5
 """
 from __future__ import annotations
 
@@ -44,6 +48,46 @@ def build_server(args) -> FedSAEServer:
                        upload_compress=args.compress,
                        topk_frac=args.topk_frac, device=args.device)
     return FedSAEServer(ds, cfg=cfg)
+
+
+def silo_tokens(ri, cfg, K: int, max_steps: int, B: int = 2, S: int = 64):
+    """One round's token stream of the reference CLI: [K, max_steps, B, S]
+    int32, silo k's tokens uniform in [0, vocab // (1 + k % 3)), so each
+    silo has its own token distribution."""
+    return np.stack([ri.integers(0, cfg.vocab_size // (1 + (k % 3)),
+                                 (max_steps, B, S)) for k in range(K)]
+                    ).astype(np.int32)
+
+
+def run_silo(args):
+    """Cross-silo FedSAE (``core.silo.SiloFedSAE``) over the smoke config
+    of ``--silo-arch``, with the reference CLI's traffic: sizes in
+    [100, 1000) and per-silo token streams from ``default_rng(0)``, whose
+    labels are the tokens themselves (the reference's batches)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.silo import SiloFedSAE
+    from repro_torch.models.api import build_model
+
+    acfg = get_config(args.silo_arch, smoke=True)
+    model = build_model(acfg)
+    fed = SiloFedSAE(model, args.silos, lr=5e-3, max_steps=args.max_steps,
+                     aggregator=args.aggregator, device=args.device)
+    ri = np.random.default_rng(0)
+    K = args.silos
+    sizes = np.asarray(ri.integers(100, 1000, K))
+    for r in range(args.rounds):
+        toks = torch.from_numpy(silo_tokens(ri, acfg, K, fed.max_steps))
+        stats = fed.run_round({"tokens": toks, "labels": toks}, sizes)
+        if not args.quiet:
+            print(f"round {r}: loss={stats['loss'][-1]:.4f} "
+                  f"dropout={stats['dropout'][-1]:.2f} "
+                  f"uploaded_steps={stats['uploaded_steps'][-1]:.1f}")
+    if not np.isfinite(stats["loss"][-1]):
+        raise RuntimeError(f"non-finite silo loss {stats['loss'][-1]}")
+    print("silo FL done")
+    return fed
 
 
 def main(argv=None):
@@ -83,7 +127,14 @@ def main(argv=None):
                          "their plain PyTorch versions")
     ap.add_argument("--quiet", action="store_true",
                     help="suppress per-round progress lines")
+    ap.add_argument("--silo-arch", default=None,
+                    help="run cross-silo FedSAE over this architecture's "
+                         "smoke config instead of the packed federation")
+    ap.add_argument("--silos", type=int, default=4)
+    ap.add_argument("--max-steps", type=int, default=8)
     args = ap.parse_args(argv)
+    if args.silo_arch:
+        return run_silo(args)
     srv = build_server(args)
     hist = srv.run(verbose=not args.quiet)
     print(f"final: acc={hist['acc'][-1]:.3f} "

@@ -1,17 +1,23 @@
 """Decoder-only LM (dense attention and Mamba stacks), the port's copy of
-``repro/models/decoder.py`` for serving.
+``repro/models/decoder.py``: training loss, prefill and decode.
 
 Layers are ``n_groups`` repetitions of a ``period``-layer block pattern
 (period 1 for uniform stacks).  Per-position params are stacked on a
 leading group axis, as in the reference, and ``forward`` walks the groups
-with a Python loop where the reference scans.  MoE FFNs, the VLM prefix
-and the training loss raise for their ROADMAP items (A13 (ii) and (i)).
+with a Python loop where the reference scans.  A block leaf may also be a
+list of the G per-group tensors (``layer_views``): the silo round trains
+those views of its stacked storage as separate autograd leaves, so that
+no layer's backward fills a gradient the size of the whole stack.  With
+``cfg.remat`` the training forward recomputes each group in the backward
+pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
+MoE FFNs and the VLM prefix raise for their ROADMAP item (A13 (ii)).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import check_ported
 from repro_torch.models import layers as L
@@ -85,7 +91,8 @@ def _apply_block(pparams, cfg, pos, h, positions, mode, cache, cur_index):
                 pparams["mixer"], cfg, h, cache, cur_index)
         else:
             out, kv = L.attn_forward(pparams["mixer"], cfg, h, positions)
-            new_mixer_cache = _kv_to_cache(cfg, kv, positions)
+            new_mixer_cache = (None if mode == "train"
+                               else _kv_to_cache(cfg, kv, positions))
     else:
         out, new_mixer_cache = Mb.mamba_forward(
             pparams["mixer"], cfg, h, cache=cache if mode == "decode" else None)
@@ -136,19 +143,56 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
 
 
 def _group(tree, g: int):
+    """Group ``g`` of a params or cache tree: row g of each stacked leaf,
+    or element g of a per-group list (``layer_views``)."""
     if isinstance(tree, dict):
         return {k: _group(v, g) for k, v in tree.items()}
     return tree[g]
 
 
+def layer_views(params):
+    """The params tree with every block leaf ([G, ...]) replaced by the list
+    of its G rows, views of the same storage.  Training these rows as
+    separate autograd leaves gives each layer a gradient of its own size;
+    the stacked leaf would give every layer's backward a zero-filled
+    gradient of the whole stack."""
+    def rows(tree):
+        if isinstance(tree, dict):
+            return {k: rows(v) for k, v in tree.items()}
+        return list(tree.unbind(0))
+    return {k: (rows(v) if k == "blocks" else v) for k, v in params.items()}
+
+
+def _train_forward(params, cfg, h, positions):
+    """Training pass: no cache; with ``cfg.remat`` (and a gradient wanted)
+    each group is recomputed in the backward pass."""
+    period = cfg.attn_period or 1
+
+    def group_body(h, gparams):
+        for p in range(period):
+            h, _ = _apply_block(gparams[f"pos{p}"], cfg, p, h, positions,
+                                "train", None, None)
+        return h
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for g in range(n_groups(cfg)):
+        gparams = _group(params["blocks"], g)
+        if remat:
+            h = checkpoint(group_body, h, gparams, use_reentrant=False)
+        else:
+            h = group_body(h, gparams)
+    return h
+
+
 def forward(params, cfg, h, positions, mode: str, cache=None, cur_index=None):
     """h: [B, S, d] embeddings.  Returns (h_out, new_cache).
 
-    mode: "prefill" (cache emitted) or "decode" (cache consumed and
-    updated; S == 1).  "train" comes with the training slice."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r} is not ported (training is ROADMAP "
-                         "A13 (i))")
+    mode: "train" (no cache: new_cache is None), "prefill" (cache emitted)
+    or "decode" (cache consumed and updated; S == 1)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "train":
+        return _train_forward(params, cfg, h, positions), None
     period = cfg.attn_period or 1
     new_cache: Dict[str, Dict[str, torch.Tensor]] = {
         f"pos{p}": {} for p in range(period)}
@@ -182,8 +226,22 @@ def embed_inputs(params, cfg, batch):
 
 
 def train_loss(params, cfg, batch):
-    raise ValueError("train_loss is not ported (ROADMAP A13 (i), the "
-                     "training slice)")
+    """batch: tokens [B, S], labels [B, S], optional mask [B, S] (bool) ->
+    (loss, {"lm_loss", "aux_loss"}): the masked mean next-token
+    cross-entropy, its chunks through the fused cross-entropy op (the
+    kernel on a CUDA tensor, its plain version on a CPU one).  aux_loss is
+    0: the MoE load-balancing term comes with MoE (ROADMAP A13 (ii))."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    h = embed_inputs(params, cfg, batch)
+    S = h.shape[1]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None].expand(B, S)
+    h, _ = forward(params, cfg, h, positions, "train")
+    loss = L.chunked_lm_loss(params["embeddings"], cfg, h, batch["labels"],
+                             batch.get("mask"), use_fused=True)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return loss, {"lm_loss": loss, "aux_loss": aux}
 
 
 def prefill(params, cfg, batch):

@@ -9,8 +9,9 @@ kernel layer has a fused implementation for.  The engine differentiates
 ``loss`` with ``torch.func`` and maps the SGD update over the dict.
 
 This package ports MCLR, the paper's convex model, and the two-layer tanh
-MLP.  The LSTM and the architectures adapted through
-``models.api.from_model`` are ROADMAP items A7 and A13.
+MLP; ``models.api.from_model`` adapts the decoder LMs (``kind="lm"``),
+which train through ``RoundEngine.make_stream_round`` (the silo round).
+The LSTM is ROADMAP A7.
 """
 from __future__ import annotations
 
@@ -95,13 +96,19 @@ class LocalStep:
     * ``accuracy(params, batch)`` — optional; only evaluation uses it.
     * ``kind`` — the family tag the kernel layer dispatches on
       (``repro_torch.kernels.ops.fused_sgd_eligible``).
+    * ``leaf_views`` — optional: maps a params tree to the tree ``loss``
+      reads, with leaves cut into the views that the silo round trains as
+      separate autograd leaves (the LM's per-layer rows of its stacked
+      blocks, ``decoder.layer_views``).
     """
 
-    def __init__(self, init_params, loss, accuracy=None, kind=None):
+    def __init__(self, init_params, loss, accuracy=None, kind=None,
+                 leaf_views=None):
         self.init_params = init_params
         self.loss = loss
         self.accuracy = accuracy
         self.kind = kind
+        self.leaf_views = leaf_views
 
 
 def make_mclr(n_features: int, n_classes: int) -> LocalStep:
@@ -140,5 +147,7 @@ def resolve_local_step(spec, dataset) -> LocalStep:
             "model='lstm' is not ported yet (ROADMAP A7: the LSTM step); "
             "the port trains mclr and mlp")
     raise NotImplementedError(
-        f"model={spec!r}: architecture ids need models.api.from_model and "
-        "the LM stack, which are not ported yet (ROADMAP A13)")
+        f"model={spec!r}: the port trains architecture ids through "
+        "models.api.from_model in the silo round (core.silo.SiloFedSAE); "
+        "their cross-device federation over the packed round is ROADMAP "
+        "A13 (iii)")

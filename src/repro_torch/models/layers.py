@@ -1,13 +1,14 @@
 """Shared neural building blocks of the decoder LMs (plain functions over
-params dicts), the port's copy of ``repro/models/layers.py`` for serving.
+params dicts), the port's copy of ``repro/models/layers.py``.
 
 Params keep the reference's tree and layout, so reference params carry
 across unchanged (``repro_torch.convert.params_from_reference``).  Every
 ``init_*`` returns the params dict alone: the reference's logical sharding
 specs have no counterpart on one card.  Every matmul casts the weight to
-the activation's dtype, as the reference does.  The loss functions
-(``softmax_xent``, ``chunked_lm_loss``) come with the training slice
-(ROADMAP A13 (i)).
+the activation's dtype, as the reference does.  The LM loss
+(``chunked_lm_loss``) walks the sequence in chunks so that the [B, S, V]
+logits never exist at once; ``decoder.train_loss`` runs it through the
+fused cross-entropy op.
 """
 from __future__ import annotations
 
@@ -181,9 +182,9 @@ def _window(cfg) -> int:
 
 def attn_forward(params, cfg, x, positions, *, window: Optional[int] = None,
                  causal: bool = True):
-    """Full-sequence (prefill) self-attention from position 0, through the
-    flash-attention op (the kernel on a CUDA tensor, its plain version on
-    a CPU one).  Returns (out, (k, v))."""
+    """Full-sequence (train / prefill) self-attention from position 0,
+    through the differentiable flash-attention op (the kernels on a CUDA
+    tensor, their plain versions on a CPU one).  Returns (out, (k, v))."""
     window = _window(cfg) if window is None else window
     if not causal:
         window = 0
@@ -288,3 +289,62 @@ def _unembed_matrix(params, cfg):
 def logits_fn(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     return linear(h, _unembed_matrix(params, cfg))
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_xent(logits, labels, mask=None):
+    """Cross-entropy in float32, the reference's.  labels: int ids; mask:
+    [..., S] bool (or 0/1) -> the masked mean ``sum / max(count, 1)``, or
+    the plain mean without a mask."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - gold
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum(), min=1)
+    return loss.mean()
+
+
+def chunked_lm_loss(params, cfg, h, labels, mask=None, chunk: int = 1024,
+                    use_fused: bool = False):
+    """Masked mean cross-entropy of the LM head over ``h`` [B, S, d],
+    chunk by chunk along the sequence (the reference's ``lax.scan``
+    becomes a loop), so only one chunk's logits exist at a time.  A length
+    that ``chunk`` does not divide is one chunk of length S, as in the
+    reference.  ``use_fused`` takes each chunk through the fused
+    cross-entropy op (``kernels.ops.fused_softmax_xent``: the kernel on a
+    CUDA tensor, its plain version, float32 product, on a CPU one);
+    otherwise the chunk's logits are the compute-dtype product, upcast."""
+    B, S, d = h.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.bool, device=h.device)
+    n_chunks = max(1, S // chunk)
+    if S % chunk:
+        n_chunks, chunk = 1, S
+    W = _unembed_matrix(params, cfg)
+    if use_fused:
+        W = W.contiguous()      # the kernel reads [d, V] row-major
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        hc = rms_norm(h[:, sl], params["final_norm"], cfg.norm_eps)
+        lc, mc = labels[:, sl], mask[:, sl]
+        if use_fused:
+            losses = kops.fused_softmax_xent(
+                hc.reshape(-1, d).contiguous(), W,
+                lc.reshape(-1).to(torch.int32).contiguous()
+            ).reshape(lc.shape)
+        else:
+            logits = linear(hc, W).to(torch.float32)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+            losses = lse - gold
+        tot = tot + (losses * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1)

@@ -1,9 +1,11 @@
 """Mamba-1 selective-state-space mixer (Falcon-Mamba), the port's copy of
-``repro/models/mamba.py`` for serving.
+``repro/models/mamba.py`` for training and serving.
 
 The recurrence goes through the selective-scan op for every sequence
-length: the hand-written kernel on a CUDA tensor (prefill, and decode's
-single step from the cached state), the plain step loop on a CPU tensor.
+length: the hand-written kernel on a CUDA tensor (training and prefill,
+and decode's single step from the cached state), the plain step loop on a
+CPU tensor.  The op is differentiable: its backward recomputes the plain
+step loop, as the reference's does.
 The reference's chunked associative scan is a TPU formulation of the same
 function and is not copied.  Decode keeps a constant [B, d_inner, N] state
 plus a [B, K-1, d_inner] conv ring.

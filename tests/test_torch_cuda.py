@@ -8,8 +8,12 @@ on a machine that has only PyTorch:
 Tolerances: the gather and the compressor are bitwise; MCLR local SGD
 rtol = atol = 2e-5 (the reference's kernel-vs-XLA bound); dense-MLP local
 SGD rtol 5e-4, atol 5e-5 (the reference's MLP pallas-vs-xla bound); flash
-attention 2e-5 in float32 and 2e-2 in bfloat16, the selective scan 1e-4
-(the reference's kernel-vs-oracle bounds, tests/test_kernels.py).
+attention 2e-5 in float32 and 2e-2 in bfloat16, its backward atol 2e-5 /
+rtol 2e-4 in float32 and 2e-2 in bfloat16, the selective scan 1e-4, the
+fused cross-entropy 1e-4 (the reference's kernel-vs-oracle bounds,
+tests/test_kernels.py).  The three differentiable ops' gradients on the
+card are held against the same ops on the CPU (their plain versions) at
+1e-4.
 """
 import numpy as np
 import pytest
@@ -17,10 +21,11 @@ import torch
 
 from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  fed_local_sgd_dense, flash_attention,
-                                 selective_scan)
+                                 fused_xent, selective_scan)
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from torch_cases import (attention_case, dense_case, gather_case, scan_case,
-                         sgd_case)
+                         sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -155,3 +160,101 @@ def test_cuda_selective_scan_kernel_vs_plain(cuda_device, B, S, d, N):
     assert ss.launches == before + 1
     torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(hT, want_h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd,causal,window,dtype", FLASH_CASES)
+def test_cuda_flash_attention_bwd_kernel_vs_plain(cuda_device, B, S, T, Hq,
+                                                  Hkv, hd, causal, window,
+                                                  dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in attention_case(B, S, T, Hq, Hkv, hd))
+    do = torch.from_numpy(np.random.default_rng(3).normal(
+        size=q.shape).astype(np.float32)).to(cuda_device, dtype)
+    out, lse = tref.attention_lse(q, k, v, causal=causal, window=window)
+    bwd = flash_attention.flash_attention_bwd
+    before = bwd.launches
+    got = bwd(q, k, v, out, lse, do, causal, window)
+    want = tref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (2e-5, 2e-4)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol)
+
+
+# (T, d, V, dtype): the reference's cases, a ragged vocabulary, rows off
+# the 128-row tile, bf16, one row
+XENT_CASES = [
+    (256, 64, 1024, torch.float32),
+    (512, 128, 2048, torch.float32),
+    (100, 48, 1000, torch.float32),
+    (300, 96, 5000, torch.bfloat16),
+    (1, 32, 300, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,V,dtype", XENT_CASES)
+def test_cuda_fused_xent_kernel_vs_plain(cuda_device, T, d, V, dtype):
+    h, W, labels = xent_case(T, d, V)
+    h, W = (torch.from_numpy(a).to(cuda_device, dtype) for a in (h, W))
+    labels = torch.from_numpy(labels).to(cuda_device)
+    fx = fused_xent.fused_softmax_xent_fwd
+    before = fx.launches
+    got = fx(h, W, labels)
+    want = tref.softmax_xent(h, W, labels)
+    torch.cuda.synchronize()
+    assert fx.launches == before + 1 and got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_training_kernels_refuse_what_they_do_not_take(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device)
+               for a in attention_case(1, 8, 8, 2, 1, 16))
+    out, lse = flash_attention.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention_bwd(
+            q, k, v, out, lse, torch.ones_like(q).transpose(1, 2)
+            .contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention.flash_attention_bwd(q, k, v, out, lse[:, :1], q)
+    h, W, labels = (torch.from_numpy(a).to(cuda_device)
+                    for a in xent_case(8, 4, 10))
+    with pytest.raises(TypeError):
+        fused_xent.fused_softmax_xent_fwd(h, W.bfloat16(), labels)
+    with pytest.raises(TypeError):
+        fused_xent.fused_softmax_xent_fwd(h, W, labels.long())
+
+
+def _grads_on(device, fn, arrays):
+    ts = [torch.from_numpy(a).to(device).requires_grad_(
+        a.dtype == np.float32) for a in arrays]
+    fn(*ts).backward()
+    return [t.grad.cpu() for t in ts if t.requires_grad]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["flash_attention", "selective_scan",
+                                "fused_softmax_xent"])
+def test_cuda_autograd_ops_match_the_cpu(cuda_device, op):
+    """Each differentiable op's gradients on the card (forward kernel, then
+    the backward kernel or the plain recompute) against the same op on the
+    CPU, where it runs the plain versions."""
+    if op == "flash_attention":
+        arrays = attention_case(1, 200, 200, 4, 2, 64)
+        fn = lambda q, k, v: (tops.flash_attention(q, k, v, True, 64)
+                              ** 2).mean()
+    elif op == "selective_scan":
+        arrays = scan_case(1, 48, 64, 8)
+        fn = lambda *a: (tops.selective_scan(*a)[0] ** 2).mean()
+    else:
+        arrays = xent_case(150, 32, 700)
+        fn = lambda h, W, lab: tops.fused_softmax_xent(h, W, lab).mean()
+    for got, want in zip(_grads_on(cuda_device, fn, arrays),
+                         _grads_on("cpu", fn, arrays)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

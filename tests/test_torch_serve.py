@@ -153,9 +153,6 @@ def test_unported_archs_and_fields_raise_with_their_roadmap_item():
                 dict(ssm_input_dtype="bfloat16"), dict(n_experts=4)):
         with pytest.raises(ValueError, match="not ported"):
             check_ported(cfg.replace(**bad))
-    tm = build_model(cfg)
-    with pytest.raises(ValueError, match="A13 \\(i\\)"):
-        tm.train_loss({}, {})
 
 
 def test_full_width_configs_are_the_reference_configs():

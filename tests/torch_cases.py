@@ -65,3 +65,13 @@ def scan_case(B, S, d, N, seed=7):
     x = rng.normal(size=(B, S, d)).astype(np.float32)
     h0 = rng.normal(size=(B, d, N)).astype(np.float32)
     return dt, A, Bm, Cm, x, h0
+
+
+def xent_case(T, d, V, seed=21):
+    """(h [T, d], W [d, V] * 0.05, labels [T] int32) as the reference's
+    cross-entropy tests make them."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(T, d)).astype(np.float32)
+    W = (rng.normal(size=(d, V)) * 0.05).astype(np.float32)
+    labels = rng.integers(0, V, T).astype(np.int32)
+    return h, W, labels
