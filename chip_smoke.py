@@ -27,7 +27,10 @@ last line):
    - flash-attention forward (out and lse) at Llama-3.2-3B's full width
      (24 q / 8 kv heads, hd=128, bf16, causal) at B=1 and at the serving
      path's B=4, both S=2048, plus a window, a non-causal, a ragged
-     S=1000 and a float32 case: 2e-2 in bf16, 2e-5 in float32; library
+     S=1000 and a float32 case: 2e-2 in bf16, 2e-5 in float32; every bf16
+     call must take the tensor-core route and the float32 one must not
+     (the wrapper's ``tensor_core_launches``), and the bf16 error against
+     the rounding model ``ref.attention_lse_tc`` is printed; library
      ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``
      (timing only); bound: its causal bf16 flop at 989 TFLOP/s or its
      bytes, whichever is larger;
@@ -37,7 +40,9 @@ last line):
    - flash-attention backward (dq, dk, dv) at Llama-3.2-3B's training
      shape (B=1, S=2048, 24/8 heads, hd=128, bf16 causal), plus a window
      of 512, a non-causal, a ragged S=1000 and a float32 case: 2e-2 in
-     bf16, atol 2e-5 / rtol 2e-4 in float32; library: the backward of
+     bf16, atol 2e-5 / rtol 2e-4 in float32; routes checked and the
+     rounding model ``ref.flash_attention_bwd_tc`` printed as for the
+     forward; library: the backward of
      ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
      bound: FlashAttention-2's five products per unmasked pair in bf16;
    - the fused cross-entropy at Llama's loss chunk (T=1,024, d=3,072,
@@ -64,22 +69,25 @@ last line):
    ``repro_torch.launch.serve.generate`` at full width with random
    weights, one model after the other: Llama-3.2-3B (batch 4, prompt
    2048, 32 greedy tokens; 28 flash launches, one per layer of the
-   prefill) and Falcon-Mamba-7B (batch 4, prompt 1024, 32 tokens; 64
-   scan launches for the prefill and for each decode step), with finite
-   logits, prefill ms and decode tokens/s; then this slice's path,
+   prefill, all 28 on the tensor cores) and Falcon-Mamba-7B (batch 4,
+   prompt 1024, 32 tokens; 64 scan launches for the prefill and for each
+   decode step), with finite logits, prefill ms and decode tokens/s;
+   then this slice's path,
    cross-silo FedSAE training Llama-3.2-3B at full width and depth
    (``SiloFedSAE``, K=2 silos, max_steps=4, B=1, S=2048, lr 5e-3) for 2
    rounds, with finite losses, L <= H and per local step 56 flash-forward
    calls (28 layers, each recomputed under remat), 28 flash-backward calls
-   and 2 fused cross-entropy calls (one per 1,024-position chunk), round
+   (every flash call on the tensor cores, none on the float32 route) and
+   2 fused cross-entropy calls (one per 1,024-position chunk), round
    wall, ms per step and peak memory; and ``repro_torch.launch.train
    --arch llama3.2-3b --smoke --steps 5`` (2, 2 and 1 calls per step);
 5. profile one steady round of each FL path, one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
    host wall, device time and the kernels that take it.
 
-It then prints one JSON line with every kernel's launches, error, times
-and roofline bound, the card's name and power limit, and, last,
+It then prints one JSON line with every kernel's launches (the flash
+kernels' tensor-core launches too), error, times and roofline bound, the
+card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
 repo's ``src/`` beside it, it exits non-zero and prints no result.  It
 needs one card with ~70 GB free (the full-width silo round holds the
@@ -91,6 +99,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +124,41 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_name(sym: str) -> str:
+    """A kernel's name (and its first integer template argument) from its
+    mangled symbol: the last <length><identifier> of the _ZN...
+    nested name."""
+    i, name = sym.find("_ZN") + 3, sym[:48]
+    if i < 3:
+        return name
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while sym[j].isdigit():
+            j += 1
+        name, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
+    t = re.match(r"I\w*?Li(\d+)E", sym[i:])
+    return f"{name}<{t.group(1)}>" if t else name
+
+
+def ptxas_report(log: str):
+    """[(kernel, registers, spill bytes stored + loaded)] from ptxas' -v
+    report, one per compiled entry function (the kernel's name is cut
+    from its mangled symbol)."""
+    rows, entry, spill = [], None, 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spill = kernel_name(m.group(1)), 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, int(m.group(1)), spill))
+    return rows
 
 
 def spin(torch, seconds: float = 1.0) -> None:
@@ -148,6 +192,20 @@ def time_ms(torch, fn, reps: int, flush=None) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def reset_counts(counted) -> None:
+    """Set every wrapper's launch count (and the flash wrappers' tensor-core
+    count) to 0."""
+    for fn in counted.values():
+        fn.launches = 0
+        if hasattr(fn, "tensor_core_launches"):
+            fn.tensor_core_launches = 0
+
+
+def tensor_core_counts(counted) -> dict:
+    return {k: fn.tensor_core_launches for k, fn in counted.items()
+            if hasattr(fn, "tensor_core_launches")}
+
+
 def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
@@ -168,21 +226,34 @@ def check_flash(torch, fa, ref, gen, dev):
         ("ragged S=1000", 2, 1000, True, 0, torch.bfloat16),
         ("float32", 1, 1024, True, 0, torch.float32),
     ]
-    err = 0.0
+    err = model_err = 0.0
     for label, B, S, causal, window, dtype in cases:
         q = torch.randn((B, S, Hq, hd), generator=gen, device=dev).to(dtype)
         k = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
         v = torch.randn((B, S, Hkv, hd), generator=gen, device=dev).to(dtype)
+        tc_before = fa.tensor_core_launches
         out, lse = fa(q, k, v, causal, window)
         want, want_lse = ref.attention_lse(q, k, v, causal=causal,
                                            window=window)
         torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        if fa.tensor_core_launches != tc_before + bf16:
+            raise RuntimeError(f"flash forward took the wrong route "
+                               f"({label})")
         tol = LM_TOL[str(dtype).split(".")[-1]]
         e_out = float((out.float() - want.float()).abs().max())
         e_lse = float((lse - want_lse).abs().max())
+        e_model = "-"
+        if bf16:
+            model = ref.attention_lse_tc(q, k, v, causal=causal,
+                                         window=window)[0]
+            e_model = float((out.float() - model.float()).abs().max())
+            model_err = max(model_err, e_model)
+            e_model = f"{e_model:.3e}"
         print(f"flash_attention_fwd {label} q={tuple(q.shape)} "
               f"{str(dtype).split('.')[-1]}: out max_abs_err {e_out:.3e} "
-              f"(tol {tol}), lse {e_lse:.3e} (tol 2e-5 rel)", flush=True)
+              f"(tol {tol}), lse {e_lse:.3e} (tol 2e-5 rel); rounding "
+              f"model {e_model}", flush=True)
         if not (torch.allclose(out.float(), want.float(), rtol=tol, atol=tol)
                 and torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5)):
             raise RuntimeError(f"flash kernel differs from plain ({label})")
@@ -205,11 +276,14 @@ def check_flash(torch, fa, ref, gen, dev):
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     print(f"flash_attention_fwd B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16 "
-          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-          f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}: {flops} flop, {nbytes} B)", flush=True)
+          f"causal (tensor cores): kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, sdpa "
+          f"{lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s), bound "
+          f"{b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B); rounding "
+          f"model max_abs_err {model_err:.3e}", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "rounding_model_max_abs_err": model_err}
 
 
 def check_scan(torch, ss, ref, gen, dev):
@@ -266,23 +340,35 @@ def check_flash_bwd(torch, fa, ref, gen, dev):
         ("ragged S=1000", 1, 1000, True, 0, torch.bfloat16),
         ("float32", 1, 1024, True, 0, torch.float32),
     ]
-    err = 0.0
+    err = model_err = 0.0
     for label, B, S, causal, window, dtype in cases:
         q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
                                    device=dev).to(dtype)
                        for H in (Hq, Hkv, Hkv, Hq))
         out, lse = ref.attention_lse(q, k, v, causal=causal, window=window)
+        tc_before = fa.tensor_core_launches
         got = fa(q, k, v, out, lse, do, causal, window)
         want = ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                        window=window)
         torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        if fa.tensor_core_launches != tc_before + bf16:
+            raise RuntimeError(f"flash backward took the wrong route "
+                               f"({label})")
         name = str(dtype).split(".")[-1]
         atol, rtol = BWD_TOL[name]
         errs = [float((g.float() - w.float()).abs().max())
                 for g, w in zip(got, want)]
+        e_model = "-"
+        if bf16:
+            model = ref.flash_attention_bwd_tc(q, k, v, out, lse, do,
+                                               causal=causal, window=window)
+            e_model = [float((g.float() - m.float()).abs().max())
+                       for g, m in zip(got, model)]
+            model_err = max(model_err, *e_model)
         print(f"flash_attention_bwd {label} q={tuple(q.shape)} {name}: "
-              f"dq/dk/dv max_abs_err {errs} (atol {atol}, rtol {rtol})",
-              flush=True)
+              f"dq/dk/dv max_abs_err {errs} (atol {atol}, rtol {rtol}); "
+              f"rounding model {e_model}", flush=True)
         for g, w in zip(got, want):
             if not torch.isfinite(g).all():
                 raise RuntimeError(f"flash bwd kernel: non-finite ({label})")
@@ -313,11 +399,14 @@ def check_flash_bwd(torch, fa, ref, gen, dev):
         + 4 * B * Hq * S
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     print(f"flash_attention_bwd B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16 "
-          f"causal: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-          f"plain {plain:.4f} ms, sdpa backward {lib:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B)", flush=True)
+          f"causal (tensor cores): kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, sdpa "
+          f"backward {lib:.4f} ms ({flops / lib / 1e9:.1f} TFLOP/s), bound "
+          f"{b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B); rounding "
+          f"model max_abs_err {model_err:.3e}", flush=True)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "rounding_model_max_abs_err": model_err}
 
 
 def check_xent(torch, fx, ref, gen, dev):
@@ -440,7 +529,8 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
     width and depth, K=2 silos, B=1, S=2048.  Every kernel's count is set
     to 0 just before the counted rounds and read just after; each local
     step must launch 56 flash forwards (28 layers, each recomputed under
-    remat), 28 flash backwards and 2 cross-entropy chunks."""
+    remat), 28 flash backwards and 2 cross-entropy chunks, every flash call
+    on the tensor cores."""
     from repro_torch.core.silo import SiloFedSAE
     from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config("llama3.2-3b")
@@ -456,8 +546,7 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
     sizes = np.asarray(ri.integers(100, 1000, K))
     all_batches = [silo_batches(torch, cfg, K, max_steps, B, S, ri, "cuda")
                    for _ in range(rounds)]
-    for fn in counted.values():
-        fn.launches = 0
+    reset_counts(counted)
     rounds_out = []
     for r in range(rounds):
         torch.cuda.synchronize()
@@ -469,6 +558,7 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
                                loss=stats["loss"][-1],
                                L=fed.L.tolist(), H=fed.H.tolist()))
     launches = {k: fn.launches for k, fn in counted.items()}
+    tc_launches = tensor_core_counts(counted)
     steps = sum(sum(r["n_steps"]) for r in rounds_out)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if steps <= 0:
@@ -486,12 +576,19 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
             launches[k] for k in launches if k not in want):
         raise RuntimeError(f"silo path launched {launches} in {steps} "
                            f"steps, wanted {want}")
+    # every flash call of the bf16 path on the tensor cores, none on the
+    # float32 route
+    want_tc = {k: want[k] for k in tc_launches}
+    if tc_launches != want_tc:
+        raise RuntimeError(f"silo path: tensor-core flash launches "
+                           f"{tc_launches}, wanted {want_tc}")
     walls = [r["wall_s"] for r in rounds_out]
     summary = dict(params=n_params, init_s=init_s, silos=K,
                    max_steps=max_steps, batch=B, seq=S, rounds=rounds_out,
                    local_steps=steps,
                    ms_per_local_step=sum(walls) / steps * 1e3,
-                   peak_gib=peak, launches=launches)
+                   peak_gib=peak, launches=launches,
+                   tensor_core_launches=tc_launches)
     print(f"main path silo llama3.2-3b (full width, {n_params} params f32, "
           f"bf16 compute, remat): {rounds} rounds x {K} silos, B={B}, S={S}:"
           f" round wall {[round(w, 3) for w in walls]} s, {steps} local "
@@ -499,7 +596,8 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
           f"overhead included), losses "
           f"{[round(r['loss'], 4) for r in rounds_out]}, budgets "
           f"{[r['n_steps'] for r in rounds_out]}, peak {peak:.1f} GiB; "
-          f"launches {json.dumps(launches)}", flush=True)
+          f"launches {json.dumps(launches)}, tensor-core "
+          f"{json.dumps(tc_launches)}", flush=True)
 
     # phase 5: one local step alone, timed and profiled, outside the count
     row = tree_map(torch.clone, fed.params)
@@ -511,12 +609,12 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
     train_silo(row, fed.params, one, 1)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    wall, device, top = profiled(
+    wall, device, top, flash = profiled(
         torch, lambda: train_silo(row, fed.params, one, 1))
     summary["step_ms"] = step_ms
     summary["profile"] = dict(wall_ms=wall, device_ms=device,
                               device_busy=device / wall,
-                              top_kernels_ms=top)
+                              flash_kernels_ms=flash, top_kernels_ms=top)
     print(f"profile silo llama3.2-3b one local step (B=1, S=2048): step "
           f"{step_ms:.1f} ms unprofiled; {json.dumps(summary['profile'])}",
           flush=True)
@@ -552,11 +650,12 @@ def serve_card_vs_cpu(torch, get_config, build_model, serve, arch):
 
 
 def profiled(torch, fn):
-    """(host wall ms, device ms, top kernels) of one call of ``fn`` under
-    torch.profiler, ending in a device sync.  Device time sums the events
-    that ran on the card (kernels, copies), each once: the CPU op that
-    launched a kernel reports the same time again, so CPU events are
-    left out."""
+    """(host wall ms, device ms, top kernels, flash ms) of one call of
+    ``fn`` under torch.profiler, ending in a device sync.  Device time sums
+    the events that ran on the card (kernels, copies), each once: the CPU
+    op that launched a kernel reports the same time again, so CPU events
+    are left out.  Flash ms sums the flash-attention kernels (forward,
+    backward and the backward's delta kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -569,7 +668,8 @@ def profiled(torch, fn):
               if e.device_type != DeviceType.CPU]
     device = sum(t for _, t in events) / 1e3
     top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
-    return wall, device, [(k[:60], t / 1e3) for k, t in top[:6]]
+    flash = sum(t for k, t in events if "flash_" in k) / 1e3
+    return wall, device, [(k[:60], t / 1e3) for k, t in top[:6]], flash
 
 
 def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
@@ -588,10 +688,10 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     n_params = sum(t.numel() for t in _leaves(params))
     tokens = serve.prompt_tokens(cfg, batch, prompt, dev)
     serve.generate(model, params, tokens[:, :64], 2)      # warm-up
-    for fn in counted.values():
-        fn.launches = 0
+    reset_counts(counted)
     out, logits, times = serve.generate(model, params, tokens, gen)
     launches = {k: fn.launches for k, fn in counted.items()}
+    tc_launches = tensor_core_counts(counted)
     if tuple(out.shape) != (batch, gen + 1) or tuple(logits.shape) != (
             batch, cfg.vocab_size):
         raise RuntimeError(f"{arch}: generated {tuple(out.shape)}, logits "
@@ -603,6 +703,10 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     got = {k: launches[k] for k in want}
     if got != want or any(launches[k] for k in launches if k not in want):
         raise RuntimeError(f"{arch}: launched {launches}, wanted {want}")
+    want_tc = {k: want.get(k, 0) for k in tc_launches}
+    if tc_launches != want_tc:
+        raise RuntimeError(f"{arch}: tensor-core flash launches "
+                           f"{tc_launches}, wanted {want_tc}")
     summary = dict(
         params=n_params, init_s=init_s, batch=batch, prompt=prompt, gen=gen,
         prefill_ms=times["prefill_s"] * 1e3,
@@ -611,7 +715,8 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
         decode_tokens_per_s=batch * gen / times["decode_s"],
         decode_ms_per_step=times["decode_s"] / gen * 1e3,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-        sample=out[0, :8].tolist(), launches=launches)
+        sample=out[0, :8].tolist(), launches=launches,
+        tensor_core_launches=tc_launches)
     print(f"main path serve {arch} (full width, {n_params} params f32, "
           f"{cfg.dtype} compute): batch {batch}, prompt {prompt}: prefill "
           f"{summary['prefill_ms']:.1f} ms "
@@ -639,10 +744,10 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
 
         prof = {}
         for label, fn in (("prefill", prefill), ("decode x4", decode4)):
-            wall, device, top = profiled(torch, fn)
+            wall, device, top, flash = profiled(torch, fn)
             prof[label] = dict(wall_ms=wall, device_ms=device,
                                device_busy=device / wall,
-                               top_kernels_ms=top)
+                               flash_kernels_ms=flash, top_kernels_ms=top)
             print(f"profile {arch} {label}: {json.dumps(prof[label])}",
                   flush=True)
     summary["profile"] = prof
@@ -695,9 +800,9 @@ def main() -> int:
     print(f"build: {json.dumps(built)} wall {time.perf_counter() - t0:.2f}s",
           flush=True)
     for name in build.SIGNATURES:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}")
+        for entry, regs, spill in ptxas_report(build.build_log(name)):
+            print(f"ptxas {name} {entry}: {regs} registers, {spill} bytes "
+                  f"spilled")
 
     # -- 2. kernels against their plain versions --------------------------
     gather = fed_gather.fed_cohort_gather
@@ -1019,8 +1124,7 @@ def main() -> int:
         return srv
 
     def run_path(name, legs):
-        for fn in counted.values():
-            fn.launches = 0
+        reset_counts(counted)
         for label, rounds, cfg in legs:
             drive(label, rounds, **cfg)
         path_launches[name] = {k: fn.launches for k, fn in counted.items()}
@@ -1093,13 +1197,13 @@ def main() -> int:
     path_launches["silo_llama3.2-3b"] = \
         training["silo_llama3.2-3b"]["launches"]
     torch.cuda.empty_cache()
-    for fn in counted.values():
-        fn.launches = 0
+    reset_counts(counted)
     t0 = time.perf_counter()
     cli_losses = train.main(["--arch", "llama3.2-3b", "--smoke", "--steps",
                              "5"])
     torch.cuda.synchronize()
     cli_launches = {k: fn.launches for k, fn in counted.items()}
+    cli_tc = tensor_core_counts(counted)
     want = dict({k: 0 for k in counted}, flash_attention_fwd=10,
                 flash_attention_bwd=10, fused_softmax_xent_fwd=5)
     if cli_launches != want or not np.isfinite(cli_losses).all():
@@ -1107,13 +1211,16 @@ def main() -> int:
                            f"launched {cli_launches}, wanted {want}")
     training["train_cli_smoke"] = dict(
         losses=cli_losses, wall_s=time.perf_counter() - t0,
-        launches=cli_launches)
+        launches=cli_launches, tensor_core_launches=cli_tc)
     path_launches["train_cli_smoke"] = cli_launches
     print(f"main path python -m repro_torch.launch.train --arch llama3.2-3b "
           f"--smoke --steps 5: losses {[round(x, 4) for x in cli_losses]}; "
           f"launches {json.dumps(cli_launches)}", flush=True)
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
+    tc_runs = [serving[a]["tensor_core_launches"] for a in serving] + [
+        training[t]["tensor_core_launches"] for t in training]
+    tc_total = {k: sum(r[k] for r in tc_runs) for k in tc_runs[0]}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     for name, n in launches.items():
         if n <= 0:
@@ -1135,7 +1242,7 @@ def main() -> int:
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
         row = {}
-        prof_wall, device_ms, top = profiled(
+        prof_wall, device_ms, top, _ = profiled(
             torch, lambda: row.update(srv.run_round(2)))
         profiles[label] = dict(
             round1_wall_ms=plain_wall * 1e3,
@@ -1175,7 +1282,9 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",
-         "launches": launches["flash_attention_fwd"], **flash_row},
+         "launches": launches["flash_attention_fwd"],
+         "tensor_core_launches": tc_total["flash_attention_fwd"],
+         **flash_row},
         {"name": "selective_scan_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:49",
@@ -1183,7 +1292,9 @@ def main() -> int:
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:197",
-         "launches": launches["flash_attention_bwd"], **bwd_row},
+         "launches": launches["flash_attention_bwd"],
+         "tensor_core_launches": tc_total["flash_attention_bwd"],
+         **bwd_row},
         {"name": "fused_softmax_xent_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_xent.cu",
          "replaces": "src/repro/kernels/fused_xent.py:50",

@@ -64,7 +64,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "flash_attention_bwd": {
         "flash_attention_bwd_launch":
-            ([P] * 9 + [I] * 8 + [ctypes.c_float, I, P], I),
+            ([P] * 10 + [I] * 8 + [ctypes.c_float, I, P], I),
         "flash_attention_bwd_error_string": ([I], ctypes.c_char_p),
     },
     "fused_xent": {

@@ -6,9 +6,18 @@ backward (``csrc/flash_attention_bwd.cu``), which replaces its
 
 A CPU tensor goes to the plain version (``kernels.ref.attention_lse``,
 ``kernels.ref.flash_attention_bwd``); a CUDA tensor launches the kernel
-or raises.  ``flash_attention_fwd.launches`` and
-``flash_attention_bwd.launches`` count the calls that launched their
-kernels (the backward launches its two kernels per call).
+or raises.  Both sources have two routes, by dtype: bfloat16 runs on the
+tensor cores (the forward on wgmma with TMA loads, the backward on
+mma.sync), float32 on CUDA cores in full float32.  ``.launches`` counts
+the calls that launched a kernel, ``.tensor_core_launches`` those that
+took the bfloat16 route (the backward launches its delta, dK/dV and dQ
+kernels per call).
+
+On the bfloat16 route the kernels read rows with 16-byte copies, so a head
+dim that is not a multiple of 8 is zero-padded here (zero columns add
+nothing to q . k or to p v; the scale stays hd^-0.5 of the real head dim)
+and the result sliced back, and a tensor whose storage is not 16-byte
+aligned is copied first.
 """
 from __future__ import annotations
 
@@ -18,6 +27,14 @@ from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+
+
+def _tc_operand(t, hd8: int):
+    """``t`` as the bfloat16 route reads it: head dim padded with zeros to
+    ``hd8`` (a multiple of 8) and storage 16-byte aligned."""
+    if t.shape[-1] != hd8:
+        return torch.nn.functional.pad(t, (0, hd8 - t.shape[-1]))
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check_cuda(q, k, v, window: int, extra=()):
@@ -63,23 +80,31 @@ def flash_attention_fwd(q, k, v, causal: bool = True, window: int = 0):
     _check_cuda(q, k, v, window)
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    tc = q.dtype == torch.bfloat16
+    hd8 = -(-hd // 8) * 8 if tc else hd
+    if tc:
+        q, k, v = (_tc_operand(t, hd8) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
-        return out, lse
+        return out[..., :hd], lse
     lib = build.load("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, S, T, Hq, Hkv, hd, int(bool(causal)), window,
+            lse.data_ptr(), B, S, T, Hq, Hkv, hd8, int(bool(causal)), window,
             hd ** -0.5, _DTYPES[q.dtype], stream)
     build.check(lib, "flash_attention_fwd", code)
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tensor_core_launches += tc
+    if hd8 != hd:
+        out = out[..., :hd].contiguous()
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tensor_core_launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
@@ -87,8 +112,9 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
     """FlashAttention-2 backward from the forward's saved ``lse``.
     q/out/do: [B, S, Hq, hd]; k/v: [B, T, Hkv, hd] (one dtype, float32 or
     bfloat16); lse: [B, Hq, S] float32 -> (dq, dk, dv) in the input shapes
-    and dtype.  ``delta = rowsum(dO * O)`` is taken here with a plain torch
-    op, as the reference takes it outside its kernels."""
+    and dtype.  ``delta = rowsum(dO * O)``, which the reference takes
+    outside its kernels, is a plain torch op here on the float32 route and
+    a kernel of the same C entry on the bfloat16 route."""
     window = int(window)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
@@ -106,24 +132,39 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = True,
         raise ValueError(f"lse must be a contiguous float32 [B, Hq, S] = "
                          f"{(B, Hq, S)} on {q.device}, got "
                          f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    if out.device != q.device:
+        raise ValueError(f"out is on {out.device}, q on {q.device}")
+    if out.dtype != q.dtype:
+        raise TypeError(f"out is {out.dtype}, q is {q.dtype}")
+    tc = q.dtype == torch.bfloat16
+    hd8 = -(-hd // 8) * 8 if tc else hd
+    if tc:
+        q, k, v, out, do = (_tc_operand(t, hd8)
+                            for t in (q, k, v, out.contiguous(), do))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if dq.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
-    delta = torch.einsum("bshd,bshd->bhs", do.to(torch.float32),
-                         out.to(torch.float32)).contiguous()
+        return dq[..., :hd], dk.zero_()[..., :hd], dv.zero_()[..., :hd]
+    if tc:      # scratch for the C entry's delta kernel
+        delta = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    else:
+        delta = torch.einsum("bshd,bshd->bhs", do, out).contiguous()
     lib = build.load("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, S, T, Hq, Hkv, hd, int(bool(causal)), window,
-            hd ** -0.5, _DTYPES[q.dtype], stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, S, T, Hq, Hkv, hd8,
+            int(bool(causal)), window, hd ** -0.5, _DTYPES[q.dtype], stream)
     build.check(lib, "flash_attention_bwd", code)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.tensor_core_launches += tc
+    if hd8 != hd:
+        dq, dk, dv = (t[..., :hd].contiguous() for t in (dq, dk, dv))
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.tensor_core_launches = 0

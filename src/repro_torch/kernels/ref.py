@@ -60,18 +60,36 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0):
     return attention_lse(q, k, v, causal=causal, window=window)[0]
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
-                        window: int = 0):
-    """Plain FlashAttention-2 backward from the forward's saved lse: what
-    the reference's ``_bwd_kv_kernel`` and ``_bwd_q_kernel`` compute, with
-    GQA summed over each kv head's group of q heads.
+def attention_lse_tc(q, k, v, *, causal: bool = True, window: int = 0):
+    """Rounding model of the flash forward's bfloat16 tensor-core route:
+    ``attention_lse`` with the probabilities rounded to bfloat16 before the
+    product with v, where that kernel rounds P to feed it to the tensor
+    cores; the row sum l stays the float32 sum of the unrounded P, as in
+    the kernel.  (The kernel rounds P against its running row max and
+    rescales in float32; the model rounds against the final max.)  Nothing
+    on the main path calls it: the tests hold the kernel to it at a bound
+    much tighter than the reference's 2e-2.
 
-      p  = exp(s - lse) on unmasked pairs, 0 elsewhere
-      dv = p^T dO,   dp = dO v^T,   ds = p (dp - delta) * scale
-      dk = ds^T q,   dq = ds k,     delta = rowsum(dO * O)
+    q: [B, S, Hq, hd]; k/v: [B, T, Hkv, hd] -> (out [B, S, Hq, hd] in q's
+    dtype, lse [B, Hq, S] f32)."""
+    B, S, Hq, hd = q.shape
+    s = _attention_scores(q, k, causal=causal, window=window)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    o = torch.einsum("bkgqt,btkd->bqkgd", _round_bf16(p),
+                     v.to(torch.float32))
+    o = o / l.permute(0, 3, 1, 2, 4)
+    lse = (m + torch.log(l)).reshape(B, Hq, S)
+    return o.reshape(B, S, Hq, hd).to(q.dtype), lse
 
-    q/out/do: [B, S, Hq, hd]; k/v: [B, T, Hkv, hd]; lse: [B, Hq, S] f32 ->
-    (dq, dk, dv) in the input dtypes, float32 inside."""
+
+def _round_bf16(x):
+    """x rounded to bfloat16 and widened back to float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _flash_bwd(q, k, v, out, lse, do, causal, window, rnd):
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -88,12 +106,38 @@ def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
                     torch.zeros((), dtype=f32, device=q.device))
     delta = torch.einsum("bshd,bshd->bhs", do.to(f32), out.to(f32))
     delta = delta.reshape(B, Hkv, G, S, 1)
-    dv = torch.einsum("bkgqt,bqkgd->btkd", p, dof)
+    dv = torch.einsum("bkgqt,bqkgd->btkd", rnd(p), dof)
     dp = torch.einsum("bqkgd,btkd->bkgqt", dof, vf)
-    ds = p * (dp - delta) * scale
+    ds = rnd(p * (dp - delta) * scale)
     dk = torch.einsum("bkgqt,bqkgd->btkd", ds, qf)
     dq = torch.einsum("bkgqt,btkd->bqkgd", ds, kf).reshape(B, S, Hq, hd)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+                        window: int = 0):
+    """Plain FlashAttention-2 backward from the forward's saved lse: what
+    the reference's ``_bwd_kv_kernel`` and ``_bwd_q_kernel`` compute, with
+    GQA summed over each kv head's group of q heads.
+
+      p  = exp(s - lse) on unmasked pairs, 0 elsewhere
+      dv = p^T dO,   dp = dO v^T,   ds = p (dp - delta) * scale
+      dk = ds^T q,   dq = ds k,     delta = rowsum(dO * O)
+
+    q/out/do: [B, S, Hq, hd]; k/v: [B, T, Hkv, hd]; lse: [B, Hq, S] f32 ->
+    (dq, dk, dv) in the input dtypes, float32 inside."""
+    return _flash_bwd(q, k, v, out, lse, do, causal, window, lambda x: x)
+
+
+def flash_attention_bwd_tc(q, k, v, out, lse, do, *, causal: bool = True,
+                           window: int = 0):
+    """Rounding model of the flash backward's bfloat16 tensor-core route:
+    ``flash_attention_bwd`` with p rounded to bfloat16 for dv = p^T dO and
+    ds rounded to bfloat16 for dk = ds^T q and dq = ds k, where those
+    kernels round them to feed the tensor cores; ds itself is taken from
+    the unrounded float32 p, as in the kernels.  Nothing on the main path
+    calls it."""
+    return _flash_bwd(q, k, v, out, lse, do, causal, window, _round_bf16)
 
 
 def softmax_xent(h, W, labels):

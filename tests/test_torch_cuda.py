@@ -13,7 +13,10 @@ rtol 2e-4 in float32 and 2e-2 in bfloat16, the selective scan 1e-4, the
 fused cross-entropy 1e-4 (the reference's kernel-vs-oracle bounds,
 tests/test_kernels.py).  The three differentiable ops' gradients on the
 card are held against the same ops on the CPU (their plain versions) at
-1e-4.
+1e-4.  In bfloat16 the flash kernels run on the tensor cores and are also
+held to their rounding models (``ref.attention_lse_tc``,
+``ref.flash_attention_bwd_tc``, which round P and dS to bfloat16 where the
+kernels do) at rtol 2^-7 (one bfloat16 ulp) and atol 4e-3.
 """
 import numpy as np
 import pytest
@@ -92,7 +95,9 @@ def test_cuda_compress_kernel_bitwise_vs_plain(cuda_device, k):
 
 
 # (B, S, T, Hq, Hkv, hd, causal, window, dtype): GQA, window, non-causal,
-# ragged S and T off the 64-row tile, S = 1, S != T, head dims 32-128
+# ragged S and T off the 64-row tile, S = 1, S != T, head dims 32-128, in
+# float32 (CUDA cores) and bfloat16 (tensor cores; hd 48 and 20 exercise
+# the zero-padded head dim)
 FLASH_CASES = [
     (1, 128, 128, 2, 2, 32, True, 0, torch.float32),
     (2, 256, 256, 4, 1, 64, True, 64, torch.float32),
@@ -102,7 +107,17 @@ FLASH_CASES = [
     (1, 77, 100, 4, 2, 48, False, 0, torch.float32),
     (1, 256, 256, 2, 2, 128, True, 128, torch.bfloat16),
     (1, 300, 300, 24, 8, 128, True, 0, torch.bfloat16),
+    (1, 128, 128, 2, 2, 32, True, 0, torch.bfloat16),
+    (1, 77, 100, 4, 2, 48, False, 0, torch.bfloat16),
+    (2, 256, 256, 4, 1, 64, True, 64, torch.bfloat16),
+    (1, 100, 77, 4, 2, 64, True, 0, torch.bfloat16),
+    (2, 1, 1, 4, 2, 128, True, 0, torch.bfloat16),
+    (1, 1000, 1000, 4, 2, 128, True, 0, torch.bfloat16),
+    (1, 200, 200, 8, 8, 128, False, 0, torch.bfloat16),
+    (1, 64, 64, 2, 1, 20, True, 0, torch.bfloat16),
 ]
+# the bf16 route (tensor cores) against its rounding model: one bf16 ulp
+MODEL_RTOL, MODEL_ATOL = 2 ** -7, 4e-3
 
 
 @pytest.mark.cuda
@@ -112,16 +127,25 @@ def test_cuda_flash_attention_kernel_vs_plain(cuda_device, B, S, T, Hq, Hkv,
     q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                for a in attention_case(B, S, T, Hq, Hkv, hd))
     fa = flash_attention.flash_attention_fwd
-    before = fa.launches
+    before, before_tc = fa.launches, fa.tensor_core_launches
     out, lse = fa(q, k, v, causal, window)
     want, want_lse = tref.attention_lse(q, k, v, causal=causal,
                                         window=window)
     torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
     assert fa.launches == before + 1
+    assert fa.tensor_core_launches == before_tc + bf16
     assert out.dtype == dtype and lse.dtype == torch.float32
-    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    assert out.shape == q.shape
+    tol = 2e-2 if bf16 else 2e-5
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(lse, want_lse, rtol=2e-5, atol=2e-5)
+    if bf16:
+        model, model_lse = tref.attention_lse_tc(q, k, v, causal=causal,
+                                                 window=window)
+        torch.testing.assert_close(out.float(), model.float(),
+                                   rtol=MODEL_RTOL, atol=MODEL_ATOL)
+        torch.testing.assert_close(lse, model_lse, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -173,17 +197,25 @@ def test_cuda_flash_attention_bwd_kernel_vs_plain(cuda_device, B, S, T, Hq,
         size=q.shape).astype(np.float32)).to(cuda_device, dtype)
     out, lse = tref.attention_lse(q, k, v, causal=causal, window=window)
     bwd = flash_attention.flash_attention_bwd
-    before = bwd.launches
+    before, before_tc = bwd.launches, bwd.tensor_core_launches
     got = bwd(q, k, v, out, lse, do, causal, window)
     want = tref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                     window=window)
     torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
     assert bwd.launches == before + 1
-    atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (2e-5, 2e-4)
+    assert bwd.tensor_core_launches == before_tc + bf16
+    atol, rtol = (2e-2, 2e-2) if bf16 else (2e-5, 2e-4)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                    atol=atol)
+    if bf16:
+        model = tref.flash_attention_bwd_tc(q, k, v, out, lse, do,
+                                            causal=causal, window=window)
+        for g, m in zip(got, model):
+            torch.testing.assert_close(g.float(), m.float(),
+                                       rtol=MODEL_RTOL, atol=MODEL_ATOL)
 
 
 # (T, d, V, dtype): the reference's cases, a ragged vocabulary, rows off
