@@ -6,9 +6,10 @@
 Phases, each of which must pass (any failure exits non-zero before the
 last line):
 
-1. print the card (nvidia-smi name and power limit) and build the eight
+1. print the card (nvidia-smi name and power limit) and build the nine
    CUDA sources from ``src/repro_torch/kernels/csrc`` with nvcc for
-   sm_90a, one nvcc per source, started together;
+   sm_90a, one nvcc per source, started together, and print ptxas'
+   registers and spill bytes for every kernel;
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time kernel, plain version and, where one
    exists, the library call (median of per-call CUDA-event times, after a
@@ -45,10 +46,16 @@ last line):
      forward; library: the backward of
      ``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``;
      bound: FlashAttention-2's five products per unmasked pair in bf16;
-   - the fused cross-entropy at Llama's loss chunk (T=1,024, d=3,072,
-     V=128,256, bf16), a ragged vocabulary (V=50,257) and float32, within
-     1e-4; library ``logsumexp(h.float() @ W.float()) - gold``; bound:
-     2 T d V flop in bf16;
+   - the fused cross-entropy forward (loss and lse) at Llama's loss chunk
+     (T=1,024, d=3,072, V=128,256, bf16: the tensor-core route), a ragged
+     vocabulary (V=50,257, bf16) and float32 (both the CUDA-core route),
+     within 1e-4; library ``logsumexp(h.float() @ W.float()) - gold``;
+     bound: 2 T d V flop in bf16; then its backward kernels at the chunk
+     (dh, dW) against the plain recompute (``ref.softmax_xent`` under
+     autograd on the same bf16 leaves) within rtol 2^-7 and atol 2^-9
+     max|want| per leaf, the rounding model ``ref.softmax_xent_bwd_tc``
+     printed; no one library call computes it; bound: the three products'
+     3 x 2 T d V flop in bf16;
 3. check the port end to end on small federations: the same server on
    the card and on the CPU, with the same init and minibatch draws, picks
    the same cohorts and workloads; MCLR ends within 2e-5, the MLP with
@@ -77,17 +84,18 @@ last line):
    (``SiloFedSAE``, K=2 silos, max_steps=4, B=1, S=2048, lr 5e-3) for 2
    rounds, with finite losses, L <= H and per local step 56 flash-forward
    calls (28 layers, each recomputed under remat), 28 flash-backward calls
-   (every flash call on the tensor cores, none on the float32 route) and
-   2 fused cross-entropy calls (one per 1,024-position chunk), round
-   wall, ms per step and peak memory; and ``repro_torch.launch.train
-   --arch llama3.2-3b --smoke --steps 5`` (2, 2 and 1 calls per step);
+   and 2 fused cross-entropy forward and 2 backward calls (one per
+   1,024-position chunk), every flash and cross-entropy call on the tensor
+   cores and no plain cross-entropy recompute, round wall, ms per step and
+   peak memory; and ``repro_torch.launch.train --arch llama3.2-3b --smoke
+   --steps 5`` (2, 2, 1 and 1 calls per step, all on the tensor cores);
 5. profile one steady round of each FL path, one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
    host wall, device time and the kernels that take it.
 
-It then prints one JSON line with every kernel's launches (the flash
-kernels' tensor-core launches too), error, times and roofline bound, the
-card's name and power limit, and, last,
+It then prints one JSON line with every kernel's launches (the flash and
+cross-entropy kernels' tensor-core launches too), error, times and
+roofline bound, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
 repo's ``src/`` beside it, it exits non-zero and prints no result.  It
 needs one card with ~70 GB free (the full-width silo round holds the
@@ -112,6 +120,9 @@ SCAN_TOL = 1e-4            # the reference's selective-scan kernel bound
 SERVE_TOL = 1e-4           # float32 logits, card vs CPU
 BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}  # atol, rtol
 XENT_TOL = 1e-4            # the reference's fused-xent bound
+# the bf16 backward kernels against the plain recompute, per leaf: rtol one
+# bf16 ulp, atol 2^-9 of the leaf's largest magnitude
+XENT_BWD_RTOL, XENT_BWD_ATOL = 2.0 ** -7, 2.0 ** -9
 TRAIN_TOL = 1e-4           # float32 losses, grads and silo params, card/CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
@@ -127,18 +138,19 @@ def nvidia_smi() -> str:
 
 
 def kernel_name(sym: str) -> str:
-    """A kernel's name (and its first integer template argument) from its
+    """A kernel's name (and its first int or bool template argument) from its
     mangled symbol: the last <length><identifier> of the _ZN...
     nested name."""
     i, name = sym.find("_ZN") + 3, sym[:48]
     if i < 3:
-        return name
+        m = re.match(r"_Z(\d+)", sym)      # a function at namespace scope
+        return sym[m.end():m.end() + int(m.group(1))] if m else name
     while i < len(sym) and sym[i].isdigit():
         j = i
         while sym[j].isdigit():
             j += 1
         name, i = sym[j:j + int(sym[i:j])], j + int(sym[i:j])
-    t = re.match(r"I\w*?Li(\d+)E", sym[i:])
+    t = re.match(r"I\w*?L[ib](\d+)E", sym[i:])
     return f"{name}<{t.group(1)}>" if t else name
 
 
@@ -409,36 +421,80 @@ def check_flash_bwd(torch, fa, ref, gen, dev):
             "rounding_model_max_abs_err": model_err}
 
 
-def check_xent(torch, fx, ref, gen, dev):
-    """Phase 2: the fused cross-entropy against its plain version at
-    Llama-3.2-3B's loss chunk, then times."""
-    cases = [  # (label, T, d, V, dtype)
-        ("llama chunk bf16", 1024, 3072, 128256, torch.bfloat16),
-        ("ragged V=50257 bf16", 256, 3072, 50257, torch.bfloat16),
-        ("float32", 300, 256, 5000, torch.float32),
+def check_xent(torch, fx, fx_lse, bx, ops, ref, gen, dev):
+    """Phase 2: the fused cross-entropy forward against its plain version
+    at Llama-3.2-3B's loss chunk (tensor cores), a ragged vocabulary and
+    float32 (CUDA cores), then its backward kernels at the chunk against the
+    plain recompute; then times.  Returns the forward's and the backward's
+    JSON fields (launches filled in later)."""
+    cases = [  # (label, T, d, V, dtype, tensor cores)
+        ("llama chunk bf16", 1024, 3072, 128256, torch.bfloat16, True),
+        ("ragged V=50257 bf16", 256, 3072, 50257, torch.bfloat16, False),
+        ("float32", 300, 256, 5000, torch.float32, False),
     ]
     err = 0.0
-    for label, T, d, V, dtype in cases:
+    for label, T, d, V, dtype, tc in cases:
         h = torch.randn((T, d), generator=gen, device=dev).to(dtype)
         W = (torch.randn((d, V), generator=gen, device=dev)
              * d ** -0.5).to(dtype)
         labels = torch.randint(0, V, (T,), generator=gen, device=dev,
                                dtype=torch.int32)
-        got = fx(h, W, labels)
-        want = ref.softmax_xent(h, W, labels)
+        tc_before = fx.tensor_core_launches
+        got, lse = fx_lse(h, W, labels)
+        want, want_lse = ref.softmax_xent_lse(h, W, labels)
         torch.cuda.synchronize()
+        if fx.tensor_core_launches != tc_before + tc:
+            raise RuntimeError(f"xent forward took the wrong route ({label})")
         e = float((got - want).abs().max())
-        print(f"fused_softmax_xent_fwd {label} T={T} d={d} V={V}: max_abs_err "
-              f"{e:.3e} (tol {XENT_TOL})", flush=True)
-        if not torch.isfinite(got).all():
+        e_lse = float((lse - want_lse).abs().max())
+        print(f"fused_softmax_xent_fwd {label} T={T} d={d} V={V} "
+              f"({'tensor' if tc else 'CUDA'} cores): max_abs_err {e:.3e}, "
+              f"lse {e_lse:.3e} (tol {XENT_TOL})", flush=True)
+        if not (torch.isfinite(got).all() and torch.isfinite(lse).all()):
             raise RuntimeError(f"xent kernel: non-finite ({label})")
-        if not torch.allclose(got, want, rtol=XENT_TOL, atol=XENT_TOL):
+        if not (torch.allclose(got, want, rtol=XENT_TOL, atol=XENT_TOL)
+                and torch.allclose(lse, want_lse, rtol=XENT_TOL,
+                                   atol=XENT_TOL)):
             raise RuntimeError(f"xent kernel differs from plain ({label})")
         err = max(err, e)
         if label.startswith("llama"):
-            main = (h, W, labels)
-    h, W, labels = main
+            main = (h, W, labels, lse)
+        del h, W
+    h, W, labels, lse = main
     (T, d), V = h.shape, W.shape[1]
+    # the backward at the chunk: a loss cotangent like the training step's
+    # (mask / count) with some spread
+    g = (torch.rand((T,), generator=gen, device=dev) + 0.5) / 2048
+    tc_before = bx.tensor_core_launches
+    dh, dW = bx(h, W, labels, lse, g)
+    want = ops._recompute_vjp(ref.softmax_xent, (h, W, labels), (g,))[:2]
+    torch.cuda.synchronize()
+    if bx.tensor_core_launches != tc_before + 1:
+        raise RuntimeError("xent backward did not take the tensor cores")
+    b_err = []
+    for name, got_g, want_g in (("dh", dh, want[0]), ("dW", dW, want[1])):
+        if got_g.dtype != torch.bfloat16 or not torch.isfinite(got_g).all():
+            raise RuntimeError(f"xent backward: {name} {got_g.dtype}, or "
+                               f"non-finite")
+        scale = float(want_g.float().abs().max())
+        e = float((got_g.float() - want_g.float()).abs().max())
+        ok = torch.allclose(got_g.float(), want_g.float(),
+                            rtol=XENT_BWD_RTOL, atol=XENT_BWD_ATOL * scale)
+        print(f"fused_softmax_xent_bwd llama chunk {name}: max_abs_err "
+              f"{e:.3e} (max|want| {scale:.3e}; rtol 2^-7, atol 2^-9 "
+              f"max|want|)", flush=True)
+        if not ok:
+            raise RuntimeError(f"xent backward differs from the plain "
+                               f"recompute ({name})")
+        b_err.append(e)
+    del want
+    model = ref.softmax_xent_bwd_tc(h, W, labels, lse, g)
+    m_err = [float((a.float() - b.float()).abs().max())
+             for a, b in zip((dh, dW), model)]
+    print(f"fused_softmax_xent_bwd llama chunk: rounding model "
+          f"(ref.softmax_xent_bwd_tc) dh/dW max_abs_err {m_err}", flush=True)
+    del model, dh, dW
+    torch.cuda.empty_cache()
 
     def library():
         logits = h.float() @ W.float()
@@ -449,15 +505,37 @@ def check_xent(torch, fx, ref, gen, dev):
     ms = time_ms(torch, lambda: fx(h, W, labels), 10)
     plain = time_ms(torch, lambda: ref.softmax_xent(h, W, labels), 5)
     lib = time_ms(torch, library, 5)
+    b_ms = time_ms(torch, lambda: bx(h, W, labels, lse, g), 10)
+    b_plain = time_ms(torch, lambda: ops._recompute_vjp(
+        ref.softmax_xent, (h, W, labels), (g,)), 3)
+    parts = ("xent_dlogits_tc", "xent_grad_gemm_tc_kernel<true>",
+             "xent_grad_gemm_tc_kernel<false>")
+    split_ms = profiled(torch, lambda: bx(h, W, labels, lse, g), parts)[3]
     flops = 2 * T * d * V
     nbytes = 2 * (h.numel() + W.numel()) + 4 * T + 4 * T
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    print(f"fused_softmax_xent_fwd T={T} d={d} V={V} bf16: kernel {ms:.4f} "
-          f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain:.4f} ms, "
-          f"logsumexp(h.float() @ W.float()) - gold {lib:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B)", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+    f_bound, f_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    # backward: the logits, dh and dW products; reads h, W, labels, lse and
+    # g, writes dh and dW
+    b_flops = 3 * flops
+    b_bytes = 4 * (h.numel() + W.numel()) + 12 * T
+    b_bound, b_by = bound(b_bytes, b_flops, BF16_FLOPS_PER_S)
+    print(f"fused_softmax_xent_fwd T={T} d={d} V={V} bf16 (tensor cores): "
+          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+          f"{plain:.4f} ms, logsumexp(h.float() @ W.float()) - gold "
+          f"{lib:.4f} ms, bound {f_bound:.4f} ms ({f_by}: {flops} flop, "
+          f"{nbytes} B)", flush=True)
+    print(f"fused_softmax_xent_bwd T={T} d={d} V={V} bf16 (tensor cores): "
+          f"kernels {b_ms:.4f} ms ({b_flops / b_ms / 1e9:.1f} TFLOP/s of "
+          f"useful work), plain recompute {b_plain:.4f} ms, bound "
+          f"{b_bound:.4f} ms ({b_by}: {b_flops} flop, {b_bytes} B); one "
+          f"call profiled: dlogits {split_ms[0]:.4f} ms, dh "
+          f"{split_ms[1]:.4f} ms, dW {split_ms[2]:.4f} ms", flush=True)
+    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "bound_ms": f_bound, "bound_by": f_by, "library_ms": lib},
+            {"max_abs_err": max(b_err), "ms": b_ms, "plain_ms": b_plain,
+             "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
+             "rounding_model_max_abs_err": max(m_err),
+             "profiled_ms": dict(zip(("dlogits", "dh", "dW"), split_ms))})
 
 
 def silo_batches(torch, cfg, K, max_steps, B, S, ri, device):
@@ -524,13 +602,14 @@ def train_card_vs_cpu(torch, np, get_config, build_model, arch):
           f"{TRAIN_TOL})", flush=True)
 
 
-def silo_path(torch, np, get_config, build_model, counted, rounds=2):
+def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
     """Phase 4 (and 5): cross-silo FedSAE training Llama-3.2-3B at full
     width and depth, K=2 silos, B=1, S=2048.  Every kernel's count is set
     to 0 just before the counted rounds and read just after; each local
     step must launch 56 flash forwards (28 layers, each recomputed under
-    remat), 28 flash backwards and 2 cross-entropy chunks, every flash call
-    on the tensor cores."""
+    remat), 28 flash backwards and 2 cross-entropy chunks forward and
+    backward, every flash and cross-entropy call on the tensor cores, and
+    the plain ``ref.softmax_xent`` recompute must not run."""
     from repro_torch.core.silo import SiloFedSAE
     from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config("llama3.2-3b")
@@ -546,17 +625,27 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
     sizes = np.asarray(ri.integers(100, 1000, K))
     all_batches = [silo_batches(torch, cfg, K, max_steps, B, S, ri, "cuda")
                    for _ in range(rounds)]
+    plain_xent, recomputes = ref.softmax_xent, []
+
+    def counted_plain_xent(*a):
+        recomputes.append(1)
+        return plain_xent(*a)
+
+    ref.softmax_xent = counted_plain_xent
     reset_counts(counted)
     rounds_out = []
-    for r in range(rounds):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = fed.run_round(all_batches[r], sizes)
-        torch.cuda.synchronize()
-        rounds_out.append(dict(wall_s=time.perf_counter() - t0,
-                               n_steps=fed.last_n_steps.tolist(),
-                               loss=stats["loss"][-1],
-                               L=fed.L.tolist(), H=fed.H.tolist()))
+    try:
+        for r in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = fed.run_round(all_batches[r], sizes)
+            torch.cuda.synchronize()
+            rounds_out.append(dict(wall_s=time.perf_counter() - t0,
+                                   n_steps=fed.last_n_steps.tolist(),
+                                   loss=stats["loss"][-1],
+                                   L=fed.L.tolist(), H=fed.H.tolist()))
+    finally:
+        ref.softmax_xent = plain_xent
     launches = {k: fn.launches for k, fn in counted.items()}
     tc_launches = tensor_core_counts(counted)
     steps = sum(sum(r["n_steps"]) for r in rounds_out)
@@ -571,17 +660,19 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
             raise RuntimeError("silo rounds: non-finite global params")
     want = {"flash_attention_fwd": 56 * steps,
             "flash_attention_bwd": 28 * steps,
-            "fused_softmax_xent_fwd": 2 * steps}
+            "fused_softmax_xent_fwd": 2 * steps,
+            "fused_softmax_xent_bwd": 2 * steps}
     if {k: launches[k] for k in want} != want or any(
             launches[k] for k in launches if k not in want):
         raise RuntimeError(f"silo path launched {launches} in {steps} "
                            f"steps, wanted {want}")
-    # every flash call of the bf16 path on the tensor cores, none on the
-    # float32 route
+    # every flash and cross-entropy call of the bf16 path on the tensor
+    # cores, none on the float32 or CUDA-core routes, and no plain recompute
     want_tc = {k: want[k] for k in tc_launches}
-    if tc_launches != want_tc:
-        raise RuntimeError(f"silo path: tensor-core flash launches "
-                           f"{tc_launches}, wanted {want_tc}")
+    if tc_launches != want_tc or recomputes:
+        raise RuntimeError(f"silo path: tensor-core launches {tc_launches}, "
+                           f"wanted {want_tc}; {len(recomputes)} plain "
+                           f"cross-entropy recomputes")
     walls = [r["wall_s"] for r in rounds_out]
     summary = dict(params=n_params, init_s=init_s, silos=K,
                    max_steps=max_steps, batch=B, seq=S, rounds=rounds_out,
@@ -609,12 +700,19 @@ def silo_path(torch, np, get_config, build_model, counted, rounds=2):
     train_silo(row, fed.params, one, 1)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
-    wall, device, top, flash = profiled(
-        torch, lambda: train_silo(row, fed.params, one, 1))
+    before = torch.cuda.memory_stats()
+    wall, device, top, (flash, xent) = profiled(
+        torch, lambda: train_silo(row, fed.params, one, 1),
+        ("flash_", "xent_"))
+    after = torch.cuda.memory_stats()
     summary["step_ms"] = step_ms
-    summary["profile"] = dict(wall_ms=wall, device_ms=device,
-                              device_busy=device / wall,
-                              flash_kernels_ms=flash, top_kernels_ms=top)
+    summary["profile"] = dict(
+        wall_ms=wall, device_ms=device, device_busy=device / wall,
+        device_share_of_unprofiled_step=device / step_ms,
+        flash_kernels_ms=flash, xent_kernels_ms=xent, top_kernels_ms=top,
+        alloc_retries=after["num_alloc_retries"]
+        - before["num_alloc_retries"],
+        cuda_mallocs=after["num_device_alloc"] - before["num_device_alloc"])
     print(f"profile silo llama3.2-3b one local step (B=1, S=2048): step "
           f"{step_ms:.1f} ms unprofiled; {json.dumps(summary['profile'])}",
           flush=True)
@@ -649,13 +747,14 @@ def serve_card_vs_cpu(torch, get_config, build_model, serve, arch):
           f"max_abs_err {err:.3e} (tol {SERVE_TOL})", flush=True)
 
 
-def profiled(torch, fn):
-    """(host wall ms, device ms, top kernels, flash ms) of one call of
+def profiled(torch, fn, part="flash_"):
+    """(host wall ms, device ms, top kernels, part ms) of one call of
     ``fn`` under torch.profiler, ending in a device sync.  Device time sums
     the events that ran on the card (kernels, copies), each once: the CPU
     op that launched a kernel reports the same time again, so CPU events
-    are left out.  Flash ms sums the flash-attention kernels (forward,
-    backward and the backward's delta kernel)."""
+    are left out.  Part ms sums the kernels whose name holds ``part`` (a
+    string or a tuple of them; by default the flash-attention kernels:
+    forward, backward and the backward's delta kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -668,8 +767,10 @@ def profiled(torch, fn):
               if e.device_type != DeviceType.CPU]
     device = sum(t for _, t in events) / 1e3
     top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
-    flash = sum(t for k, t in events if "flash_" in k) / 1e3
-    return wall, device, [(k[:60], t / 1e3) for k, t in top[:6]], flash
+    parts = (part,) if isinstance(part, str) else part
+    part_ms = [sum(t for k, t in events if p in k) / 1e3 for p in parts]
+    return (wall, device, [(k[:60], t / 1e3) for k, t in top[:6]],
+            part_ms[0] if isinstance(part, str) else part_ms)
 
 
 def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
@@ -785,8 +886,8 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import (build, fed_compress, fed_gather,
                                      fed_local_sgd, fed_local_sgd_dense,
-                                     flash_attention, fused_xent, ref,
-                                     selective_scan)
+                                     flash_attention, fused_xent, ops,
+                                     ref, selective_scan)
     from repro_torch.launch import serve, train
     from repro_torch.models.api import build_model
 
@@ -1002,10 +1103,13 @@ def main() -> int:
     ss = selective_scan.selective_scan_fwd
     fa_bwd = flash_attention.flash_attention_bwd
     fx = fused_xent.fused_softmax_xent_fwd
+    fx_bwd = fused_xent.fused_softmax_xent_bwd
     flash_row = check_flash(torch, fa, ref, gen, dev)
     scan_row = check_scan(torch, ss, ref, gen, dev)
     bwd_row = check_flash_bwd(torch, fa_bwd, ref, gen, dev)
-    xent_row = check_xent(torch, fx, ref, gen, dev)
+    xent_row, xent_bwd_row = check_xent(
+        torch, fx, fused_xent.fused_softmax_xent_fwd_lse, fx_bwd, ops, ref,
+        gen, dev)
     torch.cuda.empty_cache()
 
     # -- 3. end to end on a small federation: card vs CPU -----------------
@@ -1085,7 +1189,8 @@ def main() -> int:
                "fed_local_sgd_dense": dense,
                "fed_compress_topk_q8": compress,
                "flash_attention_fwd": fa, "selective_scan_fwd": ss,
-               "flash_attention_bwd": fa_bwd, "fused_softmax_xent_fwd": fx}
+               "flash_attention_bwd": fa_bwd, "fused_softmax_xent_fwd": fx,
+               "fused_softmax_xent_bwd": fx_bwd}
     summary, path_launches = {}, {}
 
     def drive(label, rounds, **cfg):
@@ -1156,7 +1261,8 @@ def main() -> int:
     want = {"fed_cohort_gather": 5, "fed_local_sgd_mclr": 0,
             "fed_local_sgd_dense": 5, "fed_compress_topk_q8": 5,
             "flash_attention_fwd": 0, "selective_scan_fwd": 0,
-            "flash_attention_bwd": 0, "fused_softmax_xent_fwd": 0}
+            "flash_attention_bwd": 0, "fused_softmax_xent_fwd": 0,
+            "fused_softmax_xent_bwd": 0}
     if path_launches["mlp_topk_q8"] != want:
         raise RuntimeError(f"MLP + topk_q8 path launched "
                            f"{path_launches['mlp_topk_q8']}, not {want}")
@@ -1193,7 +1299,7 @@ def main() -> int:
     # this slice's path: cross-silo FedSAE training at full width, then the
     # centralized training CLI on the smoke config
     training = {"silo_llama3.2-3b": silo_path(torch, np, get_config,
-                                              build_model, counted)}
+                                              build_model, counted, ref)}
     path_launches["silo_llama3.2-3b"] = \
         training["silo_llama3.2-3b"]["launches"]
     torch.cuda.empty_cache()
@@ -1205,10 +1311,14 @@ def main() -> int:
     cli_launches = {k: fn.launches for k, fn in counted.items()}
     cli_tc = tensor_core_counts(counted)
     want = dict({k: 0 for k in counted}, flash_attention_fwd=10,
-                flash_attention_bwd=10, fused_softmax_xent_fwd=5)
-    if cli_launches != want or not np.isfinite(cli_losses).all():
+                flash_attention_bwd=10, fused_softmax_xent_fwd=5,
+                fused_softmax_xent_bwd=5)
+    want_tc = {k: want[k] for k in cli_tc}      # bf16: all tensor cores
+    if (cli_launches != want or cli_tc != want_tc
+            or not np.isfinite(cli_losses).all()):
         raise RuntimeError(f"launch.train smoke: losses {cli_losses}, "
-                           f"launched {cli_launches}, wanted {want}")
+                           f"launched {cli_launches} (tensor cores "
+                           f"{cli_tc}), wanted {want}")
     training["train_cli_smoke"] = dict(
         losses=cli_losses, wall_s=time.perf_counter() - t0,
         launches=cli_launches, tensor_core_launches=cli_tc)
@@ -1298,7 +1408,15 @@ def main() -> int:
         {"name": "fused_softmax_xent_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_xent.cu",
          "replaces": "src/repro/kernels/fused_xent.py:50",
-         "launches": launches["fused_softmax_xent_fwd"], **xent_row},
+         "launches": launches["fused_softmax_xent_fwd"],
+         "tensor_core_launches": tc_total["fused_softmax_xent_fwd"],
+         **xent_row},
+        {"name": "fused_softmax_xent_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_xent_bwd.cu",
+         "replaces": "src/repro/kernels/ops.py:95",
+         "launches": launches["fused_softmax_xent_bwd"],
+         "tensor_core_launches": tc_total["fused_softmax_xent_bwd"],
+         **xent_bwd_row},
     ]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"main_path": summary, "path_launches": path_launches,

@@ -22,10 +22,18 @@ top-k sparsified and int8 quantised with error feedback
 (``core.compression``); the server keeps the [N, P] float32 residual on
 its device and replaces it with each round's output.
 
-Not ported yet, and refused with a ValueError naming the ROADMAP item when
-set to anything but the default: the scan driver, device rng streams,
-mesh sharding, capacity compaction and prefetch (A12), fault injection,
-the upload screen and quarantine (A9).
+``ServerConfig`` has every field of the reference's, each at the
+reference's default.  ``backend`` takes "xla" and "pallas" and both run the
+same code: the port dispatches by device (the hand-written kernels on a
+CUDA tensor, their plain versions on a CPU one), not by backend.  Not
+ported yet, and refused with a ValueError naming the ROADMAP item when set
+to anything but the default: the robust aggregators and their knobs (A6),
+fault injection, the upload screen and quarantine (A9), telemetry sinks
+(``FedSAEServer(sink=, telemetry=)``, A10), checkpoints
+(``run(checkpoint_dir=, checkpoint_every=, resume=)``, A11), the scan
+driver, device rng streams, mesh sharding, capacity compaction, prefetch
+and the fused generic walk (A12), and the grouped sub-configs
+``compute=``, ``comm=`` and ``robustness=`` (A15).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ import torch
 from repro_torch.convert import params_from_reference
 from repro_torch.core import compression as comp
 from repro_torch.core import prediction as pred
+from repro_torch.core.aggregation import NOT_PORTED as ROBUST_AGGREGATORS
 from repro_torch.core.aggregation import get_aggregator
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.heterogeneity import HeterogeneitySim
@@ -57,16 +66,42 @@ ALGOS = ("ira", "fassa", "fedavg", "fedprox", "oracle")
 HISTORY_KEYS = ("acc", "test_loss", "train_loss", "dropout", "assigned",
                 "uploaded", "true_workload", "overflowed", "dropped")
 
+_A6 = "A6 (rest of the aggregation registry)"
+_A9 = "A9 (faults + screen + quarantine)"
+_A12 = "A12 (device-resident multi-round driver)"
+
 #: un-ported ServerConfig features: field -> (default, ROADMAP item)
 _NOT_PORTED = {
-    "driver": ("host", "A12 (device-resident multi-round driver)"),
-    "rng_impl": ("numpy", "A12 (device rng streams)"),
+    "trim_ratio": (0.1, _A6),
+    "agg_weighted": (False, _A6),
+    "n_byzantine": (0, _A6),
+    "driver": ("host", _A12),
+    "block_size": (16, _A12),
     "mesh_shards": (0, "A12 (client-axis sharding)"),
     "cohort_capacity": ("full", "A12 (capacity compaction)"),
     "prefetch": ("off", "A12 (double-buffered prefetch)"),
-    "faults": (None, "A9 (faults + screen + quarantine)"),
-    "quarantine_threshold": (0.0, "A9 (faults + screen + quarantine)"),
+    "fused_generic": (True, _A12),
+    "faults": (None, _A9),
+    "screen_norm_bound": (1e4, _A9),
+    "quarantine_threshold": (0.0, _A9),
+    "quarantine_rounds": (16, _A9),
+    "quarantine_min_tries": (3, _A9),
+    "compute": (None, "A15 (grouped config surface)"),
+    "comm": (None, "A15 (grouped config surface)"),
+    "robustness": (None, "A15 (grouped config surface)"),
 }
+#: values the port accepts for fields whose other values are not ported
+_ACCEPTED = {
+    "rng_impl": (("", "numpy"), "A12 (device rng streams)"),
+    "upload_screen": (("auto", "off"), _A9),
+}
+BACKENDS = ("xla", "pallas")
+
+
+def _refuse(what: str, item: str):
+    """The ValueError every unported option raises: it names the option
+    and its ROADMAP item."""
+    return ValueError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass
@@ -86,10 +121,13 @@ class ServerConfig:
     al_rounds: int = 0           # use AL selection for the first n rounds
     beta: float = 0.01           # AL softmax scale
     prox_mu: float = 0.1         # FedProx proximal weight
-    aggregator: str = "fedavg"   # fedavg | fedprox
+    aggregator: str = "fedavg"   # fedavg | fedprox (the robust ones: A6)
     selection: str = "random"    # post-AL strategy (core.selection)
     sampling: str = "shuffle"    # shuffle (paper default) | iid (fused
                                  # MCLR / MLP local-SGD kernels)
+    backend: str = "xla"         # xla | pallas: the same code either way
+                                 # (kernels on a CUDA device, their plain
+                                 # versions on the CPU)
     seed: int = 0
     selection_seed: int = 1234   # fixed across frameworks (paper §IV-A)
     eval_every: int = 1
@@ -99,26 +137,40 @@ class ServerConfig:
     topk_frac: float = 0.1       # kept-coordinate fraction for "topk_q8"
     device: Optional[str] = None  # None = cuda; "cpu" on request
     # reference features not ported yet (must stay at their defaults)
+    trim_ratio: float = 0.1
+    agg_weighted: bool = False
+    n_byzantine: int = 0
     driver: str = "host"
-    rng_impl: str = "numpy"
+    block_size: int = 16
+    rng_impl: str = ""           # "" | numpy (the host driver's streams)
     mesh_shards: int = 0
     cohort_capacity: object = "full"
     prefetch: str = "off"
+    fused_generic: bool = True
     faults: object = None
     upload_screen: str = "auto"  # auto | off ("on" is ROADMAP A9)
+    screen_norm_bound: float = 1e4
     quarantine_threshold: float = 0.0
+    quarantine_rounds: int = 16
+    quarantine_min_tries: int = 3
+    compute: object = None
+    comm: object = None
+    robustness: object = None
 
     def __post_init__(self):
         for name, (default, item) in _NOT_PORTED.items():
             value = getattr(self, name)
-            if value != default and not (name == "rng_impl" and value == ""):
-                raise ValueError(
-                    f"ServerConfig.{name}={value!r} is not ported yet "
-                    f"(ROADMAP {item}); the port runs the host driver")
-        if self.upload_screen not in ("auto", "off"):
-            raise ValueError(
-                f"ServerConfig.upload_screen={self.upload_screen!r} is not "
-                "ported yet (ROADMAP A9 (faults + screen + quarantine))")
+            if value is not default and value != default:
+                raise _refuse(f"ServerConfig.{name}={value!r}", item)
+        for name, (ok, item) in _ACCEPTED.items():
+            value = getattr(self, name)
+            if value not in ok:
+                raise _refuse(f"ServerConfig.{name}={value!r}", item)
+        if self.aggregator in ROBUST_AGGREGATORS:
+            raise _refuse(f"ServerConfig.aggregator={self.aggregator!r}", _A6)
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; choose "
+                             f"from {BACKENDS}")
         if self.algo not in ALGOS:
             raise ValueError(f"unknown algo {self.algo!r}; choose from "
                              f"{ALGOS}")
@@ -137,7 +189,12 @@ class FedSAEServer:
                  cfg: Optional[ServerConfig] = None,
                  het: Optional[HeterogeneitySim] = None,
                  init_params=None,
-                 data_draws: Optional[Callable] = None):
+                 data_draws: Optional[Callable] = None,
+                 sink=None, telemetry: Optional[bool] = None):
+        if sink is not None or telemetry is not None:
+            raise _refuse(f"FedSAEServer(sink={sink!r}, "
+                         f"telemetry={telemetry!r})",
+                         "A10 (telemetry)")
         cfg = cfg if cfg is not None else ServerConfig()
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -288,10 +345,19 @@ class FedSAEServer:
             "true_workload": float(np.mean(E_true)),
         }
 
-    def run(self, rounds: Optional[int] = None, verbose: bool = False):
+    def run(self, rounds: Optional[int] = None, verbose: bool = False,
+            checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
+            resume: bool = False):
         """Run the rounds and return the history (dict of lists keyed by
         ``HISTORY_KEYS``, NaN where a round has no value).  Each round's
-        host wall time, eval included, goes to ``wall_times``."""
+        host wall time, eval included, goes to ``wall_times``.  The
+        reference's checkpoint keywords are accepted at their defaults
+        only (ROADMAP A11)."""
+        if checkpoint_dir is not None or checkpoint_every or resume:
+            raise _refuse(f"FedSAEServer.run(checkpoint_dir="
+                         f"{checkpoint_dir!r}, checkpoint_every="
+                         f"{checkpoint_every!r}, resume={resume!r})",
+                         "A11 (checkpoints)")
         T = rounds or self.cfg.rounds
         for t in range(T):
             start = time.perf_counter()

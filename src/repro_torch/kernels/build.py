@@ -8,8 +8,9 @@ seconds):
          -shared -Xcompiler -fPIC -o <lib>.so csrc/<name>.cu
 
 Libraries go to ``_build/`` beside this file (listed in ``.gitignore``),
-named by a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is reused.  ptxas' report (registers, shared memory,
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+reused.  ptxas' report (registers, shared memory,
 spills) is kept beside each library as ``<lib>.log``.  A failed build raises
 with nvcc's stderr.
 """
@@ -68,8 +69,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_bwd_error_string": ([I], ctypes.c_char_p),
     },
     "fused_xent": {
-        "fused_xent_fwd_launch": ([P] * 5 + [I] * 5 + [P], I),
+        "fused_xent_fwd_launch": ([P] * 6 + [I] * 6 + [P], I),
         "fused_xent_fwd_error_string": ([I], ctypes.c_char_p),
+    },
+    "fused_xent_bwd": {
+        "fused_xent_bwd_launch": ([P] * 10 + [I] * 4 + [P], I),
+        "fused_xent_bwd_error_string": ([I], ctypes.c_char_p),
     },
     "selective_scan": {
         "selective_scan_fwd_launch": ([P] * 8 + [I] * 4 + [P], I),
@@ -93,8 +98,11 @@ def source_path(name: str) -> str:
 
 def library_path(name: str) -> str:
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC, f)
+                                       for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

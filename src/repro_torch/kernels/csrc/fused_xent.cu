@@ -36,11 +36,35 @@
 // - the ragged last vocabulary tile is masked (its columns take no part
 //   in m, l or gold), so any V works; the TPU kernel asserts V % 512 == 0,
 //   which Llama's V = 128,256 does not meet.
+// That kernel takes float32, and bfloat16 that the tensor-core route below
+// cannot take (d or V not a multiple of 8, or a pointer not 16-byte
+// aligned).
+//
+// bfloat16 with d % 8 == 0, V % 8 == 0 and 16-byte aligned pointers (TMA's
+// stride and address rules) takes the tensor cores instead
+// (xent_partial_tc_kernel below, the tile mainloop of xent_tc.cuh): the
+// same grid of (128-row tile, vocabulary split), each block walking its
+// 128-column vocabulary tiles, h tiles read K-major and W tiles MN-major by
+// TMA into a 4-stage ring, S = h W by wgmma into float32 accumulators.
+// bf16 x bf16 products are exact in float32, so this computes what the
+// reference computes (both operands upcast to float32) up to the order of
+// summation.  The online (m, l, gold) update runs on the accumulator
+// fragments: each thread holds 2 rows x 32 columns of a tile, and the four
+// lanes of a quad, which share a row, reduce the tile's max with shuffles;
+// l stays a per-lane partial sum under the row's common max until the end.
+// W is never padded or copied: the ragged last vocabulary tile loads zeros
+// past V, and those columns are masked.
+//
+// Both routes end in the merge kernel, which also writes each row's
+// log-sum-exp lse = M + log(max(L, 1e-30)) in float32 when asked (the
+// backward, fused_xent_bwd.cu, starts from it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "xent_tc.cuh"
 
 namespace {
 
@@ -190,7 +214,8 @@ xent_partial_kernel(const T* __restrict__ h, const T* __restrict__ W,
 __global__ void xent_merge_kernel(const float* __restrict__ part_m,
                                   const float* __restrict__ part_l,
                                   const float* __restrict__ part_g,
-                                  float* __restrict__ loss, int T_rows,
+                                  float* __restrict__ loss,
+                                  float* __restrict__ lse, int T_rows,
                                   int n_split) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= T_rows) return;
@@ -203,12 +228,14 @@ __global__ void xent_merge_kernel(const float* __restrict__ part_m,
     L += part_l[at] * expf(part_m[at] - M);
     g += part_g[at];
   }
-  loss[r] = M + logf(fmaxf(L, 1e-30f)) - g;
+  const float lse_r = M + logf(fmaxf(L, 1e-30f));
+  loss[r] = lse_r - g;
+  if (lse) lse[r] = lse_r;
 }
 
 template <typename T>
 int launch(const void* h, const void* W, const void* labels, void* loss,
-           void* part, int T_rows, int d, int V, int n_split,
+           void* lse, void* part, int T_rows, int d, int V, int n_split,
            cudaStream_t stream) {
   float* pm = (float*)part;
   float* pl = pm + (long long)n_split * T_rows;
@@ -220,32 +247,178 @@ int launch(const void* h, const void* W, const void* labels, void* loss,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   xent_merge_kernel<<<(T_rows + 255) / 256, 256, 0, stream>>>(
-      pm, pl, pg, (float*)loss, T_rows, n_split);
+      pm, pl, pg, (float*)loss, (float*)lse, T_rows, n_split);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16 route: the tensor cores (wgmma + TMA)
+// ---------------------------------------------------------------------------
+
+namespace xtc {
+
+constexpr int FWD_NS = 4;       // stages of the ring: 128 KB
+
+// Block (128-row tile, vocabulary split), the CUDA-core kernel's grid.
+__global__ void __launch_bounds__(THREADS, 1)
+xent_partial_tc_kernel(const __grid_constant__ CUtensorMap hmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const int* __restrict__ labels,
+                       float* __restrict__ part_m, float* __restrict__ part_l,
+                       float* __restrict__ part_g, int T_rows, int d, int V,
+                       int n_split) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = ring_base(smem_raw);
+  ring_init<FWD_NS>(base);
+  const int m0 = blockIdx.x * BM;
+  const int split = blockIdx.y;
+  const int n_vt = (V + BN - 1) / BN;
+  // an even share of the vocabulary tiles; every split gets >= 1 tile
+  const int vt_begin = (int)((long long)n_vt * split / n_split);
+  const int vt_end = (int)((long long)n_vt * (split + 1) / n_split);
+  const int n_k = (d + BK - 1) / BK;
+  const int tid = threadIdx.x;
+  int it = 0;
+  if (tid >= 256) {                             // producer warp
+    if (tid == 256)
+      for (int vt = vt_begin; vt < vt_end; ++vt)
+        produce<false, FWD_NS>(base, &hmap, &wmap, m0, vt * BN, V, n_k, it);
+    return;
+  }
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = m0 + 64 * wg + 16 * warp + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  int lab[2];
+  float m_run[2], l_run[2], gold[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lab[i] = r0 + 8 * i < T_rows ? labels[r0 + 8 * i] : -1;
+    m_run[i] = -1e30f;
+    l_run[i] = 0.f;
+    gold[i] = 0.f;
+  }
+  float acc[2][32];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[j][x] = 0.f;
+
+  for (int vt = vt_begin; vt < vt_end; ++vt) {
+    consume<false, FWD_NS>(base, acc, wg, lane, n_k, false, it);
+    const int v0 = vt * BN;
+    const bool ragged = v0 + BN > V;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = v0 + 64 * j + 8 * n + cq + e;
+            const float x = acc[j][4 * n + 2 * i + e];
+            if (!ragged || c < V) {
+              mx = fmaxf(mx, x);
+              if (c == lab[i]) gold[i] += x;
+            }
+          }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[i], mx);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = v0 + 64 * j + 8 * n + cq + e;
+            if (!ragged || c < V) ps += expf(acc[j][4 * n + 2 * i + e] - m_new);
+          }
+      l_run[i] = l_run[i] * expf(m_run[i] - m_new) + ps;
+      m_run[i] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i], g = gold[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    g += __shfl_xor_sync(0xffffffffu, g, 1);
+    g += __shfl_xor_sync(0xffffffffu, g, 2);
+    const int r = r0 + 8 * i;
+    if ((lane & 3) == 0 && r < T_rows) {
+      const long long at = (long long)split * T_rows + r;
+      part_m[at] = m_run[i];
+      part_l[at] = l;
+      part_g[at] = g;
+    }
+  }
+}
+
+int launch(const void* h, const void* W, const void* labels, void* loss,
+           void* lse, void* part, int T_rows, int d, int V, int n_split,
+           cudaStream_t stream) {
+  CUtensorMap hmap, wmap;
+  int err = make_map_2d(&hmap, h, T_rows, d, BM);
+  if (!err) err = make_map_2d(&wmap, W, d, V, BK);
+  if (err) return err;
+  const int smem = Ring<FWD_NS>::ALLOC;
+  cudaError_t e = cudaFuncSetAttribute(
+      xent_partial_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  float* pm = (float*)part;
+  float* pl = pm + (long long)n_split * T_rows;
+  float* pg = pl + (long long)n_split * T_rows;
+  const dim3 grid((T_rows + BM - 1) / BM, n_split);
+  xent_partial_tc_kernel<<<grid, THREADS, smem, stream>>>(
+      hmap, wmap, (const int*)labels, pm, pl, pg, T_rows, d, V, n_split);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  xent_merge_kernel<<<(T_rows + 255) / 256, 256, 0, stream>>>(
+      pm, pl, pg, (float*)loss, (float*)lse, T_rows, n_split);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace xtc
+
 // dtype: 0 = float32, 1 = bfloat16 (h and W share it); labels int32 [T];
-// loss float32 [T]; part: float32 scratch of 3 * n_split * T (partial m, l
-// and gold per split and row).  n_split must lie in [1, ceil(V / 128)].
+// loss float32 [T]; lse: float32 [T] or null; part: float32 scratch of
+// 3 * n_split * T (partial m, l and gold per split and row).  n_split must
+// lie in [1, ceil(V / 128)].  tensor_cores = 1 takes the bf16 tensor-core
+// route, which needs dtype 1, d % 8 == 0, V % 8 == 0 and 16-byte aligned h
+// and W (the wrapper routes by exactly that); 0 the CUDA-core kernel.
 extern "C" int fused_xent_fwd_launch(const void* h, const void* W,
                                      const void* labels, void* loss,
-                                     void* part, int T_rows, int d, int V,
-                                     int n_split, int dtype, void* stream) {
+                                     void* lse, void* part, int T_rows, int d,
+                                     int V, int n_split, int dtype,
+                                     int tensor_cores, void* stream) {
   if (T_rows <= 0) return 0;
   const int n_vt = (V + BV - 1) / BV;
   if (d <= 0 || V <= 0 || n_split < 1 || n_split > n_vt)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (tensor_cores) {
+    if (dtype != 1 || d % 8 || V % 8 || ((uintptr_t)h | (uintptr_t)W) % 16)
+      return (int)cudaErrorInvalidValue;
+    return xtc::launch(h, W, labels, loss, lse, part, T_rows, d, V, n_split,
+                       st);
+  }
   if (dtype == 0)
-    return launch<float>(h, W, labels, loss, part, T_rows, d, V, n_split, st);
+    return launch<float>(h, W, labels, loss, lse, part, T_rows, d, V,
+                         n_split, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(h, W, labels, loss, part, T_rows, d, V,
+    return launch<__nv_bfloat16>(h, W, labels, loss, lse, part, T_rows, d, V,
                                  n_split, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* fused_xent_fwd_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
+  return xtc::error_string(code);
 }

@@ -9,9 +9,11 @@ The three model ops are differentiable, as the reference's ``custom_vjp``s
 - ``selective_scan``: forward through the scan; backward by recomputing
   the plain ``ref.selective_scan`` under autograd, as the reference's
   ``_ss_bwd`` does (it has no backward kernel);
-- ``fused_softmax_xent``: forward through the fused cross-entropy;
-  backward by recomputing the plain ``ref.softmax_xent`` on the chunk, as
-  the reference's ``_fx_bwd`` does.
+- ``fused_softmax_xent``: forward through the fused cross-entropy
+  (saving h, W, labels and lse); on the bfloat16 tensor-core route the
+  backward runs the backward kernels from lse, and on every other route
+  (the CPU, float32, unaligned bfloat16) it recomputes the plain
+  ``ref.softmax_xent`` on the chunk, as the reference's ``_fx_bwd`` does.
 
 The federated ops are forward-only: round functions are never
 differentiated through (the local-SGD kernels compute their gradients in
@@ -81,13 +83,19 @@ class _SelectiveScan(torch.autograd.Function):
 class _FusedSoftmaxXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, W, labels):
-        ctx.save_for_backward(h, W, labels)
-        return fused_xent.fused_softmax_xent_fwd(h, W, labels)
+        loss, lse = fused_xent.fused_softmax_xent_fwd_lse(h, W, labels)
+        ctx.save_for_backward(h, W, labels, lse)
+        return loss
 
     @staticmethod
     def backward(ctx, g):
-        h, W, labels = ctx.saved_tensors
-        dh, dW, _ = _recompute_vjp(ref.softmax_xent, (h, W, labels), (g,))
+        h, W, labels, lse = ctx.saved_tensors
+        if fused_xent.tensor_core_route(h, W):
+            dh, dW = fused_xent.fused_softmax_xent_bwd(h, W, labels, lse,
+                                                       g.contiguous())
+        else:
+            dh, dW, _ = _recompute_vjp(ref.softmax_xent, (h, W, labels),
+                                       (g,))
         return dh, dW, None
 
 

@@ -140,15 +140,65 @@ def flash_attention_bwd_tc(q, k, v, out, lse, do, *, causal: bool = True,
     return _flash_bwd(q, k, v, out, lse, do, causal, window, _round_bf16)
 
 
-def softmax_xent(h, W, labels):
-    """Row-wise cross-entropy of the logits ``h @ W``, op for op the
-    reference's ``ref.softmax_xent``: both operands upcast to float32
-    before the product.  h: [T, d]; W: [d, V]; labels: [T] int -> [T]
-    f32."""
+def softmax_xent_lse(h, W, labels):
+    """Row-wise cross-entropy of the logits ``h @ W`` and each row's
+    log-sum-exp, what the port's forward kernels return: (loss [T], lse
+    [T]) float32.  The loss is op for op the reference's
+    ``ref.softmax_xent``: both operands upcast to float32 before the
+    product.  h: [T, d]; W: [d, V]; labels: [T] int."""
     logits = h.to(torch.float32) @ W.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[:, None])[:, 0]
-    return lse - gold
+    return lse - gold, lse
+
+
+def softmax_xent(h, W, labels):
+    """The reference's ``ref.softmax_xent``: the loss [T] f32 of
+    ``softmax_xent_lse``."""
+    return softmax_xent_lse(h, W, labels)[0]
+
+
+def softmax_xent_dlogits(h, W, labels, lse, g):
+    """The gradient of ``sum(g * softmax_xent(h, W, labels))`` with respect
+    to the float32 logits ``h @ W``, from the forward's saved lse:
+    ``(exp(logits - lse) - onehot(labels)) * g``, [T, V] float32.  A label
+    outside [0, V) matches no column."""
+    logits = h.to(torch.float32) @ W.to(torch.float32)
+    cols = torch.arange(logits.shape[1], device=logits.device)
+    onehot = (cols[None, :] == labels.long()[:, None]).to(torch.float32)
+    return (torch.exp(logits - lse[:, None]) - onehot) * g[:, None]
+
+
+def split_bf16(x):
+    """(hi, lo) in bfloat16 with hi = bf16(x) and lo = bf16(x - hi), so
+    that hi + lo carries float32 x to ~2^-17 of its value."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def softmax_xent_bwd(h, W, labels, lse, g):
+    """Plain backward of ``softmax_xent`` from the saved lse, the vjp that
+    the reference's ``_fx_bwd`` takes: dlogits in float32, then
+    ``dh = dlogits W^T`` and ``dW = h^T dlogits`` as explicit float32
+    products, returned in h's and W's dtypes."""
+    dl = softmax_xent_dlogits(h, W, labels, lse, g)
+    dh = dl @ W.to(torch.float32).T
+    dW = h.to(torch.float32).T @ dl
+    return dh.to(h.dtype), dW.to(W.dtype)
+
+
+def softmax_xent_bwd_tc(h, W, labels, lse, g):
+    """Rounding model of the backward kernels' bfloat16 tensor-core route
+    (``csrc/fused_xent_bwd.cu``): dlogits split into bf16 hi and lo, each
+    half's product taken in float32 (bf16 x bf16 products are exact there)
+    and both summed before one rounding to h's and W's dtypes.  Nothing on
+    the main path calls it."""
+    hi, lo = split_bf16(softmax_xent_dlogits(h, W, labels, lse, g))
+    hi, lo = hi.to(torch.float32), lo.to(torch.float32)
+    Wf, hf = W.to(torch.float32), h.to(torch.float32)
+    dh = hi @ Wf.T + lo @ Wf.T
+    dW = hf.T @ hi + hf.T @ lo
+    return dh.to(h.dtype), dW.to(W.dtype)
 
 
 def selective_scan(dt, A, Bmat, Cmat, x, h0):

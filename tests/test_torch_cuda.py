@@ -16,7 +16,11 @@ card are held against the same ops on the CPU (their plain versions) at
 1e-4.  In bfloat16 the flash kernels run on the tensor cores and are also
 held to their rounding models (``ref.attention_lse_tc``,
 ``ref.flash_attention_bwd_tc``, which round P and dS to bfloat16 where the
-kernels do) at rtol 2^-7 (one bfloat16 ulp) and atol 4e-3.
+kernels do) at rtol 2^-7 (one bfloat16 ulp) and atol 4e-3.  The fused
+cross-entropy's bfloat16 tensor-core backward (dlogits split into bf16 hi +
+lo, each gradient rounded once) is held per leaf to the plain recompute and
+to its rounding model ``ref.softmax_xent_bwd_tc`` at rtol 2^-7 and atol
+2^-9 max|want|.
 """
 import numpy as np
 import pytest
@@ -242,6 +246,71 @@ def test_cuda_fused_xent_kernel_vs_plain(cuda_device, T, d, V, dtype):
     torch.cuda.synchronize()
     assert fx.launches == before + 1 and got.dtype == torch.float32
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# (T, d, V, dtype, tensor cores): each route of the cross-entropy.  bf16
+# with d and V multiples of 8 takes the tensor cores (forward and the
+# backward kernels); bf16 with a ragged V or d and float32 take the
+# CUDA-core forward and recompute the backward through the plain version.
+XENT_ROUTES = [
+    (300, 96, 5000, torch.bfloat16, True),
+    (150, 64, 704, torch.bfloat16, True),
+    (1, 128, 1024, torch.bfloat16, True),
+    (200, 64, 700, torch.bfloat16, False),
+    (150, 36, 704, torch.bfloat16, False),
+    (150, 32, 700, torch.float32, False),
+]
+#: the backward kernels' bound against the plain recompute, per leaf:
+#: rtol 2^-7 (one bf16 ulp) and atol 2^-9 max|want|
+XENT_BWD_RTOL, XENT_BWD_ATOL = 2.0 ** -7, 2.0 ** -9
+
+
+def _close_per_leaf(got, want, rtol, atol_frac):
+    atol = atol_frac * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,V,dtype,tc", XENT_ROUTES)
+def test_cuda_fused_xent_routes(cuda_device, T, d, V, dtype, tc):
+    """Forward (loss and lse) against the plain version, the op's backward
+    against the plain recompute (the same leaves through ``ref.softmax_xent``
+    under autograd), and the route's launch counters."""
+    h, W, labels = xent_case(T, d, V)
+    h, W = (torch.from_numpy(a).to(cuda_device, dtype) for a in (h, W))
+    labels = torch.from_numpy(labels).to(cuda_device)
+    g = torch.from_numpy(np.random.default_rng(5).uniform(
+        0.5, 1.5, T).astype(np.float32)).to(cuda_device)
+    fx, bx = fused_xent.fused_softmax_xent_fwd, fused_xent.fused_softmax_xent_bwd
+    counts = lambda: (fx.launches, fx.tensor_core_launches, bx.launches,
+                      bx.tensor_core_launches)
+    before = counts()
+    assert fused_xent.tensor_core_route(h, W) == tc
+    loss, lse = fused_xent.fused_softmax_xent_fwd_lse(h, W, labels)
+    want_loss, want_lse = tref.softmax_xent_lse(h, W, labels)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    leaves = [t.clone().requires_grad_() for t in (h, W)]
+    (tops.fused_softmax_xent(*leaves, labels) * g).sum().backward()
+    want = tops._recompute_vjp(tref.softmax_xent, (h, W, labels), (g,))[:2]
+    torch.cuda.synchronize()
+    assert counts() == tuple(b + n for b, n in zip(
+        before, (2, 2 * tc, tc, tc)))
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(leaf.grad, w, rtol=1e-4, atol=1e-4)
+        else:
+            _close_per_leaf(leaf.grad, w, XENT_BWD_RTOL, XENT_BWD_ATOL)
+    if tc:      # and against the route's rounding model
+        model = tref.softmax_xent_bwd_tc(h, W, labels, lse, g)
+        for leaf, m in zip(leaves, model):
+            _close_per_leaf(leaf.grad, m, XENT_BWD_RTOL, XENT_BWD_ATOL)
+    else:
+        with pytest.raises(ValueError, match="backward kernels take"):
+            bx(h, W, labels, lse, g)
 
 
 @pytest.mark.cuda
