@@ -13,9 +13,13 @@ last line):
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes, and time kernel, plain version and, where one
    exists, the library call (median of per-call CUDA-event times, after a
-   clock warm-up):
+   clock warm-up, each call queued behind a device spin so that the host's
+   launch time is not counted):
    - the cohort gather, bitwise, on the FEMNIST paper-scale federation
-     (with n=0, n=max_n and clamped lanes); library ``flat_x[idx]``;
+     (with n=0, n=max_n and clamped lanes); library ``flat_x[idx]``, timed
+     in four turns each with the kernel and a same-size ``Tensor.copy_``
+     (the card's copy yardstick), after a flush that leaves the L2 dirty
+     and after one that leaves it clean;
    - MCLR local SGD within rtol = atol = 2e-5 at K=10, max_n=400, d=784,
      C=26, B=10, max_iters=960 (prox_mu 0 and 0.1) and at the synthetic
      set's shape (d=60, C=10, max_n=2000);
@@ -36,8 +40,12 @@ last line):
      (timing only); bound: its causal bf16 flop at 989 TFLOP/s or its
      bytes, whichever is larger;
    - the selective scan at Falcon-Mamba-7B's width (d=8192, N=16) for
-     B=4 at S=512, at the serving path's S=1024 and at decode's S=1,
-     within 1e-4; no library call computes it; bound: its bytes;
+     B=4 at S=512, at the serving path's S=1024, at S=4096 and at
+     decode's S=1, within 1e-4, with the error against the plain model of
+     its order of operations (``ref.selective_scan_lanes``) printed; timed
+     at the prefill and at the decode shape; no library call computes it;
+     bound: the largest of its bytes, its float32 flop and its exps at the
+     special-function units' rate;
    - flash-attention backward (dq, dk, dv) at Llama-3.2-3B's training
      shape (B=1, S=2048, 24/8 heads, hd=128, bf16 causal), plus a window
      of 512, a non-causal, a ragged S=1000 and a float32 case: 2e-2 in
@@ -78,7 +86,8 @@ last line):
    2048, 32 greedy tokens; 28 flash launches, one per layer of the
    prefill, all 28 on the tensor cores) and Falcon-Mamba-7B (batch 4,
    prompt 1024, 32 tokens; 64 scan launches for the prefill and for each
-   decode step), with finite logits, prefill ms and decode tokens/s;
+   decode step, 2,048 of them at S=1), with finite logits, prefill ms and
+   decode tokens/s;
    then this slice's path,
    cross-silo FedSAE training Llama-3.2-3B at full width and depth
    (``SiloFedSAE``, K=2 silos, max_steps=4, B=1, S=2048, lr 5e-3) for 2
@@ -108,6 +117,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -127,6 +137,14 @@ TRAIN_TOL = 1e-4           # float32 losses, grads and silo params, card/CPU
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
+# exp2 on the special-function units: 16 results per clock per SM (CUDA C++
+# programming guide, arithmetic throughput, compute capability 9.0) on 132
+# SMs at the H100 SXM's 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
+# device cycles of torch.cuda._sleep queued ahead of each timed call (~0.5
+# ms at 1.98 GHz): longer than the host takes to enqueue one call, even the
+# gather's wrapper on a slow host (a 256 MB flush alone, ~0.08 ms, was not)
+QUEUE_CYCLES = 1_000_000
 
 
 def nvidia_smi() -> str:
@@ -183,17 +201,23 @@ def spin(torch, seconds: float = 1.0) -> None:
         torch.cuda.synchronize()
 
 
-def time_ms(torch, fn, reps: int, flush=None) -> float:
+def time_ms(torch, fn, reps: int, flush=None, clean: bool = False) -> float:
     """Median device time of ``fn`` over ``reps`` calls, from CUDA events
-    around each call; ``flush`` (a large tensor) is overwritten between
-    calls, outside the timed region, so each call finds the L2 cold."""
+    around each call.  Each call is queued behind a spin of
+    ``QUEUE_CYCLES`` on the device, so that the host has enqueued it
+    before the start event fires and its launch time is not counted.
+    ``flush`` (a large tensor) is overwritten between calls, outside the
+    timed region, so each call finds the L2 cold and ~50 MB of dirty lines
+    in it to write back; with ``clean`` it is summed instead (read), so the
+    L2 is cold and clean."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush is not None:
-            flush.zero_()
+            flush.sum() if clean else flush.zero_()
+        torch.cuda._sleep(QUEUE_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -205,12 +229,13 @@ def time_ms(torch, fn, reps: int, flush=None) -> float:
 
 
 def reset_counts(counted) -> None:
-    """Set every wrapper's launch count (and the flash wrappers' tensor-core
-    count) to 0."""
+    """Set every wrapper's launch count (and the flash and cross-entropy
+    wrappers' tensor-core counts, the scan's single-step count) to 0."""
     for fn in counted.values():
         fn.launches = 0
-        if hasattr(fn, "tensor_core_launches"):
-            fn.tensor_core_launches = 0
+        for extra in ("tensor_core_launches", "single_step_launches"):
+            if hasattr(fn, extra):
+                setattr(fn, extra, 0)
 
 
 def tensor_core_counts(counted) -> dict:
@@ -222,6 +247,19 @@ def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_bound(nbytes: float, flops: float, exps: float):
+    """The scan's bound: the largest of its bytes over the memory rate, its
+    float32 flop over the CUDA cores' rate and its exps over the
+    special-function units' rate, which run beside each other -> (ms,
+    bound_by, {"bytes": ms, "operations": ms, "exp": ms}).  An exp bound
+    is reported as bound by operations (they are, on the SFUs)."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / FP32_FLOPS_PER_S * 1e3,
+             "exp": exps / SFU_PER_S * 1e3}
+    ms = max(parts.values())
+    return ms, ("bytes" if parts["bytes"] == ms else "operations"), parts
 
 
 def check_flash(torch, fa, ref, gen, dev):
@@ -298,46 +336,75 @@ def check_flash(torch, fa, ref, gen, dev):
             "rounding_model_max_abs_err": model_err}
 
 
+def scan_inputs(torch, B, S, d, N, gen, dev):
+    """Seeded scan inputs at Falcon's ranges: dt in [1e-3, 0.101), A the
+    Mamba init -(1..N) per channel, the rest standard normal."""
+    dt = torch.rand((B, S, d), generator=gen, device=dev) * 0.1 + 1e-3
+    A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
+        d, N).contiguous()
+    Bm = torch.randn((B, S, N), generator=gen, device=dev)
+    Cm = torch.randn((B, S, N), generator=gen, device=dev)
+    x = torch.randn((B, S, d), generator=gen, device=dev)
+    h0 = torch.randn((B, d, N), generator=gen, device=dev)
+    return dt, A, Bm, Cm, x, h0
+
+
+def scan_work(B, S, d, N):
+    """(bytes, flop, exps) of one scan: dt, x, y, B, C, A, h0, hT once;
+    per state and step dt*A, the h update (3) and the y fma (2), one exp."""
+    nbytes = 4 * (3 * B * S * d + 2 * B * S * N + d * N + 2 * B * d * N)
+    return nbytes, 6 * B * S * d * N, B * S * d * N
+
+
 def check_scan(torch, ss, ref, gen, dev):
     """Phase 2: the selective scan against its plain version at
-    Falcon-Mamba-7B's width, then times at the serving path's shape."""
+    Falcon-Mamba-7B's width for S = 512, the serving path's prefill
+    S = 1,024, S = 4,096 (error growth) and decode's S = 1 (from a random
+    h0), with the error against the plain model of the kernel's order of
+    operations (``ref.selective_scan_lanes``) printed; then times at the
+    prefill and decode shapes, each with its own bound."""
     B, d, N = 4, 8192, 16
-    err = 0.0
-    for S in (512, 1024, 1):
-        dt = torch.rand((B, S, d), generator=gen, device=dev) * 0.1 + 1e-3
-        A = -torch.arange(1, N + 1, device=dev, dtype=torch.float32).expand(
-            d, N).contiguous()
-        Bm = torch.randn((B, S, N), generator=gen, device=dev)
-        Cm = torch.randn((B, S, N), generator=gen, device=dev)
-        x = torch.randn((B, S, d), generator=gen, device=dev)
-        h0 = torch.randn((B, d, N), generator=gen, device=dev)
-        args = (dt, A, Bm, Cm, x, h0)
+    err = model_err = 0.0
+    main = {}
+    for S in (512, 1024, 4096, 1):
+        args = scan_inputs(torch, B, S, d, N, gen, dev)
         y, hT = ss(*args)
         wy, wh = ref.selective_scan(*args)
+        my, mh = ref.selective_scan_lanes(*args)
         torch.cuda.synchronize()
         e = max(float((y - wy).abs().max()), float((hT - wh).abs().max()))
+        em = max(float((y - my).abs().max()), float((hT - mh).abs().max()))
         print(f"selective_scan_fwd B={B} S={S} d={d} N={N}: max_abs_err "
-              f"{e:.3e} (tol {SCAN_TOL})", flush=True)
+              f"{e:.3e} (tol {SCAN_TOL}); against the lane model "
+              f"ref.selective_scan_lanes {em:.3e}", flush=True)
         if not (torch.allclose(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
                 and torch.allclose(hT, wh, rtol=SCAN_TOL, atol=SCAN_TOL)):
             raise RuntimeError(f"scan kernel differs from plain (S={S})")
         if not (torch.isfinite(y).all() and torch.isfinite(hT).all()):
             raise RuntimeError(f"scan kernel: non-finite (S={S})")
-        err = max(err, e)
-        if S == 1024:
-            main = args
-    S = main[0].shape[1]
+        err, model_err = max(err, e), max(model_err, em)
+        if S in (1024, 1):
+            main[S] = args
+        del args, y, hT, wy, wh, my, mh
     spin(torch)
-    ms = time_ms(torch, lambda: ss(*main), 20)
-    plain = time_ms(torch, lambda: ref.selective_scan(*main), 3)
-    nbytes = 4 * (3 * B * S * d + 2 * B * S * N + d * N + 2 * B * d * N)
-    flops = 6 * B * S * d * N        # dt*A, h update (3), y fma (2); + exp
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"selective_scan_fwd B={B} S={S} d={d} N={N}: kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-          f"{flops} flop and {B * S * d * N} exp)", flush=True)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    row = {"max_abs_err": err, "lane_model_max_abs_err": model_err}
+    for S, key in ((1024, ""), (1, "decode_")):
+        args = main[S]
+        ms = time_ms(torch, lambda: ss(*args), 20 if S > 1 else 200)
+        plain = time_ms(torch, lambda: ref.selective_scan(*args),
+                        3 if S > 1 else 20)
+        nbytes, flops, exps = scan_work(B, S, d, N)
+        b_ms, b_by, parts = scan_bound(nbytes, flops, exps)
+        print(f"selective_scan_fwd B={B} S={S} d={d} N={N}: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; bytes {parts['bytes']:.4f} ms for {nbytes} B, "
+              f"operations {parts['operations']:.4f} ms for {flops} flop, "
+              f"exp {parts['exp']:.4f} ms for {exps} exp)", flush=True)
+        row.update({f"{key}ms": ms, f"{key}plain_ms": plain,
+                    f"{key}bound_ms": b_ms, f"{key}bound_by": b_by,
+                    f"{key}bound_parts_ms": parts})
+    row["library_ms"] = None
+    return row
 
 
 def check_flash_bwd(torch, fa, ref, gen, dev):
@@ -793,6 +860,7 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     out, logits, times = serve.generate(model, params, tokens, gen)
     launches = {k: fn.launches for k, fn in counted.items()}
     tc_launches = tensor_core_counts(counted)
+    single_steps = counted["selective_scan_fwd"].single_step_launches
     if tuple(out.shape) != (batch, gen + 1) or tuple(logits.shape) != (
             batch, cfg.vocab_size):
         raise RuntimeError(f"{arch}: generated {tuple(out.shape)}, logits "
@@ -808,6 +876,10 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     if tc_launches != want_tc:
         raise RuntimeError(f"{arch}: tensor-core flash launches "
                            f"{tc_launches}, wanted {want_tc}")
+    if "selective_scan_fwd" in want and single_steps != cfg.n_layers * gen:
+        raise RuntimeError(f"{arch}: {single_steps} single-step scan "
+                           f"launches, wanted one per layer and decode "
+                           f"step ({cfg.n_layers * gen})")
     summary = dict(
         params=n_params, init_s=init_s, batch=batch, prompt=prompt, gen=gen,
         prefill_ms=times["prefill_s"] * 1e3,
@@ -817,7 +889,8 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
         decode_ms_per_step=times["decode_s"] / gen * 1e3,
         peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         sample=out[0, :8].tolist(), launches=launches,
-        tensor_core_launches=tc_launches)
+        tensor_core_launches=tc_launches,
+        scan_single_step_launches=single_steps)
     print(f"main path serve {arch} (full width, {n_params} params f32, "
           f"{cfg.dtype} compute): batch {batch}, prompt {prompt}: prefill "
           f"{summary['prefill_ms']:.1f} ms "
@@ -845,10 +918,12 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
 
         prof = {}
         for label, fn in (("prefill", prefill), ("decode x4", decode4)):
-            wall, device, top, flash = profiled(torch, fn)
+            wall, device, top, (flash, scan) = profiled(
+                torch, fn, ("flash_", "selective_scan"))
             prof[label] = dict(wall_ms=wall, device_ms=device,
                                device_busy=device / wall,
-                               flash_kernels_ms=flash, top_kernels_ms=top)
+                               flash_kernels_ms=flash, scan_kernels_ms=scan,
+                               top_kernels_ms=top)
             print(f"profile {arch} {label}: {json.dumps(prof[label])}",
                   flush=True)
     summary["profile"] = prof
@@ -936,18 +1011,32 @@ def main() -> int:
     pos = torch.arange(max_n, device=dev)
     lib_idx = (torch.clamp(starts.long(), max=flat_x.shape[0] - max_n)[:, None]
                + pos[None, :])
+    copy_src = torch.empty((K * max_n * feat,), device=dev)
+    copy_dst = torch.empty_like(copy_src)
     spin(torch)
-    g_ms = time_ms(torch, lambda: gather(flat_x, pk.y, starts, ns, max_n),
-                   50, flush)
+    # the kernel, flat_x[idx] and a same-size copy_ (the card's copy
+    # yardstick; timing only) in turns, kernel, library, copy, copy,
+    # library, kernel twice over, after each kind of flush; each reads the
+    # median of its four turns
+    g_turns = {}
+    turn = (("kernel", lambda: gather(flat_x, pk.y, starts, ns, max_n)),
+            ("library", lambda: flat_x[lib_idx]),
+            ("copy", lambda: copy_dst.copy_(copy_src)))
+    for clean in (False, True):
+        for name, fn in 2 * (turn + turn[::-1]):
+            g_turns.setdefault(("clean " if clean else "") + name, []).append(
+                time_ms(torch, fn, 50, flush, clean))
+    g_med = {k: statistics.median(v) for k, v in g_turns.items()}
+    g_ms, g_lib = g_med["kernel"], g_med["library"]
     g_plain = time_ms(torch, lambda: ref.fed_cohort_gather(
         flat_x, pk.y, starts, ns, max_n=max_n), 50, flush)
-    g_lib = time_ms(torch, lambda: flat_x[lib_idx], 50, flush)
     g_bytes = (2 * K * max_n * feat * 4 + 3 * K * max_n * 4 + 2 * K * 4)
     g_bound, g_by = bound(g_bytes, 0)
     print(f"fed_cohort_gather K={K} max_n={max_n} feat={feat}: bitwise "
           f"equal; kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
           f"flat_x[idx] {g_lib:.4f} ms, bound {g_bound:.4f} ms ({g_by}, "
-          f"{g_bytes} B)", flush=True)
+          f"{g_bytes} B); turns after a dirty / a clean flush "
+          f"{json.dumps(g_turns)}", flush=True)
 
     x, y = got[0], got[1]
     B, C, max_iters, lr = 10, femnist.n_classes, 960, 0.03
@@ -1328,6 +1417,8 @@ def main() -> int:
           f"launches {json.dumps(cli_launches)}", flush=True)
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
+    scan_single_steps = sum(serving[a]["scan_single_step_launches"]
+                            for a in serving)
     tc_runs = [serving[a]["tensor_core_launches"] for a in serving] + [
         training[t]["tensor_core_launches"] for t in training]
     tc_total = {k: sum(r[k] for r in tc_runs) for k in tc_runs[0]}
@@ -1370,7 +1461,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/fed_gather.py:56",
          "launches": launches["fed_cohort_gather"], "max_abs_err": 0.0,
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-         "bound_by": g_by, "library_ms": g_lib},
+         "bound_by": g_by, "library_ms": g_lib,
+         "copy_ms": g_med["copy"], "clean_flush_ms": g_med["clean kernel"],
+         "clean_flush_library_ms": g_med["clean library"],
+         "clean_flush_copy_ms": g_med["clean copy"]},
         {"name": "fed_local_sgd_mclr", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fed_local_sgd.cu",
          "replaces": "src/repro/kernels/fed_local_sgd.py:99",
@@ -1398,7 +1492,10 @@ def main() -> int:
         {"name": "selective_scan_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
          "replaces": "src/repro/kernels/selective_scan.py:49",
-         "launches": launches["selective_scan_fwd"], **scan_row},
+         "launches": launches["selective_scan_fwd"],
+         "decode_launches": scan_single_steps,
+         "prefill_launches": launches["selective_scan_fwd"]
+         - scan_single_steps, **scan_row},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:197",

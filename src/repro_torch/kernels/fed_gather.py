@@ -55,17 +55,15 @@ def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
     mask = torch.empty((K, max_n), dtype=torch.float32, device=dev)
     if K == 0:
         return x, y, mask
-    # ~16 KB of x per block: hundreds of blocks in flight even at K=10
-    rows_per_block = max(1, min(max_n, 4096 // max(feat, 1)))
-    if -(-max_n // rows_per_block) > 65535:
-        raise ValueError(f"max_n={max_n} needs more than 65535 row chunks")
+    # the kernel sizes its grid to the card: at most 8 blocks per SM
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     lib = build.load("fed_gather")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fed_cohort_gather_launch(
             flat_x.data_ptr(), flat_y.data_ptr(), starts.data_ptr(),
             ns.data_ptr(), x.data_ptr(), y.data_ptr(), mask.data_ptr(),
-            rows, feat, K, max_n, rows_per_block, stream)
+            rows, feat, K, max_n, n_sm, stream)
     build.check(lib, "fed_cohort_gather", code)
     fed_cohort_gather.launches += 1
     return x, y, mask

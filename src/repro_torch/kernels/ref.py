@@ -228,6 +228,48 @@ def selective_scan(dt, A, Bmat, Cmat, x, h0):
     return y, h
 
 
+#: log2(e) as the scan kernel folds it into A (rounded to float32 there)
+LOG2E = 1.4426950408889634
+#: lanes over which the scan kernel splits each channel's states
+SCAN_LANES = 4
+
+
+def selective_scan_lanes(dt, A, Bmat, Cmat, x, h0):
+    """Plain model of the scan kernel's order of operations
+    (``csrc/selective_scan.cu``); nothing on the main path calls it.  The
+    recurrence of ``selective_scan``, with:
+
+    - ``exp(dt A)`` taken as ``exp2(dt * (A * log2 e))``, log2 e folded
+      into A once in float32;
+    - the N states padded to NP (the next power of two >= max(N, 4)) and
+      split over 4 lanes of NP / 4 consecutive states; lane l's partial
+      ``q_l = sum_i h[n_i] C[n_i]`` summed in state order, and
+      ``y = (q_0 + q_2) + (q_1 + q_3)``, the kernel's shuffle tree.
+
+    Same arguments and results as ``selective_scan``."""
+    B, S, d = dt.shape
+    N = A.shape[1]
+    NP = max(4, 1 << (N - 1).bit_length())
+    per_lane, pad = NP // SCAN_LANES, (0, NP - N)
+    f32 = torch.float32
+    a2 = torch.nn.functional.pad(A.to(f32) * LOG2E, pad)
+    Bp = torch.nn.functional.pad(Bmat.to(f32), pad)
+    Cp = torch.nn.functional.pad(Cmat.to(f32), pad)
+    h = torch.nn.functional.pad(h0.to(f32), pad)
+    dt, x = dt.to(f32), x.to(f32)
+    y = torch.zeros((B, S, d), dtype=f32, device=dt.device)
+    for t in range(S):
+        dt_t = dt[:, t, :, None]
+        h = torch.exp2(dt_t * a2) * h + (dt_t * x[:, t, :, None]) * Bp[:, t,
+                                                                        None]
+        hc = (h * Cp[:, t, None]).view(B, d, SCAN_LANES, per_lane)
+        q = hc[..., 0]
+        for i in range(1, per_lane):
+            q = q + hc[..., i]
+        y[:, t] = (q[..., 0] + q[..., 2]) + (q[..., 1] + q[..., 3])
+    return y, h[..., :N].contiguous()
+
+
 def fed_cohort_gather(flat_x, flat_y, starts, ns, *, max_n: int):
     """Windowed cohort gather: for each client k, rows
     [starts[k], starts[k]+max_n) of the flat federation, plus the validity

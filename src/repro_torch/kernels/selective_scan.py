@@ -5,7 +5,10 @@ which replaces the reference's ``repro/kernels/selective_scan.py``
 A CPU tensor goes to the plain version (``kernels.ref.selective_scan``); a
 CUDA tensor launches the kernel or raises, for every sequence length
 S >= 1 (prefill, and decode's S = 1 from the cached state).
-``selective_scan_fwd.launches`` counts the kernel launches.  Forward
+``selective_scan_fwd.launches`` counts the kernel launches, and
+``selective_scan_fwd.single_step_launches`` those of them at S = 1
+(decode's).  The kernel runs 64 channels per block, so the grid is
+(ceil(d / 64), B), and B is held to the grid's 65535.  Forward
 only: the backward recomputes through the plain version
 (``kernels.ops.selective_scan``), as the reference's ``_ss_bwd`` does.
 """
@@ -69,7 +72,9 @@ def selective_scan_fwd(dt, A, Bmat, Cmat, x, h0):
             d, N, stream)
     build.check(lib, "selective_scan_fwd", code)
     selective_scan_fwd.launches += 1
+    selective_scan_fwd.single_step_launches += S == 1
     return y, hT
 
 
 selective_scan_fwd.launches = 0
+selective_scan_fwd.single_step_launches = 0

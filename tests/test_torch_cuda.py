@@ -31,8 +31,8 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  fused_xent, selective_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from torch_cases import (attention_case, dense_case, gather_case, scan_case,
-                         sgd_case, xent_case)
+from torch_cases import (attention_case, dense_case, gather_case,
+                         gather_lanes_case, scan_case, sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -54,6 +54,40 @@ def test_cuda_gather_kernel_bitwise_vs_plain(cuda_device):
     got = fed_gather.fed_cohort_gather(*t, max_n)
     want = tref.fed_cohort_gather(*t, max_n=max_n)
     assert fed_gather.fed_cohort_gather.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# (K, max_n, feat, features, misaligned): the 16-byte path at FEMNIST's
+# row width, K = 64, int32 features, and a base 4 bytes off 16-byte
+# alignment (the 4-byte path)
+GATHER_CASES = [
+    (10, 400, 784, "float32", False),
+    (64, 50, 784, "float32", False),
+    (16, 40, 784, "int32", False),
+    (16, 40, 784, "float32", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,max_n,feat,features,misaligned", GATHER_CASES)
+def test_cuda_gather_kernel_lanes_bitwise_vs_plain(cuda_device, K, max_n,
+                                                   feat, features,
+                                                   misaligned):
+    flat, flat_y, starts, ns, max_n = gather_lanes_case(K, max_n, feat)
+    if features == "int32":
+        flat = flat.view(np.int32)
+    x = torch.from_numpy(flat).to(cuda_device)
+    if misaligned:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda_device)
+        buf[1:].copy_(x.reshape(-1))
+        x = buf[1:].view(x.shape)
+        assert x.data_ptr() % 16 == 4
+    t = [x] + [torch.from_numpy(a).to(cuda_device)
+               for a in (flat_y, starts, ns)]
+    got = fed_gather.fed_cohort_gather(*t, max_n)
+    want = tref.fed_cohort_gather(*t, max_n=max_n)
+    assert got[0].dtype == x.dtype
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -166,13 +200,22 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda_device):
                                             big[:, :, :1].contiguous())
 
 
-# (B, S, d, N): one chunk, ragged S and d, decode's S = 1, N = 64, N = 3
+# (B, S, d, N): whole 16-step chunks; S not a multiple of the chunk and d
+# not of the 64-channel block; decode's S = 1 (from scan_case's nonzero
+# h0) at a small and at Falcon's width; N not a multiple of the 4 lanes
+# per channel (1, 3, 17) and N = 64; d % 4 != 0 (the 4-byte copies);
+# S = 4,096 for error growth; B = 1 at Falcon's width
 SCAN_CASES = [
     (1, 256, 128, 8),
     (2, 300, 200, 16),
     (4, 1, 256, 16),
+    (4, 1, 8192, 16),
     (1, 64, 96, 64),
     (2, 40, 50, 3),
+    (2, 37, 128, 1),
+    (1, 33, 64, 17),
+    (1, 4096, 256, 16),
+    (1, 1024, 8192, 16),
 ]
 
 
@@ -188,6 +231,27 @@ def test_cuda_selective_scan_kernel_vs_plain(cuda_device, B, S, d, N):
     assert ss.launches == before + 1
     torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(hT, want_h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_misaligned_base_vs_plain(cuda_device):
+    """dt and x 4 bytes off 16-byte alignment (d % 4 == 0): the 4-byte
+    copies; and the single-step count at S = 1."""
+    arrays = scan_case(2, 50, 128, 16)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    for i in (0, 4):                                  # dt, x
+        buf = torch.empty(t[i].numel() + 1, device=cuda_device)
+        buf[1:].copy_(t[i].reshape(-1))
+        t[i] = buf[1:].view(t[i].shape)
+    ss = selective_scan.selective_scan_fwd
+    y, hT = ss(*t)
+    want_y, want_h = tref.selective_scan(*t)
+    torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hT, want_h, rtol=1e-4, atol=1e-4)
+    before = ss.single_step_launches
+    ss(*[a[:, :1].contiguous() if a.dim() == 3 and a.shape[1] == 50 else a
+         for a in t])
+    assert ss.single_step_launches == before + 1
 
 
 @pytest.mark.cuda

@@ -49,3 +49,18 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
     roots = {n.split(".")[0] for n in names}
     assert "repro_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+
+
+def test_kernel_ab_script_imports_neither_jax_nor_reference():
+    """``scripts/kernel_ab.py`` runs on the card's machine beside
+    ``chip_smoke.py``, which has no JAX."""
+    with open(os.path.join(ROOT, "scripts", "kernel_ab.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add((node.module or "").split(".")[0])
+    assert {"chip_smoke", "repro_torch", "torch"} <= roots
+    assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)

@@ -16,6 +16,21 @@ def gather_case():
     return flat, flat_y, starts, ns, max_n
 
 
+def gather_lanes_case(K, max_n, feat, seed=0):
+    """A federation of 3 * max_n rows of ``feat`` features and K lanes:
+    random starts (one past rows - max_n, clamped) and lengths (one 0, one
+    max_n)."""
+    rng = np.random.default_rng(seed)
+    rows = 3 * max_n
+    flat = rng.normal(size=(rows, feat)).astype(np.float32)
+    flat_y = rng.integers(0, 26, rows).astype(np.int32)
+    starts = rng.integers(0, rows - max_n + 1, K).astype(np.int32)
+    starts[-1] = rows - 3                  # past rows - max_n: clamped
+    ns = rng.integers(0, max_n + 1, K).astype(np.int32)
+    ns[0], ns[1] = 0, max_n
+    return flat, flat_y, starts, ns, max_n
+
+
 def sgd_case(seed=2, K=4, max_n=24, d=16, C=5, max_iters=12, B=4):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(K, max_n, d)).astype(np.float32)
