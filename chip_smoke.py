@@ -75,12 +75,17 @@ last line):
    and global params within 1e-4;
 4. the main paths, each with every kernel's launch count set to 0 just
    before and read just after: ``FedSAEServer`` on FEMNIST at paper scale
-   (200 clients, K=10, algo="ira"), MCLR for 5 rounds with sampling="iid"
-   then 2 with sampling="shuffle"; and the MLP (d=784, H=64, C=26) with
-   sampling="iid" and upload_compress="topk_q8" (topk_frac 0.1) for 5
-   rounds, whose gather, dense-SGD and compress launches must each be 5
-   and whose last round must keep ``transmitted + residual' == delta +
-   residual`` bitwise; losses, params and residual must be finite; then
+   (200 clients, K=10), MCLR with algo="ira" for 5 rounds with
+   sampling="iid" and 2 with sampling="shuffle", then algo="fedprox"
+   (fixed_epochs 15: budgets up to 600 iterations; prox_mu 0.1) for 3 iid
+   rounds; the MLP (d=784, H=64, C=26) with algo="ira", sampling="iid" and
+   upload_compress="topk_q8" (topk_frac 0.1) for 5 rounds, whose last
+   round must keep ``transmitted + residual' == delta + residual``
+   bitwise; and the MLP with algo="fedprox" for 3 iid rounds; each leg's
+   launches of every kernel are checked (one gather and one SGD launch a
+   iid round, one compress launch a compressed round), its budgets per
+   round and rounds/s printed; losses, params and residual must be
+   finite; then
    ``repro_torch.launch.serve.generate`` at full width with random
    weights, one model after the other: Llama-3.2-3B (batch 4, prompt
    2048, 32 greedy tokens; 28 flash launches, one per layer of the
@@ -98,7 +103,7 @@ last line):
    cores and no plain cross-entropy recompute, round wall, ms per step and
    peak memory; and ``repro_torch.launch.train --arch llama3.2-3b --smoke
    --steps 5`` (2, 2, 1 and 1 calls per step, all on the tensor cores);
-5. profile one steady round of each FL path, one prefill plus four
+5. profile one steady round of each FL leg, one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
    host wall, device time and the kernels that take it.
 
@@ -162,7 +167,10 @@ def kernel_name(sym: str) -> str:
     i, name = sym.find("_ZN") + 3, sym[:48]
     if i < 3:
         m = re.match(r"_Z(\d+)", sym)      # a function at namespace scope
-        return sym[m.end():m.end() + int(m.group(1))] if m else name
+        if not m:
+            return name
+        name, i = sym[m.end():m.end() + int(m.group(1))], \
+            m.end() + int(m.group(1))
     while i < len(sym) and sym[i].isdigit():
         j = i
         while sym[j].isdigit():
@@ -1282,9 +1290,16 @@ def main() -> int:
                "fused_softmax_xent_bwd": fx_bwd}
     summary, path_launches = {}, {}
 
-    def drive(label, rounds, **cfg):
+    def drive(label, rounds, algo="ira", **cfg):
         srv = FedSAEServer(femnist, cfg=ServerConfig(
-            algo="ira", n_selected=10, rounds=rounds, **cfg))
+            algo=algo, n_selected=10, rounds=rounds, **cfg))
+        budgets, run_round = [], srv.run_round
+
+        def recorded_round(t):
+            row = run_round(t)
+            budgets.append([int(v) for v in row["n_iters"]])
+            return row
+        srv.run_round = recorded_round
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hist = srv.run()
@@ -1306,30 +1321,47 @@ def main() -> int:
                               round0_s=srv.wall_times[0],
                               steady_rounds_per_s=steady,
                               round_wall_s=srv.wall_times,
-                              acc=hist["acc"],
+                              budgets=budgets, acc=hist["acc"],
                               train_loss=hist["train_loss"])
-        print(f"main path femnist paper scale, ira, {label}: {rounds} "
+        print(f"main path femnist paper scale, {algo}, {label}: {rounds} "
               f"rounds in {wall:.3f} s ({rounds / wall:.3f} rounds/s; "
               f"round 0 (warm-up) {srv.wall_times[0]:.4f} s, after it "
               f"{steady:.3f} rounds/s), round wall "
               f"{[round(w, 4) for w in srv.wall_times]} s, acc "
               f"{[round(a, 4) for a in hist['acc']]}, train_loss "
-              f"{[round(a, 4) for a in hist['train_loss']]}", flush=True)
+              f"{[round(a, 4) for a in hist['train_loss']]}, budgets per "
+              f"round (longest) {[max(b) for b in budgets]}", flush=True)
         return srv
 
     def run_path(name, legs):
+        """Drive the legs with every count set to 0 just before the path;
+        each leg's launches must be its ``want`` (counts not named: 0)."""
         reset_counts(counted)
-        for label, rounds, cfg in legs:
+        for label, rounds, cfg, want in legs:
+            before = {k: fn.launches for k, fn in counted.items()}
             drive(label, rounds, **cfg)
+            got = {k: fn.launches - before[k] for k, fn in counted.items()}
+            if got != dict({k: 0 for k in counted}, **want):
+                raise RuntimeError(f"path {name}, leg {label} launched "
+                                   f"{got}, not {want}")
+            summary[label]["launches"] = got
         path_launches[name] = {k: fn.launches for k, fn in counted.items()}
         print(f"path {name} launches: {json.dumps(path_launches[name])}",
               flush=True)
 
-    run_path("mclr", [("iid", 5, dict(sampling="iid")),
-                      ("shuffle", 2, dict(sampling="shuffle"))])
+    # the FedProx legs: the paper's FedProx baseline, fixed_epochs 15 (the
+    # default; budgets up to 15 x 40 = 600 iterations) and prox_mu 0.1 (the
+    # default), the SGD kernels' prox term on
+    fedprox = dict(algo="fedprox", sampling="iid")
+    run_path("mclr", [
+        ("iid", 5, dict(sampling="iid"),
+         dict(fed_cohort_gather=5, fed_local_sgd_mclr=5)),
+        ("shuffle", 2, dict(sampling="shuffle"), dict(fed_cohort_gather=2)),
+        ("fedprox iid", 3, fedprox,
+         dict(fed_cohort_gather=3, fed_local_sgd_mclr=3))])
 
-    # this slice's path; the upload stage of every round is captured, and
-    # the last round's error-feedback identity is checked on the card
+    # the MLP path; the upload stage of every compressed round is captured,
+    # and the last one's error-feedback identity is checked on the card
     stage = {}
     inner_stage = comp.apply_upload_compress
 
@@ -1342,19 +1374,16 @@ def main() -> int:
 
     comp.apply_upload_compress = capture_stage
     try:
-        run_path("mlp_topk_q8", [("mlp iid topk_q8", 5, dict(
-            sampling="iid", model="mlp", upload_compress="topk_q8",
-            topk_frac=frac))])
+        run_path("mlp", [
+            ("mlp iid topk_q8", 5, dict(
+                sampling="iid", model="mlp", upload_compress="topk_q8",
+                topk_frac=frac),
+             dict(fed_cohort_gather=5, fed_local_sgd_dense=5,
+                  fed_compress_topk_q8=5)),
+            ("mlp fedprox iid", 3, dict(fedprox, model="mlp"),
+             dict(fed_cohort_gather=3, fed_local_sgd_dense=3))])
     finally:
         comp.apply_upload_compress = inner_stage
-    want = {"fed_cohort_gather": 5, "fed_local_sgd_mclr": 0,
-            "fed_local_sgd_dense": 5, "fed_compress_topk_q8": 5,
-            "flash_attention_fwd": 0, "selective_scan_fwd": 0,
-            "flash_attention_bwd": 0, "fused_softmax_xent_fwd": 0,
-            "fused_softmax_xent_bwd": 0}
-    if path_launches["mlp_topk_q8"] != want:
-        raise RuntimeError(f"MLP + topk_q8 path launched "
-                           f"{path_launches['mlp_topk_q8']}, not {want}")
     ef = (_flatten_clients(stage["pk"]) - comp.flatten_global(stage["g"])
           [None, :]) + stage["res"]
     _, new_res, sent = stage["out"]
@@ -1431,11 +1460,13 @@ def main() -> int:
     profiles = {}
     for label, cfg in (("iid", dict(sampling="iid")),
                        ("shuffle", dict(sampling="shuffle")),
+                       ("fedprox iid", fedprox),
                        ("mlp iid topk_q8", dict(
                            sampling="iid", model="mlp",
-                           upload_compress="topk_q8", topk_frac=frac))):
+                           upload_compress="topk_q8", topk_frac=frac)),
+                       ("mlp fedprox iid", dict(fedprox, model="mlp"))):
         srv = FedSAEServer(femnist, cfg=ServerConfig(
-            algo="ira", n_selected=10, **cfg))
+            **{"algo": "ira", "n_selected": 10, **cfg}))
         srv.run_round(0)                     # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time the port's selective-scan and cohort-gather kernels against an
-earlier version of their sources, on one CUDA card.
+"""Time the port's selective-scan, cohort-gather and local-SGD kernels
+against an earlier version of their sources, on one CUDA card.
 
-    git show <commit>:src/repro_torch/kernels/csrc/selective_scan.cu \
-        > _scratch/old/selective_scan.cu
-    git show <commit>:src/repro_torch/kernels/csrc/fed_gather.cu \
-        > _scratch/old/fed_gather.cu
-    python3 scripts/kernel_ab.py --old-dir _scratch/old [--split] [--ab]
+    for k in selective_scan fed_gather fed_local_sgd fed_local_sgd_dense; do
+        git show <commit>:src/repro_torch/kernels/csrc/$k.cu \
+            > _scratch/old/$k.cu
+    done
+    python3 scripts/kernel_ab.py --old-dir _scratch/old [--split] [--ab] \
+        [--sgd]
 
 ``--split`` takes the old scan apart (the scan of the port's first
 version, one thread per channel with a staged chunk of 32 steps): it
@@ -30,6 +31,20 @@ flush that leaves the L2 dirty (as ``chip_smoke.py`` has timed the gather
 since it was written) and after one that leaves it clean.  Old and
 current results are each held against the plain version (the scan within
 1e-4), and the two gathers against each other, bitwise.
+
+``--sgd`` times the two local-SGD kernels (MCLR and the dense MLP)
+against the old ``fed_local_sgd.cu`` and ``fed_local_sgd_dense.cu``, in
+turns (old, new, new, old), at FEMNIST's shape (max_n=400, d=784, C=26,
+B=10, MLP H=64, lr 0.03) for K in {1, 10, 20} and the longest client's
+budget L in {40, 240, 960} (the other clients' budgets drawn from [1, L]),
+FedProx (prox_mu 0.1) at K=10, L=600 (15 epochs of 40 iterations), and
+the synthetic set's d=60, C=10 at K=10; each result is held against the
+plain version first (MCLR 2e-5, dense rtol 5e-4, atol 5e-5).  It also
+splits the old kernels' time at K=10, L=960 with two variants of each old
+source, made by textual edits in the build directory: staging only (each
+step loads its indices and batch rows and stops there) and compute only
+(the indices and rows are loaded at the first step only, and every later
+step computes on those rows).
 
 Times are medians of per-call CUDA-event times after a clock warm-up, as
 in ``chip_smoke.py``, whose helpers this script uses.  The card's name
@@ -276,14 +291,215 @@ def run_ab(torch, old_dir, build_dir, out):
     out["gather_ab"] = res
 
 
+#: (find, replace) edits of the old local-SGD kernels (both sources hold
+#: each text once) for the staging-only and compute-only variants
+SGD_SPLIT_EDITS = [
+    ("      xb[e] = xk[(long long)sidx[bb] * d + j];\n    }\n"
+     "    __syncthreads();\n",
+     "      xb[e] = xk[(long long)sidx[bb] * d + j];\n    }\n"
+     "    __syncthreads();\n"
+     "#ifdef SPLIT_STAGING_ONLY\n    continue;\n#endif\n"),
+    ("    for (int bb = tid; bb < B; bb += nt) {\n"
+     "      int r = idxk[(long long)i * B + bb];\n",
+     "#ifdef SPLIT_COMPUTE_ONLY\n    if (i == 0)\n#endif\n"
+     "    for (int bb = tid; bb < B; bb += nt) {\n"
+     "      int r = idxk[(long long)i * B + bb];\n"),
+    ("    for (int e = tid; e < B * d; e += nt) {\n"
+     "      const int bb = e / d, j = e - bb * d;\n",
+     "#ifdef SPLIT_COMPUTE_ONLY\n    if (i == 0)\n#endif\n"
+     "    for (int e = tid; e < B * d; e += nt) {\n"
+     "      const int bb = e / d, j = e - bb * d;\n"),
+]
+OLD_MCLR_ARGS = [P] * 10 + [I] * 7 + [ctypes.c_float, ctypes.c_float, P]
+OLD_DENSE_ARGS = [P] * 14 + [I] * 8 + [ctypes.c_float, ctypes.c_float, P]
+SGD_LR, SGD_H, SGD_B = 0.03, 64, 10
+
+
+def sgd_split_source(old_src: str, build_dir: str, name: str) -> str:
+    with open(old_src) as f:
+        text = f.read()
+    for find, repl in SGD_SPLIT_EDITS:
+        if text.count(find) != 1:
+            raise RuntimeError(f"{old_src} does not hold {find!r} once")
+        text = text.replace(find, repl)
+    path = os.path.join(build_dir, f"{name}_split.cu")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def sgd_data(torch, dataset: str):
+    """(flat x, flat y, offsets, lengths, max_n, n_classes) of the FEMNIST
+    paper-scale or the synthetic federation, on the card."""
+    from repro_torch.data.federated import make_femnist_like, make_synthetic
+    fed = make_femnist_like() if dataset == "femnist" else make_synthetic()
+    max_n = int(fed.sizes.max())
+    pk = fed.packed(max_n, device="cuda")
+    return pk, max_n, fed.n_classes, fed.n_clients
+
+
+def sgd_case(torch, data, K: int, L: int, mlp: bool, seed: int):
+    """Inputs of one local-SGD call: K clients (the largest first), the
+    longest budget L, the others from [1, L]."""
+    import numpy as np
+    from repro_torch.core.engine import iid_indices
+    from repro_torch.kernels import ref
+    pk, max_n, C, n_clients = data
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(n_clients, K, replace=False)
+    ids[0] = int(torch.argmax(pk.lengths))
+    ids_t = torch.as_tensor(ids, device="cuda")
+    ns = torch.clamp(pk.lengths[ids_t], max=max_n)
+    x, y, _ = ref.fed_cohort_gather(pk.x.contiguous(), pk.y,
+                                    pk.offsets[ids_t].contiguous(), ns,
+                                    max_n=max_n)
+    n_iters = torch.as_tensor(rng.integers(1, L + 1, K), dtype=torch.int32,
+                              device="cuda")
+    n_iters[0] = L
+    gen = torch.Generator("cuda").manual_seed(seed)
+    idx = iid_indices(gen, ns, L, SGD_B)
+    d = x.shape[2]
+    if mlp:
+        params = (torch.randn((d, SGD_H), generator=gen, device="cuda")
+                  * d ** -0.5, torch.zeros(SGD_H, device="cuda"),
+                  torch.randn((SGD_H, C), generator=gen, device="cuda")
+                  * SGD_H ** -0.5, torch.zeros(C, device="cuda"))
+    else:
+        params = (torch.randn((d, C), generator=gen, device="cuda") * 0.01,
+                  torch.zeros(C, device="cuda"))
+    return (x.contiguous(), y.contiguous(), idx, *params, ns.contiguous(),
+            n_iters)
+
+
+def old_sgd_caller(torch, lib, args, mlp: bool, mu: float):
+    """A call of the old kernel's C entry on ``args`` into fresh outputs."""
+    x, y, idx = args[:3]
+    K, max_n, d = x.shape
+    max_iters, B = idx.shape[1], idx.shape[2]
+    if mlp:
+        H, C = args[5].shape
+        outs = [torch.empty(s, device="cuda")
+                for s in ((K, d, H), (K, H), (K, H, C), (K, C), (K,))]
+        dims = [K, max_n, d, H, C, max_iters, B, max(1, min(1024 // H, d))]
+        fn = lib.fed_local_sgd_dense_launch
+    else:
+        C = args[3].shape[1]
+        outs = [torch.empty(s, device="cuda") for s in ((K, d, C), (K, C),
+                                                        (K,))]
+        dims = [K, max_n, d, C, max_iters, B,
+                max(1, min(1024 // max(B * C, 1), d))]
+        fn = lib.fed_local_sgd_mclr_launch
+    ptrs = [t.data_ptr() for t in (*args, *outs)]
+
+    def call():
+        code = fn(*ptrs, *dims, SGD_LR, mu,
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"old SGD kernel failed: CUDA error {code}")
+        return outs
+    return call
+
+
+def check_sgd(torch, got, want, mlp: bool, what: str) -> float:
+    rtol, atol = (cs.DENSE_RTOL, cs.DENSE_ATOL) if mlp else (cs.TOL, cs.TOL)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if not all(torch.allclose(g, w, rtol=rtol, atol=atol)
+               for g, w in zip(got, want)):
+        raise RuntimeError(f"{what} differs from plain: {err}")
+    return err
+
+
+def run_sgd(torch, old_dir, build_dir, out):
+    from repro_torch.kernels import fed_local_sgd, fed_local_sgd_dense, ref
+    kinds = {
+        "mclr": ("fed_local_sgd", OLD_MCLR_ARGS, "fed_local_sgd_mclr_launch",
+                 fed_local_sgd.fed_local_sgd_mclr, ref.fed_local_sgd_mclr),
+        "dense": ("fed_local_sgd_dense", OLD_DENSE_ARGS,
+                  "fed_local_sgd_dense_launch",
+                  fed_local_sgd_dense.fed_local_sgd_dense,
+                  ref.fed_local_sgd_dense),
+    }
+    femnist = sgd_data(torch, "femnist")
+    libs = {}
+    for kind, (src, argtypes, entry, _, _) in kinds.items():
+        old_src = os.path.join(old_dir, f"{src}.cu")
+        split = sgd_split_source(old_src, build_dir, src)
+        libs[kind] = {
+            variant: bind(nvcc(path, os.path.join(
+                build_dir, f"old_{src}_{variant}.so"), defines), entry,
+                argtypes)
+            for variant, path, defines in (
+                ("full", old_src, ()),
+                ("staging_only", split, ["SPLIT_STAGING_ONLY"]),
+                ("compute_only", split, ["SPLIT_COMPUTE_ONLY"]))}
+    cs.spin(torch)
+    # the old kernels' split at K=10, L=960
+    split_rows = {}
+    for kind in kinds:
+        mlp = kind == "dense"
+        args = sgd_case(torch, femnist, 10, 960, mlp, seed=0)
+        calls = {v: old_sgd_caller(torch, lib, args, mlp, 0.0)
+                 for v, lib in libs[kind].items()}
+        times = {v: [] for v in calls}
+        for v in ("full", "staging_only", "compute_only", "compute_only",
+                  "staging_only", "full"):
+            times[v].append(cs.time_ms(torch, calls[v], 5))
+        row = {"shape": {"K": 10, "L": 960}, "ms": times,
+               "us_per_iteration": {v: [t * 1e3 / 960 for t in ts]
+                                    for v, ts in times.items()}}
+        print(f"old {kind} SGD split {json.dumps(row)}", flush=True)
+        split_rows[kind] = row
+    out["sgd_split"] = split_rows
+
+    # old against new in turns
+    synthetic = sgd_data(torch, "synthetic")
+    shapes = [("femnist", K, L, 0.0) for K in (1, 10, 20)
+              for L in (40, 240, 960)]
+    shapes += [("femnist", 10, 600, 0.1), ("synthetic", 10, 40, 0.0),
+               ("synthetic", 10, 960, 0.0)]
+    rows = []
+    for kind, (_, _, _, wrapper, plain) in kinds.items():
+        mlp = kind == "dense"
+        for dataset, K, L, mu in shapes:
+            data = femnist if dataset == "femnist" else synthetic
+            args = sgd_case(torch, data, K, L, mlp, seed=K + L)
+            old_call = old_sgd_caller(torch, libs[kind]["full"], args, mlp,
+                                      mu)
+
+            def new_call(args=args, mu=mu):
+                return wrapper(*args, SGD_LR, mu)
+            want = plain(*args, lr=SGD_LR, prox_mu=mu)
+            err = {"old": check_sgd(torch, [t.clone() for t in old_call()],
+                                    want, mlp, f"old {kind}"),
+                   "new": check_sgd(torch, new_call(), want, mlp,
+                                    f"new {kind}")}
+            reps = 5 if L >= 600 else 20
+            t_old, t_new = turns(torch, old_call, new_call, reps)
+            d, C = args[0].shape[2], args[-3].shape[0]   # the last bias: [C]
+            size = (fed_local_sgd_dense.checked_cluster_size(
+                K, d, SGD_H, C, SGD_B, mu != 0) if mlp else
+                fed_local_sgd.checked_cluster_size(K, d, C, SGD_B, mu != 0))
+            row = {"kernel": kind, "data": dataset, "K": K, "L": L,
+                   "prox_mu": mu, "cluster_size": size, "old_ms": t_old,
+                   "new_ms": t_new,
+                   "old_us_per_iteration": [t * 1e3 / L for t in t_old],
+                   "new_us_per_iteration": [t * 1e3 / L for t in t_new],
+                   "max_abs_err": err}
+            print(f"sgd {json.dumps(row)}", flush=True)
+            rows.append(row)
+    out["sgd_ab"] = rows
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-dir", required=True,
-                    help="directory holding the old selective_scan.cu and "
-                         "fed_gather.cu")
+                    help="directory holding the old selective_scan.cu, "
+                         "fed_gather.cu, fed_local_sgd.cu and "
+                         "fed_local_sgd_dense.cu")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--ab", action="store_true")
+    ap.add_argument("--sgd", action="store_true")
     ap.add_argument("--build-dir", default=os.path.join(ROOT, "_scratch",
                                                         "kernel_ab"))
     ap.add_argument("--out", default=os.path.join(ROOT, "_scratch",
@@ -302,6 +518,8 @@ def main() -> int:
                   a.build_dir, out)
     if a.ab:
         run_ab(torch, a.old_dir, a.build_dir, out)
+    if a.sgd:
+        run_sgd(torch, a.old_dir, a.build_dir, out)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.dirname(a.out), exist_ok=True)
     with open(a.out, "w") as f:

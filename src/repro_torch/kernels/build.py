@@ -43,14 +43,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "fed_local_sgd": {
         "fed_local_sgd_mclr_launch":
-            ([P] * 10 + [I] * 7 + [ctypes.c_float, ctypes.c_float, P], I),
-        "fed_local_sgd_mclr_smem_bytes": ([I, I, I, I], ctypes.c_longlong),
+            ([P] * 10 + [I] * 9 + [ctypes.c_float, ctypes.c_float, P], I),
+        "fed_local_sgd_mclr_smem_bytes": ([I] * 5, ctypes.c_longlong),
+        "fed_local_sgd_mclr_max_clusters": ([I] * 3 + [ctypes.c_longlong],
+                                            I),
         "fed_local_sgd_mclr_error_string": ([I], ctypes.c_char_p),
     },
     "fed_local_sgd_dense": {
         "fed_local_sgd_dense_launch":
-            ([P] * 14 + [I] * 8 + [ctypes.c_float, ctypes.c_float, P], I),
-        "fed_local_sgd_dense_smem_bytes": ([I] * 5, ctypes.c_longlong),
+            ([P] * 14 + [I] * 10 + [ctypes.c_float, ctypes.c_float, P], I),
+        "fed_local_sgd_dense_smem_bytes": ([I] * 6, ctypes.c_longlong),
+        "fed_local_sgd_dense_max_clusters": ([I] * 3 + [ctypes.c_longlong],
+                                             I),
         "fed_local_sgd_dense_error_string": ([I], ctypes.c_char_p),
     },
     "fed_compress": {

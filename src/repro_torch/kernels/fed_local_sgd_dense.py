@@ -2,15 +2,18 @@
 (``csrc/fed_local_sgd_dense.cu``).
 
 A CPU tensor goes to the plain version (``kernels.ref``); a CUDA tensor
-launches the kernel or raises.  ``fed_local_sgd_dense.launches`` counts the
-kernel launches.
+launches the kernel, one thread-block cluster per client, or raises (also
+when no cluster size fits the shape, or the cluster cannot be resident).
+``fed_local_sgd_dense.launches`` counts the kernel launches.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.fed_local_sgd import SMEM_LIMIT, THREADS
+from repro_torch.kernels.fed_local_sgd import (max_clusters, padded_rows,
+                                               pick_cluster_size,
+                                               rows_per_cta, warps_per_cta)
 
 
 def _check_cuda(x, y, idx, w1, b1, w2, b2, ns, n_iters):
@@ -46,37 +49,45 @@ def _check_cuda(x, y, idx, w1, b1, w2, b2, ns, n_iters):
         raise ValueError("max_n and the batch size must be >= 1")
 
 
-def split_count(d: int, H: int) -> int:
-    """S, the number of slices each hidden unit's d-long dot product is
-    split into, so that about THREADS threads share the first layer."""
-    return max(1, min(THREADS // max(H, 1), d))
+def smem_bytes(d: int, H: int, C: int, B: int, cs: int,
+               prox: bool) -> int:
+    """The kernel's dynamic shared memory per CTA at cluster size ``cs``
+    (the layout of ``csrc/fed_local_sgd_dense.cu``): R rows of w1 (and of
+    w10 with prox), the batch rows [2, BP, R] (BP = ``padded_rows(B)``),
+    the published first-layer partials [2, B*H + 1], w2 with an odd row
+    stride (and w20 with prox), b1, b10, b2, b20, h and dpre [BP, H],
+    logits/err [BP, C], the row losses [BP], the warps' prox shares,
+    labels and indices [2, B] each, each segment padded to 4 floats."""
+    R = rows_per_cta(d, cs)
+    nw = warps_per_cta(R, B)
+    BP = padded_rows(B)
+
+    def a4(n):
+        return 4 * -(-n // 4)
+    copies = 2 if prox else 1
+    floats = (a4(R * H) * copies + a4(2 * BP * R) + 2 * a4(B * H + 1)
+              + a4(H * (C | 1)) * copies + 2 * a4(H) + 2 * a4(C)
+              + 2 * a4(BP * H) + a4(BP * C) + a4(BP) + a4(nw)
+              + 2 * a4(2 * B))
+    return 4 * floats
 
 
-def smem_bytes(d: int, H: int, C: int, B: int) -> int:
-    """The kernel's dynamic shared memory: xb, w2, b1, b2, the first
-    layer's partial sums, h, dpre, logits/err, row losses, the prox
-    reduction, batch indices and labels.  w1 stays in global memory."""
-    S = split_count(d, H)
-    return 4 * (B * d + H * C + H + C + S * B * H + 2 * B * H + B * C + B
-                + THREADS) + 8 * B
-
-
-def checked_smem_bytes(d: int, H: int, C: int, B: int) -> int:
-    """``smem_bytes``, raising if a Hopper block cannot have that much."""
-    smem = smem_bytes(d, H, C, B)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"fed_local_sgd_dense needs {smem} bytes of shared memory for "
-            f"d={d}, H={H}, C={C}, B={B}; a Hopper block has {SMEM_LIMIT}")
-    return smem
+def checked_cluster_size(K: int, d: int, H: int, C: int, B: int,
+                         prox: bool, cluster=None) -> int:
+    """The cluster size the dense kernel launches with at these shapes."""
+    return pick_cluster_size(
+        "fed_local_sgd_dense", K, d,
+        lambda cs: smem_bytes(d, H, C, B, cs, prox),
+        f"d={d}, H={H}, C={C}, B={B}, prox={prox}", cluster)
 
 
 def fed_local_sgd_dense(x, y, idx, w1, b1, w2, b2, ns, n_iters, lr: float,
-                        prox_mu: float = 0.0):
+                        prox_mu: float = 0.0, cluster=None):
     """x: [K, max_n, d] f32; y: [K, max_n] i32; idx: [K, max_iters, B] i32
     minibatch indices; w1: [d, H]; b1: [H]; w2: [H, C]; b2: [C]; ns/n_iters:
     [K] i32 -> (w1_k [K, d, H], b1_k [K, H], w2_k [K, H, C], b2_k [K, C],
-    losses [K] f32)."""
+    losses [K] f32).  ``cluster`` sets the kernel's cluster size (default:
+    ``checked_cluster_size``'s choice)."""
     if x.device.type == "cpu":
         return ref.fed_local_sgd_dense(x, y, idx, w1, b1, w2, b2, ns,
                                        n_iters, lr=lr, prox_mu=prox_mu)
@@ -86,24 +97,33 @@ def fed_local_sgd_dense(x, y, idx, w1, b1, w2, b2, ns, n_iters, lr: float,
     K, max_n, d = x.shape
     max_iters, B = idx.shape[1], idx.shape[2]
     H, C = w2.shape
-    smem = checked_smem_bytes(d, H, C, B)
+    prox = float(prox_mu) != 0.0
+    cs = checked_cluster_size(K, d, H, C, B, prox, cluster)
+    smem = smem_bytes(d, H, C, B, cs, prox)
     dev = x.device
     outs = [torch.empty(shape, dtype=torch.float32, device=dev)
             for shape in ((K, d, H), (K, H), (K, H, C), (K, C), (K,))]
     if K == 0:
         return tuple(outs)
     lib = build.load("fed_local_sgd_dense")
-    S = split_count(d, H)
-    if lib.fed_local_sgd_dense_smem_bytes(d, H, C, B, S) != smem:
+    R = rows_per_cta(d, cs)
+    nw = warps_per_cta(R, B)
+    if lib.fed_local_sgd_dense_smem_bytes(H, C, B, R, nw, int(prox)) != smem:
         raise RuntimeError("shared-memory layout of fed_local_sgd_dense.cu "
                            "and its wrapper disagree")
     with torch.cuda.device(dev):
+        if max_clusters("fed_local_sgd_dense", "fed_local_sgd_dense", B, cs,
+                        nw, smem) < 1:
+            raise RuntimeError(
+                f"fed_local_sgd_dense: a cluster of {cs} CTAs x {32 * nw} "
+                f"threads x {smem} bytes of shared memory cannot be resident "
+                f"(K={K}, d={d}, H={H}, C={C}, B={B})")
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.fed_local_sgd_dense_launch(
             *(t.data_ptr() for t in (x, y, idx, w1, b1, w2, b2, ns,
                                      n_iters, *outs)),
-            K, max_n, d, H, C, max_iters, B, S, float(lr), float(prox_mu),
-            stream)
+            K, max_n, d, H, C, max_iters, B, cs, R, nw, float(lr),
+            float(prox_mu), stream)
     build.check(lib, "fed_local_sgd_dense", code)
     fed_local_sgd_dense.launches += 1
     return tuple(outs)

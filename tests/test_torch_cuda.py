@@ -31,8 +31,9 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  fused_xent, selective_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from torch_cases import (attention_case, dense_case, gather_case,
-                         gather_lanes_case, scan_case, sgd_case, xent_case)
+from torch_cases import (attention_case, cluster_case, dense_case,
+                         gather_case, gather_lanes_case, scan_case, sgd_case,
+                         xent_case)
 
 TOL = 2e-5
 
@@ -114,6 +115,96 @@ def test_cuda_dense_sgd_kernel_vs_plain(cuda_device, prox_mu):
     assert fed_local_sgd_dense.fed_local_sgd_dense.launches == before + 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=5e-4, atol=5e-5)
+
+
+# The local-SGD kernels run one thread-block cluster per client.  Cases
+# (K, d, C, B, H, max_iters, clusters, prox_mu): FEMNIST's width at the
+# default cluster size; the same inputs at cluster sizes 1 and 8; d not a
+# multiple of the cluster size or of 4 (the 4-byte copy path); d below the
+# cluster size (CTAs with no rows); K = 1; K = 20 at size 8 (160 CTAs, more
+# than 132: clusters in waves); B below and above the 10 batch rows the
+# registers hold (B = 3, 20); C above 32 and H not a multiple of 32.
+SGD_CLUSTER_CASES = [
+    (4, 784, 26, 10, 64, 24, (None,), 0.1),
+    (3, 200, 26, 10, 64, 24, (1, 8), 0.0),
+    (3, 200, 26, 10, 64, 24, (1, 8), 0.1),
+    (3, 61, 10, 10, 64, 16, (1, 8), 0.1),
+    (3, 5, 10, 10, 64, 16, (1, 8), 0.1),
+    (1, 784, 26, 10, 64, 24, (8,), 0.0),
+    (20, 784, 26, 10, 64, 12, (8,), 0.1),
+    (3, 120, 26, 3, 64, 16, (None,), 0.1),
+    (3, 120, 26, 20, 64, 16, (None, 2), 0.1),
+    (3, 96, 40, 10, 50, 16, (None, 1), 0.1),
+]
+SGD_LR = 0.03
+
+
+def _sgd_run(kind, t, mu, cluster):
+    if kind == "mclr":
+        return fed_local_sgd.fed_local_sgd_mclr(*t, SGD_LR, mu,
+                                                cluster=cluster)
+    return fed_local_sgd_dense.fed_local_sgd_dense(*t, SGD_LR, mu,
+                                                   cluster=cluster)
+
+
+def _sgd_plain(kind, t, mu):
+    plain = (tref.fed_local_sgd_mclr if kind == "mclr"
+             else tref.fed_local_sgd_dense)
+    return plain(*t, lr=SGD_LR, prox_mu=mu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mclr", "dense"])
+@pytest.mark.parametrize("K,d,C,B,H,max_iters,clusters,mu",
+                         SGD_CLUSTER_CASES)
+def test_cuda_sgd_cluster_kernels_vs_plain_and_repeatable(
+        cuda_device, kind, K, d, C, B, H, max_iters, clusters, mu):
+    args = cluster_case(K, d, C, B, max_iters, H=H if kind == "dense"
+                        else None)
+    t = [torch.from_numpy(a).to(cuda_device) for a in args]
+    want = _sgd_plain(kind, t, mu)
+    rtol, atol = (TOL, TOL) if kind == "mclr" else (5e-4, 5e-5)
+    for cluster in clusters:
+        got = _sgd_run(kind, t, mu, cluster)
+        again = _sgd_run(kind, t, mu, cluster)
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)          # two launches, the same bits
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+        # the zero-budget lane keeps the globals bitwise, with loss 0
+        if K > 1:
+            for g, init in zip(got[:-1], t[3:-2]):
+                assert torch.equal(g[1], init)
+            assert float(got[-1][1]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mclr", "dense"])
+def test_cuda_sgd_cluster_kernels_zero_budgets(cuda_device, kind):
+    args = list(cluster_case(5, 784, 26, 10, 8,
+                             H=64 if kind == "dense" else None))
+    args[-1][:] = 0
+    args[-2][:] = 0
+    t = [torch.from_numpy(a).to(cuda_device) for a in args]
+    got = _sgd_run(kind, t, 0.1, None)
+    torch.cuda.synchronize()
+    for g, init in zip(got[:-1], t[3:-2]):
+        for k in range(5):
+            assert torch.equal(g[k], init)
+    assert torch.equal(got[-1], torch.zeros(5, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["mclr", "dense"])
+def test_cuda_sgd_cluster_refuses_a_size_that_does_not_fit(cuda_device,
+                                                           kind):
+    args = cluster_case(2, 1024, 26, 10, 4,
+                        H=64 if kind == "dense" else None)
+    t = [torch.from_numpy(a).to(cuda_device) for a in args]
+    with pytest.raises(ValueError, match="cluster"):
+        _sgd_run(kind, t, 0.1, 3)
+    with pytest.raises(ValueError, match="shared memory"):
+        _sgd_run(kind, t, 0.1, 1)      # CS=1 with prox does not fit d=1024
 
 
 @pytest.mark.cuda

@@ -147,24 +147,75 @@ def test_nvcc_command_targets_sm_90a():
 
 
 def test_shared_memory_budget_at_paper_shapes():
-    # FEMNIST (d=784, C=26, B=10) and synthetic (d=60, C=10) both fit the
-    # 227 KB a Hopper block may use
-    assert fed_local_sgd.smem_bytes(784, 26, 10) <= fed_local_sgd.SMEM_LIMIT
-    assert fed_local_sgd.smem_bytes(60, 10, 10) <= fed_local_sgd.SMEM_LIMIT
-    assert fed_local_sgd.smem_bytes(4096, 26, 10) > fed_local_sgd.SMEM_LIMIT
+    # one CTA of the cluster holds R rows of w (and w0 with prox) and its
+    # slice of the batch rows: FEMNIST (d=784, C=26, B=10) fits a Hopper
+    # block's 227 KB at every cluster size, the synthetic set (d=60, C=10)
+    # at CS=1; d=1024 with prox only from CS=2; a wide d fits at no size
+    m = fed_local_sgd
+    limit = m.SMEM_LIMIT
+    assert m.rows_per_cta(784, 8) == 100 and m.warps_per_cta(100, 10) == 13
+    assert m.smem_bytes(784, 26, 10, 8, True) == 32448
+    assert m.smem_bytes(784, 26, 10, 1, True) <= limit
+    assert m.smem_bytes(1024, 26, 10, 1, True) > limit
+    assert m.smem_bytes(1024, 26, 10, 2, True) <= limit
+    assert m.smem_bytes(60, 10, 10, 1, True) <= limit
+    assert m.smem_bytes(16384, 26, 10, 8, True) > limit
+    with pytest.raises(ValueError, match="shared memory"):
+        m.checked_cluster_size(10, 16384, 26, 10, True)
 
 
 def test_dense_shared_memory_budget_at_paper_shapes():
-    # w1 stays in global memory, so the FEMNIST MLP (d=784, H=64, C=26,
-    # B=10) and the synthetic one (d=60, C=10) fit; a wide d does not
-    limit = fed_local_sgd_dense.SMEM_LIMIT
-    assert fed_local_sgd_dense.smem_bytes(784, 64, 26, 10) <= limit
-    assert fed_local_sgd_dense.smem_bytes(60, 64, 10, 10) <= limit
-    assert fed_local_sgd_dense.split_count(784, 64) == 16
-    assert fed_local_sgd_dense.smem_bytes(8192, 64, 26, 10) > limit
+    # w1's rows are split over the cluster, so the FEMNIST MLP (d=784,
+    # H=64, C=26, B=10) fits from CS=2 (CS=4 with prox: w10 too) and the
+    # synthetic one (d=60, C=10) at CS=1; a wide d fits at no size
+    m = fed_local_sgd_dense
+    limit = fed_local_sgd.SMEM_LIMIT
+    assert m.smem_bytes(784, 64, 26, 10, 8, True) == 85344
+    assert m.smem_bytes(784, 64, 26, 10, 1, False) > limit
+    assert m.smem_bytes(784, 64, 26, 10, 2, False) <= limit
+    assert m.smem_bytes(784, 64, 26, 10, 2, True) > limit
+    assert m.smem_bytes(784, 64, 26, 10, 4, True) <= limit
+    assert m.smem_bytes(60, 64, 10, 10, 1, True) <= limit
+    assert m.smem_bytes(8192, 64, 26, 10, 8, True) > limit
 
 
 def test_dense_wrapper_refuses_a_shape_over_the_budget():
-    fed_local_sgd_dense.checked_smem_bytes(784, 64, 26, 10)
+    fed_local_sgd_dense.checked_cluster_size(10, 784, 64, 26, 10, True)
     with pytest.raises(ValueError, match="shared memory"):
-        fed_local_sgd_dense.checked_smem_bytes(8192, 64, 26, 10)
+        fed_local_sgd_dense.checked_cluster_size(10, 8192, 64, 26, 10, True)
+    with pytest.raises(ValueError, match="shared memory"):
+        fed_local_sgd_dense.checked_cluster_size(10, 784, 64, 26, 10, True,
+                                                 cluster=2)
+    with pytest.raises(ValueError, match="cluster"):
+        fed_local_sgd_dense.checked_cluster_size(10, 784, 64, 26, 10, True,
+                                                 cluster=3)
+
+
+# (K, d, prox) -> the MCLR and the dense kernels' cluster sizes (C=26,
+# H=64, B=10): 8 while K * 8 <= 132 SMs; smaller as K grows; the smallest
+# size whose CTAs fit once no size keeps K * CS <= 132; 1 at the synthetic
+# d=60 (fewer than 64 rows a CTA at CS=2)
+CLUSTER_CHOICES = [
+    (1, 784, False, 8, 8), (10, 784, True, 8, 8), (16, 784, False, 8, 8),
+    (17, 784, False, 4, 4), (20, 784, True, 4, 4), (33, 784, True, 4, 4),
+    (34, 784, False, 2, 2), (66, 784, True, 2, 4), (67, 784, False, 1, 2),
+    (200, 784, True, 1, 4), (10, 60, True, 1, 1), (200, 60, False, 1, 1),
+    (10, 128, False, 2, 2), (1, 5, True, 1, 1),
+]
+
+
+@pytest.mark.parametrize("K,d,prox,mclr,dense", CLUSTER_CHOICES)
+def test_cluster_size_choice(K, d, prox, mclr, dense):
+    C = 10 if d == 60 else 26
+    assert fed_local_sgd.checked_cluster_size(K, d, C, 10, prox) == mclr
+    assert fed_local_sgd_dense.checked_cluster_size(K, d, 64, C, 10,
+                                                    prox) == dense
+
+
+def test_rows_per_cta_cover_d_in_quads():
+    for d in (1, 3, 5, 60, 61, 784, 785):
+        for cs in fed_local_sgd.CLUSTER_SIZES:
+            R = fed_local_sgd.rows_per_cta(d, cs)
+            assert R % 4 == 0 and R * cs >= d and (R - 4) * cs < d
+            nw = fed_local_sgd.warps_per_cta(R, 10)
+            assert 10 <= nw <= fed_local_sgd.MAX_THREADS // 32

@@ -61,6 +61,35 @@ def dense_case(seed=4, K=5, max_n=20, d=24, H=12, C=5, max_iters=8, B=4):
     return x, y, idx, w1, b1, w2, b2, ns, n_iters
 
 
+def cluster_case(K, d, C, B, max_iters, H=None, max_n=40, seed=11):
+    """Inputs of the local-SGD kernels at a chosen width: x [K, max_n, d]
+    (0.2 N(0, 1)), labels, idx [K, max_iters, B], the global params (MCLR
+    (w0, b0), or the MLP's (w1, b1, w2, b2) when H is given), ns with an
+    empty lane and a full one, n_iters with a zero budget and a full one
+    (lanes 0 and 1 of each, where K allows)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(K, max_n, d)) * 0.2).astype(np.float32)
+    y = rng.integers(0, C, (K, max_n)).astype(np.int32)
+    ns = rng.integers(1, max_n + 1, K).astype(np.int32)
+    n_iters = rng.integers(1, max_iters + 1, K).astype(np.int32)
+    ns[0], n_iters[0] = max_n, max_iters
+    if K > 1:
+        ns[1], n_iters[1] = 0, 0
+    if K > 2:
+        ns[2] = 0
+    idx = (rng.random((K, max_iters, B))
+           * np.maximum(ns, 1)[:, None, None]).astype(np.int32)
+    if H is None:
+        params = ((rng.normal(size=(d, C)) * 0.05).astype(np.float32),
+                  (rng.normal(size=C) * 0.1).astype(np.float32))
+    else:
+        params = ((rng.normal(size=(d, H)) * d ** -0.5).astype(np.float32),
+                  (rng.normal(size=H) * 0.1).astype(np.float32),
+                  (rng.normal(size=(H, C)) * H ** -0.5).astype(np.float32),
+                  (rng.normal(size=C) * 0.1).astype(np.float32))
+    return (x, y, idx, *params, ns, n_iters)
+
+
 def attention_case(B, S, T, Hq, Hkv, hd, seed=42):
     """q [B, S, Hq, hd], k/v [B, T, Hkv, hd] float32 from N(0, 1)."""
     rng = np.random.default_rng(seed)
