@@ -27,8 +27,10 @@ last line):
      two shapes, budgets random with two zero lanes and one full lane;
    - the top-k + int8 compressor, bitwise, at K=10 with P = 51,930 (the
      MLP) and 20,410 (MCLR), planted threshold ties, a zero row, k=0,
-     k=P; library ``torch.topk`` of |ef| (timing only: its tie rule
-     differs);
+     k=P; ties that straddle the cluster's slices (the cut in a later
+     rank than the first tie) and a row of 500,001 on the streamed
+     route; its plan (route, cluster size) beside its time; library
+     ``torch.topk`` of |ef| (timing only: its tie rule differs);
    - flash-attention forward (out and lse) at Llama-3.2-3B's full width
      (24 q / 8 kv heads, hd=128, bf16, causal) at B=1 and at the serving
      path's B=4, both S=2048, plus a window, a non-causal, a ragged
@@ -1184,6 +1186,30 @@ def main() -> int:
               f"({k_main}, 0, P, 1, P-1), ties, a zero row", flush=True)
         if P == d_params:
             c_ef, c_k = ef, k_main
+    # ties that straddle the cluster's slices (from rank 3 on, cut in rank
+    # 5), and a row too long for shared memory (the streamed route)
+    for label, (cK, cP) in (("ties across ranks", (3, 40_000)),
+                            ("streamed", (2, 500_001))):
+        ef = torch.randn((cK, cP), generator=gen, device=dev) * 1e-3
+        plan = fed_compress.plan(cK, cP)
+        ks = [comp.resolve_k(frac, cP)]
+        if label == "ties across ranks":
+            S = plan.slice
+            ef[ef.abs() >= 2.5e-3] = 1e-3
+            ef[:, 3 * S::11] = 2.5e-3
+            ef[1, 3 * S::22] = -2.5e-3
+            cut = len(range(3 * S, 5 * S + S // 2, 11))
+            ks = [cut, cut + 1, len(range(3 * S, cP, 11)) + 5]
+        for k_case in ks:
+            q, sc = compress(ef, k_case)
+            wq, ws = ref.fed_compress_topk_q8(ef, k=k_case)
+            torch.cuda.synchronize()
+            if not (torch.equal(q, wq) and torch.equal(sc, ws)):
+                raise RuntimeError(f"compress kernel differs from plain "
+                                   f"({label}, K={cK}, P={cP}, k={k_case})")
+        print(f"fed_compress_topk_q8 {label} K={cK} P={cP} ({plan.route}, "
+              f"cluster size {plan.cs}): bitwise equal at k in {ks}",
+              flush=True)
     spin(torch)
     c_ms = time_ms(torch, lambda: compress(c_ef, c_k), 50)
     c_plain = time_ms(torch, lambda: ref.fed_compress_topk_q8(c_ef, k=c_k),
@@ -1191,8 +1217,10 @@ def main() -> int:
     c_lib = time_ms(torch, lambda: torch.topk(c_ef.abs(), c_k, dim=1), 50)
     c_bytes = K * d_params * (4 + 1) + 4 * K
     c_bound, c_by = bound(c_bytes, 0)
-    print(f"fed_compress_topk_q8 K={K} P={d_params} k={c_k}: kernel "
-          f"{c_ms:.4f} ms, plain {c_plain:.4f} ms, torch.topk(|ef|) "
+    c_plan = fed_compress.plan(K, d_params)
+    print(f"fed_compress_topk_q8 K={K} P={d_params} k={c_k} ({c_plan.route}, "
+          f"cluster size {c_plan.cs}, {c_plan.slice} coordinates a CTA): "
+          f"kernel {c_ms:.4f} ms, plain {c_plain:.4f} ms, torch.topk(|ef|) "
           f"{c_lib:.4f} ms, bound {c_bound:.4f} ms ({c_by}, {c_bytes} B)",
           flush=True)
 
@@ -1513,7 +1541,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/fed_compress.py:78",
          "launches": launches["fed_compress_topk_q8"], "max_abs_err": 0.0,
          "ms": c_ms, "plain_ms": c_plain, "bound_ms": c_bound,
-         "bound_by": c_by, "library_ms": c_lib},
+         "bound_by": c_by, "library_ms": c_lib, "plan_route": c_plan.route,
+         "cluster_size": c_plan.cs},
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:70",

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the port's selective-scan, cohort-gather and local-SGD kernels
-against an earlier version of their sources, on one CUDA card.
+"""Time the port's selective-scan, cohort-gather, local-SGD and top-k
+compressor kernels against an earlier version of their sources, on one
+CUDA card.
 
-    for k in selective_scan fed_gather fed_local_sgd fed_local_sgd_dense; do
+    for k in selective_scan fed_gather fed_local_sgd fed_local_sgd_dense \
+             fed_compress; do
         git show <commit>:src/repro_torch/kernels/csrc/$k.cu \
             > _scratch/old/$k.cu
     done
     python3 scripts/kernel_ab.py --old-dir _scratch/old [--split] [--ab] \
-        [--sgd]
+        [--sgd] [--compress] [--stamps]
 
 ``--split`` takes the old scan apart (the scan of the port's first
 version, one thread per channel with a staged chunk of 32 steps): it
@@ -45,6 +47,27 @@ source, made by textual edits in the build directory: staging only (each
 step loads its indices and batch rows and stops there) and compute only
 (the indices and rows are loaded at the first step only, and every later
 step computes on those rows).
+
+``--compress`` times the top-k + int8 compressor against the old
+``fed_compress.cu`` (``git show <commit>:.../fed_compress.cu >
+_scratch/old/fed_compress.cu``), in turns (old, new, new, old), each
+shape's results held bitwise against the plain version first and old
+against new after the timed calls: K in {1, 10, 20} with P in {20,410
+(MCLR), 51,930 (the MLP at H=64)} at ``resolve_k(0.1, P)``; at K=10,
+P=51,930 also k in {1, P/2} and a heavily tied row; the streamed route
+at K=2, P=4,194,304; and the new kernel at every cluster size at K=10
+for both P.  The plan (route, cluster size) is printed beside each time.
+With ``--compress``, ``--split`` takes the old compressor apart in place
+of the scan: two variants of the old source, made by textual edits in the
+build directory, stop after amax and after the four radix passes, and
+the three are timed in turns at K=10, P=51,930.
+
+``--stamps`` builds a copy of the current ``fed_compress.cu`` with
+clock64 stamps between its phases (thread 0 of each CTA writes them to a
+device array; made by textual edits in the build directory) and one that
+returns at once, and prints, at K in {1, 10, 20} with P = 51,930, each
+phase's cycles (least, median and most over the CTAs) beside the
+stamped call's time and the empty launch's.
 
 Times are medians of per-call CUDA-event times after a clock warm-up, as
 in ``chip_smoke.py``, whose helpers this script uses.  The card's name
@@ -490,16 +513,261 @@ def run_sgd(torch, old_dir, build_dir, out):
     out["sgd_ab"] = rows
 
 
+#: (find, replace) edits of the old compressor for the split variants
+COMPRESS_SPLIT_EDITS = [
+    ("  if (tid == 0) scale_out[blockIdx.x] = scale;\n",
+     "  if (tid == 0) scale_out[blockIdx.x] = scale;\n"
+     "#ifdef SPLIT_AMAX_ONLY\n  return;\n#endif\n"),
+    ("  const unsigned thr = prefix;\n",
+     "  const unsigned thr = prefix;\n"
+     "#ifdef SPLIT_SELECT_ONLY\n  if (tid == 0) q[0] = (int8_t)(thr & 127u);"
+     "\n  return;\n#endif\n"),
+]
+OLD_COMPRESS_ARGS = [P, P, P, I, I, I, P]
+
+
+def compress_split_source(old_src: str, build_dir: str) -> str:
+    with open(old_src) as f:
+        text = f.read()
+    for find, repl in COMPRESS_SPLIT_EDITS:
+        if text.count(find) != 1:
+            raise RuntimeError(f"{old_src} does not hold {find!r} once")
+        text = text.replace(find, repl)
+    path = os.path.join(build_dir, "fed_compress_split.cu")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def compress_input(torch, K: int, P: int, kind: str, seed: int):
+    """ef [K, P] on the card: N(0, 1e-3) deltas; ``tied`` draws every
+    coordinate from 17 values (k/P of a row sits in a few tied levels)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    if kind == "tied":
+        return (torch.randint(-8, 9, (K, P), generator=gen, device="cuda")
+                .float() * 1e-3)
+    return torch.randn((K, P), generator=gen, device="cuda") * 1e-3
+
+
+def old_compress_caller(torch, lib, ef, k: int):
+    K, P = ef.shape
+    q = torch.empty((K, P), dtype=torch.int8, device="cuda")
+    scale = torch.zeros((K,), device="cuda")
+    k = max(-1, min(k, P))
+
+    def call():
+        code = lib.fed_compress_topk_q8_launch(
+            ef.data_ptr(), q.data_ptr(), scale.data_ptr(), K, P, k,
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"old compressor failed: CUDA error {code}")
+        return q, scale
+    return call
+
+
+def compress_bound(K: int, P: int):
+    nbytes = K * P * (4 + 1) + 4 * K
+    return {"ms": cs.bound(nbytes, 0)[0], "bytes": nbytes}
+
+
+def run_compress(torch, old_dir, build_dir, out, split: bool):
+    from repro_torch.core.compression import resolve_k
+    from repro_torch.kernels import fed_compress, ref
+    old_src = os.path.join(old_dir, "fed_compress.cu")
+    old = bind(nvcc(old_src, os.path.join(build_dir, "old_compress.so")),
+               "fed_compress_topk_q8_launch", OLD_COMPRESS_ARGS)
+    new = fed_compress.fed_compress_topk_q8
+    cs.spin(torch)
+    if split:
+        path = compress_split_source(old_src, build_dir)
+        libs = {"full": old}
+        for name, define in (("amax_only", "SPLIT_AMAX_ONLY"),
+                             ("amax_select", "SPLIT_SELECT_ONLY")):
+            libs[name] = bind(nvcc(path, os.path.join(
+                build_dir, f"old_compress_{name}.so"), [define]),
+                "fed_compress_topk_q8_launch", OLD_COMPRESS_ARGS)
+        K, P = 10, 51930
+        ef = compress_input(torch, K, P, "normal", 0)
+        k = resolve_k(0.1, P)
+        calls = {v: old_compress_caller(torch, lib, ef, k)
+                 for v, lib in libs.items()}
+        times = {v: [] for v in libs}
+        for v in ("full", "amax_only", "amax_select", "amax_select",
+                  "amax_only", "full"):
+            times[v].append(cs.time_ms(torch, calls[v], 50))
+        res = {"shape": {"K": K, "P": P, "k": k}, "ms": times,
+               "bound_ms": compress_bound(K, P)}
+        print(f"old compress split {json.dumps(res)}", flush=True)
+        out["compress_split"] = res
+
+    shapes = [(K, P, resolve_k(0.1, P), "normal", None)
+              for K in (1, 10, 20) for P in (20410, 51930)]
+    shapes += [(10, 51930, 1, "normal", None),
+               (10, 51930, 51930 // 2, "normal", None),
+               (10, 51930, resolve_k(0.1, 51930), "tied", None),
+               (2, 4194304, resolve_k(0.1, 4194304), "normal", None)]
+    shapes += [(10, P, resolve_k(0.1, P), "normal", c)
+               for P in (20410, 51930) for c in fed_compress.CLUSTER_SIZES]
+    rows = []
+    for i, (K, P, k, kind, cluster) in enumerate(shapes):
+        ef = compress_input(torch, K, P, kind, i)
+        old_call = old_compress_caller(torch, old, ef, k)
+
+        def new_call(ef=ef, k=k, cluster=cluster):
+            return new(ef, k, cluster=cluster)
+        want = ref.fed_compress_topk_q8(ef, k=k)
+        got_old = [t.clone() for t in old_call()]
+        got_new = new_call()
+        torch.cuda.synchronize()
+        for name, got in (("old", got_old), ("new", got_new)):
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"{name} compressor differs from plain "
+                                   f"at K={K}, P={P}, k={k}, {kind}")
+        reps = 10 if P > 10**6 else 50
+        t_old, t_new = turns(torch, old_call, new_call, reps)
+        if not all(torch.equal(a, b) for a, b in zip(old_call(),
+                                                     new_call())):
+            raise RuntimeError(f"old and new compressor differ after the "
+                               f"timed calls at K={K}, P={P}, k={k}")
+        pl = fed_compress.plan(K, P, cluster)
+        row = {"K": K, "P": P, "k": k, "input": kind,
+               "route": pl.route, "cluster_size": pl.cs,
+               "forced": cluster is not None, "old_ms": t_old,
+               "new_ms": t_new, "bound_ms": compress_bound(K, P)}
+        print(f"compress {json.dumps(row)}", flush=True)
+        rows.append(row)
+    out["compress_ab"] = rows
+
+
+STAMP_HEAD = r"""
+__device__ unsigned long long g_stamps[4096 * 32];
+#define STAMP() do { if (threadIdx.x == 0) \
+    g_stamps[blockIdx.x * 32 + st] = clock64(); ++st; } while (0)
+extern "C" int read_stamps(void* dst, int n) {
+  return (int)cudaMemcpyFromSymbol(dst, g_stamps, n * sizeof(long long));
+}
+"""
+#: (find, replace) edits of the current compressor for its stamped copy;
+#: each must match the source exactly once
+STAMP_EDITS = [
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n" + STAMP_HEAD),
+    ("  const int G = (pad + n + 3) >> 2;\n",
+     "  const int G = (pad + n + 3) >> 2;\n  int st = 0;\n"
+     "#ifdef EARLY_EXIT\n  if (P > 0) return;\n#endif\n  STAMP();\n"),
+    ('  if (kResident) asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
+     "  __syncthreads();\n",
+     '  if (kResident) asm volatile("cp.async.wait_all;\\n" ::: "memory");\n'
+     "  __syncthreads();\n  STAMP();\n"),
+    ("    sync_cluster();   // the pass's one barrier: every histogram "
+     "complete\n",
+     "    STAMP();\n    sync_cluster();\n    STAMP();\n"),
+    ("    const unsigned c = ctl.sel_c, base = ctl.sel_base;\n",
+     "    const unsigned c = ctl.sel_c, base = ctl.sel_base;\n    STAMP();\n"),
+    ("    known |= (unsigned)(nb - 1) << shift;\n  }\n",
+     "    known |= (unsigned)(nb - 1) << shift;\n    STAMP();\n  }\n"),
+    ("  if (CS > 1) cluster_arrive();        // no more remote reads\n",
+     "  STAMP();\n  if (CS > 1) cluster_arrive();\n"),
+    ("  if (CS > 1) cluster_wait();          // no CTA leaves while read "
+     "remotely\n}",
+     "  STAMP();\n  if (CS > 1) cluster_wait();\n  STAMP();\n}"),
+]
+#: the phases between consecutive stamps: the load, then per pass the
+#: sweep (with the chunk sums), the cluster barrier, the chunk's find and
+#: the bin's find, then the tie counts, the quantise sweep, the last wait
+STAMP_PHASES = (["load"] + [f"{x}{p}" for p in range(3)
+                            for x in ("sweep", "barrier", "chunk", "bin")]
+                + ["ties", "quantise", "wait"])
+
+
+def stamped_library(build_dir: str, define: str) -> ctypes.CDLL:
+    from repro_torch.kernels import build
+    with open(build.source_path("fed_compress")) as f:
+        text = f.read()
+    for find, repl in STAMP_EDITS:
+        if text.count(find) != 1:
+            raise RuntimeError(f"fed_compress.cu does not hold {find!r} "
+                               f"once")
+        text = text.replace(find, repl)
+    path = os.path.join(build_dir, "fed_compress_stamped.cu")
+    with open(path, "w") as f:
+        f.write(text)
+    lib = ctypes.CDLL(nvcc(path, os.path.join(
+        build_dir, f"fed_compress_stamped_{define or 'full'}.so"),
+        [define] if define else []))
+    for fn, (argtypes, restype) in build.SIGNATURES["fed_compress"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    lib.read_stamps.argtypes = [P, I]
+    lib.read_stamps.restype = I
+    return lib
+
+
+def run_stamps(torch, build_dir, out):
+    import statistics
+    from repro_torch.core.compression import resolve_k
+    from repro_torch.kernels import fed_compress, ref
+    libs = {"stamped": stamped_library(build_dir, ""),
+            "empty": stamped_library(build_dir, "EARLY_EXIT")}
+    cs.spin(torch)
+    rows = []
+    for K, P in ((10, 51930), (1, 51930), (20, 51930)):
+        ef = compress_input(torch, K, P, "normal", K)
+        k = resolve_k(0.1, P)
+        pl = fed_compress.plan(K, P)
+        q = torch.empty((K, P), dtype=torch.int8, device="cuda")
+        scale = torch.empty((K,), device="cuda")
+        calls = {}
+        for name, lib in libs.items():
+            def call(lib=lib):
+                code = lib.fed_compress_topk_q8_launch(
+                    ef.data_ptr(), q.data_ptr(), scale.data_ptr(), K, P, k,
+                    pl.cs, pl.slice, int(pl.route == "resident"), pl.smem,
+                    torch.cuda.current_stream().cuda_stream)
+                if code:
+                    raise RuntimeError(f"stamped compressor failed: CUDA "
+                                       f"error {code}")
+            calls[name] = call
+        ms = {name: cs.time_ms(torch, call, 50)
+              for name, call in calls.items()}
+        calls["stamped"]()
+        torch.cuda.synchronize()
+        wq, ws = ref.fed_compress_topk_q8(ef, k=k)
+        if not (torch.equal(q, wq) and torch.equal(scale, ws)):
+            raise RuntimeError("the stamped compressor differs from plain")
+        n = K * pl.cs * 32
+        buf = (ctypes.c_ulonglong * n)()
+        if libs["stamped"].read_stamps(buf, n):
+            raise RuntimeError("reading the stamps failed")
+        ctas = [[buf[b * 32 + i] for i in range(len(STAMP_PHASES) + 1)]
+                for b in range(K * pl.cs)]
+        phases = {}
+        for i, name in enumerate(STAMP_PHASES):
+            d = [c[i + 1] - c[i] for c in ctas]
+            phases[name] = [min(d), statistics.median(d), max(d)]
+        totals = [c[-1] - c[0] for c in ctas]
+        row = {"K": K, "P": P, "k": k, "route": pl.route,
+               "cluster_size": pl.cs, "ms": ms["stamped"],
+               "empty_launch_ms": ms["empty"],
+               "cycles_total": [min(totals), max(totals)],
+               "cycles": phases}
+        print(f"compress stamps {json.dumps(row)}", flush=True)
+        rows.append(row)
+    out["compress_stamps"] = rows
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-dir", required=True,
                     help="directory holding the old selective_scan.cu, "
-                         "fed_gather.cu, fed_local_sgd.cu and "
-                         "fed_local_sgd_dense.cu")
+                         "fed_gather.cu, fed_local_sgd.cu, "
+                         "fed_local_sgd_dense.cu and fed_compress.cu")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--ab", action="store_true")
     ap.add_argument("--sgd", action="store_true")
+    ap.add_argument("--compress", action="store_true")
+    ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--build-dir", default=os.path.join(ROOT, "_scratch",
                                                         "kernel_ab"))
     ap.add_argument("--out", default=os.path.join(ROOT, "_scratch",
@@ -513,13 +781,17 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     out = {"card": card, "kind": torch.cuda.get_device_name(0)}
     t0 = time.perf_counter()
-    if a.split:
+    if a.split and not a.compress:
         run_split(torch, os.path.join(a.old_dir, "selective_scan.cu"),
                   a.build_dir, out)
     if a.ab:
         run_ab(torch, a.old_dir, a.build_dir, out)
     if a.sgd:
         run_sgd(torch, a.old_dir, a.build_dir, out)
+    if a.compress:
+        run_compress(torch, a.old_dir, a.build_dir, out, a.split)
+    if a.stamps:
+        run_stamps(torch, a.build_dir, out)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.dirname(a.out), exist_ok=True)
     with open(a.out, "w") as f:

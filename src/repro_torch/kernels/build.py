@@ -58,7 +58,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fed_local_sgd_dense_error_string": ([I], ctypes.c_char_p),
     },
     "fed_compress": {
-        "fed_compress_topk_q8_launch": ([P, P, P, I, I, I, P], I),
+        "fed_compress_topk_q8_launch":
+            ([P, P, P] + [I] * 6 + [ctypes.c_longlong, P], I),
+        "fed_compress_topk_q8_smem_bytes": ([I] * 2, ctypes.c_longlong),
+        "fed_compress_topk_q8_max_clusters": ([I, I, ctypes.c_longlong], I),
         "fed_compress_topk_q8_error_string": ([I], ctypes.c_char_p),
     },
     "flash_attention": {

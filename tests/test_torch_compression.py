@@ -49,6 +49,8 @@ TOL = 2e-5
 def _compress_case(kind, seed):
     rng = np.random.default_rng(seed)
     K, P = 4, 257                                    # an odd P
+    if kind == "ties_spread":
+        P = 4099                 # over a cluster of 8 slices at the card
     ef = rng.normal(size=(K, P)).astype(np.float32)
     k = 26
     if kind == "ties":           # many coordinates exactly at the threshold
@@ -74,11 +76,32 @@ def _compress_case(kind, seed):
         ef *= np.float32(3e-4)
         ef[0, :50] = np.float32(1e-4)
         k = 60
+    elif kind == "signed_zero":  # -0.0 and +0.0 tie at |e| == 0
+        ef[:, ::2] = np.float32(-0.0)
+        ef[:, 1::4] = np.float32(0.0)
+        k = 100
+    elif kind == "subnormal":    # subnormal entries, the threshold among
+        ef[0, ::5] = np.float32(-2e-40)     # them in row 0: each quantises to
+        ef[1, 3::7] = np.float32(1e-45)     # 0 (the reference's XLA CPU
+        ef[2, 1::9] = np.float32(3e-39)     # backend compares them as zero)
+        k = 220
+    elif kind == "all_tied":     # one magnitude in every row, both signs
+        ef[:] = np.float32(0.75)
+        ef[:, ::3] = np.float32(-0.75)
+        k = 100
+    elif kind == "ties_spread":  # ties across the row, the cut in its middle
+        ef *= np.float32(1e-3)
+        ef[np.abs(ef) >= np.float32(2.5e-3)] = np.float32(1e-3)
+        ef[:, 1500::11] = np.float32(2.5e-3)
+        ef[1, 1500::22] = np.float32(-2.5e-3)
+        ef[2, :3] = np.float32(4e-3)
+        k = len(range(1500, 2800, 11))
     return ef, k
 
 
 CASES = ["plain", "ties", "zero_row", "negative_amax", "k0", "kP", "k1",
-         "kP-1", "scaled"]
+         "kP-1", "scaled", "signed_zero", "subnormal", "all_tied",
+         "ties_spread"]
 
 
 @pytest.mark.parametrize("kind", CASES)
@@ -92,7 +115,7 @@ def test_compress_bitwise_vs_oracle_and_pallas(kind, seed):
         np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
         np.testing.assert_array_equal(scale.numpy(), np.asarray(ws))
     nnz = (q.numpy() != 0).sum(1)
-    if kind in ("ties", "plain"):
+    if kind in ("ties", "plain", "all_tied", "ties_spread"):
         assert (nnz <= k).all() and nnz.max() == k
     if kind == "k0":
         assert nnz.sum() == 0

@@ -31,9 +31,9 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  fused_xent, selective_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from torch_cases import (attention_case, cluster_case, dense_case,
-                         gather_case, gather_lanes_case, scan_case, sgd_case,
-                         xent_case)
+from torch_cases import (COMPRESS_CASES, attention_case, cluster_case,
+                         compress_case, dense_case, gather_case,
+                         gather_lanes_case, scan_case, sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -221,6 +221,50 @@ def test_cuda_compress_kernel_bitwise_vs_plain(cuda_device, k):
     wq, ws = tref.fed_compress_topk_q8(t, k=k)
     assert fed_compress.fed_compress_topk_q8.launches == before + 1
     assert torch.equal(q, wq) and torch.equal(scale, ws)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(COMPRESS_CASES))
+def test_cuda_compress_cluster_cases_bitwise_vs_plain(cuda_device, name):
+    """The compressor's cluster kernel at each of its cases
+    (``torch_cases.COMPRESS_CASES``), at every k of the case: bitwise the
+    plain version, one launch a call; ``misaligned`` reads ef from a base
+    4 bytes off 16-byte alignment (the 4-byte cp.async path); ``k20`` and
+    ``k50`` force clusters of 8, more CTAs than the card's 132 SMs."""
+    K, P, cluster, route = COMPRESS_CASES[name]
+    ef, ks = compress_case(name)
+    t = torch.from_numpy(ef).to(cuda_device)
+    if name == "misaligned":
+        base = torch.zeros(K * P + 1, device=cuda_device)
+        t = base[1:].view(K, P)
+        t.copy_(torch.from_numpy(ef))
+        assert t.data_ptr() % 16 == 4
+    plan = fed_compress.plan(K, P, cluster, route)
+    if name == "streamed_row" or route == "streamed":
+        assert plan.route == "streamed"
+    elif name in ("k20", "k50"):
+        assert plan.route == "resident" and K * plan.cs > 132
+    else:
+        assert plan.route == "resident"
+    for k in ks:
+        before = fed_compress.fed_compress_topk_q8.launches
+        q, scale = fed_compress.fed_compress_topk_q8(t, k, cluster=cluster,
+                                                     route=route)
+        wq, ws = tref.fed_compress_topk_q8(t, k=k)
+        assert fed_compress.fed_compress_topk_q8.launches == before + 1
+        assert torch.equal(scale, ws), (name, k)
+        assert torch.equal(q, wq), (name, k, int((q != wq).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["resident", "streamed"])
+def test_cuda_compress_two_launches_same_bits(cuda_device, route):
+    ef, _ = compress_case("straddle")
+    t = torch.from_numpy(ef).to(cuda_device)
+    k = 1137
+    a = fed_compress.fed_compress_topk_q8(t, k, route=route)
+    b = fed_compress.fed_compress_topk_q8(t, k, route=route)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 # (B, S, T, Hq, Hkv, hd, causal, window, dtype): GQA, window, non-causal,

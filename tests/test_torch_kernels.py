@@ -219,3 +219,81 @@ def test_rows_per_cta_cover_d_in_quads():
             assert R % 4 == 0 and R * cs >= d and (R - 4) * cs < d
             nw = fed_local_sgd.warps_per_cta(R, 10)
             assert 10 <= nw <= fed_local_sgd.MAX_THREADS // 32
+
+
+# the compressor's launch plan (``fed_compress.plan``), pure Python
+
+PLAN_PS = [1, 3, 5, 7, 257, 1001, 4099, 20410, 51930, 398048, 398049,
+           4194304]
+
+
+@pytest.mark.parametrize("P", PLAN_PS)
+def test_compress_slices_cover_the_row_in_rank_order(P):
+    for cs in fed_compress.CLUSTER_SIZES:
+        sl = fed_compress.slices(P, cs)
+        S = fed_compress.slice_len(P, cs)
+        assert len(sl) == cs and S % 4 == 0 and S * cs >= P
+        assert sl[0][0] == 0 and sl[-1][1] == P
+        for (lo, hi), (lo2, _) in zip(sl, sl[1:]):
+            assert lo <= hi == lo2 and hi - lo <= S
+
+
+@pytest.mark.parametrize("K", [1, 10, 20, 50, 200])
+def test_compress_plan_stays_within_shared_memory(K):
+    for P in PLAN_PS:
+        pl = fed_compress.plan(K, P)
+        assert pl.cs in fed_compress.CLUSTER_SIZES
+        assert pl.smem <= fed_compress.SMEM_LIMIT
+        assert pl.smem == fed_compress.smem_bytes(pl.slice,
+                                                  pl.route == "resident")
+        assert pl.slice == fed_compress.slice_len(P, pl.cs)
+        if pl.route == "resident":
+            assert pl.slice <= fed_compress.MAX_RESIDENT_SLICE
+
+
+def test_compress_routes_switch_at_the_resident_limit():
+    top = 8 * fed_compress.MAX_RESIDENT_SLICE
+    assert top == 398_048
+    assert fed_compress.plan(1, top).route == "resident"
+    assert fed_compress.smem_bytes(fed_compress.MAX_RESIDENT_SLICE,
+                                   True) <= fed_compress.SMEM_LIMIT
+    assert fed_compress.smem_bytes(fed_compress.MAX_RESIDENT_SLICE + 4,
+                                   True) > fed_compress.SMEM_LIMIT
+    for P in (top + 1, 4_194_304, 2**31 - 1):
+        pl = fed_compress.plan(2, P)
+        assert (pl.route, pl.cs) == ("streamed", 8)
+    # a forced size streams where its slice does not fit
+    assert fed_compress.plan(10, 51_930, cluster=1).route == "streamed"
+    assert fed_compress.plan(10, 51_930, cluster=2).route == "resident"
+    assert fed_compress.plan(1, 257, route="streamed").route == "streamed"
+
+
+# (K, P) -> cluster size: 8 at the FEMNIST rows while K x 8 <= 132 SMs
+# (one CTA an SM), then 4, 2; the smallest size that fits its slice once
+# none keeps K x size <= 132; fewer than MIN_SLICE coordinates a CTA: no
+# more split
+COMPRESS_CHOICES = [(1, 51_930, 8), (10, 51_930, 8), (16, 51_930, 8),
+                    (17, 51_930, 4), (20, 51_930, 4), (33, 51_930, 4),
+                    (34, 51_930, 2), (50, 51_930, 2), (67, 51_930, 2),
+                    (10, 20_410, 8), (20, 20_410, 4), (200, 20_410, 1),
+                    (10, 4_096, 2), (10, 4_088, 1), (4, 257, 1), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("K,P,cs", COMPRESS_CHOICES)
+def test_compress_cluster_size_choice(K, P, cs):
+    pl = fed_compress.plan(K, P)
+    assert (pl.route, pl.cs) == ("resident", cs)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(cluster=3), "cluster size 3"),
+    (dict(cluster=16), "cluster size 16"),
+    (dict(route="sorted"), "route 'sorted'"),
+    (dict(route="resident", P=1_000_000), "shared memory"),
+    (dict(route="resident", cluster=1, P=60_000), "shared memory"),
+    (dict(P=2**31), "int indices"),
+])
+def test_compress_impossible_plan_is_refused_by_name(kw, match):
+    P = kw.pop("P", 51_930)
+    with pytest.raises(ValueError, match=match):
+        fed_compress.plan(10, P, **kw)

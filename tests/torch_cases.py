@@ -119,3 +119,69 @@ def xent_case(T, d, V, seed=21):
     W = (rng.normal(size=(d, V)) * 0.05).astype(np.float32)
     labels = rng.integers(0, V, T).astype(np.int32)
     return h, W, labels
+
+
+def _slice(P, cs):
+    """A rank's slice length at cluster size cs (the compressor's plan)."""
+    return 4 * -(-(-(-P // cs)) // 4)
+
+
+#: the compressor's card cases: name -> (K, P, cluster, route)
+COMPRESS_CASES = {
+    "straddle": (3, 40_000, 8, None),
+    "straddle_streamed": (3, 40_000, 8, "streamed"),
+    "straddle_dense": (3, 40_000, 8, None),
+    "p_below_cluster": (3, 5, 8, None),
+    "p_ragged": (4, 1_001, 8, None),
+    "p_ragged_default": (4, 1_001, None, None),
+    "amax_last_negative": (2, 51_930, None, None),
+    "signed_zero_subnormal": (2, 4_099, 4, None),
+    "all_equal_and_zero": (3, 20_410, None, None),
+    "k20": (20, 51_930, 8, None),
+    "k50": (50, 51_930, 8, None),
+    "streamed_row": (1, 500_001, None, None),
+    "misaligned": (3, 20_411, None, None),
+}
+
+
+def compress_case(name, seed=5):
+    """(ef [K, P] float32, [k, ...]) of a compressor case: N(0, 1e-3)
+    deltas, shaped as the name says.
+
+    straddle: one tied magnitude in every row, on every 11th coordinate
+    from rank 3's slice on at cluster size 8 (the earliest ties sit in a
+    later rank), with k cutting the ties inside rank 5's slice;
+    straddle_dense: the same on every 5th coordinate, more ties than the
+    kernel gathers for its local finish (4,096); amax_last_negative: |e| ==
+    amax only on a negative entry in the last rank's slice;
+    signed_zero_subnormal: -0.0, +0.0 and subnormals (ties among them at
+    the threshold); all_equal_and_zero: one row of one value, one zero
+    row; the others plain rows at the case's shape."""
+    K, P, _, _ = COMPRESS_CASES[name]
+    rng = np.random.default_rng(seed)
+    ef = (rng.normal(size=(K, P)) * 1e-3).astype(np.float32)
+    ks = sorted({0, 1, max(P - 1, 0), P, max(1, P // 10)})
+    if name.startswith("straddle"):
+        S = _slice(P, 8)
+        v = np.float32(2.5e-3)
+        ef[np.abs(ef) >= v] = np.float32(1e-3)   # nothing above the ties
+        step = 5 if name == "straddle_dense" else 11
+        ef[:, 3 * S::step] = v
+        ef[1, 3 * S::2 * step] = -v
+        ef[2, :5] = np.float32(4e-3)             # a few above, in rank 0
+        ties = np.arange(P)[3 * S::step]
+        cut = int(np.searchsorted(ties, 5 * S + S // 2))
+        ks = [cut, cut + 1, 5, len(ties) - 1, len(ties) + 5]
+    elif name == "amax_last_negative":
+        ef[:, -3] = np.float32(-0.5)
+    elif name == "signed_zero_subnormal":
+        ef[:, ::3] = np.float32(-0.0)
+        ef[:, 1::3] = np.float32(0.0)
+        ef[0, 2::6] = np.float32(1e-40)           # subnormal ties
+        ef[0, 5::6] = np.float32(-3e-41)
+        ef[1] = np.float32(1e-42) * rng.integers(-5, 6, P).astype(np.float32)
+        ks = [1, 7, P // 6, P // 3, P // 2, P - 1]
+    elif name == "all_equal_and_zero":
+        ef[0] = np.float32(-7e-4)
+        ef[1] = 0.0
+    return ef, ks
