@@ -19,7 +19,10 @@ last line):
      (with n=0, n=max_n and clamped lanes); library ``flat_x[idx]``, timed
      in four turns each with the kernel and a same-size ``Tensor.copy_``
      (the card's copy yardstick), after a flush that leaves the L2 dirty
-     and after one that leaves it clean;
+     and after one that leaves it clean; and on the Sent140 paper-scale
+     federation (rows of 25 int32 tokens, the kernel's 4-byte path; K=10,
+     max_n=300, an empty and a full lane), timed against its plain
+     version;
    - MCLR local SGD within rtol = atol = 2e-5 at K=10, max_n=400, d=784,
      C=26, B=10, max_iters=960 (prox_mu 0 and 0.1) and at the synthetic
      set's shape (d=60, C=10, max_n=2000);
@@ -69,7 +72,16 @@ last line):
 3. check the port end to end on small federations: the same server on
    the card and on the CPU, with the same init and minibatch draws, picks
    the same cohorts and workloads; MCLR ends within 2e-5, the MLP with
-   top-k + int8 compression within 2/test_n of final accuracy; serve
+   top-k + int8 compression within 2/test_n of final accuracy; a small
+   Sent140 federation (40 clients, 1,200 tweets, vocabulary 260) trained
+   by the LSTM for 3 shuffle rounds: same cohorts and workloads, params
+   within 2e-5, accuracy within 2/test_n; each robust aggregator
+   (trimmed_mean, median, krum, geometric_median, bulyan, and weighted
+   trimmed_mean, multi-Krum and Bulyan) on a fixed [10, 56,962] stack with
+   an adversarial row and a dropped client, card against CPU under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host read fails):
+   Krum's and Bulyan's chosen clients equal, values within 1e-6 (1e-5 for
+   the geometric median); serve
    both LM smoke configs in float32 on the card and on the CPU from the
    same params: the same greedy tokens, logits within 1e-4; and train
    them there: ``train_loss`` and every gradient leaf within 1e-4, and one
@@ -83,7 +95,14 @@ last line):
    rounds; the MLP (d=784, H=64, C=26) with algo="ira", sampling="iid" and
    upload_compress="topk_q8" (topk_frac 0.1) for 5 rounds, whose last
    round must keep ``transmitted + residual' == delta + residual``
-   bitwise; and the MLP with algo="fedprox" for 3 iid rounds; each leg's
+   bitwise; and the MLP with algo="fedprox" for 3 iid rounds; Sent140 at
+   paper scale (772 clients, vocabulary 1,000, 25 tokens) with the paper's
+   LSTM (E=32, H=64, P=56,962), K=10, B=10, lr 0.03, for 3 shuffle rounds
+   (one gather launch a round) and 2 iid rounds with topk_q8 (one gather
+   and one compress launch a round, the identity checked on the last);
+   and FEMNIST MCLR iid for 2 rounds under each robust aggregator
+   (trimmed_mean, median, krum and bulyan with n_byzantine=1,
+   geometric_median; one gather and one SGD launch a round); each leg's
    launches of every kernel are checked (one gather and one SGD launch a
    iid round, one compress launch a compressed round), its budgets per
    round and rounds/s printed; losses, params and residual must be
@@ -105,7 +124,8 @@ last line):
    cores and no plain cross-entropy recompute, round wall, ms per step and
    peak memory; and ``repro_torch.launch.train --arch llama3.2-3b --smoke
    --steps 5`` (2, 2, 1 and 1 calls per step, all on the tensor cores);
-5. profile one steady round of each FL leg, one prefill plus four
+5. profile one steady round of each FL leg (Sent140's shuffle leg too,
+   with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
    host wall, device time and the kernels that take it.
 
@@ -141,6 +161,10 @@ XENT_TOL = 1e-4            # the reference's fused-xent bound
 # bf16 ulp, atol 2^-9 of the leaf's largest magnitude
 XENT_BWD_RTOL, XENT_BWD_ATOL = 2.0 ** -7, 2.0 ** -9
 TRAIN_TOL = 1e-4           # float32 losses, grads and silo params, card/CPU
+# the robust aggregators, card against CPU: the rank-based ones (a sort,
+# then a sum of at most K values) and the geometric median (eight Weiszfeld
+# steps, each a distance summed over every coordinate)
+RANK_TOL, GM_TOL = 1e-6, 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
@@ -778,7 +802,7 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
     before = torch.cuda.memory_stats()
-    wall, device, top, (flash, xent) = profiled(
+    wall, device, top, (flash, xent), _ = profiled(
         torch, lambda: train_silo(row, fed.params, one, 1),
         ("flash_", "xent_"))
     after = torch.cuda.memory_stats()
@@ -825,13 +849,14 @@ def serve_card_vs_cpu(torch, get_config, build_model, serve, arch):
 
 
 def profiled(torch, fn, part="flash_"):
-    """(host wall ms, device ms, top kernels, part ms) of one call of
-    ``fn`` under torch.profiler, ending in a device sync.  Device time sums
-    the events that ran on the card (kernels, copies), each once: the CPU
-    op that launched a kernel reports the same time again, so CPU events
-    are left out.  Part ms sums the kernels whose name holds ``part`` (a
-    string or a tuple of them; by default the flash-attention kernels:
-    forward, backward and the backward's delta kernel)."""
+    """(host wall ms, device ms, top kernels, part ms, device launches) of
+    one call of ``fn`` under torch.profiler, ending in a device sync.
+    Device time sums the events that ran on the card (kernels, copies),
+    each once: the CPU op that launched a kernel reports the same time
+    again, so CPU events are left out; device launches counts those
+    events.  Part ms sums the kernels whose name holds ``part`` (a string
+    or a tuple of them; by default the flash-attention kernels: forward,
+    backward and the backward's delta kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -840,14 +865,16 @@ def profiled(torch, fn, part="flash_"):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-              if e.device_type != DeviceType.CPU]
+    averages = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU]
+    events = [(e.key, e.self_device_time_total) for e in averages]
     device = sum(t for _, t in events) / 1e3
     top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
     parts = (part,) if isinstance(part, str) else part
     part_ms = [sum(t for k, t in events if p in k) / 1e3 for p in parts]
     return (wall, device, [(k[:60], t / 1e3) for k, t in top[:6]],
-            part_ms[0] if isinstance(part, str) else part_ms)
+            part_ms[0] if isinstance(part, str) else part_ms,
+            sum(e.count for e in averages))
 
 
 def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
@@ -928,7 +955,7 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
 
         prof = {}
         for label, fn in (("prefill", prefill), ("decode x4", decode4)):
-            wall, device, top, (flash, scan) = profiled(
+            wall, device, top, (flash, scan), _ = profiled(
                 torch, fn, ("flash_", "selective_scan"))
             prof[label] = dict(wall_ms=wall, device_ms=device,
                                device_busy=device / wall,
@@ -938,6 +965,154 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
                   flush=True)
     summary["profile"] = prof
     return summary
+
+
+def record_budgets(srv):
+    """Wrap ``srv.run_round`` so that each round's budgets (n_iters) are
+    appended to the list returned."""
+    budgets, run_round = [], srv.run_round
+
+    def recorded_round(t):
+        row = run_round(t)
+        budgets.append([int(v) for v in row["n_iters"]])
+        return row
+
+    srv.run_round = recorded_round
+    return budgets
+
+
+def sent140_card_vs_cpu(torch, np, FedSAEServer, ServerConfig,
+                        make_sent140_like):
+    """Phase 3: a small Sent140 federation (40 clients, 1,200 tweets,
+    vocabulary 260) trained by the LSTM for 3 shuffle rounds on the card
+    and on the CPU, from the same numpy init and epoch draws: the same
+    cohorts and workloads, params within 2e-5, final accuracy within
+    2/test_n."""
+    small = make_sent140_like(n_clients=40, total=1200, vocab=260)
+    max_n = int(small.sizes.max())
+    vocab = max(int(x.max()) for x in small.clients_x) + 1
+    r = np.random.default_rng(5)
+    E, H = 32, 64
+    init = {"emb": r.normal(size=(vocab, E)) * 0.1,
+            "wx": r.normal(size=(E, 4 * H)) * E ** -0.5,
+            "wh": r.normal(size=(H, 4 * H)) * H ** -0.5,
+            "b": np.zeros(4 * H), "w_out": r.normal(size=(H, 2)) * H ** -0.5,
+            "b_out": np.zeros(2)}
+    init = {k: v.astype(np.float32) for k, v in init.items()}
+
+    def draws(t, ids_, n_):
+        return np.random.default_rng(200 + t).random(
+            (len(ids_), max_n)).astype(np.float32)
+
+    runs = []
+    for where in ("cuda", "cpu"):
+        srv = FedSAEServer(small, cfg=ServerConfig(
+            device=where, rounds=3, sampling="shuffle"), init_params=init,
+            data_draws=draws)
+        budgets = record_budgets(srv)
+        runs.append((srv, srv.run(), budgets))
+    (on_card, h_card, budgets), (on_cpu, h_cpu, _) = runs
+    for a, b in zip(on_card.cohorts, on_cpu.cohorts):
+        if not np.array_equal(a, b):
+            raise RuntimeError("Sent140 LSTM: card and CPU runs picked "
+                               "different cohorts")
+    if not (np.array_equal(on_card.L, on_cpu.L)
+            and np.array_equal(on_card.H, on_cpu.H)):
+        raise RuntimeError("Sent140 LSTM: card and CPU runs predicted "
+                           "different workloads")
+    err = max(float((on_card.params[k].cpu() - on_cpu.params[k]).abs().max())
+              for k in init)
+    if not all(torch.allclose(on_card.params[k].cpu(), on_cpu.params[k],
+                              rtol=TOL, atol=TOL) for k in init):
+        raise RuntimeError(f"Sent140 LSTM: card and CPU params differ by "
+                           f"{err}")
+    acc_gap = abs(h_card["acc"][-1] - h_cpu["acc"][-1])
+    if acc_gap > 2.0 / len(small.test_y):
+        raise RuntimeError(f"Sent140 LSTM: final accuracy differs by "
+                           f"{acc_gap}")
+    print(f"small Sent140 federation, LSTM (vocab {vocab}), 3 shuffle "
+          f"rounds, card vs CPU: same cohorts and workloads (budgets "
+          f"{budgets}), params max_abs_err {err:.3e} (tol {TOL}), final acc "
+          f"{h_card['acc'][-1]:.4f} vs {h_cpu['acc'][-1]:.4f} (limit "
+          f"{2.0 / len(small.test_y):.4f})", flush=True)
+    return dict(max_abs_err=err, acc=[h_card["acc"][-1], h_cpu["acc"][-1]],
+                budgets=budgets)
+
+
+#: the robust aggregators held card against CPU: (name, keyword arguments)
+ROBUST_CASES = [
+    ("trimmed_mean", dict(trim_ratio=0.2)),
+    ("median", {}),
+    ("krum", dict(n_byzantine=1)),
+    ("geometric_median", {}),
+    ("bulyan", dict(n_byzantine=1)),
+    ("trimmed_mean", dict(trim_ratio=0.2, weighted=True)),
+    ("krum", dict(n_byzantine=1, multi=3, weighted=True)),
+    ("bulyan", dict(n_byzantine=1, weighted=True)),
+]
+
+
+def robust_card_vs_cpu(torch, np, aggregation):
+    """Phase 3: each robust aggregator (and weighted variants) on the card
+    against the CPU, on a fixed seeded [10, 56,962] stack (the LSTM's P):
+    clients at distinct distances from a common centre (no two Krum scores
+    near a tie), a far-out adversarial row (client 3) and a dropped client
+    (weight 0, client 6).  Every card call runs under
+    ``set_sync_debug_mode("error")``, so a read back to the host fails the
+    run.  Krum's and Bulyan's chosen clients must be equal; values within
+    ``RANK_TOL`` (``GM_TOL`` for the geometric median)."""
+    K, P = 10, 56_962
+    rng = np.random.default_rng(13)
+    centre = rng.normal(size=P) * 0.1
+    spread = np.linspace(0.01, 0.1, K)[rng.permutation(K)]
+    flat = (centre[None, :] + spread[:, None]
+            * rng.normal(size=(K, P))).astype(np.float32)
+    flat[3] += 50.0
+    glob = (centre + 0.01 * rng.normal(size=P)).astype(np.float32)
+    w = rng.integers(1, 300, K).astype(np.float32)
+    w[6] = 0.0
+    host = ({"a": flat[:, :-6], "b": flat[:, -6:]},
+            {"a": glob[:-6], "b": glob[-6:]}, w)
+    out = {}
+    for name, kw in ROBUST_CASES:
+        agg = aggregation.get_aggregator(name, **kw)
+        card, cpu = [({k: torch.from_numpy(v).to(dev)
+                       for k, v in host[0].items()},
+                      {k: torch.from_numpy(v).to(dev)
+                       for k, v in host[1].items()},
+                      torch.from_numpy(host[2]).to(dev))
+                     for dev in ("cuda", "cpu")]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = agg(*card)
+            chosen = (agg.select(aggregation._flatten_clients(card[0]),
+                                 card[2]) if hasattr(agg, "select")
+                      else None)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = agg(*cpu)
+        tol = GM_TOL if name == "geometric_median" else RANK_TOL
+        err = max(float((got[k].cpu() - want[k]).abs().max()) for k in want)
+        if not all(torch.allclose(got[k].cpu(), want[k], rtol=tol, atol=tol)
+                   for k in want):
+            raise RuntimeError(f"aggregator {name} {kw}: card and CPU differ"
+                               f" by {err} (tol {tol})")
+        label = f"{name} {json.dumps(kw)}"
+        row = dict(max_abs_err=err, tol=tol)
+        if chosen is not None:
+            c_cpu = agg.select(aggregation._flatten_clients(cpu[0]), cpu[2])
+            row["chosen"] = [int(i) for i in
+                             np.flatnonzero(chosen.cpu().numpy())]
+            if not torch.equal(chosen.cpu(), c_cpu) or 3 in row["chosen"]:
+                raise RuntimeError(f"aggregator {label}: chose "
+                                   f"{row['chosen']} on the card, "
+                                   f"{np.flatnonzero(c_cpu.numpy())} on the "
+                                   f"CPU")
+        out[label] = row
+        print(f"aggregator {label} K={K} P={P}, card vs CPU under sync "
+              f"debug mode 'error': {json.dumps(row)}", flush=True)
+    return out
 
 
 def _leaves(tree):
@@ -961,11 +1136,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, src)
+    from repro_torch.core import aggregation
     from repro_torch.core import compression as comp
     from repro_torch.core.aggregation import _flatten_clients
     from repro_torch.core.engine import iid_indices
     from repro_torch.core.server import FedSAEServer, ServerConfig
     from repro_torch.data.federated import (make_femnist_like,
+                                            make_sent140_like,
                                             make_synthetic)
     from repro_torch.device import resolve_device
     from repro_torch.configs import get_config
@@ -1047,6 +1224,40 @@ def main() -> int:
           f"flat_x[idx] {g_lib:.4f} ms, bound {g_bound:.4f} ms ({g_by}, "
           f"{g_bytes} B); turns after a dirty / a clean flush "
           f"{json.dumps(g_turns)}", flush=True)
+
+    # the gather at Sent140's shape: rows of 25 int32 tokens, a width not
+    # a multiple of 4 (the kernel's 4-byte path), with an empty lane and a
+    # full one (n = max_n = 300)
+    sent140 = make_sent140_like()
+    t_max_n = int(sent140.sizes.max())
+    tpk = sent140.packed(t_max_n, device=dev)
+    t_ids = np.random.default_rng(1).choice(sent140.n_clients, K,
+                                            replace=False)
+    t_ids[1] = int(np.argmax(sent140.sizes))
+    t_ids_t = torch.as_tensor(t_ids, device=dev)
+    t_starts = tpk.offsets[t_ids_t].contiguous()
+    t_ns = torch.clamp(tpk.lengths[t_ids_t], max=t_max_n)
+    t_ns[0] = 0
+    t_got = gather(tpk.x, tpk.y, t_starts, t_ns, t_max_n)
+    t_want = ref.fed_cohort_gather(tpk.x, tpk.y, t_starts, t_ns,
+                                   max_n=t_max_n)
+    torch.cuda.synchronize()
+    for g, w, what in zip(t_got, t_want, ("x", "y", "mask")):
+        if not torch.equal(g, w):
+            raise RuntimeError(f"gather kernel differs from plain at "
+                               f"Sent140's shape ({what})")
+    if (tpk.x.dtype != torch.int32 or tpk.x.shape[1] != 25
+            or int(t_got[2][0].sum()) != 0
+            or int(t_got[2][1].sum()) != t_max_n):
+        raise RuntimeError("Sent140 gather case: not int32 x 25 with an "
+                           "empty and a full lane")
+    g25_ms = time_ms(torch, lambda: gather(tpk.x, tpk.y, t_starts, t_ns,
+                                           t_max_n), 50, flush)
+    g25_plain = time_ms(torch, lambda: ref.fed_cohort_gather(
+        tpk.x, tpk.y, t_starts, t_ns, max_n=t_max_n), 50, flush)
+    print(f"fed_cohort_gather Sent140 K={K} max_n={t_max_n} feat=25 int32 "
+          f"(lanes n = {t_ns.tolist()}): bitwise equal; kernel "
+          f"{g25_ms:.4f} ms, plain {g25_plain:.4f} ms", flush=True)
 
     x, y = got[0], got[1]
     B, C, max_iters, lr = 10, femnist.n_classes, 960, 0.03
@@ -1305,6 +1516,10 @@ def main() -> int:
           f"vs {h_cpu['acc'][-1]:.4f} (limit {2.0 / len(small.test_y):.4f}),"
           f" params max_abs_err {mlp_err:.3e}", flush=True)
 
+    checks = {"sent140_card_vs_cpu": sent140_card_vs_cpu(
+        torch, np, FedSAEServer, ServerConfig, make_sent140_like),
+        "robust_card_vs_cpu": robust_card_vs_cpu(torch, np, aggregation)}
+
     for arch in ("llama3.2-3b", "falcon-mamba-7b"):
         serve_card_vs_cpu(torch, get_config, build_model, serve, arch)
         train_card_vs_cpu(torch, np, get_config, build_model, arch)
@@ -1318,16 +1533,10 @@ def main() -> int:
                "fused_softmax_xent_bwd": fx_bwd}
     summary, path_launches = {}, {}
 
-    def drive(label, rounds, algo="ira", **cfg):
-        srv = FedSAEServer(femnist, cfg=ServerConfig(
+    def drive(label, rounds, algo="ira", ds=femnist, **cfg):
+        srv = FedSAEServer(ds, cfg=ServerConfig(
             algo=algo, n_selected=10, rounds=rounds, **cfg))
-        budgets, run_round = [], srv.run_round
-
-        def recorded_round(t):
-            row = run_round(t)
-            budgets.append([int(v) for v in row["n_iters"]])
-            return row
-        srv.run_round = recorded_round
+        budgets = record_budgets(srv)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         hist = srv.run()
@@ -1351,7 +1560,7 @@ def main() -> int:
                               round_wall_s=srv.wall_times,
                               budgets=budgets, acc=hist["acc"],
                               train_loss=hist["train_loss"])
-        print(f"main path femnist paper scale, {algo}, {label}: {rounds} "
+        print(f"main path {ds.name} paper scale, {algo}, {label}: {rounds} "
               f"rounds in {wall:.3f} s ({rounds / wall:.3f} rounds/s; "
               f"round 0 (warm-up) {srv.wall_times[0]:.4f} s, after it "
               f"{steady:.3f} rounds/s), round wall "
@@ -1388,45 +1597,72 @@ def main() -> int:
         ("fedprox iid", 3, fedprox,
          dict(fed_cohort_gather=3, fed_local_sgd_mclr=3))])
 
-    # the MLP path; the upload stage of every compressed round is captured,
-    # and the last one's error-feedback identity is checked on the card
-    stage = {}
-    inner_stage = comp.apply_upload_compress
+    def run_captured(name, legs):
+        """run_path with the upload stage of every compressed round
+        captured; the last one's error-feedback identity is checked on
+        the card."""
+        stage = {}
+        inner_stage = comp.apply_upload_compress
 
-    def capture_stage(global_params, params_k, residual_rows, uploaded, k):
-        out = inner_stage(global_params, params_k, residual_rows, uploaded,
-                          k)
-        stage.update(g=global_params, pk=params_k, res=residual_rows,
-                     up=uploaded, k=k, out=out)
-        return out
+        def capture_stage(global_params, params_k, residual_rows, uploaded,
+                          k):
+            out = inner_stage(global_params, params_k, residual_rows,
+                              uploaded, k)
+            stage.update(g=global_params, pk=params_k, res=residual_rows,
+                         up=uploaded, k=k, out=out)
+            return out
 
-    comp.apply_upload_compress = capture_stage
-    try:
-        run_path("mlp", [
-            ("mlp iid topk_q8", 5, dict(
-                sampling="iid", model="mlp", upload_compress="topk_q8",
-                topk_frac=frac),
-             dict(fed_cohort_gather=5, fed_local_sgd_dense=5,
-                  fed_compress_topk_q8=5)),
-            ("mlp fedprox iid", 3, dict(fedprox, model="mlp"),
-             dict(fed_cohort_gather=3, fed_local_sgd_dense=3))])
-    finally:
-        comp.apply_upload_compress = inner_stage
-    ef = (_flatten_clients(stage["pk"]) - comp.flatten_global(stage["g"])
-          [None, :]) + stage["res"]
-    _, new_res, sent = stage["out"]
-    up = stage["up"]
-    if not (torch.equal((sent + new_res)[up], ef[up])
-            and torch.equal(new_res[~up], stage["res"][~up])
-            and not sent[~up].any()):
-        raise RuntimeError("error-feedback identity broken on the card")
-    n_sent = [int(v) for v in (sent != 0).sum(1)]
-    if max(n_sent) > stage["k"]:
-        raise RuntimeError(f"a client sent more than k={stage['k']} values")
-    print(f"error-feedback identity on the card, last round: "
-          f"transmitted + residual' == delta + residual bitwise on "
-          f"{int(up.sum())} uploading rows (k={stage['k']}, values sent "
-          f"{n_sent}); non-uploaders kept their residual", flush=True)
+        comp.apply_upload_compress = capture_stage
+        try:
+            run_path(name, legs)
+        finally:
+            comp.apply_upload_compress = inner_stage
+        ef = (_flatten_clients(stage["pk"]) - comp.flatten_global(
+            stage["g"])[None, :]) + stage["res"]
+        _, new_res, sent = stage["out"]
+        up = stage["up"]
+        if not (torch.equal((sent + new_res)[up], ef[up])
+                and torch.equal(new_res[~up], stage["res"][~up])
+                and not sent[~up].any()):
+            raise RuntimeError(f"error-feedback identity broken on the card"
+                               f" (path {name})")
+        n_sent = [int(v) for v in (sent != 0).sum(1)]
+        if max(n_sent) > stage["k"]:
+            raise RuntimeError(f"a client sent more than k={stage['k']} "
+                               f"values (path {name})")
+        print(f"error-feedback identity on the card, path {name}, last "
+              f"round: transmitted + residual' == delta + residual bitwise "
+              f"on {int(up.sum())} uploading rows (P={ef.shape[1]}, "
+              f"k={stage['k']}, values sent {n_sent}); non-uploaders kept "
+              f"their residual", flush=True)
+
+    run_captured("mlp", [
+        ("mlp iid topk_q8", 5, dict(
+            sampling="iid", model="mlp", upload_compress="topk_q8",
+            topk_frac=frac),
+         dict(fed_cohort_gather=5, fed_local_sgd_dense=5,
+              fed_compress_topk_q8=5)),
+        ("mlp fedprox iid", 3, dict(fedprox, model="mlp"),
+         dict(fed_cohort_gather=3, fed_local_sgd_dense=3))])
+    # Sent140 at paper scale with the paper's LSTM (E=32, H=64, vocabulary
+    # 1,000: P = 56,962): no fused SGD kernel exists for it, so a round
+    # launches the gather (int32 tokens) and, compressed, the compressor
+    run_captured("sent140", [
+        ("sent140 lstm shuffle", 3, dict(ds=sent140, sampling="shuffle"),
+         dict(fed_cohort_gather=3)),
+        ("sent140 lstm iid topk_q8", 2, dict(
+            ds=sent140, sampling="iid", upload_compress="topk_q8",
+            topk_frac=frac),
+         dict(fed_cohort_gather=2, fed_compress_topk_q8=2))])
+    # the robust aggregators on the MCLR iid path (the fused SGD kernel),
+    # each aggregating on the card
+    run_path("robust", [
+        (f"robust {name}", 2, dict(sampling="iid", aggregator=name, **kw),
+         dict(fed_cohort_gather=2, fed_local_sgd_mclr=2))
+        for name, kw in (("trimmed_mean", {}), ("median", {}),
+                         ("krum", dict(n_byzantine=1)),
+                         ("geometric_median", {}),
+                         ("bulyan", dict(n_byzantine=1)))])
     # the LM serving paths, one model after the other (each frees its
     # weights on return)
     gen_steps = 32
@@ -1492,8 +1728,11 @@ def main() -> int:
                        ("mlp iid topk_q8", dict(
                            sampling="iid", model="mlp",
                            upload_compress="topk_q8", topk_frac=frac)),
-                       ("mlp fedprox iid", dict(fedprox, model="mlp"))):
-        srv = FedSAEServer(femnist, cfg=ServerConfig(
+                       ("mlp fedprox iid", dict(fedprox, model="mlp")),
+                       ("sent140 lstm shuffle", dict(sampling="shuffle",
+                                                     ds=sent140))):
+        cfg = dict(cfg)
+        srv = FedSAEServer(cfg.pop("ds", femnist), cfg=ServerConfig(
             **{"algo": "ira", "n_selected": 10, **cfg}))
         srv.run_round(0)                     # warm-up
         torch.cuda.synchronize()
@@ -1502,14 +1741,17 @@ def main() -> int:
         torch.cuda.synchronize()
         plain_wall = time.perf_counter() - t0
         row = {}
-        prof_wall, device_ms, top, _ = profiled(
+        prof_wall, device_ms, top, _, n_launched = profiled(
             torch, lambda: row.update(srv.run_round(2)))
+        longest = int(max(row["n_iters"]))
         profiles[label] = dict(
             round1_wall_ms=plain_wall * 1e3,
             round2_budgets=[int(v) for v in row["n_iters"]],
             round2_wall_ms_profiled=prof_wall,
             round2_device_ms=device_ms,
             round2_device_busy=device_ms / prof_wall,
+            round2_device_launches=n_launched,
+            round2_launches_per_local_step=n_launched / max(longest, 1),
             top_kernels_ms=top[:5])
         print(f"profile {label}: {json.dumps(profiles[label])}",
               flush=True)
@@ -1521,6 +1763,7 @@ def main() -> int:
          "launches": launches["fed_cohort_gather"], "max_abs_err": 0.0,
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
          "bound_by": g_by, "library_ms": g_lib,
+         "sent140_ms": g25_ms, "sent140_plain_ms": g25_plain,
          "copy_ms": g_med["copy"], "clean_flush_ms": g_med["clean kernel"],
          "clean_flush_library_ms": g_med["clean library"],
          "clean_flush_copy_ms": g_med["clean copy"]},
@@ -1578,7 +1821,7 @@ def main() -> int:
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
                       "profile": profiles, "serving": serving,
-                      "training": training}))
+                      "training": training, "checks": checks}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -25,10 +25,12 @@ its device and replaces it with each round's output.
 ``ServerConfig`` has every field of the reference's, each at the
 reference's default.  ``backend`` takes "xla" and "pallas" and both run the
 same code: the port dispatches by device (the hand-written kernels on a
-CUDA tensor, their plain versions on a CPU one), not by backend.  Not
-ported yet, and refused with a ValueError naming the ROADMAP item when set
-to anything but the default: the robust aggregators and their knobs (A6),
-fault injection, the upload screen and quarantine (A9), telemetry sinks
+CUDA tensor, their plain versions on a CPU one), not by backend.  Every
+aggregator of the reference's registry runs, with ``trim_ratio``,
+``agg_weighted`` and ``n_byzantine`` passed to it as the reference passes
+them.  Not ported yet, and refused with a ValueError naming the ROADMAP
+item when set to anything but the default: fault injection, the upload
+screen and quarantine (A9), telemetry sinks
 (``FedSAEServer(sink=, telemetry=)``, A10), checkpoints
 (``run(checkpoint_dir=, checkpoint_every=, resume=)``, A11), the scan
 driver, device rng streams, mesh sharding, capacity compaction, prefetch
@@ -48,7 +50,6 @@ import torch
 from repro_torch.convert import params_from_reference
 from repro_torch.core import compression as comp
 from repro_torch.core import prediction as pred
-from repro_torch.core.aggregation import NOT_PORTED as ROBUST_AGGREGATORS
 from repro_torch.core.aggregation import get_aggregator
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.heterogeneity import HeterogeneitySim
@@ -66,15 +67,11 @@ ALGOS = ("ira", "fassa", "fedavg", "fedprox", "oracle")
 HISTORY_KEYS = ("acc", "test_loss", "train_loss", "dropout", "assigned",
                 "uploaded", "true_workload", "overflowed", "dropped")
 
-_A6 = "A6 (rest of the aggregation registry)"
 _A9 = "A9 (faults + screen + quarantine)"
 _A12 = "A12 (device-resident multi-round driver)"
 
 #: un-ported ServerConfig features: field -> (default, ROADMAP item)
 _NOT_PORTED = {
-    "trim_ratio": (0.1, _A6),
-    "agg_weighted": (False, _A6),
-    "n_byzantine": (0, _A6),
     "driver": ("host", _A12),
     "block_size": (16, _A12),
     "mesh_shards": (0, "A12 (client-axis sharding)"),
@@ -121,7 +118,7 @@ class ServerConfig:
     al_rounds: int = 0           # use AL selection for the first n rounds
     beta: float = 0.01           # AL softmax scale
     prox_mu: float = 0.1         # FedProx proximal weight
-    aggregator: str = "fedavg"   # fedavg | fedprox (the robust ones: A6)
+    aggregator: str = "fedavg"   # core.aggregation.AGGREGATORS
     selection: str = "random"    # post-AL strategy (core.selection)
     sampling: str = "shuffle"    # shuffle (paper default) | iid (fused
                                  # MCLR / MLP local-SGD kernels)
@@ -131,15 +128,16 @@ class ServerConfig:
     seed: int = 0
     selection_seed: int = 1234   # fixed across frameworks (paper §IV-A)
     eval_every: int = 1
-    model: object = None         # None | "mclr" | "mlp" | a LocalStep
+    model: object = None         # None | "mclr" | "mlp" | "lstm" | a
+                                 # LocalStep
     upload_compress: str = "none"  # none | topk_q8 (top-k + int8 with
                                    # error feedback: core.compression)
     topk_frac: float = 0.1       # kept-coordinate fraction for "topk_q8"
     device: Optional[str] = None  # None = cuda; "cpu" on request
+    trim_ratio: float = 0.1      # trimmed_mean: fraction trimmed per end
+    agg_weighted: bool = False   # robust aggregators weight by n_k
+    n_byzantine: int = 0         # krum / bulyan: assumed byzantine uploads
     # reference features not ported yet (must stay at their defaults)
-    trim_ratio: float = 0.1
-    agg_weighted: bool = False
-    n_byzantine: int = 0
     driver: str = "host"
     block_size: int = 16
     rng_impl: str = ""           # "" | numpy (the host driver's streams)
@@ -166,14 +164,26 @@ class ServerConfig:
             value = getattr(self, name)
             if value not in ok:
                 raise _refuse(f"ServerConfig.{name}={value!r}", item)
-        if self.aggregator in ROBUST_AGGREGATORS:
-            raise _refuse(f"ServerConfig.aggregator={self.aggregator!r}", _A6)
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; choose "
                              f"from {BACKENDS}")
         if self.algo not in ALGOS:
             raise ValueError(f"unknown algo {self.algo!r}; choose from "
                              f"{ALGOS}")
+
+
+def _aggregator_kwargs(cfg: ServerConfig) -> Dict:
+    """The keyword arguments ``cfg.aggregator`` takes from the config, as
+    the reference's server passes them."""
+    if cfg.aggregator == "trimmed_mean":
+        return dict(trim_ratio=cfg.trim_ratio, weighted=cfg.agg_weighted)
+    if cfg.aggregator == "fedprox":
+        return dict(prox_mu=cfg.prox_mu)
+    if cfg.aggregator in ("median", "geometric_median"):
+        return dict(weighted=cfg.agg_weighted)
+    if cfg.aggregator in ("krum", "bulyan"):
+        return dict(n_byzantine=cfg.n_byzantine, weighted=cfg.agg_weighted)
+    return {}
 
 
 class FedSAEServer:
@@ -225,11 +235,9 @@ class FedSAEServer:
         self.test_x = torch.from_numpy(dataset.test_x).to(self.device)
         self.test_y = torch.from_numpy(dataset.test_y).to(self.device)
 
-        agg_kwargs = ({"prox_mu": cfg.prox_mu}
-                      if cfg.aggregator == "fedprox" else {})
         self.engine = RoundEngine(
             lr=cfg.lr, aggregator=get_aggregator(cfg.aggregator,
-                                                 **agg_kwargs),
+                                                 **_aggregator_kwargs(cfg)),
             prox_mu=cfg.prox_mu if cfg.algo == "fedprox" else None,
             compress=cfg.upload_compress, topk_frac=cfg.topk_frac)
         # error-feedback state: one [P] float32 row per client (None when

@@ -13,6 +13,10 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
       --rounds 3
 
+  # Sent140 with the paper's LSTM, aggregated by Krum:
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --dataset sent140 \
+      --aggregator krum --n-byzantine 1
+
   # cross-silo FedSAE over a production architecture (its smoke config):
   PYTHONPATH=src python -m repro_torch.launch.fl_train \
       --silo-arch llama3.2-3b --silos 4 --rounds 5
@@ -27,10 +31,11 @@ import argparse
 
 import numpy as np
 
-from repro_torch.core.aggregation import NOT_PORTED as ROBUST_AGGREGATORS
+from repro_torch.core.aggregation import AGGREGATORS
 from repro_torch.core.server import (ALGOS, BACKENDS, FedSAEServer,
                                      ServerConfig)
 from repro_torch.data.federated import DATASETS
+from repro_torch.models.fl_models import LOCAL_STEPS
 
 #: the reference CLI's reduced (non --paper-scale) dataset sizes
 REDUCED = {
@@ -41,15 +46,23 @@ REDUCED = {
 }
 
 
+#: the reference CLI's learning rate per dataset (0.03 for the others)
+DEFAULT_LR = {"synthetic": 0.01, "sent140": 0.3}
+
+
 def build_server(args) -> FedSAEServer:
     make = DATASETS[args.dataset]
     ds = make() if args.paper_scale else make(**REDUCED[args.dataset])
-    lr = args.lr if args.lr is not None else (
-        0.01 if args.dataset == "synthetic" else 0.03)
+    lr = args.lr if args.lr is not None else DEFAULT_LR.get(args.dataset,
+                                                            0.03)
     cfg = ServerConfig(algo=args.algo, rounds=args.rounds, lr=lr,
                        n_selected=min(10, ds.n_clients),
                        al_rounds=args.al_rounds, h_cap=24.0,
-                       aggregator=args.aggregator, selection=args.selection,
+                       aggregator=args.aggregator,
+                       trim_ratio=args.trim_ratio,
+                       agg_weighted=args.agg_weighted,
+                       n_byzantine=args.n_byzantine,
+                       selection=args.selection,
                        sampling=args.sampling, model=args.model,
                        upload_compress=args.compress,
                        topk_frac=args.topk_frac, backend=args.backend,
@@ -79,8 +92,11 @@ def run_silo(args):
 
     acfg = get_config(args.silo_arch, smoke=True)
     model = build_model(acfg)
+    agg_kwargs = ({"trim_ratio": args.trim_ratio}
+                  if args.aggregator == "trimmed_mean" else {})
     fed = SiloFedSAE(model, args.silos, lr=5e-3, max_steps=args.max_steps,
-                     aggregator=args.aggregator, device=args.device)
+                     aggregator=args.aggregator, device=args.device,
+                     **agg_kwargs)
     ri = np.random.default_rng(0)
     K = args.silos
     sizes = np.asarray(ri.integers(100, 1000, K))
@@ -104,7 +120,6 @@ FAULT_MODES = ("none", "crash", "nan_upload", "inf_upload",
 #: reference flags the port takes at their default only: dest -> ROADMAP
 #: item
 NOT_PORTED = dict(
-    **dict.fromkeys(("trim_ratio", "agg_weighted", "n_byzantine"), "A6"),
     **dict.fromkeys(("faults", "fault_prob", "fault_seed", "explode_factor",
                      "dropout_prob", "availability", "day_rounds",
                      "duty_cycle", "straggler", "pareto_alpha",
@@ -133,9 +148,7 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=30)
     ap.add_argument("--al-rounds", type=int, default=0)
     ap.add_argument("--aggregator", default="fedavg",
-                    choices=("fedavg", "fedprox") + ROBUST_AGGREGATORS,
-                    help="fedavg | fedprox; the robust aggregators are "
-                         "ROADMAP A6")
+                    choices=tuple(AGGREGATORS))
     ap.add_argument("--trim-ratio", type=float, default=0.1,
                     help="fraction trimmed per end (trimmed_mean only)")
     ap.add_argument("--agg-weighted", action="store_true",
@@ -147,10 +160,10 @@ def make_parser() -> argparse.ArgumentParser:
                     choices=("random", "active", "loss_proportional"),
                     help="cohort selection after the AL warm-up rounds")
     ap.add_argument("--model", default=None,
-                    help="local step trained on each client: mclr | mlp "
-                         "(lstm is ROADMAP A7, an architecture id over the "
-                         "packed federation A13 (iii)).  Default: the "
-                         "dataset's, mclr")
+                    help="local step trained on each client: mclr | mlp | "
+                         "lstm (an architecture id over the packed "
+                         "federation is ROADMAP A13 (iii)).  Default: lstm "
+                         "for sent140, mclr elsewhere")
     ap.add_argument("--lr", type=float, default=None,
                     help="override the dataset default learning rate")
     ap.add_argument("--sampling", default="shuffle",
@@ -273,14 +286,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         if value != ap.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} {value!r} is not ported yet (ROADMAP {item})")
-    if args.aggregator in ROBUST_AGGREGATORS:
-        ap.error(f"--aggregator {args.aggregator} is not ported yet "
-                 "(ROADMAP A6)")
     if args.screen == "on":
         ap.error("--screen on is not ported yet (ROADMAP A9)")
-    if args.model not in (None, "mclr", "mlp"):
-        item = "A7" if args.model == "lstm" else "A13 (iii)"
-        ap.error(f"--model {args.model} is not ported yet (ROADMAP {item})")
+    if args.model is not None and args.model not in LOCAL_STEPS:
+        ap.error(f"--model {args.model} is not ported yet (ROADMAP "
+                 "A13 (iii))")
     return args
 
 

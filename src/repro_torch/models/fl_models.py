@@ -8,16 +8,17 @@ over padded rows) to a masked-mean scalar, and ``kind`` names families the
 kernel layer has a fused implementation for.  The engine differentiates
 ``loss`` with ``torch.func`` and maps the SGD update over the dict.
 
-This package ports MCLR, the paper's convex model, and the two-layer tanh
-MLP; ``models.api.from_model`` adapts the decoder LMs (``kind="lm"``),
-which train through ``RoundEngine.make_stream_round`` (the silo round).
-The LSTM is ROADMAP A7.
+This package ports MCLR, the paper's convex model, the two-layer tanh
+MLP and the LSTM sentiment classifier (Sent140); ``models.api.from_model``
+adapts the decoder LMs (``kind="lm"``), which train through
+``RoundEngine.make_stream_round`` (the silo round).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def mclr_init(generator: torch.Generator, n_features: int, n_classes: int,
@@ -87,6 +88,53 @@ def mlp_accuracy(params, batch):
     return _masked_accuracy(mlp_logits(params, batch["x"]), batch)
 
 
+def lstm_init(generator: torch.Generator, vocab: int, embed: int = 32,
+              hidden: int = 64, n_classes: int = 2,
+              device: Optional[torch.device] = None):
+    """N(0, 0.1^2) embeddings, N(0, 1/fan_in) weights and zero biases,
+    drawn from ``generator`` (which must live on ``device``) in the
+    reference's insertion order emb, wx, wh, b, w_out, b_out."""
+    def normal(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    return {"emb": normal(vocab, embed) * 0.1,
+            "wx": normal(embed, 4 * hidden) * embed ** -0.5,
+            "wh": normal(hidden, 4 * hidden) * hidden ** -0.5,
+            "b": torch.zeros((4 * hidden,), device=device),
+            "w_out": normal(hidden, n_classes) * hidden ** -0.5,
+            "b_out": torch.zeros((n_classes,), device=device)}
+
+
+def lstm_logits(params, tokens):
+    """tokens: [B, S] integer -> [B, n_classes].  The reference scans the
+    cell over the S tokens with ``lax.scan``; here it is a Python loop, a
+    plain function of tensors (so ``torch.func`` batches and
+    differentiates it).  The gates split z in the order i, f, g, o, with a
+    forget bias of +1."""
+    B, S = tokens.shape
+    hidden = params["wh"].shape[0]
+    # F.embedding, not params["emb"][tokens]: its backward is the dense
+    # embedding backward (sorted on CUDA), where indexing would scatter
+    # through index_put_(accumulate=True)
+    emb = F.embedding(tokens.long(), params["emb"])       # [B, S, E]
+    h = torch.zeros((B, hidden), dtype=emb.dtype, device=emb.device)
+    c = torch.zeros((B, hidden), dtype=emb.dtype, device=emb.device)
+    for t in range(S):
+        z = emb[:, t] @ params["wx"] + h @ params["wh"] + params["b"]
+        i, f, g, o = torch.split(z, hidden, dim=-1)
+        c = torch.sigmoid(f + 1.0) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+    return h @ params["w_out"] + params["b_out"]
+
+
+def lstm_loss(params, batch):
+    return _masked_nll(lstm_logits(params, batch["x"]), batch)
+
+
+def lstm_accuracy(params, batch):
+    return _masked_accuracy(lstm_logits(params, batch["x"]), batch)
+
+
 class LocalStep:
     """The model protocol ``RoundEngine`` consumes.
 
@@ -125,27 +173,54 @@ def make_mlp(n_features: int, n_classes: int, hidden: int = 64) -> LocalStep:
         loss=mlp_loss, accuracy=mlp_accuracy, kind="mlp")
 
 
+def make_lstm(vocab: int, n_classes: int = 2, embed: int = 32,
+              hidden: int = 64) -> LocalStep:
+    """The Sent140 LSTM.  It has no ``kind``: no fused local-SGD kernel
+    exists for it, so the engine trains it on the plain ``torch.func``
+    path, as the reference trains it through ``jax.grad``."""
+    return LocalStep(
+        init_params=lambda gen: lstm_init(gen, vocab, embed, hidden,
+                                          n_classes, gen.device),
+        loss=lstm_loss, accuracy=lstm_accuracy)
+
+
+#: the built-in steps ``resolve_local_step`` builds by name
+LOCAL_STEPS = ("mclr", "mlp", "lstm")
+
+
+def _dataset_dims(dataset):
+    """(n_features, n_classes, vocab): vocab is the largest token of the
+    clients' shards plus 1 for a text dataset (the test split is not
+    read, as in the reference), else None."""
+    x0 = dataset.clients_x[0]
+    n_features = int(x0.shape[-1]) if x0.ndim > 1 else 1
+    vocab = None
+    if getattr(dataset, "task", "classification") == "text":
+        vocab = int(max(int(x.max()) for x in dataset.clients_x)) + 1
+    return n_features, int(dataset.n_classes), vocab
+
+
 def resolve_local_step(spec, dataset) -> LocalStep:
     """Resolve a model spec to a ``LocalStep`` sized for ``dataset``.
 
-    ``spec`` may be ``None`` (the dataset default), ``"mclr"``, ``"mlp"``
-    or an already-built ``LocalStep`` (returned unchanged).  The other
-    specs the reference accepts raise ``NotImplementedError`` until their
-    ROADMAP item lands."""
+    ``spec`` may be ``None`` (the dataset default: lstm for a text
+    dataset, mclr otherwise), a name from ``LOCAL_STEPS`` or an
+    already-built ``LocalStep`` (returned unchanged).  Architecture ids
+    raise ``NotImplementedError`` until their ROADMAP item lands."""
     if isinstance(spec, LocalStep):
         return spec
-    text = getattr(dataset, "task", "classification") == "text"
+    n_features, n_classes, vocab = _dataset_dims(dataset)
+    text = vocab is not None
     if spec is None:
         spec = "lstm" if text else "mclr"
-    if spec in ("mclr", "mlp"):
-        x0 = dataset.clients_x[0]
-        n_features = int(x0.shape[-1]) if x0.ndim > 1 else 1
-        make = make_mclr if spec == "mclr" else make_mlp
-        return make(n_features, int(dataset.n_classes))
+    if spec == "mclr":
+        return make_mclr(n_features, n_classes)
+    if spec == "mlp":
+        return make_mlp(n_features, n_classes)
     if spec == "lstm":
-        raise NotImplementedError(
-            "model='lstm' is not ported yet (ROADMAP A7: the LSTM step); "
-            "the port trains mclr and mlp")
+        if not text:
+            raise ValueError("model='lstm' needs a text (token) dataset")
+        return make_lstm(vocab)
     raise NotImplementedError(
         f"model={spec!r}: the port trains architecture ids through "
         "models.api.from_model in the silo round (core.silo.SiloFedSAE); "

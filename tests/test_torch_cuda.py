@@ -11,9 +11,12 @@ SGD rtol 5e-4, atol 5e-5 (the reference's MLP pallas-vs-xla bound); flash
 attention 2e-5 in float32 and 2e-2 in bfloat16, its backward atol 2e-5 /
 rtol 2e-4 in float32 and 2e-2 in bfloat16, the selective scan 1e-4, the
 fused cross-entropy 1e-4 (the reference's kernel-vs-oracle bounds,
-tests/test_kernels.py).  The three differentiable ops' gradients on the
-card are held against the same ops on the CPU (their plain versions) at
-1e-4.  In bfloat16 the flash kernels run on the tensor cores and are also
+tests/test_kernels.py).  The Sent140 LSTM's loss and gradients on the card
+are held to the CPU's at 1e-5, the robust aggregators at 1e-6 (1e-5 for
+the geometric median) with Krum's and Bulyan's chosen clients equal, and
+two card runs of one LSTM round must give the same bits.  The three
+differentiable ops' gradients on the card are held against the same ops
+on the CPU (their plain versions) at 1e-4.  In bfloat16 the flash kernels run on the tensor cores and are also
 held to their rounding models (``ref.attention_lse_tc``,
 ``ref.flash_attention_bwd_tc``, which round P and dS to bfloat16 where the
 kernels do) at rtol 2^-7 (one bfloat16 ulp) and atol 4e-3.  The fused
@@ -31,9 +34,10 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  fused_xent, selective_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from torch_cases import (COMPRESS_CASES, attention_case, cluster_case,
-                         compress_case, dense_case, gather_case,
-                         gather_lanes_case, scan_case, sgd_case, xent_case)
+from torch_cases import (COMPRESS_CASES, ROBUST_CASES, attention_case,
+                         cluster_case, compress_case, dense_case, gather_case,
+                         gather_lanes_case, lstm_case, robust_stack_case,
+                         scan_case, sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -60,13 +64,15 @@ def test_cuda_gather_kernel_bitwise_vs_plain(cuda_device):
 
 
 # (K, max_n, feat, features, misaligned): the 16-byte path at FEMNIST's
-# row width, K = 64, int32 features, and a base 4 bytes off 16-byte
-# alignment (the 4-byte path)
+# row width, K = 64, int32 features, a base 4 bytes off 16-byte alignment
+# (the 4-byte path), and Sent140's rows of 25 int32 tokens (a width not a
+# multiple of 4: the 4-byte path)
 GATHER_CASES = [
     (10, 400, 784, "float32", False),
     (64, 50, 784, "float32", False),
     (16, 40, 784, "int32", False),
     (16, 40, 784, "float32", True),
+    (10, 300, 25, "int32", False),
 ]
 
 
@@ -558,3 +564,104 @@ def test_cuda_autograd_ops_match_the_cpu(cuda_device, op):
     for got, want in zip(_grads_on(cuda_device, fn, arrays),
                          _grads_on("cpu", fn, arrays)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+LSTM_TOL = 1e-5       # float32 loss and gradients, card against the CPU
+
+
+def _lstm_grads(device, params, batch):
+    from torch.func import grad_and_value
+
+    from repro_torch.models.fl_models import lstm_loss
+    p = {k: torch.from_numpy(v).to(device) for k, v in params.items()}
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    g, loss = grad_and_value(lstm_loss)(p, b)
+    return {k: v.cpu() for k, v in g.items()}, loss.cpu()
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_loss_and_grads_match_the_cpu(cuda_device):
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")                  # TF32 off, as the port runs
+    params, batch = lstm_case()
+    g_card, l_card = _lstm_grads(cuda_device, params, batch)
+    g_cpu, l_cpu = _lstm_grads("cpu", params, batch)
+    torch.testing.assert_close(l_card, l_cpu, rtol=LSTM_TOL, atol=LSTM_TOL)
+    assert set(g_card) == set(params)
+    for k in params:
+        torch.testing.assert_close(g_card[k], g_cpu[k], rtol=LSTM_TOL,
+                                   atol=LSTM_TOL)
+
+
+def _lstm_round(device, seed=0):
+    """One shuffle round of the LSTM on a small Sent140 federation, with
+    numpy-made init and draws: (params, losses) on the CPU."""
+    from repro_torch.core.engine import RoundEngine
+    from repro_torch.data.federated import make_sent140_like
+    from repro_torch.models.fl_models import make_lstm
+
+    ds = make_sent140_like(n_clients=20, total=600, vocab=260, max_size=60)
+    max_n = int(ds.sizes.max())
+    params, _ = lstm_case(vocab=260)
+    pk = ds.packed(max_n, device=device)
+    ids = np.array([0, 3, 7, 11, 19])
+    n_iters = np.array([6, 0, 3, 6, 1], np.int32)
+    draws = np.random.default_rng(seed).random(
+        (len(ids), max_n)).astype(np.float32)
+    fn = RoundEngine(lr=0.3).make_packed_round(make_lstm(260), 10, 6, max_n)
+    p, losses, _ = fn({k: torch.from_numpy(v).to(device)
+                       for k, v in params.items()}, pk.x, pk.y, pk.offsets,
+                      pk.lengths, torch.from_numpy(ids).to(device),
+                      torch.from_numpy(n_iters).to(device),
+                      draws=torch.from_numpy(draws).to(device))
+    return {k: v.cpu() for k, v in p.items()}, losses.cpu()
+
+
+@pytest.mark.cuda
+def test_cuda_lstm_round_repeats_bitwise(cuda_device):
+    """Two card runs of one LSTM round give the same bits: the embedding's
+    gradient (``F.embedding``'s dense backward under ``vmap``) sums in a
+    fixed order on the card.  The round also agrees with the CPU's."""
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")
+    first, again = _lstm_round(cuda_device), _lstm_round(cuda_device)
+    for a, b in zip((*first[0].values(), first[1]),
+                    (*again[0].values(), again[1])):
+        assert torch.equal(a, b)
+    cpu = _lstm_round("cpu")
+    for k, v in cpu[0].items():
+        torch.testing.assert_close(first[0][k], v, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(first[1], cpu[1], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kw", ROBUST_CASES)
+def test_cuda_robust_aggregators_match_the_cpu(cuda_device, name, kw):
+    """Each aggregator on the card against the CPU on a [10, 56,962] stack
+    (the LSTM's P) with an adversarial row and a dropped client, under
+    ``set_sync_debug_mode("error")``: a read back to the host fails."""
+    from repro_torch.core import aggregation as tagg
+    from repro_torch.device import resolve_device
+    resolve_device("cuda")
+    stack, glob, w = robust_stack_case()
+    agg = tagg.get_aggregator(name, **kw)
+    args = [({k: torch.from_numpy(v).to(dev) for k, v in stack.items()},
+             {k: torch.from_numpy(v).to(dev) for k, v in glob.items()},
+             torch.from_numpy(w).to(dev))
+            for dev in (cuda_device, "cpu")]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = agg(*args[0])
+        chosen = (agg.select(tagg._flatten_clients(args[0][0]), args[0][2])
+                  if hasattr(agg, "select") else None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = agg(*args[1])
+    tol = 1e-5 if name == "geometric_median" else 1e-6
+    for k in glob:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=tol, atol=tol)
+    assert got["a"].abs().max() < 10         # the far-out row is kept out
+    if chosen is not None:
+        cpu = agg.select(tagg._flatten_clients(args[1][0]), args[1][2])
+        assert torch.equal(chosen.cpu(), cpu)

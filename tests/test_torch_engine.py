@@ -162,10 +162,3 @@ def test_aggregators_on_fixed_stacks(name, weights):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-6, atol=1e-6)
     assert tagg.get_aggregator("fedprox", prox_mu=0.3).prox_mu == 0.3
-
-
-@pytest.mark.parametrize("name", ["trimmed_mean", "median", "krum",
-                                  "geometric_median", "bulyan"])
-def test_unported_aggregators_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tagg.get_aggregator(name)

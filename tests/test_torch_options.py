@@ -25,7 +25,7 @@ from repro.core.server import ServerConfig as RConfig
 from repro.faults import FaultModel
 from repro_torch.core.server import FedSAEServer as TServer
 from repro_torch.core.server import ServerConfig as TConfig
-from repro_torch.data.federated import make_femnist_like
+from repro_torch.data.federated import make_femnist_like, make_sent140_like
 from repro_torch.launch import fl_train as tfl
 
 OK, REFUSED = True, False
@@ -47,9 +47,9 @@ FIELD_CASES = {
     "al_rounds": [(2, OK)],
     "beta": [(0.1, OK)],
     "prox_mu": [(0.2, OK)],
-    "aggregator": [("fedprox", OK), ("trimmed_mean", REFUSED),
-                   ("median", REFUSED)],
-    "trim_ratio": [(0.2, REFUSED)],
+    "aggregator": [("fedprox", OK), ("trimmed_mean", OK),
+                   ("median", OK)],
+    "trim_ratio": [(0.2, OK)],
     "selection": [("active", OK), ("loss_proportional", OK)],
     "sampling": [("iid", OK)],
     "backend": [("pallas", OK)],
@@ -61,8 +61,8 @@ FIELD_CASES = {
     "fused_generic": [(False, REFUSED)],
     "upload_compress": [("topk_q8", OK)],
     "topk_frac": [(0.2, OK)],
-    "agg_weighted": [(True, REFUSED)],
-    "n_byzantine": [(1, REFUSED)],
+    "agg_weighted": [(True, OK)],
+    "n_byzantine": [(1, OK)],
     "faults": [(FaultModel(corrupt="crash"), REFUSED)],
     "upload_screen": [("off", OK), ("on", REFUSED)],
     "screen_norm_bound": [(10.0, REFUSED)],
@@ -73,7 +73,7 @@ FIELD_CASES = {
     "seed": [(3, OK)],
     "selection_seed": [(7, OK)],
     "eval_every": [(2, OK)],
-    "model": [("mlp", OK), ("lstm", REFUSED)],
+    "model": [("mlp", OK), ("lstm", OK)],
     "compute": [(RCompute(), REFUSED)],
     "comm": [(RComm(), REFUSED)],
     "robustness": [(RRobustness(), REFUSED)],
@@ -86,13 +86,13 @@ FLAG_CASES = {
     "--rounds": [("3", OK)],
     "--al-rounds": [("2", OK)],
     "--aggregator": [("fedprox", OK)] + [
-        (a, REFUSED) for a in ("trimmed_mean", "median", "krum",
-                               "geometric_median", "bulyan")],
-    "--trim-ratio": [("0.2", REFUSED)],
-    "--agg-weighted": [(None, REFUSED)],
-    "--n-byzantine": [("1", REFUSED)],
+        (a, OK) for a in ("trimmed_mean", "median", "krum",
+                          "geometric_median", "bulyan")],
+    "--trim-ratio": [("0.2", OK)],
+    "--agg-weighted": [(None, OK)],
+    "--n-byzantine": [("1", OK)],
     "--selection": [("active", OK)],
-    "--model": [("mlp", OK), ("lstm", REFUSED), ("llama3.2-3b", REFUSED)],
+    "--model": [("mlp", OK), ("lstm", OK), ("llama3.2-3b", REFUSED)],
     "--lr": [("0.1", OK)],
     "--sampling": [("iid", OK)],
     "--backend": [("pallas", OK)],
@@ -175,7 +175,11 @@ def _default(f):
 
 
 def _server(**kw):
-    return TServer(make_femnist_like(**DS), cfg=TConfig(
+    """A CPU server over a small FEMNIST federation (Sent140 for the LSTM,
+    which needs tokens)."""
+    ds = (make_sent140_like(n_clients=12, total=300, vocab=260, max_size=40)
+          if kw.get("model") == "lstm" else make_femnist_like(**DS))
+    return TServer(ds, cfg=TConfig(
         **dict(dict(device="cpu", n_selected=4), **kw)))
 
 

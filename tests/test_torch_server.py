@@ -20,6 +20,7 @@ from repro.core.server import FedSAEServer as JServer
 from repro.core.server import ServerConfig as JConfig
 from repro.data import federated as jfed
 from repro.data.federated import make_femnist_like as jfemnist
+from repro.models.fl_models import resolve_local_step as jresolve
 from repro_torch.core import prediction as tpred
 from repro_torch.core import selection as tsel
 from repro_torch.core.heterogeneity import HeterogeneitySim as THet
@@ -223,10 +224,18 @@ def test_compression_with_an_unported_feature_raises(field, value, item):
         TConfig(upload_compress="topk_q8", **{field: value})
 
 
-@pytest.mark.parametrize("spec,item", [("lstm", "A7"),
+@pytest.mark.parametrize("spec,item", [("lstm", None),
                                        ("llama3.2-3b", "A13"),
                                        ("falcon-mamba-7b", "A13")])
 def test_unported_models_raise(spec, item):
+    """Architecture ids are refused by ROADMAP item; "lstm" on a dataset
+    without tokens raises the reference's ValueError."""
+    if item is None:
+        with pytest.raises(ValueError, match="needs a text"):
+            resolve_local_step(spec, tfemnist(**DS_KW))
+        with pytest.raises(ValueError, match="needs a text"):
+            jresolve(spec, jfemnist(**DS_KW))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         resolve_local_step(spec, tfemnist(**DS_KW))
 

@@ -185,3 +185,56 @@ def compress_case(name, seed=5):
         ef[0] = np.float32(-7e-4)
         ef[1] = 0.0
     return ef, ks
+
+
+def lstm_case(vocab=260, B=10, S=25, E=32, H=64, seed=31):
+    """The Sent140 LSTM's params (the reference's init distributions) and
+    one padded batch: tokens [B, S] int32 (a few repeated, so the
+    embedding's gradient sums rows), labels, a mask with two padded
+    rows."""
+    rng = np.random.default_rng(seed)
+    params = {"emb": rng.normal(size=(vocab, E)) * 0.1,
+              "wx": rng.normal(size=(E, 4 * H)) * E ** -0.5,
+              "wh": rng.normal(size=(H, 4 * H)) * H ** -0.5,
+              "b": rng.normal(size=4 * H) * 0.1,
+              "w_out": rng.normal(size=(H, 2)) * H ** -0.5,
+              "b_out": rng.normal(size=2) * 0.1}
+    params = {k: v.astype(np.float32) for k, v in params.items()}
+    x = rng.integers(0, vocab, (B, S)).astype(np.int32)
+    x[1, :5] = x[0, :5]
+    mask = np.ones(B, np.float32)
+    mask[-2:] = 0.0
+    return params, {"x": x, "y": rng.integers(0, 2, B).astype(np.int32),
+                    "mask": mask}
+
+
+def robust_stack_case(K=10, P=56_962, seed=13):
+    """A [K, P] upload stack for the robust aggregators, as a params dict
+    {"a": [K, P - 6], "b": [K, 6]}: clients at distinct distances from a
+    common centre (so no two Krum scores tie), a far-out adversarial row
+    (client 3, +50 on every coordinate) and a dropped client (weight 0,
+    client 6); the global and the weights n_k in [1, 300)."""
+    rng = np.random.default_rng(seed)
+    centre = rng.normal(size=P) * 0.1
+    spread = np.linspace(0.01, 0.1, K)[rng.permutation(K)]
+    flat = (centre[None, :] + spread[:, None]
+            * rng.normal(size=(K, P))).astype(np.float32)
+    flat[3] += 50.0
+    glob = (centre + 0.01 * rng.normal(size=P)).astype(np.float32)
+    w = rng.integers(1, 300, K).astype(np.float32)
+    w[6] = 0.0
+    return ({"a": flat[:, :-6], "b": flat[:, -6:]},
+            {"a": glob[:-6], "b": glob[-6:]}, w)
+
+
+#: the robust aggregators' card cases: (name, keyword arguments)
+ROBUST_CASES = [
+    ("trimmed_mean", dict(trim_ratio=0.2)),
+    ("median", {}),
+    ("krum", dict(n_byzantine=1)),
+    ("geometric_median", {}),
+    ("bulyan", dict(n_byzantine=1)),
+    ("trimmed_mean", dict(trim_ratio=0.2, weighted=True)),
+    ("krum", dict(n_byzantine=1, multi=3, weighted=True)),
+    ("bulyan", dict(n_byzantine=1, weighted=True)),
+]
