@@ -122,8 +122,16 @@ last line):
    and 2 fused cross-entropy forward and 2 backward calls (one per
    1,024-position chunk), every flash and cross-entropy call on the tensor
    cores and no plain cross-entropy recompute, round wall, ms per step and
-   peak memory; and ``repro_torch.launch.train --arch llama3.2-3b --smoke
-   --steps 5`` (2, 2, 1 and 1 calls per step, all on the tensor cores);
+   peak memory, and one ``RoundRecord`` a round in its ``RingBufferSink``
+   (``train_loss`` the round's loss, a finite wall time); and
+   ``repro_torch.launch.train --arch llama3.2-3b --smoke --steps 5`` (2, 2,
+   1 and 1 calls per step, all on the tensor cores); then the telemetry
+   path (``telemetry_phase``): femnist-iid with and without a
+   ``JsonlSink`` bitwise the same, with the same host syncs, the file read
+   back, the extras and the byte ledger; mlp-topk's compressed bytes below
+   dense; the four stage ranges of a traced round, each holding its FL
+   kernels' launches; the port's ``fl_report`` on the file; and, outside
+   the count, the sinks' overhead in turns;
 5. profile one steady round of each FL leg (Sent140's shuffle leg too,
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
@@ -712,13 +720,16 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
     backward, every flash and cross-entropy call on the tensor cores, and
     the plain ``ref.softmax_xent`` recompute must not run."""
     from repro_torch.core.silo import SiloFedSAE
+    from repro_torch.obs import RingBufferSink
     from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config("llama3.2-3b")
     model = build_model(cfg)
     K, max_steps, B, S = 2, 4, 1, 2048
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fed = SiloFedSAE(model, K, lr=5e-3, max_steps=max_steps, seed=0)
+    ring = RingBufferSink()
+    fed = SiloFedSAE(model, K, lr=5e-3, max_steps=max_steps, seed=0,
+                     sink=ring)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(fed.params))
@@ -759,6 +770,12 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
     for t in tree_leaves(fed.params):
         if not torch.isfinite(t).all():
             raise RuntimeError("silo rounds: non-finite global params")
+    recs = ring.records
+    if ([r.round for r in recs] != list(range(rounds))
+            or [r.train_loss for r in recs] != stats["loss"]
+            or not all(math.isfinite(r.wall_time_s) for r in recs)):
+        raise RuntimeError(f"silo records {[r.to_json() for r in recs]}, "
+                           f"losses {stats['loss']}")
     want = {"flash_attention_fwd": 56 * steps,
             "flash_attention_bwd": 28 * steps,
             "fused_softmax_xent_fwd": 2 * steps,
@@ -780,7 +797,8 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
                    local_steps=steps,
                    ms_per_local_step=sum(walls) / steps * 1e3,
                    peak_gib=peak, launches=launches,
-                   tensor_core_launches=tc_launches)
+                   tensor_core_launches=tc_launches,
+                   records=[r.to_json() for r in recs])
     print(f"main path silo llama3.2-3b (full width, {n_params} params f32, "
           f"bf16 compute, remat): {rounds} rounds x {K} silos, B={B}, S={S}:"
           f" round wall {[round(w, 3) for w in walls]} s, {steps} local "
@@ -789,7 +807,9 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
           f"{[round(r['loss'], 4) for r in rounds_out]}, budgets "
           f"{[r['n_steps'] for r in rounds_out]}, peak {peak:.1f} GiB; "
           f"launches {json.dumps(launches)}, tensor-core "
-          f"{json.dumps(tc_launches)}", flush=True)
+          f"{json.dumps(tc_launches)}; one RoundRecord a round, "
+          f"train_loss == stats['loss'], wall_time_s "
+          f"{[round(r.wall_time_s, 3) for r in recs]}", flush=True)
 
     # phase 5: one local step alone, timed and profiled, outside the count
     row = tree_map(torch.clone, fed.params)
@@ -853,10 +873,12 @@ def profiled(torch, fn, part="flash_"):
     one call of ``fn`` under torch.profiler, ending in a device sync.
     Device time sums the events that ran on the card (kernels, copies),
     each once: the CPU op that launched a kernel reports the same time
-    again, so CPU events are left out; device launches counts those
-    events.  Part ms sums the kernels whose name holds ``part`` (a string
-    or a tuple of them; by default the flash-attention kernels: forward,
-    backward and the backward's delta kernel)."""
+    again, so CPU events are left out, and so are the device spans of the
+    stage ranges (``fed.*``, user annotations), which cover the kernels
+    launched inside them and the gaps between; device launches counts
+    those events.  Part ms sums the kernels whose name holds ``part`` (a
+    string or a tuple of them; by default the flash-attention kernels:
+    forward, backward and the backward's delta kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -866,7 +888,8 @@ def profiled(torch, fn, part="flash_"):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     averages = [e for e in prof.key_averages()
-                if e.device_type != DeviceType.CPU]
+                if e.device_type != DeviceType.CPU
+                and not (e.is_user_annotation or e.key.startswith("fed."))]
     events = [(e.key, e.self_device_time_total) for e in averages]
     device = sum(t for _, t in events) / 1e3
     top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])
@@ -1113,6 +1136,277 @@ def robust_card_vs_cpu(torch, np, aggregation):
         print(f"aggregator {label} K={K} P={P}, card vs CPU under sync "
               f"debug mode 'error': {json.dumps(row)}", flush=True)
     return out
+
+
+#: the FL kernels: wrapper -> (kernel symbol in a trace, stage it is
+#: launched in)
+FL_KERNELS = {
+    "fed_cohort_gather": ("fed_gather_kernel", "fed.gather"),
+    "fed_local_sgd_mclr": ("fed_sgd_cluster_kernel", "fed.local_sgd"),
+    "fed_local_sgd_dense": ("fed_dense_sgd_cluster_kernel",
+                            "fed.local_sgd"),
+    "fed_compress_topk_q8": ("fed_compress_cluster_kernel",
+                             "fed.upload_transform"),
+}
+STAGES = ("fed.gather", "fed.local_sgd", "fed.upload_transform",
+          "fed.aggregate")
+
+
+def stage_ranges(path, launched, stages):
+    """Read the chrome trace of one round: every stage in ``stages`` must
+    appear, and each launch of an FL kernel (its kernel events, linked to
+    the host call that launched them by their correlation id) must lie
+    inside its stage's host range; the kernel events of each wrapper must
+    number its ``launched`` count.  Returns {stage: {"host_ms", "device_ms",
+    "kernels"}}: the stage ranges' host time and the device time and count
+    of the kernels launched inside them."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation"
+              and e["name"] in STAGES]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    out = {s: dict(host_ms=0.0, device_ms=0.0, kernels=0) for s in STAGES}
+    for r in ranges:
+        out[r["name"]]["host_ms"] += r["dur"] / 1e3
+    absent = [s for s in stages if not any(r["name"] == s for r in ranges)]
+    if absent:
+        raise RuntimeError(f"trace {path}: no range named {absent}")
+    found = {name: 0 for name in launched}
+    for k in (e for e in events if e.get("cat") == "kernel"):
+        call = calls.get(k.get("args", {}).get("correlation"))
+        inside = [] if call is None else [
+            r["name"] for r in ranges if r["ts"] <= call["ts"]
+            and call["ts"] + call["dur"] <= r["ts"] + r["dur"]]
+        for name in set(inside):
+            out[name]["device_ms"] += k["dur"] / 1e3
+            out[name]["kernels"] += 1
+        for name in launched:
+            sym, want = FL_KERNELS[name]
+            if re.search(rf"\b{sym}\b", k["name"]):
+                found[name] += 1
+                if want not in inside:
+                    raise RuntimeError(
+                        f"trace {path}: {name}'s kernel {k['name'][:60]} "
+                        f"was launched by {call and call['name']} outside "
+                        f"{want} (inside {inside})")
+    if found != launched:
+        raise RuntimeError(f"trace {path}: FL kernel events {found}, the "
+                           f"wrappers counted {launched}")
+    return out
+
+
+def telemetry_costs(np, srv, meta, tmp, reps=2000):
+    """Host microseconds of each piece of a round's telemetry, on one of
+    ``srv``'s rounds (a server with telemetry on), each the median of 5
+    runs of ``reps`` calls: the extras' two float32 histograms
+    (``np.add.at``), the record's construction (the per-record list
+    conversion), its ``to_json`` (``json.dumps``) and a ``JsonlSink``'s
+    ``emit`` (``to_json`` and the buffered write); and of one stage range
+    with no profiler recording (``obs.profiling.stage``, 5-8 a round)
+    beside a bare ``torch.profiler.record_function``, which it opens only
+    while a profiler records."""
+    import torch
+    from repro_torch.obs import (LOSS_HIST_BINS, LOSS_HIST_MAX,
+                                 STAGE_GATHER, WORKLOAD_HIST_BINS,
+                                 JsonlSink, histogram_counts,
+                                 record_from_row, stage)
+    row = srv.run_round(srv.cfg.rounds)
+    row["wall_time_s"], row["acc"], row["test_loss"] = 2.5e-3, 0.5, 1.5
+    rec = record_from_row(0, row)
+    up = (row["n_iters"] > 0).astype(np.float32)
+    # the budgets stand in for the uploaded epochs: a histogram's cost
+    # does not depend on the values
+    work = row["n_iters"].astype(np.float64)
+
+    def hists():
+        histogram_counts(row["losses"], up, 0.0, LOSS_HIST_MAX,
+                         LOSS_HIST_BINS)
+        histogram_counts(work, up, 0.0, srv.cfg.h_cap, WORKLOAD_HIST_BINS)
+
+    sink = JsonlSink(os.path.join(tmp, "costs.jsonl"), meta=meta)
+    def enter(ctx):
+        with ctx(STAGE_GATHER):
+            pass
+
+    parts = {"histograms": hists,
+             "record_from_row": lambda: record_from_row(0, row),
+             "to_json": rec.to_json, "jsonl_emit": lambda: sink.emit(rec),
+             "stage": lambda: enter(stage),
+             "record_function": lambda: enter(
+                 torch.profiler.record_function)}
+    out = {}
+    for name, fn in parts.items():
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            runs.append((time.perf_counter() - t0) / reps * 1e6)
+        out[name] = statistics.median(runs)
+    sink.close()
+    return out
+
+
+def telemetry_phase(torch, np, FedSAEServer, ServerConfig, femnist,
+                    counted, frac):
+    """Phase 6: the telemetry of ``repro_torch.obs`` on the card.
+
+    femnist-iid at paper scale (5 rounds) twice without telemetry, which
+    must give the same bits (else a kernel is non-deterministic), then with
+    a ``JsonlSink`` and ``telemetry=True``: params and history bitwise the
+    same, ``host_syncs`` equal, the file read back equal to the ring
+    buffer and its header, every record with its extras and the byte
+    ledger ``upload_bytes == sum(client_uploaded) * bytes_per_client``;
+    mlp-topk (2 rounds, a sink): compressed bytes below dense every round;
+    one round of each under ``trace_if``: the four stage ranges, each
+    holding its FL kernels' launches; every count set to 0 before these
+    runs and read after.  Then ``python -m repro_torch.launch.fl_report``
+    on the femnist file (``--validate --expect-rounds 5``, and the full
+    report), and the overhead, outside the count: femnist-iid with no
+    telemetry, a ``NullSink`` and a ``JsonlSink`` in turns (none, null,
+    jsonl, jsonl, null, none), each turn 20 rounds after one warm-up
+    round, the median round wall of each."""
+    import shutil
+    import tempfile
+    from repro_torch.obs import (JsonlSink, NullSink, RingBufferSink,
+                                 read_jsonl, trace_if)
+    iid = dict(algo="ira", n_selected=10, rounds=5, sampling="iid")
+    mlp = dict(iid, rounds=2, model="mlp", upload_compress="topk_q8",
+               topk_frac=frac)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        path = os.path.join(tmp, "femnist_iid.jsonl")
+        meta = dict(rounds=5, driver="host", backend="xla", path="flat",
+                    dataset="femnist", algo="ira", model=None)
+        reset_counts(counted)
+        runs = {}
+        for label, kw in (("off", {}), ("off again", {}),
+                          ("on", dict(sink=JsonlSink(path, meta=meta),
+                                      telemetry=True))):
+            srv = FedSAEServer(femnist, cfg=ServerConfig(**iid), **kw)
+            srv.run()
+            srv.sink.close()
+            torch.cuda.synchronize()
+            runs[label] = srv
+
+        def same_bits(a, b):
+            return (all(torch.equal(a.params[k], b.params[k])
+                        for k in a.params)
+                    and json.dumps(a.history) == json.dumps(b.history))
+
+        off, on = runs["off"], runs["on"]
+        if not same_bits(off, runs["off again"]):
+            raise RuntimeError("two femnist-iid runs without telemetry, "
+                               "from the same seeds, differ: a kernel is "
+                               "non-deterministic (a port fault)")
+        if not same_bits(off, on):
+            raise RuntimeError("telemetry changed the femnist-iid run's "
+                               "params or history")
+        if not off.host_syncs == on.host_syncs == 5:
+            raise RuntimeError(f"host syncs {off.host_syncs} without "
+                               f"telemetry, {on.host_syncs} with")
+        got_meta, got = read_jsonl(path)
+        recs = on._records.records
+        if got_meta != meta or got != recs or len(recs) != 5:
+            raise RuntimeError(f"JSONL read back: meta {got_meta}, "
+                               f"{len(got)} records, ring {len(recs)}")
+        for r in recs:
+            if any(getattr(r, f) is None for f in (
+                    "ids", "client_uploaded", "loss_hist",
+                    "workload_hist")) or r.upload_bytes != sum(
+                    r.client_uploaded) * on.bytes_per_client:
+                raise RuntimeError(f"femnist-iid record {r.to_json()}: "
+                                   f"extras or byte ledger wrong")
+        ring = RingBufferSink()
+        msrv = FedSAEServer(femnist, cfg=ServerConfig(**mlp), sink=ring)
+        msrv.run()
+        ratios = [r.upload_bytes / r.dense_upload_bytes
+                  for r in ring.records]
+        if len(ring) != 2 or not all(r < 1 for r in ratios):
+            raise RuntimeError(f"mlp-topk byte ledger: compressed / dense "
+                               f"{ratios}")
+        print(f"telemetry femnist-iid paper scale, 5 rounds: with a "
+              f"JsonlSink and telemetry=True the same params and history "
+              f"bits as without (two runs without: the same bits), "
+              f"host_syncs {on.host_syncs} both, the file read back equal "
+              f"to the ring buffer and its _meta, extras and byte ledger "
+              f"in every record; mlp-topk 2 rounds: upload bytes / dense "
+              f"{ratios}", flush=True)
+
+        stages = {}
+        no_upload = STAGES[:2] + STAGES[3:]
+        for label, srv, want in (("femnist-iid", off, no_upload),
+                                 ("mlp-topk", msrv, STAGES)):
+            before = {k: fn.launches for k, fn in counted.items()}
+            tdir = os.path.join(tmp, label)
+            with trace_if(tdir):
+                srv.run_round(srv.cfg.rounds)
+                torch.cuda.synchronize()
+            launched = {k: fn.launches - before[k]
+                        for k, fn in counted.items()
+                        if k in FL_KERNELS and fn.launches > before[k]}
+            (trace,) = os.listdir(tdir)
+            stages[label] = stage_ranges(os.path.join(tdir, trace),
+                                         launched, want)
+            stages[label]["launched"] = launched
+            print(f"telemetry stage ranges {label}, one round: "
+                  f"{json.dumps(stages[label])}", flush=True)
+        launches = {k: fn.launches for k, fn in counted.items()}
+        want = dict({k: 0 for k in counted}, fed_cohort_gather=19,
+                    fed_local_sgd_mclr=16, fed_local_sgd_dense=3,
+                    fed_compress_topk_q8=3)
+        if launches != want:
+            raise RuntimeError(f"telemetry path launched {launches}, "
+                               f"wanted {want}")
+
+        report = {}
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        for args in (["--validate", "--expect-rounds", "5"], []):
+            done = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.fl_report", path]
+                + args, capture_output=True, text=True, timeout=300,
+                env=env)
+            if done.returncode != 0:
+                raise RuntimeError(f"fl_report {args}: rc "
+                                   f"{done.returncode}: {done.stderr}")
+            report[" ".join(args) or "full"] = done.stdout
+        heads = ("Round summary", "Stragglers", "Per-client reliability",
+                 "Upload ledger", "Throughput")
+        missing = [h for h in heads if f"## {h}" not in report["full"]]
+        if missing or not report["--validate --expect-rounds 5"].startswith(
+                "fl_report: OK — 5 valid round records"):
+            raise RuntimeError(f"fl_report: {report}, sections missing "
+                               f"{missing}")
+        print(f"telemetry python -m repro_torch.launch.fl_report: "
+              f"{report['--validate --expect-rounds 5'].strip()}; the full "
+              f"report has {', '.join(heads)}", flush=True)
+
+        walls = {"none": [], "null": [], "jsonl": []}
+        for i, leg in enumerate(("none", "null", "jsonl", "jsonl", "null",
+                                 "none")):
+            sink = {"none": None, "null": NullSink(),
+                    "jsonl": JsonlSink(os.path.join(tmp, f"turn{i}.jsonl"),
+                                       meta=meta)}[leg]
+            srv = FedSAEServer(femnist, cfg=ServerConfig(
+                **dict(iid, rounds=21)), sink=sink)
+            srv.run()
+            srv.sink.close()
+            walls[leg].append(statistics.median(srv.wall_times[1:]))
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        overhead = dict(
+            turn_median_round_s=walls, median_round_s=med,
+            jsonl_over_null=med["jsonl"] / med["null"] - 1,
+            jsonl_over_none=med["jsonl"] / med["none"] - 1,
+            ceiling=0.09, host_us=telemetry_costs(np, on, meta, tmp))
+        print(f"telemetry overhead femnist-iid, 20 rounds a turn: "
+              f"{json.dumps(overhead)}", flush=True)
+        return dict(upload_ratio_mlp_topk=ratios, stages=stages,
+                    launches=launches, overhead=overhead)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _leaves(tree):
@@ -1708,6 +2002,10 @@ def main() -> int:
     print(f"main path python -m repro_torch.launch.train --arch llama3.2-3b "
           f"--smoke --steps 5: losses {[round(x, 4) for x in cli_losses]}; "
           f"launches {json.dumps(cli_launches)}", flush=True)
+    # this slice's path: telemetry on the FL paths
+    telemetry = telemetry_phase(torch, np, FedSAEServer, ServerConfig,
+                                femnist, counted, frac)
+    path_launches["telemetry"] = telemetry["launches"]
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     scan_single_steps = sum(serving[a]["scan_single_step_launches"]
@@ -1821,7 +2119,8 @@ def main() -> int:
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
                       "profile": profiles, "serving": serving,
-                      "training": training, "checks": checks}))
+                      "training": training, "checks": checks,
+                      "telemetry": telemetry}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -47,6 +47,12 @@ pre-batched stream of arbitrary batch trees (the decoder LMs through
 ``core.silo.SiloFedSAE``) and aggregates through the same ``_finish``
 stage.
 
+Each stage runs inside its profiler range (``obs.profiling.stage``:
+``fed.gather``, ``fed.local_sgd``, ``fed.upload_transform``,
+``fed.aggregate``), so a captured trace shows every kernel launch inside
+its stage.  The ranges wrap the ``vmap``-ed calls, never the functions
+``torch.func`` transforms.
+
 Not ported yet: fault injection and the upload screen (ROADMAP A9), the
 mesh-sharded and multi-round drivers (A12).
 """
@@ -61,6 +67,8 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core import compression as comp
 from repro_torch.core.aggregation import FedAvg
 from repro_torch.kernels import ops as kops
+from repro_torch.obs.profiling import (STAGE_AGGREGATE, STAGE_GATHER,
+                                       STAGE_LOCAL_SGD, STAGE_UPLOAD, stage)
 from repro_torch.tree import tree_leaves, tree_map
 
 SAMPLINGS = ("shuffle", "iid")
@@ -239,8 +247,9 @@ class RoundEngine:
     def _finish(self, global_params, params_k, weights):
         """Aggregate (the upload screen is not ported: ROADMAP A9).
         Returns (new_global, uploaded_any)."""
-        new_global = self.aggregator(params_k, global_params, weights)
-        return new_global, weights.sum() > 0
+        with stage(STAGE_AGGREGATE):
+            new_global = self.aggregator(params_k, global_params, weights)
+            return new_global, weights.sum() > 0
 
     def _upload_transform(self, global_params, params_k, residual_rows,
                           uploaded):
@@ -248,10 +257,12 @@ class RoundEngine:
         ``residual_rows`` [K, P] and reconstruct them densely.
         ``uploaded`` rows transmit; the rest reconstruct to exactly
         ``global`` and keep their residual bit for bit."""
-        k = comp.resolve_k(self.topk_frac, comp.n_params_of(global_params))
-        rec, new_rows, _ = comp.apply_upload_compress(
-            global_params, params_k, residual_rows, uploaded, k)
-        return rec, new_rows
+        with stage(STAGE_UPLOAD):
+            k = comp.resolve_k(self.topk_frac,
+                               comp.n_params_of(global_params))
+            rec, new_rows, _ = comp.apply_upload_compress(
+                global_params, params_k, residual_rows, uploaded, k)
+            return rec, new_rows
 
     def _finish_round(self, global_params, params_k, losses, n, n_iters,
                       ids, residual=None):
@@ -305,7 +316,8 @@ class RoundEngine:
             ids = ids.long()
             offs = offsets[ids]
             n = torch.clamp(lengths[ids], max=max_n)
-            x, y, mask = gather(flat_x, flat_y, offs, n)
+            with stage(STAGE_GATHER):
+                x, y, mask = gather(flat_x, flat_y, offs, n)
             if draws is None:
                 if gen is None:
                     raise ValueError("pass gen= or draws=")
@@ -315,12 +327,13 @@ class RoundEngine:
                                          device=x.device))
             elif not torch.is_tensor(draws):
                 draws = torch.from_numpy(np.array(draws)).to(x.device)
-            if fuse_sgd:
-                params_k, losses = self._fused_sgd(
-                    model, global_params, x, y, n, n_iters, draws)
-            else:
-                params_k, losses = local_train(global_params, x, y, mask, n,
-                                               n_iters, draws)
+            with stage(STAGE_LOCAL_SGD):
+                if fuse_sgd:
+                    params_k, losses = self._fused_sgd(
+                        model, global_params, x, y, n, n_iters, draws)
+                else:
+                    params_k, losses = local_train(global_params, x, y, mask,
+                                                   n, n_iters, draws)
             return self._finish_round(global_params, params_k, losses, n,
                                       n_iters, ids, residual)
 
@@ -398,9 +411,10 @@ class RoundEngine:
                 with torch.no_grad():
                     for dst, src in zip(tree_leaves(row), leaves):
                         dst.copy_(src)
-                losses[k] = train_silo(
-                    row, global_params,
-                    tree_map(lambda b: b[k], batches), steps[k])
+                with stage(STAGE_LOCAL_SGD):
+                    losses[k] = train_silo(
+                        row, global_params,
+                        tree_map(lambda b: b[k], batches), steps[k])
             with torch.no_grad():
                 new_global, _ = self._finish(global_params, stack,
                                              weights.to(dev, torch.float32))

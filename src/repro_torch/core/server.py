@@ -30,12 +30,22 @@ aggregator of the reference's registry runs, with ``trim_ratio``,
 ``agg_weighted`` and ``n_byzantine`` passed to it as the reference passes
 them.  Not ported yet, and refused with a ValueError naming the ROADMAP
 item when set to anything but the default: fault injection, the upload
-screen and quarantine (A9), telemetry sinks
-(``FedSAEServer(sink=, telemetry=)``, A10), checkpoints
+screen and quarantine (A9), checkpoints
 (``run(checkpoint_dir=, checkpoint_every=, resume=)``, A11), the scan
 driver, device rng streams, mesh sharding, capacity compaction, prefetch
 and the fused generic walk (A12), and the grouped sub-configs
 ``compute=``, ``comm=`` and ``robustness=`` (A15).
+
+Telemetry (``repro_torch.obs``), as in the reference: every executed
+round becomes a :class:`~repro_torch.obs.schema.RoundRecord`, built by
+``record_from_row`` and emitted by ``_emit_round`` into an internal
+``RingBufferSink`` (``history`` and ``wall_times`` are views over it) and
+into the caller's ``sink=`` (e.g. a ``JsonlSink``).  A sink switches
+telemetry on unless ``telemetry=False``; then each record also carries the
+per-client upload outcomes, the upload-byte ledger and the loss and
+workload histograms, computed in numpy from the losses the round has
+already pulled, so ``host_syncs`` (device-to-host pulls) and the run's
+bits are the same with telemetry on or off.
 """
 from __future__ import annotations
 
@@ -59,13 +69,13 @@ from repro_torch.core.selection import (ValueTracker, get_selection,
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.models.fl_models import resolve_local_step
+from repro_torch.obs.schema import (HISTORY_KEYS, LOSS_HIST_BINS,
+                                    LOSS_HIST_MAX, WORKLOAD_HIST_BINS,
+                                    RoundRecord, histogram_counts,
+                                    record_from_row)
+from repro_torch.obs.sinks import NullSink, RingBufferSink, Sink
 
 ALGOS = ("ira", "fassa", "fedavg", "fedprox", "oracle")
-
-#: scalar per-round metrics, in the reference's history order
-#: (repro/obs/schema.py HISTORY_KEYS)
-HISTORY_KEYS = ("acc", "test_loss", "train_loss", "dropout", "assigned",
-                "uploaded", "true_workload", "overflowed", "dropped")
 
 _A9 = "A9 (faults + screen + quarantine)"
 _A12 = "A12 (device-resident multi-round driver)"
@@ -193,18 +203,16 @@ class FedSAEServer:
     replaces the torch init.  ``data_draws(t, ids, n)``, given round t's
     numpy cohort and sample counts, returns that round's minibatch draws
     (idx [K, max_iters, B] for iid, u [K, max_n] for shuffle) in place of
-    the device generator's."""
+    the device generator's.  ``sink`` receives every round's record;
+    ``telemetry`` (default: on iff a sink is given) adds the extras."""
 
     def __init__(self, dataset: FederatedDataset, model=None,
                  cfg: Optional[ServerConfig] = None,
                  het: Optional[HeterogeneitySim] = None,
                  init_params=None,
                  data_draws: Optional[Callable] = None,
-                 sink=None, telemetry: Optional[bool] = None):
-        if sink is not None or telemetry is not None:
-            raise _refuse(f"FedSAEServer(sink={sink!r}, "
-                         f"telemetry={telemetry!r})",
-                         "A10 (telemetry)")
+                 sink: Optional[Sink] = None,
+                 telemetry: Optional[bool] = None):
         cfg = cfg if cfg is not None else ServerConfig()
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
@@ -257,8 +265,31 @@ class FedSAEServer:
         self.select_fn = get_selection(cfg.selection)
         self.eval_fn = make_eval_fn(self.model)
         self.cohorts: List[np.ndarray] = []
-        self.history: Dict[str, List[float]] = {k: [] for k in HISTORY_KEYS}
-        self.wall_times: List[float] = []     # seconds per run() round
+        self.sink: Sink = sink if sink is not None else NullSink()
+        self.telemetry = (bool(telemetry) if telemetry is not None
+                          else sink is not None)
+        self._records = RingBufferSink()
+        self.host_syncs = 0                   # device->host pulls
+
+    # ------------------------------------------------------------------
+    @property
+    def history(self) -> Dict[str, List[float]]:
+        """Dict of lists keyed by ``HISTORY_KEYS`` (in that order), one
+        entry per recorded round, NaN where a round has no value: a view
+        over the records."""
+        recs = self._records.records
+        return {k: [getattr(r, k) for r in recs] for k in HISTORY_KEYS}
+
+    @property
+    def wall_times(self) -> List[float]:
+        """Seconds per ``run()`` round, eval included (the records'
+        ``wall_time_s``)."""
+        return [r.wall_time_s for r in self._records.records]
+
+    def _emit_round(self, record: RoundRecord):
+        """Every executed round flows through here."""
+        self._records.emit(record)
+        self.sink.emit(record)
 
     # ------------------------------------------------------------------
     def _workloads(self, ids: np.ndarray, E_true: np.ndarray):
@@ -334,11 +365,12 @@ class FedSAEServer:
         if self.residual is not None:
             self.residual = out[3]
         losses = losses.cpu().numpy()     # the per-round host sync
+        self.host_syncs += 1
         uploaders = n_iters > 0
         self.cohorts.append(np.asarray(ids))
         if uploaders.any():
             self.values.update(ids[uploaders], losses[uploaders])
-        return {
+        stats = {
             "round": t,
             "ids": np.asarray(ids),
             "losses": losses,
@@ -352,14 +384,27 @@ class FedSAEServer:
             "uploaded": float(np.mean(e_eff)),
             "true_workload": float(np.mean(E_true)),
         }
+        if self.telemetry:
+            # the reference host driver's extras: the byte ledger and the
+            # float32 histograms, from the already-pulled losses
+            upf = uploaders.astype(np.float32)
+            n_up = float(upf.sum())
+            stats["client_uploaded"] = uploaders.astype(np.int32)
+            stats["upload_bytes"] = n_up * self.bytes_per_client
+            stats["dense_upload_bytes"] = n_up * self.dense_bytes_per_client
+            stats["loss_hist"] = histogram_counts(
+                losses, upf, 0.0, LOSS_HIST_MAX, LOSS_HIST_BINS)
+            stats["workload_hist"] = histogram_counts(
+                e_eff, upf, 0.0, cfg.h_cap, WORKLOAD_HIST_BINS)
+        return stats
 
     def run(self, rounds: Optional[int] = None, verbose: bool = False,
             checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
             resume: bool = False):
         """Run the rounds and return the history (dict of lists keyed by
         ``HISTORY_KEYS``, NaN where a round has no value).  Each round's
-        host wall time, eval included, goes to ``wall_times``.  The
-        reference's checkpoint keywords are accepted at their defaults
+        host wall time, eval included, is its record's ``wall_time_s``.
+        The reference's checkpoint keywords are accepted at their defaults
         only (ROADMAP A11)."""
         if checkpoint_dir is not None or checkpoint_every or resume:
             raise _refuse(f"FedSAEServer.run(checkpoint_dir="
@@ -374,14 +419,14 @@ class FedSAEServer:
                 acc, tl = self.eval_fn(self.params, self.test_x, self.test_y)
                 row["acc"], row["test_loss"] = float(acc), float(tl)
             else:
-                prev = self.history["acc"]
-                row["acc"] = prev[-1] if prev else float("nan")
+                prev = self._records.last
+                row["acc"] = prev.acc if prev is not None else float("nan")
                 row["test_loss"] = float("nan")
-            self.wall_times.append(time.perf_counter() - start)
-            for k in HISTORY_KEYS:
-                self.history[k].append(float(row.get(k, float("nan"))))
+            row["wall_time_s"] = time.perf_counter() - start
+            rec = record_from_row(t, row)
+            self._emit_round(rec)
             if verbose and (t % 10 == 0 or t == T - 1):
-                print(f"[{self.cfg.algo}] round {t:3d} acc={row['acc']:.3f} "
-                      f"dropout={row['dropout']:.2f} "
-                      f"loss={row['train_loss']:.3f}")
+                print(f"[{self.cfg.algo}] round {t:3d} acc={rec.acc:.3f} "
+                      f"dropout={rec.dropout:.2f} "
+                      f"loss={rec.train_loss:.3f}")
         return self.history

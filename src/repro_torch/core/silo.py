@@ -7,10 +7,13 @@ Ira predicts each silo's easy and hard budgets (L, H) from the
 heterogeneity simulator's affordable workloads, each silo runs the steps
 it completes, and FedAvg mixes the uploads weighted by silo size.  The
 host algebra is the reference's numpy, bit for bit; local training and
-aggregation go through ``RoundEngine.make_stream_round``.
+aggregation go through ``RoundEngine.make_stream_round``.  Each round
+emits one ``RoundRecord`` through the same sink interface as
+``FedSAEServer`` (``fl_train --metrics-out``).
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -22,6 +25,8 @@ from repro_torch.core.aggregation import get_aggregator
 from repro_torch.core.engine import RoundEngine
 from repro_torch.core.heterogeneity import HeterogeneitySim
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.obs.schema import record_from_row
+from repro_torch.obs.sinks import NullSink, Sink
 from repro_torch.tree import tree_map
 
 
@@ -41,19 +46,16 @@ class SiloFedSAE:
     a ``LocalStep``.  ``init_params`` (a dict of numpy arrays, e.g. the
     reference's init) replaces the torch-drawn init, which cannot
     reproduce the reference's threefry draws.  ``device`` defaults to
-    cuda.  Telemetry sinks (ROADMAP A10) and the upload screen (A9) are not
-    ported and raise."""
+    cuda.  ``sink`` receives one ``RoundRecord`` a round.  The upload
+    screen (``screen_norm=``, ROADMAP A9) is not ported and raises."""
 
     def __init__(self, model, n_silos: int, lr: float = 5e-3,
                  max_steps: int = 16, U: float = 2.0, seed: int = 0,
-                 aggregator: str = "fedavg", sink=None,
+                 aggregator: str = "fedavg", sink: Optional[Sink] = None,
                  screen_norm: Optional[float] = None, init_params=None,
                  device: DeviceLike = None, **agg_kwargs):
         from repro_torch.models.fl_models import LocalStep
 
-        if sink is not None:
-            raise ValueError("telemetry sinks are not ported yet (ROADMAP "
-                             "A10)")
         if screen_norm is not None:
             raise ValueError("the upload screen is not ported yet (ROADMAP "
                              "A9)")
@@ -89,13 +91,16 @@ class SiloFedSAE:
         self.stats: Dict[str, list] = {"loss": [], "dropout": [],
                                        "uploaded_steps": []}
         self.last_n_steps: Optional[np.ndarray] = None
+        self.sink: Sink = sink if sink is not None else NullSink()
         self.round_idx = 0
 
     def run_round(self, batches, sizes: np.ndarray):
         """batches: tree of arrays or tensors with leading [K, max_steps,
         ...] (moved to the device here)."""
+        t_start = time.perf_counter()
         E_true = np.minimum(self.het.sample_round() * self.steps_scale,
                             self.max_steps)
+        assigned = self.H.copy()
         e_eff = pred.uploaded_epochs(self.L, self.H, E_true)
         self.L, self.H, outcome = pred.ira_predict(
             self.L, self.H, E_true, U=self.U, h_cap=float(self.max_steps))
@@ -110,5 +115,16 @@ class SiloFedSAE:
         self.stats["loss"].append(float(losses.mean()))
         self.stats["dropout"].append(float((outcome == pred.DROPPED).mean()))
         self.stats["uploaded_steps"].append(float(e_eff.mean()))
+        self.sink.emit(record_from_row(self.round_idx, {
+            "wall_time_s": time.perf_counter() - t_start,
+            "train_loss": self.stats["loss"][-1],
+            "dropout": self.stats["dropout"][-1],
+            "dropped": float((outcome == pred.DROPPED).sum()),
+            "assigned": float(assigned.mean()),
+            "uploaded": self.stats["uploaded_steps"][-1],
+            "true_workload": float(E_true.mean()),
+            "ids": np.arange(self.K),
+            "client_uploaded": (n_steps > 0).astype(np.int32),
+        }))
         self.round_idx += 1
         return self.stats

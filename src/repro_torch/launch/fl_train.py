@@ -21,6 +21,12 @@
   PYTHONPATH=src python -m repro_torch.launch.fl_train \
       --silo-arch llama3.2-3b --silos 4 --rounds 5
 
+  # per-round telemetry as JSONL RoundRecords and a chrome trace of the
+  # run, then the health report:
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
+      --rounds 5 --metrics-out run.jsonl --trace-dir trace/
+  PYTHONPATH=src python -m repro_torch.launch.fl_report run.jsonl
+
 Every flag of the reference CLI is accepted at its default; a value of a
 feature the port does not run yet exits with a usage error naming its
 ROADMAP item.
@@ -28,6 +34,7 @@ ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import numpy as np
 
@@ -36,6 +43,7 @@ from repro_torch.core.server import (ALGOS, BACKENDS, FedSAEServer,
                                      ServerConfig)
 from repro_torch.data.federated import DATASETS
 from repro_torch.models.fl_models import LOCAL_STEPS
+from repro_torch.obs import JsonlSink, trace_if
 
 #: the reference CLI's reduced (non --paper-scale) dataset sizes
 REDUCED = {
@@ -50,7 +58,18 @@ REDUCED = {
 DEFAULT_LR = {"synthetic": 0.01, "sent140": 0.3}
 
 
-def build_server(args) -> FedSAEServer:
+def make_sink(args, **meta):
+    """--metrics-out -> a JsonlSink whose ``_meta`` header holds the
+    reference's keys (``rounds``, ``driver``, ``backend`` and ``meta``);
+    None without the flag (no sink: telemetry stays off)."""
+    if not args.metrics_out:
+        return None
+    return JsonlSink(args.metrics_out, meta=dict(
+        rounds=args.rounds, driver=args.driver, backend=args.backend,
+        **meta))
+
+
+def build_server(args, sink=None) -> FedSAEServer:
     make = DATASETS[args.dataset]
     ds = make() if args.paper_scale else make(**REDUCED[args.dataset])
     lr = args.lr if args.lr is not None else DEFAULT_LR.get(args.dataset,
@@ -67,7 +86,7 @@ def build_server(args) -> FedSAEServer:
                        upload_compress=args.compress,
                        topk_frac=args.topk_frac, backend=args.backend,
                        upload_screen=args.screen, device=args.device)
-    return FedSAEServer(ds, cfg=cfg)
+    return FedSAEServer(ds, cfg=cfg, sink=sink)
 
 
 def silo_tokens(ri, cfg, K: int, max_steps: int, B: int = 2, S: int = 64):
@@ -94,19 +113,28 @@ def run_silo(args):
     model = build_model(acfg)
     agg_kwargs = ({"trim_ratio": args.trim_ratio}
                   if args.aggregator == "trimmed_mean" else {})
-    fed = SiloFedSAE(model, args.silos, lr=5e-3, max_steps=args.max_steps,
-                     aggregator=args.aggregator, device=args.device,
-                     **agg_kwargs)
-    ri = np.random.default_rng(0)
-    K = args.silos
-    sizes = np.asarray(ri.integers(100, 1000, K))
-    for r in range(args.rounds):
-        toks = torch.from_numpy(silo_tokens(ri, acfg, K, fed.max_steps))
-        stats = fed.run_round({"tokens": toks, "labels": toks}, sizes)
-        if not args.quiet:
-            print(f"round {r}: loss={stats['loss'][-1]:.4f} "
-                  f"dropout={stats['dropout'][-1]:.2f} "
-                  f"uploaded_steps={stats['uploaded_steps'][-1]:.1f}")
+    with make_sink(args, path="silo", arch=args.silo_arch,
+                   silos=args.silos) or contextlib.nullcontext() as sink:
+        fed = SiloFedSAE(model, args.silos, lr=5e-3,
+                         max_steps=args.max_steps,
+                         aggregator=args.aggregator, sink=sink,
+                         device=args.device, **agg_kwargs)
+        ri = np.random.default_rng(0)
+        K = args.silos
+        sizes = np.asarray(ri.integers(100, 1000, K))
+        with trace_if(args.trace_dir):
+            for r in range(args.rounds):
+                toks = torch.from_numpy(silo_tokens(ri, acfg, K,
+                                                    fed.max_steps))
+                stats = fed.run_round({"tokens": toks, "labels": toks},
+                                      sizes)
+                if not args.quiet:
+                    print(f"round {r}: loss={stats['loss'][-1]:.4f} "
+                          f"dropout={stats['dropout'][-1]:.2f} "
+                          f"uploaded_steps="
+                          f"{stats['uploaded_steps'][-1]:.1f}")
+    if sink is not None:
+        print(f"metrics: {sink.path}")
     if not np.isfinite(stats["loss"][-1]):
         raise RuntimeError(f"non-finite silo loss {stats['loss'][-1]}")
     print("silo FL done")
@@ -125,7 +153,6 @@ NOT_PORTED = dict(
                      "duty_cycle", "straggler", "pareto_alpha",
                      "screen_norm_bound", "quarantine_threshold",
                      "quarantine_rounds", "quarantine_min_tries"), "A9"),
-    **dict.fromkeys(("metrics_out", "trace_dir"), "A10"),
     **dict.fromkeys(("checkpoint_dir", "checkpoint_every", "resume"),
                     "A11"),
     **dict.fromkeys(("driver", "block_size", "shards", "cohort_capacity",
@@ -298,8 +325,13 @@ def main(argv=None):
     args = parse_args(argv)
     if args.silo_arch:
         return run_silo(args)
-    srv = build_server(args)
-    hist = srv.run(verbose=not args.quiet)
+    with make_sink(args, path="flat", dataset=args.dataset, algo=args.algo,
+                   model=args.model) or contextlib.nullcontext() as sink:
+        srv = build_server(args, sink)
+        with trace_if(args.trace_dir):
+            hist = srv.run(verbose=not args.quiet)
+    if sink is not None:
+        print(f"metrics: {sink.path}")
     print(f"final: acc={hist['acc'][-1]:.3f} "
           f"mean_dropout={np.nanmean(hist['dropout']):.3f} "
           f"dropped={np.sum(hist['dropped']):.0f}")

@@ -25,6 +25,7 @@ from repro_torch.core import aggregation as tagg
 from repro_torch.core.engine import RoundEngine as TEngine
 from repro_torch.data.federated import make_femnist_like as tfemnist
 from repro_torch.models.fl_models import make_mclr
+from torch_cases import one_torch_thread  # noqa: F401
 
 RANK_TOL, GM_TOL = 1e-6, 1e-5
 ROBUST = ("trimmed_mean", "median", "krum", "geometric_median", "bulyan")

@@ -37,6 +37,7 @@ from repro_torch.core.engine import RoundEngine as TEngine
 from repro_torch.data.federated import make_femnist_like as tfemnist
 from repro_torch.kernels import ref as tref
 from repro_torch.models.fl_models import make_mclr, make_mlp
+from torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

@@ -6,6 +6,7 @@ import torch
 
 from repro.data import federated as ref_fed
 from repro_torch.data import federated as port_fed
+from torch_cases import one_torch_thread  # noqa: F401
 
 SMALL = {
     "mnist": dict(n_clients=12, total=600, dim=16, max_size=80),

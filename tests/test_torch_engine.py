@@ -25,6 +25,7 @@ from repro_torch.core.engine import RoundEngine as TEngine
 from repro_torch.core.engine import budget_iters as tbudget
 from repro_torch.data.federated import make_femnist_like as tfemnist
 from repro_torch.models.fl_models import LocalStep, make_mclr, mclr_loss
+from torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 B, MAX_ITERS, LR = 4, 12, 0.05

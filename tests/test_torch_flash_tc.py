@@ -26,6 +26,7 @@ from repro.kernels.flash_attention import flash_attention_fwd as jfa_fwd
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ref as tref
 from torch_cases import attention_case
+from torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-2                      # the reference's bfloat16 bound
 LSE_TOL = 2e-5                  # its float32 lse bound

@@ -24,6 +24,7 @@ from repro_torch.kernels import (build, fed_compress, fed_gather,
                                  fed_local_sgd, fed_local_sgd_dense)
 from repro_torch.kernels import ops as tops
 from torch_cases import dense_case, gather_case, sgd_case
+from torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

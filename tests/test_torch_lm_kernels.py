@@ -36,6 +36,7 @@ from repro_torch.kernels import selective_scan as tss
 from repro_torch.models import layers as TL
 from repro_torch.models import mamba as TMb
 from torch_cases import attention_case, scan_case
+from torch_cases import one_torch_thread  # noqa: F401
 
 TDT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 

@@ -35,19 +35,7 @@ from repro_torch.data.federated import make_sent140_like as tsent140
 from repro_torch.launch import fl_train
 from repro_torch.models import fl_models as tfl
 from test_torch_server import _reference_draws
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Run this module's torch ops on one thread.  The LSTM walks its 25
-    tokens as hundreds of tiny ops a step; with the default intra-op pool
-    every op wakes a thread per core, and beside the suite's other
-    workers (``-n 6``) those threads contend for the cores (on an 8-core
-    host one host round took ~110 s instead of ~6 s beside one other
-    torch process, and slowed that process as much)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_cases import one_torch_thread  # noqa: F401
 
 
 LOGIT_TOL = 1e-5

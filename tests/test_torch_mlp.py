@@ -26,6 +26,7 @@ from repro_torch.core.engine import RoundEngine as TEngine
 from repro_torch.data.federated import make_femnist_like as tfemnist
 from repro_torch.kernels.ops import FUSED_SGD_KINDS, fused_sgd_eligible
 from repro_torch.models import fl_models as tfl
+from torch_cases import one_torch_thread  # noqa: F401
 
 B, MAX_ITERS, LR, HIDDEN = 4, 8, 0.05, 8
 DS_KW = dict(n_clients=12, total=300, dim=16, max_size=24)

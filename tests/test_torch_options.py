@@ -8,11 +8,14 @@ parser, and the keyword arguments of ``FedSAEServer.__init__`` and
 ``FedSAEServer.run``.  Each non-default value below is either one the port
 supports (it must be accepted) or one it refuses (``ValueError`` or
 ``NotImplementedError`` from the server, ``SystemExit`` from argparse, with
-"ROADMAP" in the message).
+"ROADMAP" in the message).  The telemetry options are also driven through
+one CPU round, which shows that they do their job.
 """
 import argparse
 import dataclasses
 import inspect
+import json
+import os
 
 import pytest
 
@@ -27,6 +30,8 @@ from repro_torch.core.server import FedSAEServer as TServer
 from repro_torch.core.server import ServerConfig as TConfig
 from repro_torch.data.federated import make_femnist_like, make_sent140_like
 from repro_torch.launch import fl_train as tfl
+from repro_torch.obs import RingBufferSink, read_jsonl
+from torch_cases import one_torch_thread  # noqa: F401
 
 OK, REFUSED = True, False
 
@@ -121,8 +126,8 @@ FLAG_CASES = {
     "--checkpoint-dir": [("ckpt", REFUSED)],
     "--checkpoint-every": [("2", REFUSED)],
     "--resume": [(None, REFUSED)],
-    "--metrics-out": [("metrics.jsonl", REFUSED)],
-    "--trace-dir": [("trace", REFUSED)],
+    "--metrics-out": [("metrics.jsonl", OK)],
+    "--trace-dir": [("trace", OK)],
     "--quiet": [(None, OK)],
     "--paper-scale": [(None, OK)],
     "--silo-arch": [("llama3.2-3b", OK)],
@@ -130,9 +135,8 @@ FLAG_CASES = {
     "--max-steps": [("4", OK)],
 }
 
-#: the reference's server keywords -> [(non-default value, ROADMAP item)]
-INIT_CASES = {"sink": [(object(), "A10")], "telemetry": [(True, "A10"),
-                                                          (False, "A10")]}
+#: the reference's server keywords -> [non-default value] (all accepted)
+INIT_CASES = {"sink": [RingBufferSink()], "telemetry": [True, False]}
 RUN_CASES = {"checkpoint_dir": [("ckpt", "A11")],
              "checkpoint_every": [(2, "A11")], "resume": [(True, "A11")]}
 
@@ -225,14 +229,37 @@ def test_flag_accepted_at_reference_default(flag):
         assert getattr(args, ref.dest) == ref.default
 
 
+def _wrote_records(out):
+    """``--metrics-out metrics.jsonl``: a header and one record."""
+    meta, records = read_jsonl("metrics.jsonl")
+    assert meta["path"] == "flat" and len(records) == 1
+    assert "metrics: metrics.jsonl" in out
+
+
+def _wrote_trace(out):
+    """``--trace-dir trace``: a chrome trace with the stage ranges."""
+    (path,) = [f for f in os.listdir("trace") if f.endswith(".json")]
+    with open(os.path.join("trace", path)) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"fed.gather", "fed.local_sgd", "fed.aggregate"} <= names
+
+
+#: accepted flags whose job one CPU round shows: flag -> check(stdout)
+RUN_CHECKS = {"--metrics-out": _wrote_records, "--trace-dir": _wrote_trace}
+
+
 @pytest.mark.parametrize("flag,value,ok", [
     (f, v, ok) for f, cases in FLAG_CASES.items() for v, ok in cases])
-def test_flag_non_default(capsys, flag, value, ok):
+def test_flag_non_default(capsys, monkeypatch, tmp_path, flag, value, ok):
     argv = ["--device", "cpu", flag] + ([] if value is None else [value])
     if ok:
         args = tfl.parse_args(argv)
         assert getattr(args, REF_FLAGS[flag].dest) != \
             REF_FLAGS[flag].default
+        if flag in RUN_CHECKS:
+            monkeypatch.chdir(tmp_path)
+            tfl.main(argv + ["--rounds", "1", "--quiet"])
+            RUN_CHECKS[flag](capsys.readouterr().out)
         return
     with pytest.raises(SystemExit) as exit_:
         tfl.parse_args(argv)
@@ -247,12 +274,21 @@ def test_server_keyword_accepted_at_reference_default(name):
             **{name: default})
 
 
-@pytest.mark.parametrize("name,value,item", [
-    (n, v, i) for n, cases in INIT_CASES.items() for v, i in cases])
-def test_server_keyword_non_default(name, value, item):
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        TServer(make_femnist_like(**DS), cfg=TConfig(device="cpu"),
-                **{name: value})
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, values in INIT_CASES.items() for v in values])
+def test_server_keyword_non_default(name, value):
+    """Each value is accepted and does its job over one round: a sink
+    receives the round's record and switches the telemetry extras on,
+    ``telemetry=`` switches them on or off."""
+    srv = TServer(make_femnist_like(**DS), cfg=TConfig(
+        device="cpu", n_selected=4, rounds=1), **{name: value})
+    srv.run()
+    (rec,) = srv._records.records
+    want = value if name == "telemetry" else True
+    assert srv.telemetry is want
+    assert (rec.loss_hist is not None) is want
+    if name == "sink":
+        assert value.last is rec
 
 
 def test_run_keywords_accepted_at_reference_defaults():

@@ -28,6 +28,7 @@ from repro_torch.configs import check_ported, get_config
 from repro_torch.convert import params_from_reference
 from repro_torch.launch import serve
 from repro_torch.models.api import build_model
+from torch_cases import one_torch_thread  # noqa: F401
 
 ARCHS = ["llama3.2-3b", "falcon-mamba-7b"]
 

@@ -31,6 +31,7 @@ from repro_torch.data import federated as tfed
 from repro_torch.data.federated import make_femnist_like as tfemnist
 from repro_torch.launch import fl_train
 from repro_torch.models.fl_models import resolve_local_step
+from torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

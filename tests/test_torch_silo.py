@@ -10,6 +10,8 @@
   init (``init_params=``): L, H and the step budgets bitwise (the host
   algebra is the reference's numpy), per-round losses and the final global
   params within 2e-5.
+- ``SiloFedSAE(sink=)`` is accepted and emits a record a round; the
+  upload screen is still refused by ROADMAP item.
 - The ``fl_train --silo-arch`` CLI on the CPU.
 """
 import jax
@@ -30,7 +32,9 @@ from repro_torch.core.silo import SiloFedSAE, make_silo_round_fn
 from repro_torch.launch import fl_train
 from repro_torch.models.api import build_model
 from repro_torch.models.fl_models import LocalStep
+from repro_torch.obs import RingBufferSink
 from repro_torch.tree import tree_leaves
+from torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 
@@ -176,8 +180,13 @@ def test_silo_fedsae_matches_reference():
 
 def test_silo_fedsae_refuses_unported_features():
     cfg = get_config("llama3.2-3b", smoke=True)
-    with pytest.raises(ValueError, match="A10"):
-        SiloFedSAE(build_model(cfg), 2, device="cpu", sink=object())
+    ring = RingBufferSink()             # a sink is accepted (A10 is in)
+    fed = SiloFedSAE(build_model(cfg), 2, max_steps=2, device="cpu",
+                     sink=ring)
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 2, 2, 16)).astype(np.int32)
+    fed.run_round({"tokens": toks, "labels": toks}, np.array([100, 500]))
+    assert len(ring) == 1 and ring.last.train_loss == fed.stats["loss"][-1]
     with pytest.raises(ValueError, match="A9"):
         SiloFedSAE(build_model(cfg), 2, device="cpu", screen_norm=10.0)
     with pytest.raises(TypeError):

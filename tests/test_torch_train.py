@@ -36,6 +36,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models.api import build_model, from_model
 from repro_torch.optim import adamw, sgd
 from repro_torch.tree import tree_leaves, tree_map
+from torch_cases import one_torch_thread  # noqa: F401
 
 ARCHS = ["llama3.2-3b", "falcon-mamba-7b"]
 

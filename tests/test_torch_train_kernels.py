@@ -37,6 +37,7 @@ from repro_torch.kernels import fused_xent as tfx
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from torch_cases import attention_case, scan_case, xent_case
+from torch_cases import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 2e-5, 2e-4          # the reference's flash-backward bound
 

@@ -35,6 +35,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels import fused_xent as tfx
 from repro_torch.kernels import ref as tref
 from torch_cases import xent_case
+from torch_cases import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 CASES = [(T, V) for T in (150, 256) for V in (700, 704)]

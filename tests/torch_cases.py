@@ -1,8 +1,27 @@
 """Seeded numpy inputs shared by the port's kernel tests (the CPU parity
-tests in test_torch_kernels.py and the card tests in test_torch_cuda.py).
-Imports neither JAX nor the reference, so the card tests run where JAX is
-not installed."""
+tests in test_torch_kernels.py and the card tests in test_torch_cuda.py),
+and the one-thread module fixture of the port's CPU test files.  Imports
+neither JAX nor the reference, so the card tests run where JAX is not
+installed."""
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread (import this fixture into the
+    module).  The port's CPU tests run many small ops (an LSTM walks its 25
+    tokens as hundreds of tiny ops a step, the plain SGD loops one Python
+    iteration per local step); with the default intra-op pool every op
+    wakes a thread per core, and beside the suite's other workers (``-n
+    6``) those threads contend for the cores: on an 8-core host one LSTM
+    host round took ~110 s instead of ~6 s beside one other torch process,
+    and a file of host rounds ran 20x slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def gather_case():
