@@ -132,6 +132,20 @@ last line):
    dense; the four stage ranges of a traced round, each holding its FL
    kernels' launches; the port's ``fl_report`` on the file; and, outside
    the count, the sinks' overhead in turns;
+   then the failure-handling path (``faults_phase``), at FEMNIST paper
+   scale: MCLR iid 5 rounds with nan and with inf uploads (probability
+   0.3), each bitwise its ``corrupt="crash"`` twin (params, L/H/theta,
+   values, cohorts) with screened uploads recorded; the MLP + topk_q8 5
+   rounds with exploded uploads bitwise its twin, residual included;
+   diurnal + Pareto + dropout + sign_flip under the median for 5 rounds,
+   every loss finite; kill/resume of the MLP + topk_q8 with nan faults (2
+   rounds, a checkpoint, a fresh server, 2 more) bitwise 4 straight
+   rounds; a small faulted federation card against CPU (same cohorts,
+   L/H and screened counts, params within 2e-5); and one full-width
+   Llama-3.2-3B silo round without and one with ``screen_norm=1e-6``
+   (both silos screened, the global params bitwise the pre-round params),
+   each with its peak memory and its aggregate stage's time; every leg's
+   launches checked;
 5. profile one steady round of each FL leg (Sent140's shuffle leg too,
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
@@ -1343,6 +1357,12 @@ def telemetry_phase(torch, np, FedSAEServer, ServerConfig, femnist,
             before = {k: fn.launches for k, fn in counted.items()}
             tdir = os.path.join(tmp, label)
             with trace_if(tdir):
+                # a first kernel for the trace to start on: the first
+                # launch after the profiler starts can be lost (seen once
+                # for the round's gather), and this one is no FL kernel,
+                # so the round's launches are all counted
+                torch.ones(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
                 srv.run_round(srv.cfg.rounds)
                 torch.cuda.synchronize()
             launched = {k: fn.launches - before[k]
@@ -1407,6 +1427,319 @@ def telemetry_phase(torch, np, FedSAEServer, ServerConfig, femnist,
                     launches=launches, overhead=overhead)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _same_run(torch, np, a, b):
+    """Two servers' runs bitwise equal: cohorts, history (L, H, theta, the
+    values), params and, when compressing, the residual.  Returns the
+    first difference's name, or None."""
+    if len(a.cohorts) != len(b.cohorts) or not all(
+            np.array_equal(x, y) for x, y in zip(a.cohorts, b.cohorts)):
+        return "cohorts"
+    for name in ("L", "H", "theta"):
+        if not np.array_equal(getattr(a, name), getattr(b, name)):
+            return name
+    if not np.array_equal(a.values.v, b.values.v):
+        return "values"
+    for k in a.params:
+        if not torch.equal(a.params[k], b.params[k]):
+            return f"params {k}"
+    if a.residual is not None and not torch.equal(a.residual, b.residual):
+        return "residual"
+    return None
+
+
+def timed_stage(torch, fn, into):
+    """``fn`` wrapped to append the device time of each call (CUDA events,
+    after a synchronize) and its host wall, in ms, to ``into``."""
+    def timed(*a):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        result = fn(*a)
+        e1.record()
+        torch.cuda.synchronize()
+        into.append((e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3))
+        return result
+    return timed
+
+
+def silo_screen(torch, np, get_config, build_model, counted):
+    """Phase 7, the silo leg: one Llama-3.2-3B round at full width (K=2,
+    max_steps 4, B=1, S=2048, the silo path's first round: budgets [2, 2])
+    without the screen, then, on a fresh ``SiloFedSAE``, the same round
+    with ``screen_norm=1e-6``, which no upload meets: both silos screened,
+    the global params bitwise the pre-round params (held on the host), the
+    record ``screened == 2``.  Each round's peak device memory from a
+    reset just before it, and the aggregate stage (``engine._finish``:
+    screen and FedAvg) timed with CUDA events and on the host clock."""
+    from repro_torch.core.silo import SiloFedSAE
+    from repro_torch.obs import RingBufferSink
+    from repro_torch.tree import tree_leaves
+    cfg = get_config("llama3.2-3b")
+    model = build_model(cfg)
+    K, max_steps, B, S = 2, 4, 1, 2048
+    out = {}
+    for label, bound in (("unscreened", None), ("screened", 1e-6)):
+        ring = RingBufferSink()
+        fed = SiloFedSAE(model, K, lr=5e-3, max_steps=max_steps, seed=0,
+                         sink=ring, screen_norm=bound)
+        ri = np.random.default_rng(0)
+        sizes = np.asarray(ri.integers(100, 1000, K))
+        batches = silo_batches(torch, cfg, K, max_steps, B, S, ri, "cuda")
+        before = ([t.cpu() for t in tree_leaves(fed.params)]
+                  if bound is not None else None)
+        times = []
+        fed.engine._finish = timed_stage(torch, fed.engine._finish, times)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        stats = fed.run_round(batches, sizes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rec = ring.last
+        stage = dict(zip(("device_ms", "host_ms"), times[0]))
+        n_up = int((fed.last_n_steps > 0).sum())
+        if not np.isfinite(stats["loss"][-1]) or peak >= 80e9 / 2**30:
+            raise RuntimeError(f"silo {label}: loss {stats['loss']}, peak "
+                               f"{peak:.1f} GiB")
+        if bound is not None:
+            kept = all(torch.equal(b, t.cpu()) for b, t in
+                       zip(before, tree_leaves(fed.params)))
+            if rec.screened != 2.0 or n_up != 2 or not kept:
+                raise RuntimeError(f"silo screened round: screened "
+                                   f"{rec.screened} of {n_up} uploads, "
+                                   f"params kept bitwise {kept}")
+            del before
+        elif rec.screened is not None:
+            raise RuntimeError("silo unscreened round recorded a screen")
+        out[label] = dict(wall_s=wall, peak_gib=peak,
+                          n_steps=fed.last_n_steps.tolist(),
+                          screened=rec.screened,
+                          aggregate_device_ms=stage["device_ms"],
+                          aggregate_host_ms=stage["host_ms"])
+        print(f"faults silo llama3.2-3b full width, {label} round (budgets "
+              f"{out[label]['n_steps']}, screen_norm {bound}): wall "
+              f"{wall:.3f} s, peak {peak:.2f} GiB, aggregate stage "
+              f"{stage['device_ms']:.2f} ms on the device (CUDA events), "
+              f"{stage['host_ms']:.2f} ms host; screened {rec.screened}"
+              + ("; global params bitwise the pre-round params"
+                 if bound is not None else ""), flush=True)
+        del fed, batches, stats
+        torch.cuda.empty_cache()
+    return out
+
+
+def faults_phase(torch, np, FedSAEServer, ServerConfig, femnist, counted,
+                 frac, get_config, build_model):
+    """Phase 7: failure handling on the card (``repro_torch.faults`` and
+    ``repro_torch.checkpoint``), every count set to 0 just before and read
+    just after, each leg's launches checked.  At FEMNIST paper scale (200
+    clients, K=10): MCLR iid 5 rounds with ``corrupt="nan"`` and with
+    ``"inf"`` (probability 0.3), each bitwise its ``"crash"`` twin
+    (params, history, cohorts) with screened uploads in its records; the
+    MLP + topk_q8 5 rounds with ``"explode"`` bitwise its twin, residual
+    included; diurnal (day_rounds 8) + Pareto (alpha 1.5) + dropout 0.1 +
+    sign_flip 0.2 under ``aggregator="median"`` for 5 rounds, every loss
+    finite; kill/resume on the MLP + topk_q8 with nan faults, 4 rounds
+    straight against 2, a checkpoint, a fresh server restored and 2 more,
+    bitwise (residual and the CUDA generator included).  A small faulted
+    federation (30 clients, nan at 0.3, numpy draws) on the card against
+    the CPU: the same cohorts, L/H and screened counts, params within
+    2e-5.  Then ``silo_screen``, whose two rounds must launch 56 flash
+    forwards, 28 backwards and 2 cross-entropy chunks each way a local
+    step, all on the tensor cores."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import list_checkpoints
+    from repro_torch.data.federated import make_femnist_like
+    from repro_torch.faults import FaultModel
+    iid = dict(algo="ira", n_selected=10, sampling="iid")
+    mlp = dict(iid, model="mlp", upload_compress="topk_q8", topk_frac=frac)
+    summary = {}
+    reset_counts(counted)
+
+    def run(label, rounds, fault, want, ds=femnist, run_kw=None,
+            time_aggregate=False, **cfg):
+        fm = None if fault is None else FaultModel(**fault)
+        srv = FedSAEServer(ds, cfg=ServerConfig(
+            **dict(iid, rounds=rounds, faults=fm, **cfg)))
+        times = []
+        if time_aggregate:
+            srv.engine._finish = timed_stage(torch, srv.engine._finish,
+                                             times)
+        before = {k: fn.launches for k, fn in counted.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = srv.run(**(run_kw or {}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches - before[k] for k, fn in counted.items()}
+        if got != dict({k: 0 for k in counted}, **want):
+            raise RuntimeError(f"faults leg {label} launched {got}, not "
+                               f"{want}")
+        n = want["fed_cohort_gather"]           # the rounds this run ran
+        summary[label] = dict(
+            rounds=n, wall_s=wall, rounds_per_s=n / wall,
+            screened=[r.screened for r in srv._records.records],
+            train_loss=hist["train_loss"], host_syncs=srv.host_syncs,
+            launches=got)
+        if times:
+            dev_ms, host_ms = zip(*times[1:])       # after round 0
+            summary[label].update(
+                aggregate_device_ms=statistics.median(dev_ms),
+                aggregate_host_ms=statistics.median(host_ms))
+        print(f"faults {label}: {n} rounds in {wall:.3f} s "
+              f"({n / wall:.1f} rounds/s), screened "
+              f"{summary[label]['screened']}, train_loss "
+              f"{[round(v, 4) for v in hist['train_loss']]}, launches "
+              f"{json.dumps({k: v for k, v in got.items() if v})}"
+              + ("" if not times else
+                 f"; aggregate stage (median of rounds 1-4) "
+                 f"{summary[label]['aggregate_device_ms']:.4f} ms device, "
+                 f"{summary[label]['aggregate_host_ms']:.4f} ms host"),
+              flush=True)
+        return srv
+
+    def twin_check(label, a, b):
+        diff = _same_run(torch, np, a, b)
+        if diff is not None:
+            raise RuntimeError(f"faults {label}: not bitwise its crash "
+                               f"twin ({diff})")
+        if not sum(r.screened for r in b._records.records) > 0:
+            raise RuntimeError(f"faults {label}: nothing screened")
+        print(f"faults {label}: bitwise its crash twin (params, L/H/theta, "
+              f"values, cohorts" + (", residual" if b.residual is not None
+                                    else "") + ")", flush=True)
+
+    mclr_want = lambda r: dict(fed_cohort_gather=r, fed_local_sgd_mclr=r)
+    mlp_want = lambda r: dict(fed_cohort_gather=r, fed_local_sgd_dense=r,
+                              fed_compress_topk_q8=r)
+    fault = lambda mode, **kw: dict(seed=3, corrupt=mode, corrupt_prob=0.3,
+                                    **kw)
+    twin = run("mclr iid crash", 5, fault("crash"), mclr_want(5))
+    for mode in ("nan", "inf"):
+        twin_check(f"mclr iid {mode}", twin, run(
+            f"mclr iid {mode}", 5, fault(mode), mclr_want(5)))
+    # the screen's cost: the aggregate stage with the screen off (no
+    # faults), on with nothing to reject, and on against nan uploads
+    for label, f, screen in (("aggregate plain", None, "auto"),
+                             ("aggregate screen idle", None, "on"),
+                             ("aggregate screen nan", fault("nan"),
+                              "auto")):
+        run(label, 5, f, mclr_want(5), time_aggregate=True,
+            upload_screen=screen)
+    twin = run("mlp topk_q8 crash", 5, fault("crash"), mlp_want(5), **mlp)
+    twin_check("mlp topk_q8 explode", twin, run(
+        "mlp topk_q8 explode", 5, fault("explode"), mlp_want(5), **mlp))
+    stress = run("stress median", 5, dict(
+        seed=5, availability="diurnal", day_rounds=8, straggler="pareto",
+        pareto_alpha=1.5, dropout_prob=0.1, corrupt="sign_flip",
+        corrupt_prob=0.2), mclr_want(5), aggregator="median")
+    hist = stress.history
+    if not (np.isfinite(hist["train_loss"]).all()
+            and np.isfinite(hist["test_loss"]).all()
+            and all(torch.isfinite(v).all() for v in stress.params.values())
+            and sum(r.screened for r in stress._records.records) == 0):
+        raise RuntimeError(f"faults stress: losses {hist['train_loss']}, "
+                           f"{hist['test_loss']}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        nan = fault("nan")
+        full = run("kill/resume straight", 4, nan, mlp_want(4), **mlp)
+        run("kill/resume first half", 4, nan, mlp_want(2),
+            run_kw=dict(rounds=2, checkpoint_dir=tmp), **mlp)
+        if [r for r, _ in list_checkpoints(tmp)] != [2]:
+            raise RuntimeError(f"kill/resume: checkpoints "
+                               f"{list_checkpoints(tmp)}")
+        resumed = run("kill/resume resumed", 4, nan, mlp_want(2),
+                      run_kw=dict(checkpoint_dir=tmp, resume=True), **mlp)
+        diff = _same_run(torch, np, full, resumed)
+        if diff is None and not torch.equal(full.data_gen.get_state(),
+                                            resumed.data_gen.get_state()):
+            diff = "data generator state"
+        recs = [[json.loads(r.to_json()) for r in s._records.records]
+                for s in (full, resumed)]
+        for rs in recs:
+            for r in rs:
+                r.pop("wall_time_s")
+        if diff is None and recs[0] != recs[1]:
+            diff = "records"
+        if diff is not None:
+            raise RuntimeError(f"kill/resume not bitwise ({diff})")
+        print("faults kill/resume, mlp topk_q8 with nan faults: 2 rounds, "
+              "a checkpoint, a fresh server restored, 2 more: bitwise the "
+              "4 straight rounds (params, residual, L/H/theta, values, "
+              "cohorts, records but wall_time_s, the CUDA generator)",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    small = make_femnist_like(n_clients=30, total=900, dim=64, max_size=40)
+    init = {"w": (np.random.default_rng(1).normal(size=(64, 26)) * 0.01)
+            .astype(np.float32), "b": np.zeros(26, np.float32)}
+    small_cfg = dict(rounds=3, n_selected=6, sampling="iid", batch_size=4,
+                     h_cap=6.0, fixed_epochs=4.0,
+                     faults=FaultModel(**fault("nan")))
+    small_iters = math.ceil(6.0 * math.ceil(int(small.sizes.max()) / 4))
+
+    def draws(t, ids_, n_):
+        r = np.random.default_rng(100 + t)
+        return (r.random((len(ids_), small_iters, 4))
+                * np.maximum(n_, 1)[:, None, None]).astype(np.int32)
+
+    before = {k: fn.launches for k, fn in counted.items()}
+    runs = []
+    for where in ("cuda", "cpu"):
+        srv = FedSAEServer(small, cfg=ServerConfig(device=where, **small_cfg),
+                           init_params=init, data_draws=draws)
+        srv.run()
+        runs.append(srv)
+    got = {k: fn.launches - before[k] for k, fn in counted.items()}
+    if got != dict({k: 0 for k in counted}, **mclr_want(3)):
+        raise RuntimeError(f"faults card vs CPU launched {got}")
+    on_card, on_cpu = runs
+    scr = [[r.screened for r in s._records.records] for s in runs]
+    err = max(float((on_card.params[k].cpu() - on_cpu.params[k]).abs().max())
+              for k in init)
+    if (not all(np.array_equal(a, b) for a, b in
+                       zip(on_card.cohorts, on_cpu.cohorts))
+            or not np.array_equal(on_card.L, on_cpu.L)
+            or not np.array_equal(on_card.H, on_cpu.H)
+            or scr[0] != scr[1] or sum(scr[0]) <= 0 or err > TOL):
+        raise RuntimeError(f"faults card vs CPU: screened {scr}, params "
+                           f"max_abs_err {err}")
+    summary["small card vs cpu"] = dict(screened=scr[0], max_abs_err=err,
+                                        launches=got)
+    print(f"faults small federation, nan at 0.3, 3 iid rounds, card vs CPU:"
+          f" same cohorts, L/H and screened {scr[0]}, params max_abs_err "
+          f"{err:.3e} (tol {TOL})", flush=True)
+
+    torch.cuda.empty_cache()
+    before = {k: fn.launches for k, fn in counted.items()}
+    summary["silo"] = silo_screen(torch, np, get_config, build_model,
+                                  counted)
+    got = {k: fn.launches - before[k] for k, fn in counted.items()}
+    steps = sum(sum(r["n_steps"]) for r in summary["silo"].values())
+    want = {"flash_attention_fwd": 56 * steps,
+            "flash_attention_bwd": 28 * steps,
+            "fused_softmax_xent_fwd": 2 * steps,
+            "fused_softmax_xent_bwd": 2 * steps}
+    tc = tensor_core_counts(counted)        # the silo legs' alone
+    if (got != dict({k: 0 for k in counted}, **want)
+            or tc != {k: want[k] for k in tc}):
+        raise RuntimeError(f"faults silo rounds launched {got} (tensor "
+                           f"cores {tc}), not {want}, all on the tensor "
+                           f"cores")
+    summary["silo"]["launches"] = got
+    summary["tensor_core_launches"] = tc
+    summary["launches"] = {k: fn.launches for k, fn in counted.items()}
+    print(f"path faults launches: {json.dumps(summary['launches'])}",
+          flush=True)
+    return summary
 
 
 def _leaves(tree):
@@ -2006,12 +2339,18 @@ def main() -> int:
     telemetry = telemetry_phase(torch, np, FedSAEServer, ServerConfig,
                                 femnist, counted, frac)
     path_launches["telemetry"] = telemetry["launches"]
+    # this slice's path: failure handling (faults, the screen, checkpoints)
+    torch.cuda.empty_cache()
+    faults = faults_phase(torch, np, FedSAEServer, ServerConfig, femnist,
+                          counted, frac, get_config, build_model)
+    path_launches["faults"] = faults["launches"]
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     scan_single_steps = sum(serving[a]["scan_single_step_launches"]
                             for a in serving)
     tc_runs = [serving[a]["tensor_core_launches"] for a in serving] + [
-        training[t]["tensor_core_launches"] for t in training]
+        training[t]["tensor_core_launches"] for t in training] + [
+        faults["tensor_core_launches"]]
     tc_total = {k: sum(r[k] for r in tc_runs) for k in tc_runs[0]}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     for name, n in launches.items():
@@ -2120,7 +2459,7 @@ def main() -> int:
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
                       "profile": profiles, "serving": serving,
                       "training": training, "checks": checks,
-                      "telemetry": telemetry}))
+                      "telemetry": telemetry, "faults": faults}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,9 @@ The registry is the reference's (``repro/core/aggregation.py``):
 The robust aggregators treat ``weights`` as a validity mask unless
 ``weighted=True``, which weights only the surviving uploads by their n_k.
 Invalid clients (weight 0) never enter a statistic.  None of them guards
-against non-finite uploads (the upload screen is ROADMAP A9).
+against non-finite uploads: the engine's upload screen
+(``faults.screen_uploads``, on whenever faults are configured) runs before
+every one of them and hands a rejected row over as a crashed client's.
 
 Every sort is stable, as ``jnp.sort``/``jnp.argsort`` are: equal values
 keep their client order, so a weighted band carries the same n_k as the

@@ -42,10 +42,24 @@ at ``max_iters``: a slot past every budget is ``p - lr * 0 * g``, an
 identity update whenever the gradient is finite, so the result is the
 same for finite data and the round costs one host read of the budgets.
 
+Faults and the upload screen, as in the reference.  An engine built with
+an injecting ``faults`` (corrupt "nan", "inf", "sign_flip" or "explode")
+takes ``corrupt=`` ([K] bool) in its round function and overwrites those
+uploading rows with the mode's garbage at the upload seam: before the
+upload transform for sign_flip and explode under compression (the client
+compresses and transmits the garbage), after the reconstruction
+otherwise (nan and inf never transmit).  An engine built with
+``screen_norm`` screens every stack before every aggregator
+(``faults.screen_uploads``): a rejected row gets weight 0 and the global
+params' value, exactly a crashed client's row, and the round function
+returns the [K] bool verdicts ``bad`` (a CPU tensor, read once a round) as
+its last output.  An exploded upload the screen rejects also keeps its
+error-feedback residual row bit for bit, as its crash twin does.
+
 The cross-silo round (``make_stream_round``) trains each silo on its own
 pre-batched stream of arbitrary batch trees (the decoder LMs through
 ``core.silo.SiloFedSAE``) and aggregates through the same ``_finish``
-stage.
+stage, screen included.
 
 Each stage runs inside its profiler range (``obs.profiling.stage``:
 ``fed.gather``, ``fed.local_sgd``, ``fed.upload_transform``,
@@ -53,8 +67,7 @@ Each stage runs inside its profiler range (``obs.profiling.stage``:
 its stage.  The ranges wrap the ``vmap``-ed calls, never the functions
 ``torch.func`` transforms.
 
-Not ported yet: fault injection and the upload screen (ROADMAP A9), the
-mesh-sharded and multi-round drivers (A12).
+Not ported yet: the mesh-sharded and multi-round drivers (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -66,6 +79,8 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.core import compression as comp
 from repro_torch.core.aggregation import FedAvg
+from repro_torch.faults.inject import inject_upload_faults
+from repro_torch.faults.screen import screen_uploads
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.profiling import (STAGE_AGGREGATE, STAGE_GATHER,
                                        STAGE_LOCAL_SGD, STAGE_UPLOAD, stage)
@@ -108,11 +123,17 @@ class RoundEngine:
                round function takes and returns the error-feedback residual
     topk_frac  kept-coordinate fraction for "topk_q8"
                (k = ceil(topk_frac * n_params))
+    faults     optional ``faults.FaultModel``; an injecting one makes the
+               packed round take ``corrupt=`` (see the module docstring)
+    screen_norm
+               the upload screen's delta l2 bound (None: no screen); a
+               screening round function returns ``bad`` last
     """
 
     def __init__(self, lr: float, aggregator=None,
                  prox_mu: Optional[float] = None, compress: str = "none",
-                 topk_frac: float = 0.1):
+                 topk_frac: float = 0.1, faults=None,
+                 screen_norm: Optional[float] = None):
         self.lr = float(lr)
         self.aggregator = aggregator if aggregator is not None else FedAvg()
         self.prox_mu = float(prox_mu if prox_mu is not None
@@ -120,6 +141,23 @@ class RoundEngine:
         self.compress = comp.check_compress(compress)
         self.topk_frac = float(topk_frac)
         comp.resolve_k(self.topk_frac, 1)   # validate the fraction eagerly
+        self.faults = faults
+        self.screen_norm = None if screen_norm is None else float(screen_norm)
+        self.screening = self.screen_norm is not None
+        self.injecting = faults is not None and faults.injects
+        # where the garbage goes in: delta-shaped modes (sign_flip,
+        # explode) corrupt what the client compresses and transmits, so
+        # under compression they go in before the upload transform (after
+        # it a non-transmitting row is exactly ``global``); nan/inf
+        # garbage never transmits and corrupts the reconstructed stack
+        self._inject_pre = (self.injecting and self.compressing
+                            and faults.corrupt in ("sign_flip", "explode"))
+        self._inject_post = self.injecting and not self._inject_pre
+        # a screened transmitting mode (explode) must not leak into the
+        # error-feedback state: the residual row of a detected upload keeps
+        # its pre-round bits, exactly like the crash twin's
+        self._block_residual = (self._inject_pre
+                                and faults.corrupt == "explode")
 
     @property
     def compressing(self) -> bool:
@@ -245,11 +283,34 @@ class RoundEngine:
         return n.to(torch.float32) * (n_iters > 0).to(torch.float32)
 
     def _finish(self, global_params, params_k, weights):
-        """Aggregate (the upload screen is not ported: ROADMAP A9).
-        Returns (new_global, uploaded_any)."""
+        """Stage 4: screen (when on) and aggregate.
+
+        ``weights`` is the [K] f32 aggregation-weight vector (0 = no
+        upload): the packed rounds build it with ``_upload_weights``, the
+        stream round takes its caller's.  Returns ``(new_global,
+        uploaded_any, bad)``, ``bad`` the [K] bool CPU tensor of rejected
+        rows (None when the screen is off).  A rejected row reaches the
+        aggregator as a crashed client's: weight 0 and the global params'
+        value (written into ``params_k`` in place)."""
         with stage(STAGE_AGGREGATE):
+            bad = None
+            if self.screening:
+                params_k, weights, bad = screen_uploads(
+                    global_params, params_k, weights, self.screen_norm)
             new_global = self.aggregator(params_k, global_params, weights)
-            return new_global, weights.sum() > 0
+            return new_global, weights.sum() > 0, bad
+
+    def _inject_faults(self, global_params, params_k, corrupt, uploading):
+        """Overwrite the ``corrupt & uploading`` rows of the stacked upload
+        with the configured garbage.  Rows that uploaded nothing are never
+        corrupted: they carry the exact crash-branch value and weight 0,
+        so garbage in them would dodge the weight-gated screen and poison
+        the distance-based aggregators."""
+        fm = self.faults
+        with stage(STAGE_UPLOAD):
+            return inject_upload_faults(params_k, global_params,
+                                        corrupt & uploading, fm.corrupt,
+                                        fm.explode_factor)
 
     def _upload_transform(self, global_params, params_k, residual_rows,
                           uploaded):
@@ -265,20 +326,39 @@ class RoundEngine:
             return rec, new_rows
 
     def _finish_round(self, global_params, params_k, losses, n, n_iters,
-                      ids, residual=None):
-        """Stages 3 and 4.  Returns (new_global, losses, any_up) and, when
-        compressing, the updated [N, P] residual as a fourth output (a new
-        tensor: the caller's is not written)."""
+                      ids, residual=None, corrupt=None):
+        """Stages 3 and 4: fault injection at the upload seam (an
+        injecting engine), the upload transform with error feedback
+        (compressing), then screen and aggregate.  Returns (new_global,
+        losses, any_up), then the updated [N, P] residual when compressing
+        (a new tensor: the caller's is not written), then ``bad`` when
+        screening."""
+        uploading = n_iters > 0
         weights = self._upload_weights(n, n_iters)
-        if not self.compressing:
-            new_global, any_up = self._finish(global_params, params_k,
-                                              weights)
-            return new_global, losses, any_up
-        params_k, new_rows = self._upload_transform(
-            global_params, params_k, residual[ids], n_iters > 0)
-        residual = residual.index_copy(0, ids, new_rows)   # ids distinct
-        new_global, any_up = self._finish(global_params, params_k, weights)
-        return new_global, losses, any_up, residual
+        if self.compressing:
+            transmit = uploading
+            rows = residual[ids]
+            if self._inject_pre:      # sign_flip/explode: the client
+                params_k = self._inject_faults(  # transmits the garbage
+                    global_params, params_k, corrupt, uploading)
+            elif self.injecting:      # nan/inf garbage never transmits
+                transmit = uploading & ~corrupt
+            params_k, new_rows = self._upload_transform(
+                global_params, params_k, rows, transmit)
+            if self._block_residual:  # a detected explode keeps its row
+                new_rows = torch.where(corrupt[:, None], rows, new_rows)
+            residual = residual.index_copy(0, ids, new_rows)  # ids distinct
+        if self._inject_post:
+            params_k = self._inject_faults(global_params, params_k, corrupt,
+                                           uploading)
+        new_global, any_up, bad = self._finish(global_params, params_k,
+                                               weights)
+        out = (new_global, losses, any_up)
+        if self.compressing:
+            out = out + (residual,)
+        if self.screening:
+            out = out + (bad,)
+        return out
 
     # ------------------------------------------------------------------
     def make_packed_round(self, model, batch_size: int, max_iters: int,
@@ -286,16 +366,19 @@ class RoundEngine:
         """Device-resident round over the packed federation.
 
         round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
-                 n_iters, gen=None, draws=None, residual=None)
+                 n_iters, gen=None, draws=None, residual=None,
+                 corrupt=None)
             -> (new_global_params, client_losses [K], uploaded_any
-                [, new_residual])
+                [, new_residual][, bad])
 
         ``ids``/``n_iters`` are the [K] cohort and its budgets on the
         device; ``gen`` is the ``torch.Generator`` the minibatch draws come
         from, unless ``draws`` supplies them (idx [K, max_iters, B] int for
         iid, u [K, max_n] float32 for shuffle).  A compressing engine needs
         ``residual`` ([N, P] float32, the whole federation's error-feedback
-        rows) and returns the updated one."""
+        rows) and returns the updated one.  An injecting engine needs
+        ``corrupt`` ([K] bool on the device); a screening one returns the
+        rejected rows ``bad`` ([K] bool, CPU) last."""
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
         if getattr(model, "kind", None) == "lm":
@@ -310,9 +393,12 @@ class RoundEngine:
 
         @torch.no_grad()
         def round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
-                     n_iters, gen=None, draws=None, residual=None):
+                     n_iters, gen=None, draws=None, residual=None,
+                     corrupt=None):
             if self.compressing and residual is None:
                 raise ValueError("a compressing round needs residual=")
+            if self.injecting and corrupt is None:
+                raise ValueError("an injecting round needs corrupt=")
             ids = ids.long()
             offs = offsets[ids]
             n = torch.clamp(lengths[ids], max=max_n)
@@ -335,7 +421,7 @@ class RoundEngine:
                     params_k, losses = local_train(global_params, x, y, mask,
                                                    n, n_iters, draws)
             return self._finish_round(global_params, params_k, losses, n,
-                                      n_iters, ids, residual)
+                                      n_iters, ids, residual, corrupt)
 
         return round_fn
 
@@ -348,10 +434,12 @@ class RoundEngine:
         params into the autograd leaves each silo trains).
 
         round_fn(global_params, batches, n_steps, weights) ->
-            (new_global_params, silo_mean_losses [K])
+            (new_global_params, silo_mean_losses [K][, bad])
           batches: tree of tensors with leading axes [K, max_steps, ...]
           n_steps: [K] int local-step budgets (read on the host)
           weights: [K] f32 tensor of aggregation weights (0 = no upload)
+          bad:     [K] bool CPU tensor of screened rows (with
+                   ``screen_norm`` only)
 
         The silos train one after another (the reference ``vmap``s them),
         each for exactly its own ``n_steps`` steps: the compacted
@@ -360,15 +448,20 @@ class RoundEngine:
         its executed steps (0 if none).  Each silo's params live in its row
         of one preallocated [K, ...] stack and are updated in place under
         ``torch.no_grad``, so a round holds the global params, the stack
-        and one silo's gradients.  Aggregation runs through ``_finish``;
-        under FedProx each local objective carries the proximal term.
-        Fault injection and the upload screen are not ported (ROADMAP A9).
+        and one silo's gradients.  Aggregation runs through ``_finish``,
+        the upload screen included (it screens the stack leaf row by leaf
+        row and sanitizes in place, so it adds no second stack); under
+        FedProx each local objective carries the proximal term.
         """
         if self.compressing:
             raise ValueError(
                 "upload compression needs the packed client axis for "
                 "residual state; the cross-silo stream round does not "
                 "support it")
+        if self.injecting:
+            raise ValueError(
+                "fault injection targets the packed client-axis rounds; "
+                "the cross-silo stream round does not support it")
         views = getattr(loss_fn, "leaf_views", None) or (lambda p: p)
         if not callable(loss_fn):
             loss_fn = loss_fn.loss
@@ -416,8 +509,10 @@ class RoundEngine:
                         row, global_params,
                         tree_map(lambda b: b[k], batches), steps[k])
             with torch.no_grad():
-                new_global, _ = self._finish(global_params, stack,
-                                             weights.to(dev, torch.float32))
+                new_global, _, bad = self._finish(
+                    global_params, stack, weights.to(dev, torch.float32))
+            if self.screening:
+                return new_global, losses, bad
             return new_global, losses
 
         # one silo's local training alone (params updated in place), for a

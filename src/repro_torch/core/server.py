@@ -29,12 +29,29 @@ CUDA tensor, their plain versions on a CPU one), not by backend.  Every
 aggregator of the reference's registry runs, with ``trim_ratio``,
 ``agg_weighted`` and ``n_byzantine`` passed to it as the reference passes
 them.  Not ported yet, and refused with a ValueError naming the ROADMAP
-item when set to anything but the default: fault injection, the upload
-screen and quarantine (A9), checkpoints
-(``run(checkpoint_dir=, checkpoint_every=, resume=)``, A11), the scan
-driver, device rng streams, mesh sharding, capacity compaction, prefetch
-and the fused generic walk (A12), and the grouped sub-configs
-``compute=``, ``comm=`` and ``robustness=`` (A15).
+item when set to anything but the default: the scan driver, device rng
+streams, mesh sharding, capacity compaction, prefetch and the fused
+generic walk (A12), and the grouped sub-configs ``compute=``, ``comm=``
+and ``robustness=`` (A15).  Quarantine (``quarantine_threshold > 0``)
+needs the device rng streams and raises the reference's error, which
+names A12.
+
+Failure handling, as in the reference: every failure the server
+tolerates funnels into the zero-budget crash branch of the Ira/Fassa
+history update.  ``cfg.faults`` (a ``faults.FaultModel``) reshapes the
+affordable-workload draw before selection (diurnal off-duty clients get
+E = 0, Pareto-slowed ones E / slowdown), drops clients mid-round
+(``dropout_prob``) and corrupts uploads.  A screened corrupt mode
+(nan/inf/explode) trains with its real budget and transmits garbage,
+while the history observes a crash; the upload screen (``upload_screen``,
+on by default whenever faults are set) rejects the garbage before the
+aggregator, so the run's params, history, cohorts and residuals are
+bitwise its ``corrupt="crash"`` twin's.  ``sign_flip`` passes the screen
+and is left to the robust aggregators.  The fault draws are the port's
+own host stream (``faults.inject``); ``fault_draws=`` replaces them.
+``run(checkpoint_dir=, checkpoint_every=, resume=)`` writes atomic
+whole-server checkpoints and resumes from the latest bitwise
+(``repro_torch.checkpoint``).
 
 Telemetry (``repro_torch.obs``), as in the reference: every executed
 round becomes a :class:`~repro_torch.obs.schema.RoundRecord`, built by
@@ -57,6 +74,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.fl_state import (restore_server_state,
+                                             save_server_state)
 from repro_torch.convert import params_from_reference
 from repro_torch.core import compression as comp
 from repro_torch.core import prediction as pred
@@ -68,6 +87,8 @@ from repro_torch.core.selection import (ValueTracker, get_selection,
                                         select_active)
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
+from repro_torch.faults.inject import (apply_availability_stragglers,
+                                       round_fault_draws)
 from repro_torch.models.fl_models import resolve_local_step
 from repro_torch.obs.schema import (HISTORY_KEYS, LOSS_HIST_BINS,
                                     LOSS_HIST_MAX, WORKLOAD_HIST_BINS,
@@ -77,7 +98,6 @@ from repro_torch.obs.sinks import NullSink, RingBufferSink, Sink
 
 ALGOS = ("ira", "fassa", "fedavg", "fedprox", "oracle")
 
-_A9 = "A9 (faults + screen + quarantine)"
 _A12 = "A12 (device-resident multi-round driver)"
 
 #: un-ported ServerConfig features: field -> (default, ROADMAP item)
@@ -88,11 +108,6 @@ _NOT_PORTED = {
     "cohort_capacity": ("full", "A12 (capacity compaction)"),
     "prefetch": ("off", "A12 (double-buffered prefetch)"),
     "fused_generic": (True, _A12),
-    "faults": (None, _A9),
-    "screen_norm_bound": (1e4, _A9),
-    "quarantine_threshold": (0.0, _A9),
-    "quarantine_rounds": (16, _A9),
-    "quarantine_min_tries": (3, _A9),
     "compute": (None, "A15 (grouped config surface)"),
     "comm": (None, "A15 (grouped config surface)"),
     "robustness": (None, "A15 (grouped config surface)"),
@@ -100,8 +115,8 @@ _NOT_PORTED = {
 #: values the port accepts for fields whose other values are not ported
 _ACCEPTED = {
     "rng_impl": (("", "numpy"), "A12 (device rng streams)"),
-    "upload_screen": (("auto", "off"), _A9),
 }
+UPLOAD_SCREENS = ("auto", "on", "off")
 BACKENDS = ("xla", "pallas")
 
 
@@ -147,6 +162,18 @@ class ServerConfig:
     trim_ratio: float = 0.1      # trimmed_mean: fraction trimmed per end
     agg_weighted: bool = False   # robust aggregators weight by n_k
     n_byzantine: int = 0         # krum / bulyan: assumed byzantine uploads
+    faults: object = None        # None | faults.FaultModel: diurnal
+                                 # availability, Pareto stragglers, seeded
+                                 # dropouts and corrupted uploads
+    upload_screen: str = "auto"  # finite/norm screen before aggregation:
+                                 # "auto" = on iff faults is set, "on",
+                                 # "off" (faults.screen)
+    screen_norm_bound: float = 1e4  # reject uploads whose delta l2 norm
+                                    # exceeds this (and non-finite ones)
+    quarantine_threshold: float = 0.0  # > 0 needs the device rng streams
+                                       # (ROADMAP A12) and raises
+    quarantine_rounds: int = 16
+    quarantine_min_tries: int = 3
     # reference features not ported yet (must stay at their defaults)
     driver: str = "host"
     block_size: int = 16
@@ -155,12 +182,6 @@ class ServerConfig:
     cohort_capacity: object = "full"
     prefetch: str = "off"
     fused_generic: bool = True
-    faults: object = None
-    upload_screen: str = "auto"  # auto | off ("on" is ROADMAP A9)
-    screen_norm_bound: float = 1e4
-    quarantine_threshold: float = 0.0
-    quarantine_rounds: int = 16
-    quarantine_min_tries: int = 3
     compute: object = None
     comm: object = None
     robustness: object = None
@@ -203,8 +224,12 @@ class FedSAEServer:
     replaces the torch init.  ``data_draws(t, ids, n)``, given round t's
     numpy cohort and sample counts, returns that round's minibatch draws
     (idx [K, max_iters, B] for iid, u [K, max_n] for shuffle) in place of
-    the device generator's.  ``sink`` receives every round's record;
-    ``telemetry`` (default: on iff a sink is given) adds the extras."""
+    the device generator's.  ``fault_draws(t)`` returns round t's fault
+    draws as ``faults.round_fault_draws`` does (``slowdown`` float32 [N],
+    ``dropout`` and ``corrupt`` bool [N], each None when its axis is off)
+    in place of the port's fault stream.  ``sink`` receives every round's
+    record; ``telemetry`` (default: on iff a sink is given) adds the
+    extras."""
 
     def __init__(self, dataset: FederatedDataset, model=None,
                  cfg: Optional[ServerConfig] = None,
@@ -212,8 +237,29 @@ class FedSAEServer:
                  init_params=None,
                  data_draws: Optional[Callable] = None,
                  sink: Optional[Sink] = None,
-                 telemetry: Optional[bool] = None):
+                 telemetry: Optional[bool] = None,
+                 fault_draws: Optional[Callable] = None):
         cfg = cfg if cfg is not None else ServerConfig()
+        # "auto" turns the upload screen on exactly when a fault model is
+        # configured, so fault-free runs keep the plain round
+        if cfg.upload_screen not in UPLOAD_SCREENS:
+            raise ValueError(
+                f"unknown upload_screen {cfg.upload_screen!r}; choose "
+                f"from {UPLOAD_SCREENS}")
+        self.screening = cfg.upload_screen == "on" or (
+            cfg.upload_screen == "auto" and cfg.faults is not None)
+        if float(cfg.quarantine_threshold or 0.0) > 0.0:
+            if not self.screening:
+                raise ValueError(
+                    "quarantine_threshold > 0 requires the upload screen "
+                    "(it counts screened failures) — set upload_screen="
+                    "'on' or configure faults")
+            raise ValueError(
+                "quarantine needs the device rng streams (eligibility "
+                "masks thread through the device Gumbel-top-k); set "
+                "rng_impl='device', which is not ported yet (ROADMAP "
+                f"{_A12})")
+        self.rng_impl = "numpy"               # the host driver's streams
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.ds = dataset
@@ -225,9 +271,19 @@ class FedSAEServer:
         self.H = np.full(N, cfg.init_pair[1], np.float64)
         self.theta = np.full(N, 0.5 * sum(cfg.init_pair), np.float64)
         self.values = ValueTracker(N, dataset.sizes.astype(np.float64))
+        # reliability quarantine counters: carried (and checkpointed) as
+        # the reference's host mirrors; nothing updates them until the
+        # device rng streams (ROADMAP A12) let quarantine run
+        self.q_fail = np.zeros(N, np.int32)
+        self.q_try = np.zeros(N, np.int32)
+        self.q_susp = np.zeros(N, np.int32)
         self.sel_rng = np.random.default_rng(cfg.selection_seed)
         self.data_gen = torch.Generator(self.device).manual_seed(cfg.seed)
         self.data_draws = data_draws
+        self.fault_draws = fault_draws
+        # per-client diurnal phase offsets (seeded, drawn once)
+        self._phases = (cfg.faults.phases(N) if cfg.faults is not None
+                        else None)
         self.params = (
             self.model.init_params(
                 torch.Generator(self.device).manual_seed(cfg.seed + 7))
@@ -247,7 +303,9 @@ class FedSAEServer:
             lr=cfg.lr, aggregator=get_aggregator(cfg.aggregator,
                                                  **_aggregator_kwargs(cfg)),
             prox_mu=cfg.prox_mu if cfg.algo == "fedprox" else None,
-            compress=cfg.upload_compress, topk_frac=cfg.topk_frac)
+            compress=cfg.upload_compress, topk_frac=cfg.topk_frac,
+            faults=cfg.faults,
+            screen_norm=cfg.screen_norm_bound if self.screening else None)
         # error-feedback state: one [P] float32 row per client (None when
         # the upload transform is off)
         n_params = comp.n_params_of(self.params)
@@ -329,10 +387,24 @@ class FedSAEServer:
             self.L[ids], self.H[ids] = L2, H2
         return e_eff, outcome, assigned
 
-    def _draw_round_inputs(self, t: int):
-        """(E_true_all [N], ids [K]) for round t from the numpy streams."""
+    def _round_fault_draws(self, t: int) -> Optional[Dict]:
+        """Round t's fault draws (None without a fault model)."""
+        fm = self.cfg.faults
+        if fm is None:
+            return None
+        if self.fault_draws is not None:
+            return self.fault_draws(t)
+        return round_fault_draws(fm, t, self.ds.n_clients)
+
+    def _draw_round_inputs(self, t: int, fd: Optional[Dict] = None):
+        """(E_true_all [N], ids [K]) for round t from the numpy streams,
+        shaped by round t's fault draws ``fd``."""
         cfg = self.cfg
         E_true_all = self.het.sample_round()
+        if cfg.faults is not None:
+            # the float64 twin of the reference's device adjustment
+            E_true_all = apply_availability_stragglers(
+                cfg.faults, self._phases, t, E_true_all, fd["slowdown"])
         if t < cfg.al_rounds:
             ids = select_active(self.sel_rng, self.values.v, cfg.n_selected,
                                 cfg.beta)
@@ -344,15 +416,37 @@ class FedSAEServer:
     # ------------------------------------------------------------------
     def run_round(self, t: int) -> Dict:
         cfg = self.cfg
-        E_true_all, ids = self._draw_round_inputs(t)
+        fm = cfg.faults
+        fd = self._round_fault_draws(t)
+        E_true_all, ids = self._draw_round_inputs(t, fd)
         E_true = E_true_all[ids]
-        e_eff, outcome, assigned = self._workloads(ids, E_true)
+        # seeded mid-round dropouts zero the workload; screened corruption
+        # modes zero the OBSERVED workload, so Ira/Fassa evolves bitwise
+        # like the crash-twin run, while the faulty client still trains
+        # with the un-demoted budget (the garbage it would transmit)
+        E_run = E_true
+        if fm is not None and fm.dropout_prob > 0.0:
+            E_run = np.where(np.asarray(fd["dropout"])[ids], 0.0, E_run)
+        corrupt = (np.asarray(fd["corrupt"], bool)[ids]
+                   if fm is not None and fm.corrupts else None)
+        demote = fm is not None and fm.demotes
+        E_obs = np.where(corrupt, 0.0, E_run) if demote else E_run
+        if demote and self.engine.injecting:
+            snap = (self.L.copy(), self.H.copy(), self.theta.copy())
+            e_eff, outcome, assigned = self._workloads(ids, E_obs)
+            new_hist = (self.L, self.H, self.theta)
+            self.L, self.H, self.theta = snap
+            e_train = self._workloads(ids, E_run)[0]
+            self.L, self.H, self.theta = new_hist
+        else:
+            e_eff, outcome, assigned = self._workloads(ids, E_obs)
+            e_train = e_eff
 
         # only the [K] cohort ids and budgets cross to the device; the
         # packed federation was uploaded once at construction
         n = np.minimum(self.sizes[ids], self.max_n)
         tau = np.ceil(n / cfg.batch_size)
-        n_iters = np.minimum(np.round(e_eff * tau), self.max_iters)
+        n_iters = np.minimum(np.round(e_train * tau), self.max_iters)
         draws = (None if self.data_draws is None
                  else self.data_draws(t, np.asarray(ids), n))
         pk = self.packed
@@ -360,13 +454,22 @@ class FedSAEServer:
             self.params, pk.x, pk.y, pk.offsets, pk.lengths,
             torch.as_tensor(np.asarray(ids), device=self.device),
             torch.as_tensor(n_iters.astype(np.int32), device=self.device),
-            gen=self.data_gen, draws=draws, residual=self.residual)
+            gen=self.data_gen, draws=draws, residual=self.residual,
+            corrupt=(torch.as_tensor(corrupt, device=self.device)
+                     if self.engine.injecting else None))
         self.params, losses = out[0], out[1]
         if self.residual is not None:
             self.residual = out[3]
+        bad = None
+        if self.screening:
+            bad = out[-1].numpy()         # read by the screen itself
+            self.host_syncs += 1
         losses = losses.cpu().numpy()     # the per-round host sync
         self.host_syncs += 1
         uploaders = n_iters > 0
+        if demote and self.engine.injecting:
+            # the observed upload set: screened rows count as crashes
+            uploaders = uploaders & ~corrupt
         self.cohorts.append(np.asarray(ids))
         if uploaders.any():
             self.values.update(ids[uploaders], losses[uploaders])
@@ -384,6 +487,8 @@ class FedSAEServer:
             "uploaded": float(np.mean(e_eff)),
             "true_workload": float(np.mean(E_true)),
         }
+        if self.screening:
+            stats["screened"] = float(bad.sum())
         if self.telemetry:
             # the reference host driver's extras: the byte ledger and the
             # float32 histograms, from the already-pulled losses
@@ -404,15 +509,20 @@ class FedSAEServer:
         """Run the rounds and return the history (dict of lists keyed by
         ``HISTORY_KEYS``, NaN where a round has no value).  Each round's
         host wall time, eval included, is its record's ``wall_time_s``.
-        The reference's checkpoint keywords are accepted at their defaults
-        only (ROADMAP A11)."""
-        if checkpoint_dir is not None or checkpoint_every or resume:
-            raise _refuse(f"FedSAEServer.run(checkpoint_dir="
-                         f"{checkpoint_dir!r}, checkpoint_every="
-                         f"{checkpoint_every!r}, resume={resume!r})",
-                         "A11 (checkpoints)")
+
+        With ``checkpoint_dir`` an atomic whole-server checkpoint is
+        written after every ``checkpoint_every``-th round and after the
+        last (``checkpoint_every=0``: the last only); ``resume=True``
+        first restores the latest checkpoint there, and the resumed run's
+        params, history state and records are bitwise the uninterrupted
+        run's."""
         T = rounds or self.cfg.rounds
-        for t in range(T):
+        t_start = 0
+        if resume:
+            if not checkpoint_dir:
+                raise ValueError("resume=True requires checkpoint_dir")
+            t_start = restore_server_state(self, checkpoint_dir)
+        for t in range(t_start, T):
             start = time.perf_counter()
             row = self.run_round(t)
             if t % self.cfg.eval_every == 0 or t == T - 1:
@@ -429,4 +539,8 @@ class FedSAEServer:
                 print(f"[{self.cfg.algo}] round {t:3d} acc={rec.acc:.3f} "
                       f"dropout={rec.dropout:.2f} "
                       f"loss={rec.train_loss:.3f}")
+            if checkpoint_dir and (
+                    (checkpoint_every > 0
+                     and (t + 1) % checkpoint_every == 0) or t + 1 == T):
+                save_server_state(self, checkpoint_dir, t + 1)
         return self.history

@@ -9,7 +9,10 @@ it completes, and FedAvg mixes the uploads weighted by silo size.  The
 host algebra is the reference's numpy, bit for bit; local training and
 aggregation go through ``RoundEngine.make_stream_round``.  Each round
 emits one ``RoundRecord`` through the same sink interface as
-``FedSAEServer`` (``fl_train --metrics-out``).
+``FedSAEServer`` (``fl_train --metrics-out``).  With ``screen_norm`` the
+engine's upload screen runs before the aggregator (leaf row by leaf row,
+in place, so a full-width stack gets no second copy) and the record
+carries the round's ``screened`` count.
 """
 from __future__ import annotations
 
@@ -46,8 +49,10 @@ class SiloFedSAE:
     a ``LocalStep``.  ``init_params`` (a dict of numpy arrays, e.g. the
     reference's init) replaces the torch-drawn init, which cannot
     reproduce the reference's threefry draws.  ``device`` defaults to
-    cuda.  ``sink`` receives one ``RoundRecord`` a round.  The upload
-    screen (``screen_norm=``, ROADMAP A9) is not ported and raises."""
+    cuda.  ``sink`` receives one ``RoundRecord`` a round.
+    ``screen_norm`` turns the upload screen on with that delta l2 bound:
+    a rejected silo is aggregated as a crashed one (weight 0, the global
+    params' value)."""
 
     def __init__(self, model, n_silos: int, lr: float = 5e-3,
                  max_steps: int = 16, U: float = 2.0, seed: int = 0,
@@ -56,9 +61,6 @@ class SiloFedSAE:
                  device: DeviceLike = None, **agg_kwargs):
         from repro_torch.models.fl_models import LocalStep
 
-        if screen_norm is not None:
-            raise ValueError("the upload screen is not ported yet (ROADMAP "
-                             "A9)")
         if hasattr(model, "train_loss"):
             step = LocalStep(
                 init_params=model.init,
@@ -86,7 +88,8 @@ class SiloFedSAE:
             if init_params is None
             else params_from_reference(init_params, self.device))
         self.engine = RoundEngine(
-            lr=lr, aggregator=get_aggregator(aggregator, **agg_kwargs))
+            lr=lr, aggregator=get_aggregator(aggregator, **agg_kwargs),
+            screen_norm=screen_norm)
         self.round_fn = self.engine.make_stream_round(step, max_steps)
         self.stats: Dict[str, list] = {"loss": [], "dropout": [],
                                        "uploaded_steps": []}
@@ -108,14 +111,16 @@ class SiloFedSAE:
         weights = np.asarray(sizes).astype(np.float32) * (n_steps > 0)
         batches = tree_map(lambda b: torch.as_tensor(b, device=self.device),
                            batches)
-        self.params, losses = self.round_fn(
-            self.params, batches, n_steps,
-            torch.as_tensor(weights, device=self.device))
+        out = self.round_fn(self.params, batches, n_steps,
+                            torch.as_tensor(weights, device=self.device))
+        self.params, losses = out[0], out[1]
+        screened = (float(out[2].sum()) if self.engine.screening
+                    else None)
         self.last_n_steps = n_steps
         self.stats["loss"].append(float(losses.mean()))
         self.stats["dropout"].append(float((outcome == pred.DROPPED).mean()))
         self.stats["uploaded_steps"].append(float(e_eff.mean()))
-        self.sink.emit(record_from_row(self.round_idx, {
+        row = {
             "wall_time_s": time.perf_counter() - t_start,
             "train_loss": self.stats["loss"][-1],
             "dropout": self.stats["dropout"][-1],
@@ -125,6 +130,9 @@ class SiloFedSAE:
             "true_workload": float(E_true.mean()),
             "ids": np.arange(self.K),
             "client_uploaded": (n_steps > 0).astype(np.int32),
-        }))
+        }
+        if screened is not None:
+            row["screened"] = screened
+        self.sink.emit(record_from_row(self.round_idx, row))
         self.round_idx += 1
         return self.stats

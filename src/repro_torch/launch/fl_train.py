@@ -27,6 +27,15 @@
       --rounds 5 --metrics-out run.jsonl --trace-dir trace/
   PYTHONPATH=src python -m repro_torch.launch.fl_report run.jsonl
 
+  # NaN uploads from 30% of the clients, caught by the upload screen, with
+  # a checkpoint every 2 rounds; then resume the run from the latest:
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
+      --rounds 6 --faults nan_upload --fault-prob 0.3 \
+      --checkpoint-dir ckpt/ --checkpoint-every 2 --metrics-out run.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
+      --rounds 10 --faults nan_upload --fault-prob 0.3 \
+      --checkpoint-dir ckpt/ --resume --metrics-out run.jsonl
+
 Every flag of the reference CLI is accepted at its default; a value of a
 feature the port does not run yet exits with a usage error naming its
 ROADMAP item.
@@ -35,6 +44,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
+import os
 
 import numpy as np
 
@@ -42,6 +53,7 @@ from repro_torch.core.aggregation import AGGREGATORS
 from repro_torch.core.server import (ALGOS, BACKENDS, FedSAEServer,
                                      ServerConfig)
 from repro_torch.data.federated import DATASETS
+from repro_torch.faults import FaultModel
 from repro_torch.models.fl_models import LOCAL_STEPS
 from repro_torch.obs import JsonlSink, trace_if
 
@@ -58,15 +70,62 @@ REDUCED = {
 DEFAULT_LR = {"synthetic": 0.01, "sent140": 0.3}
 
 
-def make_sink(args, **meta):
+def make_sink(args, resume_round=None, **meta):
     """--metrics-out -> a JsonlSink whose ``_meta`` header holds the
     reference's keys (``rounds``, ``driver``, ``backend`` and ``meta``);
-    None without the flag (no sink: telemetry stays off)."""
+    None without the flag (no sink: telemetry stays off).
+
+    On --resume (``resume_round``, the checkpoint's next round) an
+    existing trace is cut to the rounds before the checkpoint (the
+    resumed run emits everything from there again) and reopened in
+    append mode, keeping the original header line.
+    """
     if not args.metrics_out:
         return None
+    append = False
+    if resume_round is not None and os.path.exists(args.metrics_out):
+        with open(args.metrics_out) as f:
+            lines = [ln for ln in f if ln.strip()]
+        kept = [ln for ln in lines
+                if "_meta" in (row := json.loads(ln))
+                or row.get("round", 0) < resume_round]
+        with open(args.metrics_out, "w") as f:
+            f.writelines(kept)
+        append = True
     return JsonlSink(args.metrics_out, meta=dict(
         rounds=args.rounds, driver=args.driver, backend=args.backend,
-        **meta))
+        **meta), append=append)
+
+
+def build_faults(args):
+    """The CLI's fault axes -> a FaultModel (None when everything is off,
+    so a fault-free run is the plain program)."""
+    corrupt = FAULT_MODES[args.faults]
+    if (corrupt == "none" and args.dropout_prob <= 0
+            and args.availability == "always" and args.straggler == "none"):
+        return None
+    return FaultModel(seed=args.fault_seed, availability=args.availability,
+                      day_rounds=args.day_rounds,
+                      duty_cycle=args.duty_cycle, straggler=args.straggler,
+                      pareto_alpha=args.pareto_alpha,
+                      dropout_prob=args.dropout_prob, corrupt=corrupt,
+                      corrupt_prob=args.fault_prob,
+                      explode_factor=args.explode_factor)
+
+
+def resume_from(args):
+    """--resume: the next round of the latest checkpoint under
+    --checkpoint-dir (None without --resume)."""
+    if not args.resume:
+        return None
+    from repro_torch.checkpoint import list_checkpoints
+    if not args.checkpoint_dir:
+        raise SystemExit("--resume needs --checkpoint-dir")
+    ckpts = list_checkpoints(args.checkpoint_dir)
+    if not ckpts:
+        raise SystemExit(f"--resume: no ckpt_*.pt under "
+                         f"{args.checkpoint_dir!r}")
+    return ckpts[-1][0]
 
 
 def build_server(args, sink=None) -> FedSAEServer:
@@ -85,7 +144,12 @@ def build_server(args, sink=None) -> FedSAEServer:
                        sampling=args.sampling, model=args.model,
                        upload_compress=args.compress,
                        topk_frac=args.topk_frac, backend=args.backend,
-                       upload_screen=args.screen, device=args.device)
+                       faults=build_faults(args), upload_screen=args.screen,
+                       screen_norm_bound=args.screen_norm_bound,
+                       quarantine_threshold=args.quarantine_threshold,
+                       quarantine_rounds=args.quarantine_rounds,
+                       quarantine_min_tries=args.quarantine_min_tries,
+                       device=args.device)
     return FedSAEServer(ds, cfg=cfg, sink=sink)
 
 
@@ -141,22 +205,15 @@ def run_silo(args):
     return fed
 
 
-#: the reference's --faults spellings (fault injection is ROADMAP A9)
-FAULT_MODES = ("none", "crash", "nan_upload", "inf_upload",
-               "sign_flip_upload", "explode_upload")
+#: --faults CLI spellings -> FaultModel corrupt modes
+FAULT_MODES = {"none": "none", "crash": "crash", "nan_upload": "nan",
+               "inf_upload": "inf", "sign_flip_upload": "sign_flip",
+               "explode_upload": "explode"}
 
 #: reference flags the port takes at their default only: dest -> ROADMAP
 #: item
-NOT_PORTED = dict(
-    **dict.fromkeys(("faults", "fault_prob", "fault_seed", "explode_factor",
-                     "dropout_prob", "availability", "day_rounds",
-                     "duty_cycle", "straggler", "pareto_alpha",
-                     "screen_norm_bound", "quarantine_threshold",
-                     "quarantine_rounds", "quarantine_min_tries"), "A9"),
-    **dict.fromkeys(("checkpoint_dir", "checkpoint_every", "resume"),
-                    "A11"),
-    **dict.fromkeys(("driver", "block_size", "shards", "cohort_capacity",
-                     "prefetch"), "A12"))
+NOT_PORTED = dict.fromkeys(("driver", "block_size", "shards",
+                            "cohort_capacity", "prefetch"), "A12")
 
 
 def parse_capacity(spec: str):
@@ -233,7 +290,7 @@ def make_parser() -> argparse.ArgumentParser:
                     help="kept coordinate fraction for --compress topk_q8: "
                          "k = ceil(frac * n_params) per client per round")
     ap.add_argument("--faults", default="none",
-                    choices=FAULT_MODES,
+                    choices=tuple(FAULT_MODES),
                     help="corrupted-upload fault injection: crash = the "
                          "corrupt client silently dies; *_upload = its "
                          "upload is garbage (NaN/Inf/sign-flipped/"
@@ -265,13 +322,14 @@ def make_parser() -> argparse.ArgumentParser:
                     choices=("auto", "on", "off"),
                     help="server-side upload screen (finite + delta-norm "
                          "check before any aggregator); auto = on whenever "
-                         "faults are configured; on is ROADMAP A9")
+                         "faults are configured")
     ap.add_argument("--screen-norm-bound", type=float, default=1e4,
                     help="max accepted upload delta l2 norm (--screen)")
     ap.add_argument("--quarantine-threshold", type=float, default=0.0,
                     help="> 0: suspend clients whose screened-upload rate "
                          "exceeds this fraction of their attempts for "
-                         "--quarantine-rounds rounds")
+                         "--quarantine-rounds rounds (needs the device rng "
+                         "streams, ROADMAP A12)")
     ap.add_argument("--quarantine-rounds", type=int, default=16)
     ap.add_argument("--quarantine-min-tries", type=int, default=3)
     ap.add_argument("--checkpoint-dir", default=None,
@@ -313,8 +371,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         if value != ap.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} {value!r} is not ported yet (ROADMAP {item})")
-    if args.screen == "on":
-        ap.error("--screen on is not ported yet (ROADMAP A9)")
+    if args.quarantine_threshold > 0:
+        ap.error(f"--quarantine-threshold {args.quarantine_threshold!r} "
+                 "needs the device rng streams, which are not ported yet "
+                 "(ROADMAP A12)")
     if args.model is not None and args.model not in LOCAL_STEPS:
         ap.error(f"--model {args.model} is not ported yet (ROADMAP "
                  "A13 (iii))")
@@ -325,16 +385,26 @@ def main(argv=None):
     args = parse_args(argv)
     if args.silo_arch:
         return run_silo(args)
-    with make_sink(args, path="flat", dataset=args.dataset, algo=args.algo,
+    with make_sink(args, resume_from(args), path="flat",
+                   dataset=args.dataset, algo=args.algo,
                    model=args.model) or contextlib.nullcontext() as sink:
         srv = build_server(args, sink)
         with trace_if(args.trace_dir):
-            hist = srv.run(verbose=not args.quiet)
+            hist = srv.run(verbose=not args.quiet,
+                           checkpoint_dir=args.checkpoint_dir,
+                           checkpoint_every=args.checkpoint_every,
+                           resume=args.resume)
     if sink is not None:
         print(f"metrics: {sink.path}")
+    recs = srv._records.records
+    scr = [r.screened for r in recs if r.screened is not None]
+    flt = "" if not scr else f" screened={np.sum(scr):.0f} uploads"
+    q = [r.quarantined for r in recs if r.quarantined is not None]
+    if q:
+        flt += f" quarantined={q[-1]:.0f} clients"
     print(f"final: acc={hist['acc'][-1]:.3f} "
           f"mean_dropout={np.nanmean(hist['dropout']):.3f} "
-          f"dropped={np.sum(hist['dropped']):.0f}")
+          f"dropped={np.sum(hist['dropped']):.0f}{flt}")
     return hist
 
 

@@ -14,7 +14,9 @@ The flags are the reference's (``repro.launch.train``) plus ``--device``.
 Weights are random, drawn from a torch generator seeded with 0; each
 batch's tokens come from ``np.random.default_rng`` seeded by a draw of a
 torch generator seeded with 1 (the reference seeds it from a threefry
-draw, which torch cannot replay).  ``--checkpoint`` is ROADMAP A11.
+draw, which torch cannot replay).  ``--checkpoint PATH`` writes the
+trained params after the last step (``checkpoint.save_checkpoint``:
+atomic, read back by ``checkpoint.load_checkpoint``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
@@ -58,14 +61,11 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--optimizer", default="adamw", choices=("sgd", "adamw"))
     ap.add_argument("--checkpoint", default=None,
-                    help="not ported yet (ROADMAP A11)")
+                    help="write the trained params to this file")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda runs the hand-written kernels; cpu runs "
                          "their plain PyTorch versions")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise SystemExit("--checkpoint: checkpoints are not ported yet "
-                         "(ROADMAP A11)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -90,6 +90,9 @@ def main(argv=None):
                   f"({(time.time() - t0) / (step + 1):.2f}s/step)")
         if not np.isfinite(losses[-1]):
             raise RuntimeError("loss diverged")
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, params, step=args.steps)
+        print(f"checkpoint -> {args.checkpoint}")
     return losses
 
 

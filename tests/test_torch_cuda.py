@@ -14,7 +14,10 @@ fused cross-entropy 1e-4 (the reference's kernel-vs-oracle bounds,
 tests/test_kernels.py).  The Sent140 LSTM's loss and gradients on the card
 are held to the CPU's at 1e-5, the robust aggregators at 1e-6 (1e-5 for
 the geometric median) with Krum's and Bulyan's chosen clients equal, and
-two card runs of one LSTM round must give the same bits.  The three
+two card runs of one LSTM round must give the same bits.  A faulted
+federation on the card is bitwise its crash twin and a killed and resumed
+run bitwise the uninterrupted one; against the CPU with the same draws it
+picks the same cohorts and budgets, params within 2e-5.  The three
 differentiable ops' gradients on the card are held against the same ops
 on the CPU (their plain versions) at 1e-4.  In bfloat16 the flash kernels run on the tensor cores and are also
 held to their rounding models (``ref.attention_lse_tc``,
@@ -34,10 +37,12 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  fused_xent, selective_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from torch_cases import (COMPRESS_CASES, ROBUST_CASES, attention_case,
-                         cluster_case, compress_case, dense_case, gather_case,
-                         gather_lanes_case, lstm_case, robust_stack_case,
-                         scan_case, sgd_case, xent_case)
+from torch_cases import (COMPRESS_CASES, FAULT_CFG, FAULT_DS, FAULT_PATHS,
+                         ROBUST_CASES, attention_case, cluster_case,
+                         compress_case, dense_case, fault_kwargs,
+                         gather_case, gather_lanes_case, iid_draws,
+                         lstm_case, mclr_init, robust_stack_case, scan_case,
+                         sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -665,3 +670,97 @@ def test_cuda_robust_aggregators_match_the_cpu(cuda_device, name, kw):
     if chosen is not None:
         cpu = agg.select(tagg._flatten_clients(args[1][0]), args[1][2])
         assert torch.equal(chosen.cpu(), cpu)
+
+
+def _fault_server(device, path, corrupt, rounds=5, draws=False, **over):
+    """A FedSAEServer on ``device`` over the small faulted federation of
+    ``torch_cases``; with ``draws`` (MCLR only) its init and minibatch
+    draws come from numpy, the same on the card and on the CPU."""
+    from repro_torch.core.server import FedSAEServer, ServerConfig
+    from repro_torch.data.federated import make_femnist_like
+    from repro_torch.faults import FaultModel
+
+    fkw = fault_kwargs(corrupt)
+    ds = make_femnist_like(**FAULT_DS)
+    cfg = ServerConfig(device=str(device), rounds=rounds,
+                       faults=None if fkw is None else FaultModel(**fkw),
+                       **FAULT_CFG, **FAULT_PATHS[path], **over)
+    srv = FedSAEServer(ds, cfg=cfg, init_params=mclr_init() if draws
+                       else None)
+    if draws:
+        srv.data_draws = iid_draws(srv.max_iters, cfg.batch_size)
+    return srv
+
+
+def _assert_servers_bitwise(a, b):
+    assert len(a.cohorts) == len(b.cohorts)
+    for c1, c2 in zip(a.cohorts, b.cohorts):
+        assert np.array_equal(c1, c2)
+    for name in ("L", "H", "theta"):
+        assert np.array_equal(getattr(a, name), getattr(b, name))
+    assert np.array_equal(a.values.v, b.values.v)
+    for k in a.params:
+        assert torch.equal(a.params[k], b.params[k]), k
+    if a.residual is not None:
+        assert torch.equal(a.residual, b.residual)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,mode", [
+    ("mclr-iid", "nan"), ("mclr-iid", "inf"), ("mclr-iid", "explode"),
+    ("mlp-topk_q8", "explode"), ("mlp-topk_q8", "nan")])
+def test_cuda_crash_twin_bitwise(cuda_device, path, mode):
+    """A screened run on the card is bitwise its crash twin (params,
+    history, cohorts, residual), through the gather, the SGD kernel and,
+    compressed, the compressor."""
+    sgd = (fed_local_sgd_dense.fed_local_sgd_dense if path == "mlp-topk_q8"
+           else fed_local_sgd.fed_local_sgd_mclr)
+    before = (fed_gather.fed_cohort_gather.launches, sgd.launches,
+              fed_compress.fed_compress_topk_q8.launches)
+    twin = _fault_server(cuda_device, path, "crash")
+    twin.run()
+    faulted = _fault_server(cuda_device, path, mode)
+    faulted.run()
+    after = (fed_gather.fed_cohort_gather.launches, sgd.launches,
+             fed_compress.fed_compress_topk_q8.launches)
+    assert after[0] - before[0] == 10 and after[1] - before[1] == 10
+    assert after[2] - before[2] == (10 if path == "mlp-topk_q8" else 0)
+    assert sum(r.screened for r in faulted._records.records) > 0
+    assert all(torch.isfinite(v).all() for v in faulted.params.values())
+    _assert_servers_bitwise(twin, faulted)
+
+
+@pytest.mark.cuda
+def test_cuda_faulted_run_matches_the_cpu(cuda_device):
+    """The same faulted federation with the same numpy draws on the card
+    and on the CPU: cohorts, L/H and screened counts equal, params within
+    2e-5."""
+    runs = [_fault_server(dev, "mclr-iid", "nan", rounds=4, draws=True)
+            for dev in (cuda_device, "cpu")]
+    for srv in runs:
+        srv.run()
+    card, cpu = runs
+    for c1, c2 in zip(card.cohorts, cpu.cohorts):
+        assert np.array_equal(c1, c2)
+    assert np.array_equal(card.L, cpu.L) and np.array_equal(card.H, cpu.H)
+    assert ([r.screened for r in card._records.records]
+            == [r.screened for r in cpu._records.records])
+    for k in cpu.params:
+        torch.testing.assert_close(card.params[k].cpu(), cpu.params[k],
+                                   rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_kill_and_resume_bitwise(cuda_device, tmp_path):
+    """4 rounds straight against 2, a checkpoint, a fresh server restored
+    (the CUDA generator's state included) and 2 more: bitwise."""
+    full = _fault_server(cuda_device, "mlp-topk_q8", "nan", rounds=4)
+    full.run()
+    d = str(tmp_path / "ck")
+    _fault_server(cuda_device, "mlp-topk_q8", "nan", rounds=4).run(
+        rounds=2, checkpoint_dir=d)
+    resumed = _fault_server(cuda_device, "mlp-topk_q8", "nan", rounds=4)
+    resumed.run(checkpoint_dir=d, resume=True)
+    _assert_servers_bitwise(full, resumed)
+    assert torch.equal(full.data_gen.get_state(),
+                       resumed.data_gen.get_state())

@@ -8,8 +8,8 @@ parser, and the keyword arguments of ``FedSAEServer.__init__`` and
 ``FedSAEServer.run``.  Each non-default value below is either one the port
 supports (it must be accepted) or one it refuses (``ValueError`` or
 ``NotImplementedError`` from the server, ``SystemExit`` from argparse, with
-"ROADMAP" in the message).  The telemetry options are also driven through
-one CPU round, which shows that they do their job.
+"ROADMAP" in the message).  The telemetry, fault and checkpoint options
+are also driven through CPU rounds, which shows that they do their job.
 """
 import argparse
 import dataclasses
@@ -25,10 +25,11 @@ from repro.core.server import ComputeConfig as RCompute
 from repro.core.server import FedSAEServer as RServer
 from repro.core.server import RobustnessConfig as RRobustness
 from repro.core.server import ServerConfig as RConfig
-from repro.faults import FaultModel
+from repro_torch.checkpoint import list_checkpoints
 from repro_torch.core.server import FedSAEServer as TServer
 from repro_torch.core.server import ServerConfig as TConfig
 from repro_torch.data.federated import make_femnist_like, make_sent140_like
+from repro_torch.faults import FaultModel
 from repro_torch.launch import fl_train as tfl
 from repro_torch.obs import RingBufferSink, read_jsonl
 from torch_cases import one_torch_thread  # noqa: F401
@@ -68,12 +69,12 @@ FIELD_CASES = {
     "topk_frac": [(0.2, OK)],
     "agg_weighted": [(True, OK)],
     "n_byzantine": [(1, OK)],
-    "faults": [(FaultModel(corrupt="crash"), REFUSED)],
-    "upload_screen": [("off", OK), ("on", REFUSED)],
-    "screen_norm_bound": [(10.0, REFUSED)],
+    "faults": [(FaultModel(corrupt="crash"), OK)],
+    "upload_screen": [("off", OK), ("on", OK)],
+    "screen_norm_bound": [(10.0, OK)],
     "quarantine_threshold": [(0.5, REFUSED)],
-    "quarantine_rounds": [(4, REFUSED)],
-    "quarantine_min_tries": [(1, REFUSED)],
+    "quarantine_rounds": [(4, OK)],
+    "quarantine_min_tries": [(1, OK)],
     "rng_impl": [("numpy", OK), ("device", REFUSED)],
     "seed": [(3, OK)],
     "selection_seed": [(7, OK)],
@@ -108,24 +109,24 @@ FLAG_CASES = {
     "--prefetch": [("double_buffer", REFUSED)],
     "--compress": [("topk_q8", OK)],
     "--topk-frac": [("0.2", OK)],
-    "--faults": [(m, REFUSED) for m in rfl.FAULT_MODES if m != "none"],
-    "--fault-prob": [("0.2", REFUSED)],
-    "--fault-seed": [("1", REFUSED)],
-    "--explode-factor": [("10", REFUSED)],
-    "--dropout-prob": [("0.1", REFUSED)],
-    "--availability": [("diurnal", REFUSED)],
-    "--day-rounds": [("12", REFUSED)],
-    "--duty-cycle": [("0.25", REFUSED)],
-    "--straggler": [("pareto", REFUSED)],
-    "--pareto-alpha": [("3", REFUSED)],
-    "--screen": [("off", OK), ("on", REFUSED)],
-    "--screen-norm-bound": [("10", REFUSED)],
+    "--faults": [(m, OK) for m in rfl.FAULT_MODES if m != "none"],
+    "--fault-prob": [("0.2", OK)],
+    "--fault-seed": [("1", OK)],
+    "--explode-factor": [("10", OK)],
+    "--dropout-prob": [("0.1", OK)],
+    "--availability": [("diurnal", OK)],
+    "--day-rounds": [("12", OK)],
+    "--duty-cycle": [("0.25", OK)],
+    "--straggler": [("pareto", OK)],
+    "--pareto-alpha": [("3", OK)],
+    "--screen": [("off", OK), ("on", OK)],
+    "--screen-norm-bound": [("10", OK)],
     "--quarantine-threshold": [("0.5", REFUSED)],
-    "--quarantine-rounds": [("4", REFUSED)],
-    "--quarantine-min-tries": [("1", REFUSED)],
-    "--checkpoint-dir": [("ckpt", REFUSED)],
-    "--checkpoint-every": [("2", REFUSED)],
-    "--resume": [(None, REFUSED)],
+    "--quarantine-rounds": [("4", OK)],
+    "--quarantine-min-tries": [("1", OK)],
+    "--checkpoint-dir": [("ckpt", OK)],
+    "--checkpoint-every": [("2", OK)],
+    "--resume": [(None, OK)],
     "--metrics-out": [("metrics.jsonl", OK)],
     "--trace-dir": [("trace", OK)],
     "--quiet": [(None, OK)],
@@ -137,8 +138,12 @@ FLAG_CASES = {
 
 #: the reference's server keywords -> [non-default value] (all accepted)
 INIT_CASES = {"sink": [RingBufferSink()], "telemetry": [True, False]}
-RUN_CASES = {"checkpoint_dir": [("ckpt", "A11")],
-             "checkpoint_every": [(2, "A11")], "resume": [(True, "A11")]}
+RUN_CASES = {"checkpoint_dir": ["ckpt"], "checkpoint_every": [2],
+             "resume": [True]}
+
+#: the other fields a refused field needs to reach its refusal:
+#: quarantine is checked against the screen first (the reference's order)
+FIELD_CONTEXT = {"quarantine_threshold": dict(upload_screen="on")}
 
 
 class _Captured(Exception):
@@ -212,7 +217,7 @@ def test_config_field_non_default(name, value, ok):
         assert getattr(_server(**{name: value}).cfg, name) == value
         return
     with pytest.raises((ValueError, NotImplementedError), match="ROADMAP"):
-        _server(**{name: value})
+        _server(**dict(FIELD_CONTEXT.get(name, {}), **{name: value}))
 
 
 @pytest.mark.parametrize("flag", sorted(REF_FLAGS))
@@ -244,8 +249,19 @@ def _wrote_trace(out):
     assert {"fed.gather", "fed.local_sgd", "fed.aggregate"} <= names
 
 
+def _screened(out):
+    """``--faults MODE``: the upload screen is on and counts."""
+    assert "screened=" in out
+
+
+def _wrote_checkpoint(out):
+    """``--checkpoint-dir ckpt``: the last round's checkpoint."""
+    assert [r for r, _ in list_checkpoints("ckpt")] == [1]
+
+
 #: accepted flags whose job one CPU round shows: flag -> check(stdout)
-RUN_CHECKS = {"--metrics-out": _wrote_records, "--trace-dir": _wrote_trace}
+RUN_CHECKS = {"--metrics-out": _wrote_records, "--trace-dir": _wrote_trace,
+              "--faults": _screened, "--checkpoint-dir": _wrote_checkpoint}
 
 
 @pytest.mark.parametrize("flag,value,ok", [
@@ -298,10 +314,27 @@ def test_run_keywords_accepted_at_reference_defaults():
     assert len(hist["acc"]) == 1
 
 
-@pytest.mark.parametrize("name,value,item", [
-    (n, v, i) for n, cases in RUN_CASES.items() for v, i in cases])
-def test_run_keyword_non_default(name, value, item):
-    srv = _server(rounds=1)
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        srv.run(**{name: value})
-    assert srv.history["acc"] == []
+@pytest.mark.parametrize("name,value", [
+    (n, v) for n, values in RUN_CASES.items() for v in values])
+def test_run_keyword_non_default(monkeypatch, tmp_path, name, value):
+    """Each checkpoint keyword does its job on the CPU:
+    ``checkpoint_dir`` saves the last round, ``checkpoint_every`` adds
+    every n-th, ``resume`` continues from the latest checkpoint (and
+    needs ``checkpoint_dir``)."""
+    monkeypatch.chdir(tmp_path)
+    if name == "resume":
+        with pytest.raises(ValueError, match="requires checkpoint_dir"):
+            _server(rounds=1).run(resume=value)
+        _server(rounds=3).run(rounds=1, checkpoint_dir="ckpt")
+        srv = _server(rounds=3)
+        hist = srv.run(checkpoint_dir="ckpt", resume=value)
+        assert len(hist["acc"]) == 3
+        assert [r for r, _ in list_checkpoints("ckpt")] == [1, 3]
+        return
+    kw = {name: value}
+    if name == "checkpoint_every":
+        kw["checkpoint_dir"] = "ckpt"
+    _server(rounds=3).run(**kw)
+    want = [2, 3] if name == "checkpoint_every" else [3]
+    assert [r for r, _ in list_checkpoints(value if name == "checkpoint_dir"
+                                           else "ckpt")] == want

@@ -29,6 +29,7 @@ from repro_torch.core.server import HISTORY_KEYS
 from repro_torch.core.server import ServerConfig as TConfig
 from repro_torch.data import federated as tfed
 from repro_torch.data.federated import make_femnist_like as tfemnist
+from repro_torch.faults import FaultModel
 from repro_torch.launch import fl_train
 from repro_torch.models.fl_models import resolve_local_step
 from torch_cases import one_torch_thread  # noqa: F401
@@ -210,19 +211,46 @@ def test_cli_smoke_on_cpu(capsys, extra):
 @pytest.mark.parametrize("field,value,item", [
     ("driver", "scan", "A12"), ("rng_impl", "device", "A12"),
     ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
-    ("prefetch", "double_buffer", "A12"), ("faults", object(), "A9"),
-    ("upload_screen", "on", "A9"), ("quarantine_threshold", 0.5, "A9")])
+    ("prefetch", "double_buffer", "A12"),
+    ("quarantine_threshold", 0.5, "A12")])
 def test_unported_config_raises(field, value, item):
+    """Unported options raise naming their ROADMAP item; quarantine (with
+    the screen on) raises the reference's error at the server, which
+    names the device rng streams (A12) it needs."""
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        TConfig(**{field: value})
+        TServer(tfemnist(**DS_KW), cfg=TConfig(
+            device="cpu", upload_screen="on", **{field: value}))
 
 
 @pytest.mark.parametrize("field,value,item", [
     ("mesh_shards", 2, "A12"), ("driver", "scan", "A12"),
-    ("faults", object(), "A9")])
+    ("rng_impl", "device", "A12")])
 def test_compression_with_an_unported_feature_raises(field, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         TConfig(upload_compress="topk_q8", **{field: value})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(faults=FaultModel(seed=1, corrupt="nan", corrupt_prob=0.5)),
+    dict(upload_screen="on"),
+    dict(upload_screen="off",
+         faults=FaultModel(seed=1, corrupt="crash", corrupt_prob=0.5)),
+    dict(upload_compress="topk_q8", model="mlp", sampling="iid",
+         faults=FaultModel(seed=1, corrupt="explode", corrupt_prob=0.5))],
+    ids=["faults", "screen-on", "screen-off", "faults-topk_q8"])
+def test_fault_options_run(kw):
+    """The fault model and the screen (once refused, ROADMAP A9) run a
+    CPU round: the screen's count is in the record exactly when it is on,
+    and the params stay finite."""
+    srv = TServer(tfemnist(**DS_KW), cfg=TConfig(
+        device="cpu", **dict(CFG_KW, rounds=2), **kw))
+    srv.run()
+    screening = kw.get("upload_screen", "auto") == "on" or (
+        kw.get("upload_screen", "auto") == "auto" and "faults" in kw)
+    assert srv.screening is screening
+    for rec in srv._records.records:
+        assert (rec.screened is not None) is screening
+    assert all(torch.isfinite(v).all() for v in srv.params.values())
 
 
 @pytest.mark.parametrize("spec,item", [("lstm", None),

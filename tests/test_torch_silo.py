@@ -11,7 +11,8 @@
   algebra is the reference's numpy), per-round losses and the final global
   params within 2e-5.
 - ``SiloFedSAE(sink=)`` is accepted and emits a record a round; the
-  upload screen is still refused by ROADMAP item.
+  upload screen (``screen_norm=``) runs, and a bound no upload meets
+  leaves the global params as they were.
 - The ``fl_train --silo-arch`` CLI on the CPU.
 """
 import jax
@@ -187,8 +188,17 @@ def test_silo_fedsae_refuses_unported_features():
         0, cfg.vocab_size, (2, 2, 2, 16)).astype(np.int32)
     fed.run_round({"tokens": toks, "labels": toks}, np.array([100, 500]))
     assert len(ring) == 1 and ring.last.train_loss == fed.stats["loss"][-1]
-    with pytest.raises(ValueError, match="A9"):
-        SiloFedSAE(build_model(cfg), 2, device="cpu", screen_norm=10.0)
+    # the upload screen (once refused, ROADMAP A9) runs: a bound no
+    # upload meets rejects every uploading silo, and the round leaves the
+    # global params as they were
+    screened = SiloFedSAE(build_model(cfg), 2, max_steps=2, device="cpu",
+                          screen_norm=1e-12, sink=ring)
+    before = [t.clone() for t in tree_leaves(screened.params)]
+    screened.run_round({"tokens": toks, "labels": toks},
+                       np.array([100, 500]))
+    assert ring.last.screened == float((screened.last_n_steps > 0).sum())
+    for a, b in zip(before, tree_leaves(screened.params)):
+        assert torch.equal(a, b)
     with pytest.raises(TypeError):
         SiloFedSAE(object(), 2, device="cpu")
 

@@ -29,6 +29,7 @@ from repro.models.api import build_model as jbuild_model
 from repro.models.api import from_model as jfrom_model
 from repro.optim import adamw as jadamw
 from repro.optim import sgd as jsgd
+from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_reference, params_to_numpy
 from repro_torch.launch import train as ttrain
@@ -248,15 +249,22 @@ def test_optimizers_match_reference(name, kw):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_train_cli_runs_the_smoke_config_on_the_cpu(arch, capsys):
+def test_train_cli_runs_the_smoke_config_on_the_cpu(arch, capsys,
+                                                    tmp_path):
     losses = ttrain.main(["--arch", arch, "--smoke", "--steps", "3",
                           "--batch", "2", "--seq", "32", "--device", "cpu"])
     assert len(losses) == 3 and np.isfinite(losses).all()
     out = capsys.readouterr().out
     assert f"arch={arch} smoke=True" in out and "step    2" in out
-    with pytest.raises(SystemExit, match="A11"):
-        ttrain.main(["--arch", arch, "--smoke", "--steps", "1",
-                     "--device", "cpu", "--checkpoint", "/nonexistent"])
+    # --checkpoint (once refused, ROADMAP A11) writes the trained params
+    path = str(tmp_path / "params.pt")
+    ttrain.main(["--arch", arch, "--smoke", "--steps", "1", "--batch", "2",
+                 "--seq", "32", "--device", "cpu", "--checkpoint", path])
+    assert f"checkpoint -> {path}" in capsys.readouterr().out
+    flat, step, _ = load_checkpoint(path)
+    assert step == 1 and flat
+    assert all(t.dtype == torch.float32 and torch.isfinite(t).all()
+               for t in flat.values())
 
 
 def test_train_step_matches_reference_and_serving_steps_run():

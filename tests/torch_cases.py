@@ -257,3 +257,39 @@ ROBUST_CASES = [
     ("krum", dict(n_byzantine=1, multi=3, weighted=True)),
     ("bulyan", dict(n_byzantine=1, weighted=True)),
 ]
+
+
+#: the faulted federations of the card tests: a small FEMNIST-like
+#: federation, the config of each path and its fault model's arguments
+FAULT_DS = dict(n_clients=30, total=900, dim=64, max_size=40)
+FAULT_CFG = dict(algo="ira", n_selected=6, batch_size=4, h_cap=6.0,
+                 fixed_epochs=4.0, lr=0.05, sampling="iid")
+FAULT_PATHS = {"mclr-iid": {},
+               "mlp-topk_q8": dict(model="mlp", upload_compress="topk_q8",
+                                   topk_frac=0.1)}
+
+
+def fault_kwargs(corrupt, prob=0.4, seed=3, **extra):
+    """``FaultModel`` arguments: ``corrupt`` at ``prob`` (None: no model)."""
+    if corrupt is None:
+        return None
+    return dict(seed=seed, corrupt=corrupt, corrupt_prob=prob, **extra)
+
+
+def mclr_init(d=64, C=26, seed=1):
+    """MCLR params from numpy: the same init on the card and on the CPU
+    (their torch generators draw different ones)."""
+    rng = np.random.default_rng(seed)
+    return {"w": (rng.normal(size=(d, C)) * 0.01).astype(np.float32),
+            "b": np.zeros(C, np.float32)}
+
+
+def iid_draws(max_iters, B, seed=100):
+    """data_draws(t, ids, n) -> idx [K, max_iters, B] int32 uniform in
+    [0, max(n_k, 1)), from numpy seeded by the round: the same draws on
+    the card and on the CPU."""
+    def draws(t, ids, n):
+        r = np.random.default_rng(seed + t)
+        return (r.random((len(ids), max_iters, B))
+                * np.maximum(n, 1)[:, None, None]).astype(np.int32)
+    return draws
