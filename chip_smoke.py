@@ -146,6 +146,23 @@ last line):
    (both silos screened, the global params bitwise the pre-round params),
    each with its peak memory and its aggregate stage's time; every leg's
    launches checked;
+   then the device-resident drivers (``scan_phase``), at FEMNIST paper
+   scale: each scan run (``driver="scan"``: one round captured as a CUDA
+   graph, replayed once a round; any host read inside a block raises, the
+   guard checked live first) bitwise its host run with
+   ``rng_impl="device"`` (cohorts, budgets, params, L/H/theta, values,
+   residual, quarantine counters, records but the wall time): MCLR iid
+   Ira 40 rounds in blocks of 16, 16 and 8 with ``host_syncs`` == blocks
+   + evals, the MLP + topk_q8 16 rounds, MCLR shuffle one block of 4, nan
+   uploads at 0.3 with the screen and quarantine at 0.3; the nan run's
+   crash twin on the scan driver; kill/resume at a block boundary; a
+   ``JsonlSink`` run bitwise the run without; the rounds/s of the numpy
+   host driver, the device-rng host driver and the scan driver in turns,
+   one block's device time, the capture's ms and the graph's nodes; small
+   federations (MCLR iid, the Sent140 LSTM) on the scan driver card
+   against CPU from injected draws: the same cohorts, params within 2e-5;
+   the scan legs' launches are each program's real ones (the warm-up's,
+   then one capture's times its replays);
 5. profile one steady round of each FL leg (Sent140's shuffle leg too,
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
@@ -1742,6 +1759,316 @@ def faults_phase(torch, np, FedSAEServer, ServerConfig, femnist, counted,
     return summary
 
 
+def _scan_records(srv):
+    """The run's records as JSON dicts without ``wall_time_s``."""
+    out = []
+    for r in srv._records.records:
+        d = json.loads(r.to_json())
+        d.pop("wall_time_s")
+        out.append(d)
+    return out
+
+
+def _scan_same_run(torch, np, host, scan, block):
+    """The scan run bitwise the host run with device rng: ``_same_run``'s
+    state, the budgets, the quarantine counters and every record but its
+    wall time; the scan evaluates at block ends only, so those records
+    must equal the host's and the ones inside a block carry the previous
+    block end's accuracy and no test loss.  Returns the first difference,
+    or None."""
+    diff = _same_run(torch, np, host, scan)
+    if diff is not None:
+        return diff
+    if len(host.budgets) != len(scan.budgets) or not all(
+            np.array_equal(a, b) for a, b in zip(host.budgets,
+                                                 scan.budgets)):
+        return "budgets"
+    for name in ("q_fail", "q_try", "q_susp"):
+        if not np.array_equal(getattr(host, name), getattr(scan, name)):
+            return name
+    hr, sr = _scan_records(host), _scan_records(scan)
+    if len(hr) != len(sr):
+        return "records"
+    prev = None
+    for i, (a, b) in enumerate(zip(hr, sr)):
+        ha = (a.pop("acc"), a.pop("test_loss"))
+        sa = (b.pop("acc"), b.pop("test_loss"))
+        end = (i + 1) % block == 0 or i == len(hr) - 1
+        if a != b or (sa != ha if end else sa != (prev, None)):
+            return f"record {i}"
+        if end:
+            prev = ha[0]
+    return None
+
+
+def scan_phase(torch, np, FedSAEServer, ServerConfig, femnist, counted,
+               frac, make_sent140_like):
+    """Phase 8: the device-resident drivers (``driver="scan"``, and the
+    host driver with ``rng_impl="device"``) at FEMNIST paper scale (200
+    clients, K=10, B=10, lr 0.03, max_iters 960), every count set to 0
+    just before and read just after.  The scan driver captures one round
+    as a CUDA graph and replays it once a round; inside a block any
+    synchronizing call raises (``core.graphs.sync_checked``, checked live
+    first).  Legs, each scan run bitwise its host run with device rng
+    (cohorts, budgets, params, L/H/theta, values, residual, quarantine
+    counters, records but the wall time, block ends' evals): MCLR iid Ira
+    40 rounds in blocks of 16, 16 and 8 (``host_syncs`` == blocks +
+    evals); the MLP + topk_q8 iid 16 rounds in blocks of 8 (residual
+    included); MCLR shuffle, one block of 4 (all 960 slots masked in the
+    graph); nan uploads at 0.3 with the screen and quarantine at 0.3, 16
+    rounds in blocks of 8 (quarantined counts equal), and its crash twin
+    on the scan driver bitwise; kill/resume at a block boundary (8 rounds,
+    a checkpoint, a fresh server, 8 more) bitwise 16 straight; a
+    ``JsonlSink`` run bitwise the run without, the same ``host_syncs``,
+    the file read back.  The speed of the numpy host driver, the
+    device-rng host driver and the scan driver in turns (40 rounds each,
+    twice), one block's device time (torch.profiler), the capture's ms and
+    the graph's nodes.  Then small federations on the scan driver, card
+    against CPU from injected draws (MCLR iid; the Sent140 LSTM, shuffle):
+    the same cohorts, params within 2e-5.  The scan legs' launches are
+    each program's real ones (the warm-up's, then the launches one capture
+    recorded times the replays): the wrappers' counters run once, at
+    capture."""
+    import shutil
+    import tempfile
+    from repro_torch.core.graphs import sync_checked
+    from repro_torch.faults import FaultModel
+    from repro_torch.obs import JsonlSink, read_jsonl
+    base = dict(algo="ira", n_selected=10, sampling="iid")
+    mlp = dict(model="mlp", upload_compress="topk_q8", topk_frac=frac)
+    out = {"legs": {}}
+    reset_counts(counted)
+    real = {k: 0 for k in counted}          # real launches of the path
+
+    try:                                    # the guard is live
+        with sync_checked("cuda"):
+            torch.ones(1, device="cuda").sum().item()
+        raise AssertionError("no error")
+    except RuntimeError as e:
+        if "synchroniz" not in str(e).lower():
+            raise
+    print("scan sync check: a host read inside sync_checked raises",
+          flush=True)
+
+    def drive(label, driver, rounds, block=16, run_kw=None, ds=femnist,
+              sink=None, resumed=0, **cfg):
+        before = {k: fn.launches for k, fn in counted.items()}
+        srv = FedSAEServer(ds, cfg=ServerConfig(**dict(
+            base, rounds=rounds, driver=driver, block_size=block,
+            rng_impl="device" if driver == "host" else "", **cfg)),
+            sink=sink)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run(**(run_kw or {}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches - before[k] for k, fn in counted.items()}
+        prog = srv.program
+        if driver == "scan":
+            # the counters ran at the warm-up and once at capture
+            want = {k: prog.warmup_launches.get(k, 0)
+                    + prog.per_replay.get(k, 0) for k in counted}
+            if got != want:
+                raise RuntimeError(f"scan {label}: counters {got}, not the "
+                                   f"warm-up's and one capture's {want}")
+            got = {k: prog.launches().get(k, 0) for k in counted}
+        for k in counted:
+            real[k] += got[k]
+        for k, v in srv.params.items():
+            if not torch.isfinite(v).all():
+                raise RuntimeError(f"scan {label}: non-finite params {k}")
+        n = (run_kw or {}).get("rounds", rounds) - resumed
+        leg = dict(driver=driver, rounds=n, wall_s=wall,
+                   rounds_per_s=n / wall, host_syncs=srv.host_syncs,
+                   launches={k: v for k, v in got.items() if v})
+        if prog is not None and prog.graphed:
+            leg.update(replays=prog.replays, capture_ms=prog.capture_ms,
+                       graph_nodes=prog.nodes,
+                       per_replay={k: v for k, v in prog.per_replay.items()
+                                   if v})
+        out["legs"][f"{label} {driver}"] = leg
+        print(f"scan {label} {driver}: {json.dumps(leg)}", flush=True)
+        return srv
+
+    def pair(label, rounds, block, **cfg):
+        host = drive(label, "host", rounds, block, **cfg)
+        scan = drive(label, "scan", rounds, block, **cfg)
+        diff = _scan_same_run(torch, np, host, scan, block)
+        if diff is not None:
+            raise RuntimeError(f"scan {label}: not bitwise the host driver "
+                               f"with device rng ({diff})")
+        print(f"scan {label}: scan == host (device rng) bitwise over "
+              f"{rounds} rounds in blocks of {block}", flush=True)
+        return host, scan
+
+    # -- MCLR iid Ira, 40 rounds in blocks of 16, 16, 8 -------------------
+    host, scan = pair("mclr iid", 40, 16)
+    blocks, evals = 3, 3
+    if scan.host_syncs != blocks + evals:
+        raise RuntimeError(f"scan mclr iid: {scan.host_syncs} host syncs, "
+                           f"not {blocks + evals}")
+    if scan.program.replays != 40:
+        raise RuntimeError(f"scan mclr iid: {scan.program.replays} replays")
+    out["mclr_iid"] = dict(host_syncs=scan.host_syncs, blocks=blocks,
+                           evals=evals, budgets=[int(max(b)) for b in
+                                                 scan.budgets])
+    # -- the other paths --------------------------------------------------
+    _, scan_mlp = pair("mlp topk_q8 iid", 16, 8, **mlp)
+    if not bool(scan_mlp.residual.abs().sum() > 0):
+        raise RuntimeError("scan mlp topk_q8: the residual stayed 0")
+    pair("mclr shuffle", 4, 4, sampling="shuffle")
+    nan = dict(faults=FaultModel(seed=3, corrupt="nan", corrupt_prob=0.3),
+               quarantine_threshold=0.3, quarantine_min_tries=1)
+    host_q, scan_q = pair("faults nan quarantine", 16, 8, **nan)
+    quarantined = [r.quarantined for r in scan_q._records.records]
+    screened = [r.screened for r in scan_q._records.records]
+    if max(quarantined) <= 0 or sum(screened) <= 0:
+        raise RuntimeError(f"scan faults: quarantined {quarantined}, "
+                           f"screened {screened}")
+    out["faults"] = dict(quarantined=quarantined, screened=screened)
+    crash = drive("faults crash twin", "scan", 16, 8, faults=FaultModel(
+        seed=3, corrupt="crash", corrupt_prob=0.3))
+    twin = drive("faults nan twin", "scan", 16, 8, faults=FaultModel(
+        seed=3, corrupt="nan", corrupt_prob=0.3))
+    diff = _same_run(torch, np, crash, twin)
+    if diff is not None or sum(r.screened for r in
+                               twin._records.records) <= 0:
+        raise RuntimeError(f"scan crash twin: not bitwise ({diff})")
+    print("scan crash twin: nan uploads screened, bitwise the crash run "
+          "(params, L/H/theta, values, cohorts)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_scan_")
+    try:
+        kr = dict(mlp, faults=FaultModel(seed=3, corrupt="nan",
+                                          corrupt_prob=0.3))
+        full = drive("kill/resume straight", "scan", 16, 8, **kr)
+        drive("kill/resume first half", "scan", 16, 8,
+              run_kw=dict(rounds=8, checkpoint_dir=tmp), **kr)
+        resumed = drive("kill/resume resumed", "scan", 16, 8,
+                        run_kw=dict(checkpoint_dir=tmp, resume=True),
+                        resumed=8, **kr)
+        diff = _scan_same_run(torch, np, full, resumed, 8)
+        if diff is None and not (
+                torch.equal(full.data_gen.get_state(),
+                            resumed.data_gen.get_state())
+                and torch.equal(full.sel_gen.get_state(),
+                                resumed.sel_gen.get_state())):
+            diff = "generator states"
+        if diff is not None:
+            raise RuntimeError(f"scan kill/resume not bitwise ({diff})")
+        print("scan kill/resume at a block boundary: bitwise 16 straight "
+              "rounds (params, residual, L/H/theta, values, cohorts, "
+              "budgets, records, both CUDA generators)", flush=True)
+        path = os.path.join(tmp, "scan.jsonl")
+        with JsonlSink(path) as sink:
+            sunk = drive("jsonl sink", "scan", 16, 8, sink=sink)
+        plain = drive("no sink", "scan", 16, 8)
+        _, recs = read_jsonl(path)
+        same = (_same_run(torch, np, plain, sunk) is None
+                and plain.host_syncs == sunk.host_syncs
+                and recs == sunk._records.records and len(recs) == 16
+                and all(r.loss_hist is not None for r in recs))
+        if not same:
+            raise RuntimeError("scan JsonlSink run: not the run without "
+                               "a sink, or the file differs")
+        print(f"scan JsonlSink: bitwise the run without, host_syncs "
+              f"{sunk.host_syncs} both, 16 records read back with their "
+              f"extras", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- speed: the three drivers in turns --------------------------------
+    speed = {"numpy host": [], "device host": [], "scan": []}
+    for _ in range(2):
+        for label, driver, rng in (("numpy host", "host", "numpy"),
+                                   ("device host", "host", "device"),
+                                   ("scan", "scan", "")):
+            srv = FedSAEServer(femnist, cfg=ServerConfig(**dict(
+                base, rounds=40, driver=driver, block_size=16,
+                rng_impl=rng)))
+            srv.run(rounds=16)                       # warm-up, capture
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.run(rounds=40)
+            torch.cuda.synchronize()
+            speed[label].append(40 / (time.perf_counter() - t0))
+    prog = srv.program
+    prog.begin_block(40, srv._block_inputs(40, 16))
+    wall, device_ms, top, _, n_launched = profiled(
+        torch, lambda: prog.run(16))
+    out["speed"] = dict(rounds_per_s=speed, block_rounds=16,
+                        block_wall_ms=wall, block_device_ms=device_ms,
+                        block_device_launches=n_launched,
+                        capture_ms=prog.capture_ms, graph_nodes=prog.nodes,
+                        top_kernels_ms=top[:5])
+    print(f"scan speed (FEMNIST MCLR iid, 40 rounds a turn): "
+          f"{json.dumps(out['speed'])}", flush=True)
+
+    # -- card against CPU on the scan driver ------------------------------
+    from repro_torch.data.federated import make_femnist_like
+    small = make_femnist_like(n_clients=30, total=900, dim=64, max_size=40)
+    lstm = make_sent140_like(n_clients=40, total=1200, vocab=260,
+                             max_size=40)
+    cases = (("mclr iid", small, dict(sampling="iid", batch_size=4,
+                                      h_cap=6.0, fixed_epochs=4.0)),
+             ("sent140 lstm shuffle", lstm, dict(sampling="shuffle",
+                                                 h_cap=4.0,
+                                                 fixed_epochs=4.0)))
+    out["card_vs_cpu"] = {}
+    for label, ds, cfg in cases:
+        B = cfg.get("batch_size", 10)
+        max_n = int(ds.sizes.max())
+        iters = math.ceil(max(cfg["h_cap"], cfg["fixed_epochs"])
+                          * math.ceil(max_n / B))
+        shape = (6, iters, B) if cfg["sampling"] == "iid" else (6, max_n)
+
+        def draws(t, n=ds.n_clients, shape=shape):
+            r = np.random.default_rng(300 + t)
+            return (r.normal(size=n).astype(np.float32),
+                    -np.log(-np.log(r.random(n).astype(np.float32)
+                                    + np.float32(1e-30))),
+                    r.random(shape).astype(np.float32))
+
+        runs = []
+        for where in ("cuda", "cpu"):
+            srv = FedSAEServer(ds, cfg=ServerConfig(**dict(
+                cfg, algo="ira", n_selected=6, rounds=6, driver="scan",
+                block_size=3, device=where)), device_draws=draws)
+            if where == "cpu":
+                srv.params = {k: v.cpu() for k, v in
+                              runs[0][1].items()}
+            runs.append((srv, {k: v.clone() for k, v in
+                               srv.params.items()}))
+            srv.run()
+        prog = runs[0][0].program
+        for k in counted:
+            real[k] += prog.launches().get(k, 0)
+        (card, _), (cpu, _) = runs
+        err = max(float((card.params[k].cpu() - cpu.params[k]).abs().max())
+                  for k in card.params)
+        if (not all(np.array_equal(a, b) for a, b in
+                    zip(card.cohorts, cpu.cohorts))
+                or not np.array_equal(card.L, cpu.L) or err > TOL):
+            raise RuntimeError(f"scan card vs CPU {label}: params "
+                               f"max_abs_err {err}")
+        out["card_vs_cpu"][label] = dict(max_abs_err=err,
+                                         graph_nodes=prog.nodes,
+                                         capture_ms=prog.capture_ms)
+        print(f"scan card vs CPU, {label} (small federation, 6 rounds in "
+              f"blocks of 3, injected draws): same cohorts and L/H, params "
+              f"max_abs_err {err:.3e} (tol {TOL}); graph "
+              f"{prog.nodes} nodes, captured in {prog.capture_ms:.1f} ms",
+              flush=True)
+
+    for k in ("fed_cohort_gather", "fed_local_sgd_mclr",
+              "fed_local_sgd_dense", "fed_compress_topk_q8"):
+        if real[k] <= 0:
+            raise RuntimeError(f"the scan path never launched {k}")
+    out["launches"] = real
+    print(f"path scan launches (replays x launches a capture, plus the "
+          f"eager rounds): {json.dumps(real)}", flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2344,6 +2671,12 @@ def main() -> int:
     faults = faults_phase(torch, np, FedSAEServer, ServerConfig, femnist,
                           counted, frac, get_config, build_model)
     path_launches["faults"] = faults["launches"]
+    # this slice's path: the device-resident drivers, the scan driver's
+    # rounds replayed from a CUDA graph
+    torch.cuda.empty_cache()
+    scan = scan_phase(torch, np, FedSAEServer, ServerConfig, femnist,
+                      counted, frac, make_sent140_like)
+    path_launches["scan"] = scan["launches"]
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     scan_single_steps = sum(serving[a]["scan_single_step_launches"]
@@ -2459,7 +2792,8 @@ def main() -> int:
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
                       "profile": profiles, "serving": serving,
                       "training": training, "checks": checks,
-                      "telemetry": telemetry, "faults": faults}))
+                      "telemetry": telemetry, "faults": faults,
+                      "scan": scan}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

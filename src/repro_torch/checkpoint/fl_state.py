@@ -11,17 +11,19 @@ params, history state and telemetry trace of the uninterrupted run.
             compression error-feedback residual (when the upload
             transform carries one) and the state of the torch generator
             the minibatch draws come from (``get_state()``; on the card
-            a CUDA generator's)
+            a CUDA generator's), and with the device rng streams the
+            selection generator's too
   metadata  the next round index, the numpy generators' states (selection
             and ``HeterogeneitySim``: PCG64 holds a 128-bit word, stored
             as JSON as the reference does), every RoundRecord emitted so
             far (``to_json`` lines: float ``repr`` keeps e.g. the carried
-            prev_acc bit-exact) and the executed cohorts
+            prev_acc bit-exact), the executed cohorts and their budgets
 
-The minibatch generator is restored from its saved state, never rebuilt
-from its seed: its state after t rounds is what makes the resumed draws
-the uninterrupted run's.  The fault stream needs no state: it is drawn
-from ``(fault seed, t)`` every round.
+The generators are restored from their saved states, never rebuilt from
+their seeds: their states after t rounds are what make the resumed draws
+the uninterrupted run's.  The scan driver checkpoints at block
+boundaries, with its device carry synced back first.  The fault stream
+needs no state: it is drawn from ``(fault seed, t)`` every round.
 
 Files are ``ckpt_<round>.pt`` under a caller-chosen directory, written
 atomically (``checkpoint.store``); ``restore_server_state`` loads the
@@ -76,6 +78,8 @@ def _server_tensors(server) -> Dict:
         "q_susp": np.asarray(server.q_susp, np.int32),
         "data_gen": server.data_gen.get_state(),
     }
+    if server.rng_impl == "device":
+        tree["sel_gen"] = server.sel_gen.get_state()
     if server.residual is not None:
         tree["residual"] = server.residual
     return tree
@@ -89,6 +93,7 @@ def save_server_state(server, directory: str, next_round: int) -> str:
         "rng_impl": server.rng_impl,
         "records": [r.to_json() for r in server._records.records],
         "cohorts": [np.asarray(c).tolist() for c in server.cohorts],
+        "budgets": [np.asarray(b).tolist() for b in server.budgets],
         "sel_rng_state": json.dumps(server.sel_rng.bit_generator.state),
         "het_rng_state": json.dumps(server.het._rng.bit_generator.state),
     }
@@ -126,6 +131,8 @@ def restore_server_state(server, directory: str) -> int:
     server.q_try = tree["q_try"].numpy()
     server.q_susp = tree["q_susp"].numpy()
     server.data_gen.set_state(tree["data_gen"])
+    if server.rng_impl == "device":
+        server.sel_gen.set_state(tree["sel_gen"])
     if server.residual is not None:
         server.residual = tree["residual"].to(dev)
     server.sel_rng.bit_generator.state = json.loads(
@@ -138,4 +145,6 @@ def restore_server_state(server, directory: str) -> int:
     for line in metadata["records"]:
         server._records.emit(RoundRecord.from_json(line))
     server.cohorts = [np.asarray(c, np.int64) for c in metadata["cohorts"]]
+    server.budgets = [np.asarray(b, np.int32)
+                      for b in metadata.get("budgets", [])]
     return int(metadata["round"])

@@ -41,6 +41,9 @@ The plain path stops its loop at the cohort's largest budget rather than
 at ``max_iters``: a slot past every budget is ``p - lr * 0 * g``, an
 identity update whenever the gradient is finite, so the result is the
 same for finite data and the round costs one host read of the budgets.
+A device round (``make_packed_round(device_round=True)``, the device
+drivers') reads nothing on the host: it walks all ``max_iters`` slots
+masked, the reference scan's own semantics, and screens on the device.
 
 Faults and the upload screen, as in the reference.  An engine built with
 an injecting ``faults`` (corrupt "nan", "inf", "sign_flip" or "explode")
@@ -67,7 +70,16 @@ Each stage runs inside its profiler range (``obs.profiling.stage``:
 its stage.  The ranges wrap the ``vmap``-ed calls, never the functions
 ``torch.func`` transforms.
 
-Not ported yet: the mesh-sharded and multi-round drivers (ROADMAP A12).
+``make_device_round`` is the whole server step of the device drivers,
+the counterpart of the reference's ``make_one_round``: prepare (the
+normal and Gumbel draws, workload shaping by the fault draws, Gumbel-top-k
+selection under the eligibility mask, dropouts and corrupt demotion, the
+float32 Ira/Fassa update, budgets), then execute (the device round, the
+uploaded set, the value update, the round's float32 stats with the
+telemetry extras, the screened counts and quarantine).  It reads nothing
+on the host, so ``core.graphs.RoundProgram`` runs it in place on device
+buffers, eagerly or replayed from a CUDA graph.  Not ported yet: the
+mesh-sharded driver and prefetch (ROADMAP A12 (ii)).
 """
 from __future__ import annotations
 
@@ -78,12 +90,20 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.core import compression as comp
+from repro_torch.core import prediction as pred
 from repro_torch.core.aggregation import FedAvg
-from repro_torch.faults.inject import inject_upload_faults
-from repro_torch.faults.screen import screen_uploads
+from repro_torch.core.heterogeneity import sample_workloads_device
+from repro_torch.core.selection import (gumbel_noise, select_cohort_device,
+                                        value_update_device)
+from repro_torch.faults.inject import (apply_availability_stragglers_device,
+                                       inject_upload_faults)
+from repro_torch.faults.screen import (eligibility, quarantine_update,
+                                       screen_uploads, screen_uploads_device)
 from repro_torch.kernels import ops as kops
 from repro_torch.obs.profiling import (STAGE_AGGREGATE, STAGE_GATHER,
                                        STAGE_LOCAL_SGD, STAGE_UPLOAD, stage)
+from repro_torch.obs.schema import (LOSS_HIST_BINS, LOSS_HIST_MAX,
+                                    WORKLOAD_HIST_BINS)
 from repro_torch.tree import tree_leaves, tree_map
 
 SAMPLINGS = ("shuffle", "iid")
@@ -92,18 +112,43 @@ SAMPLINGS = ("shuffle", "iid")
 def budget_iters(e_eff, n, batch_size: int, max_iters: int):
     """n_iters_k = min(round(e_eff_k * ceil(n_k / B)), max_iters), in
     float32 as the reference's traceable twin (round half to even)."""
-    tau = torch.ceil(torch.as_tensor(n).to(torch.float32)
-                     / torch.tensor(batch_size, dtype=torch.float32))
+    n = torch.as_tensor(n).to(torch.float32)
+    tau = torch.ceil(n / torch.full_like(n, float(batch_size)))
     e = torch.as_tensor(e_eff).to(torch.float32)
     return torch.clamp(torch.round(e * tau), max=max_iters).to(torch.int32)
 
 
 def iid_indices(gen: torch.Generator, n, max_iters: int, batch_size: int):
     """idx [K, max_iters, B] int32, uniform in [0, max(n_k, 1))."""
-    nk = torch.clamp(n.long(), min=1)[:, None, None]
-    r = torch.rand((n.shape[0], max_iters, batch_size), generator=gen,
-                   device=n.device)
-    return torch.minimum((r * nk).long(), nk - 1).to(torch.int32)
+    return iid_indices_from(torch.rand((n.shape[0], max_iters, batch_size),
+                                       generator=gen, device=n.device), n)
+
+
+def iid_indices_from(u, n):
+    """idx int32 shaped as ``u`` [K, ...], from float32 uniforms in [0, 1):
+    min(floor(u * max(n_k, 1)), max(n_k, 1) - 1)."""
+    nk = torch.clamp(n.long(), min=1).view((-1,) + (1,) * (u.dim() - 1))
+    return torch.minimum((u * nk).long(), nk - 1).to(torch.int32)
+
+
+def _device_hist(x, w, lo: float, hi: float, bins: int):
+    """float32 fixed-bin histogram on the device, the twin of
+    ``obs.schema.histogram_counts``: clip into [lo, hi), bin =
+    floor((x - lo) / (hi - lo) * bins), weights summed per bin."""
+    f = np.float32
+    top = float(f(hi) - f(hi - lo) * f(1e-6))
+    x = torch.clamp(torch.as_tensor(x).to(torch.float32), min=float(f(lo)),
+                    max=top)
+    width = torch.full_like(x, float(f(hi - lo)))
+    idx = torch.floor((x - float(f(lo))) / width * float(f(bins))).long()
+    return torch.zeros(bins, dtype=torch.float32, device=x.device).index_add_(
+        0, idx, torch.as_tensor(w).to(torch.float32))
+
+
+def _mean(x):
+    """Sum over the [K] axis divided by K, tensor by tensor."""
+    s = x.to(torch.float32).sum()
+    return s / torch.full_like(s, float(x.shape[0]))
 
 
 def _rows(x, idx):
@@ -201,7 +246,8 @@ class RoundEngine:
         return params, losses
 
     def _local_sgd(self, model, batch_size: int, max_iters: int,
-                   sampling: str = "shuffle") -> Callable:
+                   sampling: str = "shuffle",
+                   walk_all: bool = False) -> Callable:
         """local_train(global_params, x, y, mask, n, n_iters, draws) ->
         (params_k, losses [K]).
 
@@ -212,6 +258,9 @@ class RoundEngine:
         iid      uniform minibatches with replacement (``draws`` = idx
                  [K, max_iters, B]); the reported loss is the mean
                  minibatch loss over executed iterations.
+
+        The loop stops at the largest budget (one host read), or walks
+        all ``max_iters`` slots masked with ``walk_all``.
         """
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
@@ -223,7 +272,8 @@ class RoundEngine:
             nk_safe = torch.clamp(n.long(), min=1)
             bmask = (torch.arange(B, device=dev)[None, :]
                      < nk_safe[:, None]).to(torch.float32)
-            n_steps = min(max_iters, int(n_iters.max())) if K else 0
+            n_steps = (max_iters if walk_all else
+                       min(max_iters, int(n_iters.max())) if K else 0)
             if sampling == "iid":
                 idx = draws.long()
 
@@ -282,7 +332,8 @@ class RoundEngine:
         """A client contributes its sample count iff it trained >= 1 step."""
         return n.to(torch.float32) * (n_iters > 0).to(torch.float32)
 
-    def _finish(self, global_params, params_k, weights):
+    def _finish(self, global_params, params_k, weights,
+                on_device: bool = False):
         """Stage 4: screen (when on) and aggregate.
 
         ``weights`` is the [K] f32 aggregation-weight vector (0 = no
@@ -291,11 +342,15 @@ class RoundEngine:
         uploaded_any, bad)``, ``bad`` the [K] bool CPU tensor of rejected
         rows (None when the screen is off).  A rejected row reaches the
         aggregator as a crashed client's: weight 0 and the global params'
-        value (written into ``params_k`` in place)."""
+        value (written into ``params_k`` in place).  ``on_device`` screens
+        without a host read (``screen_uploads_device``: a new stack, and
+        ``bad`` on the device)."""
         with stage(STAGE_AGGREGATE):
             bad = None
             if self.screening:
-                params_k, weights, bad = screen_uploads(
+                screen = screen_uploads_device if on_device \
+                    else screen_uploads
+                params_k, weights, bad = screen(
                     global_params, params_k, weights, self.screen_norm)
             new_global = self.aggregator(params_k, global_params, weights)
             return new_global, weights.sum() > 0, bad
@@ -326,7 +381,8 @@ class RoundEngine:
             return rec, new_rows
 
     def _finish_round(self, global_params, params_k, losses, n, n_iters,
-                      ids, residual=None, corrupt=None):
+                      ids, residual=None, corrupt=None,
+                      on_device: bool = False):
         """Stages 3 and 4: fault injection at the upload seam (an
         injecting engine), the upload transform with error feedback
         (compressing), then screen and aggregate.  Returns (new_global,
@@ -352,7 +408,7 @@ class RoundEngine:
             params_k = self._inject_faults(global_params, params_k, corrupt,
                                            uploading)
         new_global, any_up, bad = self._finish(global_params, params_k,
-                                               weights)
+                                               weights, on_device)
         out = (new_global, losses, any_up)
         if self.compressing:
             out = out + (residual,)
@@ -362,7 +418,8 @@ class RoundEngine:
 
     # ------------------------------------------------------------------
     def make_packed_round(self, model, batch_size: int, max_iters: int,
-                          max_n: int, sampling: str = "shuffle") -> Callable:
+                          max_n: int, sampling: str = "shuffle",
+                          device_round: bool = False) -> Callable:
         """Device-resident round over the packed federation.
 
         round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
@@ -378,7 +435,10 @@ class RoundEngine:
         ``residual`` ([N, P] float32, the whole federation's error-feedback
         rows) and returns the updated one.  An injecting engine needs
         ``corrupt`` ([K] bool on the device); a screening one returns the
-        rejected rows ``bad`` ([K] bool, CPU) last."""
+        rejected rows ``bad`` ([K] bool, CPU) last.
+
+        ``device_round`` reads nothing on the host: the plain walk runs
+        all ``max_iters`` slots masked and ``bad`` stays on the device."""
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
         if getattr(model, "kind", None) == "lm":
@@ -387,8 +447,8 @@ class RoundEngine:
                 "their cross-device federation over the packed round is "
                 "ROADMAP A13 (iii)")
         fuse_sgd = kops.fused_sgd_eligible(model, sampling)
-        local_train = None if fuse_sgd else \
-            self._local_sgd(model, batch_size, max_iters, sampling)
+        local_train = None if fuse_sgd else self._local_sgd(
+            model, batch_size, max_iters, sampling, walk_all=device_round)
         gather = self._cohort_gather(max_n)
 
         @torch.no_grad()
@@ -421,9 +481,179 @@ class RoundEngine:
                     params_k, losses = local_train(global_params, x, y, mask,
                                                    n, n_iters, draws)
             return self._finish_round(global_params, params_k, losses, n,
-                                      n_iters, ids, residual, corrupt)
+                                      n_iters, ids, residual, corrupt,
+                                      on_device=device_round)
 
         return round_fn
+
+    # ------------------------------------------------------------------
+    def make_device_round(self, model, batch_size: int, max_iters: int,
+                          packed, cfg, *, mu, sigma, sel_gen, data_gen,
+                          phases=None, telemetry: bool = False,
+                          data_draws: Optional[Callable] = None) -> Callable:
+        """The whole server step of the device drivers, on the device.
+
+        one_round(carry, t, inputs) -> (carry', stats)
+
+        ``carry`` is a dict of device tensors: ``params``; ``L``, ``H``,
+        ``theta`` and ``values`` float32 [N]; ``q_fail``, ``q_try`` and
+        ``q_susp`` int32 [N] under quarantine; ``residual`` [N, P] float32
+        when compressing.  ``t`` is the round index (an int or a 0-d
+        int32 device tensor).  ``inputs`` holds round t's injected values,
+        each absent when not injected: ``z`` (the standard normals) or
+        ``E`` (the affordable workloads themselves) and ``g`` (the Gumbel
+        noise) [N], ``u`` the data uniforms ([K, max_iters, B] iid, [K,
+        max_n] shuffle), and the fault draws ``slowdown`` float32 [N],
+        ``dropout`` and ``corrupt`` bool [N].
+
+        Each round draws, in this order, the normal [N] and the uniform
+        [N] of the Gumbel noise from ``sel_gen``, then the data uniforms
+        from ``data_gen``: so the host driver with ``rng_impl="device"``
+        and the scan driver draw the same bits.  ``data_draws(t, ids, n)``
+        (host arrays; it reads the cohort on the host) replaces the data
+        draws on an eager driver.
+
+        ``stats`` are the round's device tensors: ``ids`` and ``n_iters``
+        [K]; float32 ``dropout``, ``dropped``, ``overflowed``,
+        ``train_loss``, ``assigned``, ``uploaded``, ``true_workload``;
+        ``screened`` with the screen, ``quarantined`` under quarantine;
+        with ``telemetry`` the extras ``client_uploaded`` [K],
+        ``upload_bytes``, ``dense_upload_bytes``, ``loss_hist`` and
+        ``workload_hist``.  ``prepare`` and ``execute`` are exported as
+        attributes: ``one_round`` is ``execute(*prepare(carry, t,
+        inputs))``."""
+        fm = self.faults
+        sampling = cfg.sampling
+        K, algo = int(cfg.n_selected), cfg.algo
+        max_n = packed.max_n
+        sizes = packed.lengths
+        wl = dict(U=cfg.U, alpha=cfg.alpha, gamma1=cfg.gamma1,
+                  gamma2=cfg.gamma2, h_cap=cfg.h_cap,
+                  fixed_epochs=cfg.fixed_epochs)
+        al_rounds = int(cfg.al_rounds)
+        q_threshold = float(cfg.quarantine_threshold or 0.0)
+        quarantine = q_threshold > 0.0
+        demote = fm is not None and fm.demotes
+        round_fn = self.make_packed_round(model, batch_size, max_iters,
+                                          max_n, sampling=sampling,
+                                          device_round=True)
+        N = int(mu.shape[0])
+
+        def prepare(carry, t, inputs):
+            E_all = inputs.get("E")
+            if E_all is None:
+                z = inputs.get("z")
+                if z is None:
+                    z = torch.randn((N,), generator=sel_gen,
+                                    device=mu.device)
+                E_all = sample_workloads_device(z, mu, sigma)
+            g = inputs.get("g")
+            if g is None:
+                g = gumbel_noise(torch.rand((N,), generator=sel_gen,
+                                            device=mu.device))
+            if fm is not None:
+                E_all = apply_availability_stragglers_device(
+                    fm, phases, t, E_all, inputs.get("slowdown"))
+            use_al = (t < al_rounds) if al_rounds else False
+            elig = eligibility(carry["q_susp"], t) if quarantine else None
+            ids = select_cohort_device(g, carry["values"], K, cfg.selection,
+                                       cfg.beta, use_al=use_al, elig=elig)
+            E_true = E_all[ids]
+            E_run = E_true
+            if fm is not None and fm.dropout_prob > 0.0:
+                E_run = torch.where(inputs["dropout"][ids], 0.0, E_run)
+            corrupt = (inputs["corrupt"][ids]
+                       if fm is not None and fm.corrupts else None)
+            E_obs = torch.where(corrupt, 0.0, E_run) if demote else E_run
+            L, H, theta = carry["L"], carry["H"], carry["theta"]
+            e_eff, outcome, assigned, L2, H2, th2 = \
+                pred.workload_update_device(algo, L, H, theta, ids, E_obs,
+                                            **wl)
+            e_train = e_eff
+            if demote and self.injecting:
+                # the faulty client trains with the un-demoted budget and
+                # transmits garbage (ids distinct: every other row's e_eff
+                # is the observed call's)
+                e_train = pred.workload_update_device(
+                    algo, L, H, theta, ids, E_run, **wl)[0]
+            n = torch.clamp(sizes[ids], max=max_n)
+            n_iters = budget_iters(e_train, n, batch_size, max_iters)
+            pf = {"t": t, "ids": ids, "n": n, "n_iters": n_iters,
+                  "outcome": outcome, "assigned": assigned, "e_eff": e_eff,
+                  "E_true": E_true, "corrupt": corrupt, "u": inputs.get("u")}
+            return dict(carry, L=L2, H=H2, theta=th2), pf
+
+        def execute(carry, pf):
+            ids, n, n_iters = pf["ids"], pf["n"], pf["n_iters"]
+            corrupt, draws = pf["corrupt"], pf["u"]
+            if draws is not None and sampling == "iid":
+                draws = iid_indices_from(draws, n)
+            elif draws is None and data_draws is not None:
+                draws = data_draws(int(pf["t"]), ids.cpu().numpy(),
+                                   n.cpu().numpy())
+            out = round_fn(carry["params"], packed.x, packed.y,
+                           packed.offsets, packed.lengths, ids, n_iters,
+                           gen=data_gen, draws=draws,
+                           residual=carry.get("residual"),
+                           corrupt=corrupt if self.injecting else None)
+            losses = out[1]
+            new = dict(carry, params=out[0])
+            if self.compressing:
+                new["residual"] = out[3]
+            bad = out[-1] if self.screening else None
+            uploaded = n_iters > 0
+            if demote and self.injecting:
+                # the observed upload set: screened rows count as crashes
+                uploaded = uploaded & ~corrupt
+            new["values"] = value_update_device(carry["values"], sizes, ids,
+                                                losses, uploaded)
+            upf = uploaded.to(torch.float32)
+            n_up = upf.sum()
+            dropped = (pf["outcome"] == pred.DROPPED).to(torch.float32)
+            stats = {
+                "ids": ids, "n_iters": n_iters,
+                "dropout": _mean(dropped), "dropped": dropped.sum(),
+                "overflowed": torch.zeros_like(n_up),
+                "train_loss": torch.where(
+                    n_up > 0, (losses * upf).sum() / torch.clamp(n_up,
+                                                                 min=1.0),
+                    float("nan")),
+                "assigned": _mean(pf["assigned"]),
+                "uploaded": _mean(pf["e_eff"]),
+                "true_workload": _mean(pf["E_true"]),
+            }
+            if telemetry:
+                P = comp.n_params_of(carry["params"])
+                bpc = comp.upload_bytes_per_client(P, self.compress,
+                                                   self.topk_frac)
+                dense_bpc = comp.upload_bytes_per_client(P, "none")
+                stats["client_uploaded"] = uploaded.to(torch.int32)
+                stats["upload_bytes"] = n_up * float(np.float32(bpc))
+                stats["dense_upload_bytes"] = n_up * float(
+                    np.float32(dense_bpc))
+                stats["loss_hist"] = _device_hist(
+                    losses, upf, 0.0, LOSS_HIST_MAX, LOSS_HIST_BINS)
+                stats["workload_hist"] = _device_hist(
+                    pf["e_eff"], upf, 0.0, wl["h_cap"], WORKLOAD_HIST_BINS)
+            if self.screening:
+                stats["screened"] = bad.to(torch.float32).sum()
+            if quarantine:
+                qf, qt, qs, n_susp = quarantine_update(
+                    carry["q_fail"], carry["q_try"], carry["q_susp"], ids,
+                    n_iters > 0, bad, pf["t"], q_threshold,
+                    int(cfg.quarantine_rounds),
+                    int(cfg.quarantine_min_tries))
+                new.update(q_fail=qf, q_try=qt, q_susp=qs)
+                stats["quarantined"] = n_susp.to(torch.float32)
+            return new, stats
+
+        @torch.no_grad()
+        def one_round(carry, t, inputs):
+            return execute(*prepare(carry, t, inputs))
+
+        one_round.prepare = prepare
+        one_round.execute = execute
+        return one_round
 
     # ------------------------------------------------------------------
     def make_stream_round(self, loss_fn, max_steps: int) -> Callable:

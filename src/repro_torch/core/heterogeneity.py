@@ -11,10 +11,17 @@ host-driver simulator draws the same sequence from the same seed.
 ``pareto_slowdowns`` is the fault layer's heavy-tailed straggler draw
 (``faults.inject``), the reference's formula on a float32 uniform from the
 port's host fault stream.
+
+The device drivers (``rng_impl="device"``, ``driver="scan"``) draw on the
+server's device instead: ``device_params`` uploads the per-client (mu,
+sigma) once as float32, and ``sample_workloads_device`` is the float32
+twin of ``sample_round`` over a standard-normal draw ``z`` [N] from the
+server's selection generator (or injected, ``FedSAEServer(device_draws=)``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def pareto_slowdowns(rng: np.random.Generator, alpha: float, shape):
@@ -28,6 +35,15 @@ def pareto_slowdowns(rng: np.random.Generator, alpha: float, shape):
     """
     u = rng.random(shape, dtype=np.float32)
     return (np.float32(1.0) - u) ** np.float32(-1.0 / alpha)
+
+
+def sample_workloads_device(z, mu, sigma):
+    """Affordable workloads for every client in float32 on the device:
+    ``max(mu + sigma * z, 0)`` for a standard-normal draw ``z`` [N], as
+    two rounded operations (the product, then the sum).  The twin of
+    ``HeterogeneitySim.sample_round``: crash-heavy regimes (tiny mu)
+    degenerate to all-zero workloads exactly as there."""
+    return torch.clamp(mu + sigma * z, min=0.0)
 
 
 class HeterogeneitySim:
@@ -44,3 +60,9 @@ class HeterogeneitySim:
         """Affordable workload (epochs, float >= 0) for every client."""
         e = self._rng.normal(self.mu, self.sigma)
         return np.maximum(e, 0.0)
+
+    def device_params(self, device):
+        """(mu, sigma) as float32 tensors on ``device``, uploaded once and
+        read by ``sample_workloads_device`` every round."""
+        return (torch.as_tensor(self.mu, dtype=torch.float32).to(device),
+                torch.as_tensor(self.sigma, dtype=torch.float32).to(device))

@@ -10,12 +10,43 @@ the history and the training values from the uploaded losses.  Baselines:
 FedAvg (fixed workload, stragglers upload nothing), FedProx (ideal partial
 work) and an oracle skyline.
 
-Everything but step (3) is numpy float64 on the host, copied from the
-reference's ``rng_impl="numpy"`` host driver, so the port reproduces
-selection, workloads, budgets and L/H/theta bit for bit from the same
-seeds.  Only the model init and the minibatch draws come from torch
-generators; ``init_params=`` and ``data_draws=`` replace them so a test can
-replay the reference's threefry draws.
+Two drivers run that loop (``ServerConfig.driver``), as in the reference:
+
+  host  (default) one Python iteration per round.  With the default
+        ``rng_impl`` ("" = "numpy") everything but step (3) is numpy
+        float64 on the host, copied from the reference's host driver, so
+        the port reproduces selection, workloads, budgets and L/H/theta
+        bit for bit from the same seeds; only the model init and the
+        minibatch draws come from torch generators, and ``init_params=``
+        and ``data_draws=`` replace them so a test can replay the
+        reference's threefry draws.  With ``rng_impl="device"`` the whole
+        server step runs on the device instead, one round at a time
+        (``RoundEngine.make_device_round``: the float32 twins of
+        prediction, Gumbel-top-k selection and the workload draws), with
+        one host pull of the round's stats: arithmetically the scan
+        driver's round.
+  scan  the fast path: the same device round over blocks of
+        ``block_size`` rounds, with one host pull of the block's stats
+        (``host_syncs`` == blocks + evals) and the test-set eval at most
+        once a block, at block ends where ``eval_every`` made a round due.
+        On a CUDA device the round is captured once as a CUDA graph and
+        replayed once a round, with no host read inside a block
+        (``core.graphs``: any synchronizing call there raises); on the
+        CPU it runs eagerly.  The scan driver requires the device streams.
+
+The device streams are the port's own: torch generators on the server's
+device, one seeded from ``selection_seed`` for the heterogeneity normals
+and the selection's Gumbel noise (drawn in that order each round), and the
+minibatch generator seeded from ``seed``.  So a scan run is bitwise the
+host driver's run with ``rng_impl="device"`` and the same seeds, never
+the numpy host driver's.  ``device_draws(t) -> (z, g)`` or ``(z, g, u)``
+replaces round t's normals ``z`` [N], Gumbel noise ``g`` [N] and data
+uniforms ``u`` ([K, max_iters, B] iid, [K, max_n] shuffle); a dict with
+those keys may also give ``E`` [N], the affordable workloads themselves,
+in place of ``z``.  It is the seam the parity tests replay the
+reference's draws through, and the one that works inside a graph
+(``data_draws=`` reads the cohort on the host and is refused by the scan
+driver on a CUDA device).
 
 With ``upload_compress="topk_q8"`` every uploading client's delta is
 top-k sparsified and int8 quantised with error feedback
@@ -25,16 +56,14 @@ its device and replaces it with each round's output.
 ``ServerConfig`` has every field of the reference's, each at the
 reference's default.  ``backend`` takes "xla" and "pallas" and both run the
 same code: the port dispatches by device (the hand-written kernels on a
-CUDA tensor, their plain versions on a CPU one), not by backend.  Every
-aggregator of the reference's registry runs, with ``trim_ratio``,
-``agg_weighted`` and ``n_byzantine`` passed to it as the reference passes
-them.  Not ported yet, and refused with a ValueError naming the ROADMAP
-item when set to anything but the default: the scan driver, device rng
-streams, mesh sharding, capacity compaction, prefetch and the fused
-generic walk (A12), and the grouped sub-configs ``compute=``, ``comm=``
-and ``robustness=`` (A15).  Quarantine (``quarantine_threshold > 0``)
-needs the device rng streams and raises the reference's error, which
-names A12.
+CUDA tensor, their plain versions on the CPU), not by backend; so do
+``fused_generic=True`` and ``False`` (the device round walks every budget
+slot masked either way).  Every aggregator of the reference's registry
+runs, with ``trim_ratio``, ``agg_weighted`` and ``n_byzantine`` passed to
+it as the reference passes them.  Not ported yet, and refused with a
+ValueError naming the ROADMAP item when set to anything but the default:
+mesh sharding, capacity compaction and prefetch (A12 (ii)), and the
+grouped sub-configs ``compute=``, ``comm=`` and ``robustness=`` (A15).
 
 Failure handling, as in the reference: every failure the server
 tolerates funnels into the zero-budget crash branch of the Ira/Fassa
@@ -47,11 +76,16 @@ while the history observes a crash; the upload screen (``upload_screen``,
 on by default whenever faults are set) rejects the garbage before the
 aggregator, so the run's params, history, cohorts and residuals are
 bitwise its ``corrupt="crash"`` twin's.  ``sign_flip`` passes the screen
-and is left to the robust aggregators.  The fault draws are the port's
-own host stream (``faults.inject``); ``fault_draws=`` replaces them.
+and is left to the robust aggregators.  Quarantine
+(``quarantine_threshold > 0``; the screen and the device streams
+required) suspends repeat offenders from selection through the device
+Gumbel-top-k's eligibility mask.  The fault draws are the port's own host
+stream (``faults.inject``); ``fault_draws=`` replaces them (the device
+drivers copy a block's draws to the device once, before it).
 ``run(checkpoint_dir=, checkpoint_every=, resume=)`` writes atomic
 whole-server checkpoints and resumes from the latest bitwise
-(``repro_torch.checkpoint``).
+(``repro_torch.checkpoint``); the scan driver checkpoints at block
+boundaries.
 
 Telemetry (``repro_torch.obs``), as in the reference: every executed
 round becomes a :class:`~repro_torch.obs.schema.RoundRecord`, built by
@@ -61,8 +95,9 @@ into the caller's ``sink=`` (e.g. a ``JsonlSink``).  A sink switches
 telemetry on unless ``telemetry=False``; then each record also carries the
 per-client upload outcomes, the upload-byte ledger and the loss and
 workload histograms, computed in numpy from the losses the round has
-already pulled, so ``host_syncs`` (device-to-host pulls) and the run's
-bits are the same with telemetry on or off.
+already pulled (the device drivers compute them on the device, into the
+stats the round or block pulls anyway), so ``host_syncs`` (device-to-host
+pulls) and the run's bits are the same with telemetry on or off.
 """
 from __future__ import annotations
 
@@ -81,6 +116,7 @@ from repro_torch.core import compression as comp
 from repro_torch.core import prediction as pred
 from repro_torch.core.aggregation import get_aggregator
 from repro_torch.core.engine import RoundEngine
+from repro_torch.core.graphs import RoundProgram, sync_checked
 from repro_torch.core.heterogeneity import HeterogeneitySim
 from repro_torch.core.rounds import make_eval_fn
 from repro_torch.core.selection import (ValueTracker, get_selection,
@@ -88,33 +124,27 @@ from repro_torch.core.selection import (ValueTracker, get_selection,
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
 from repro_torch.faults.inject import (apply_availability_stragglers,
-                                       round_fault_draws)
+                                       block_fault_draws, round_fault_draws)
 from repro_torch.models.fl_models import resolve_local_step
 from repro_torch.obs.schema import (HISTORY_KEYS, LOSS_HIST_BINS,
                                     LOSS_HIST_MAX, WORKLOAD_HIST_BINS,
                                     RoundRecord, histogram_counts,
-                                    record_from_row)
+                                    record_from_row,
+                                    records_from_block_stats)
 from repro_torch.obs.sinks import NullSink, RingBufferSink, Sink
 
 ALGOS = ("ira", "fassa", "fedavg", "fedprox", "oracle")
-
-_A12 = "A12 (device-resident multi-round driver)"
+DRIVERS = ("host", "scan")
+RNG_IMPLS = ("numpy", "device")
 
 #: un-ported ServerConfig features: field -> (default, ROADMAP item)
 _NOT_PORTED = {
-    "driver": ("host", _A12),
-    "block_size": (16, _A12),
-    "mesh_shards": (0, "A12 (client-axis sharding)"),
-    "cohort_capacity": ("full", "A12 (capacity compaction)"),
-    "prefetch": ("off", "A12 (double-buffered prefetch)"),
-    "fused_generic": (True, _A12),
+    "mesh_shards": (0, "A12 (ii) (client-axis sharding)"),
+    "cohort_capacity": ("full", "A12 (ii) (capacity compaction)"),
+    "prefetch": ("off", "A12 (ii) (double-buffered prefetch)"),
     "compute": (None, "A15 (grouped config surface)"),
     "comm": (None, "A15 (grouped config surface)"),
     "robustness": (None, "A15 (grouped config surface)"),
-}
-#: values the port accepts for fields whose other values are not ported
-_ACCEPTED = {
-    "rng_impl": (("", "numpy"), "A12 (device rng streams)"),
 }
 UPLOAD_SCREENS = ("auto", "on", "off")
 BACKENDS = ("xla", "pallas")
@@ -170,18 +200,22 @@ class ServerConfig:
                                  # "off" (faults.screen)
     screen_norm_bound: float = 1e4  # reject uploads whose delta l2 norm
                                     # exceeds this (and non-finite ones)
-    quarantine_threshold: float = 0.0  # > 0 needs the device rng streams
-                                       # (ROADMAP A12) and raises
+    quarantine_threshold: float = 0.0  # suspend clients whose screened-
+                                       # failure rate exceeds this (0 =
+                                       # off; needs the screen and the
+                                       # device rng streams)
     quarantine_rounds: int = 16
     quarantine_min_tries: int = 3
-    # reference features not ported yet (must stay at their defaults)
-    driver: str = "host"
+    driver: str = "host"         # host | scan (blocks of block_size rounds,
+                                 # one stats pull a block)
     block_size: int = 16
-    rng_impl: str = ""           # "" | numpy (the host driver's streams)
+    rng_impl: str = ""           # "" auto (numpy on host, device on scan)
+                                 # | numpy | device
+    fused_generic: bool = True   # True and False run the same walk
+    # reference features not ported yet (must stay at their defaults)
     mesh_shards: int = 0
     cohort_capacity: object = "full"
     prefetch: str = "off"
-    fused_generic: bool = True
     compute: object = None
     comm: object = None
     robustness: object = None
@@ -190,10 +224,6 @@ class ServerConfig:
         for name, (default, item) in _NOT_PORTED.items():
             value = getattr(self, name)
             if value is not default and value != default:
-                raise _refuse(f"ServerConfig.{name}={value!r}", item)
-        for name, (ok, item) in _ACCEPTED.items():
-            value = getattr(self, name)
-            if value not in ok:
                 raise _refuse(f"ServerConfig.{name}={value!r}", item)
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; choose "
@@ -227,9 +257,12 @@ class FedSAEServer:
     the device generator's.  ``fault_draws(t)`` returns round t's fault
     draws as ``faults.round_fault_draws`` does (``slowdown`` float32 [N],
     ``dropout`` and ``corrupt`` bool [N], each None when its axis is off)
-    in place of the port's fault stream.  ``sink`` receives every round's
-    record; ``telemetry`` (default: on iff a sink is given) adds the
-    extras."""
+    in place of the port's fault stream.  ``device_draws(t)`` returns
+    round t's ``(z, g)``, ``(z, g, u)`` or a dict of them (``E`` in
+    place of ``z``), numpy float32, in place of the device streams' (see
+    the module docstring).  ``sink`` receives every
+    round's record; ``telemetry`` (default: on iff a sink is given) adds
+    the extras."""
 
     def __init__(self, dataset: FederatedDataset, model=None,
                  cfg: Optional[ServerConfig] = None,
@@ -238,8 +271,19 @@ class FedSAEServer:
                  data_draws: Optional[Callable] = None,
                  sink: Optional[Sink] = None,
                  telemetry: Optional[bool] = None,
-                 fault_draws: Optional[Callable] = None):
+                 fault_draws: Optional[Callable] = None,
+                 device_draws: Optional[Callable] = None):
         cfg = cfg if cfg is not None else ServerConfig()
+        if cfg.driver not in DRIVERS:
+            raise ValueError(
+                f"unknown driver {cfg.driver!r}; choose from {DRIVERS}")
+        self.rng_impl = cfg.rng_impl or (
+            "device" if cfg.driver == "scan" else "numpy")
+        if self.rng_impl not in RNG_IMPLS:
+            raise ValueError(f"unknown rng_impl {cfg.rng_impl!r}; choose "
+                             f"from {RNG_IMPLS}")
+        if cfg.driver == "scan" and self.rng_impl != "device":
+            raise ValueError("driver='scan' requires the device rng streams")
         # "auto" turns the upload screen on exactly when a fault model is
         # configured, so fault-free runs keep the plain round
         if cfg.upload_screen not in UPLOAD_SCREENS:
@@ -248,20 +292,26 @@ class FedSAEServer:
                 f"from {UPLOAD_SCREENS}")
         self.screening = cfg.upload_screen == "on" or (
             cfg.upload_screen == "auto" and cfg.faults is not None)
-        if float(cfg.quarantine_threshold or 0.0) > 0.0:
+        self._quarantine = float(cfg.quarantine_threshold or 0.0) > 0.0
+        if self._quarantine:
             if not self.screening:
                 raise ValueError(
                     "quarantine_threshold > 0 requires the upload screen "
                     "(it counts screened failures) — set upload_screen="
                     "'on' or configure faults")
-            raise ValueError(
-                "quarantine needs the device rng streams (eligibility "
-                "masks thread through the device Gumbel-top-k); set "
-                "rng_impl='device', which is not ported yet (ROADMAP "
-                f"{_A12})")
-        self.rng_impl = "numpy"               # the host driver's streams
+            if self.rng_impl != "device":
+                raise ValueError(
+                    "quarantine needs the device rng streams (eligibility "
+                    "masks thread through the device Gumbel-top-k); set "
+                    "rng_impl='device'")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        self.graphed = cfg.driver == "scan" and self.device.type == "cuda"
+        if self.graphed and data_draws is not None:
+            raise ValueError(
+                "data_draws= reads the cohort on the host, which a captured "
+                "scan round cannot; inject the data uniforms through "
+                "device_draws=")
         self.ds = dataset
         self.model = resolve_local_step(
             model if model is not None else cfg.model, dataset)
@@ -271,16 +321,19 @@ class FedSAEServer:
         self.H = np.full(N, cfg.init_pair[1], np.float64)
         self.theta = np.full(N, 0.5 * sum(cfg.init_pair), np.float64)
         self.values = ValueTracker(N, dataset.sizes.astype(np.float64))
-        # reliability quarantine counters: carried (and checkpointed) as
-        # the reference's host mirrors; nothing updates them until the
-        # device rng streams (ROADMAP A12) let quarantine run
+        # reliability quarantine counters (host mirrors; the device drivers
+        # carry them on the device and sync them back with the history)
         self.q_fail = np.zeros(N, np.int32)
         self.q_try = np.zeros(N, np.int32)
         self.q_susp = np.zeros(N, np.int32)
         self.sel_rng = np.random.default_rng(cfg.selection_seed)
         self.data_gen = torch.Generator(self.device).manual_seed(cfg.seed)
+        # the device streams' selection + heterogeneity generator
+        self.sel_gen = torch.Generator(self.device).manual_seed(
+            cfg.selection_seed)
         self.data_draws = data_draws
         self.fault_draws = fault_draws
+        self.device_draws = device_draws
         # per-client diurnal phase offsets (seeded, drawn once)
         self._phases = (cfg.faults.phases(N) if cfg.faults is not None
                         else None)
@@ -322,7 +375,10 @@ class FedSAEServer:
             sampling=cfg.sampling)
         self.select_fn = get_selection(cfg.selection)
         self.eval_fn = make_eval_fn(self.model)
+        self.block_size = max(1, int(cfg.block_size))
+        self.program: Optional[RoundProgram] = None   # the device round
         self.cohorts: List[np.ndarray] = []
+        self.budgets: List[np.ndarray] = []   # [K] n_iters per round
         self.sink: Sink = sink if sink is not None else NullSink()
         self.telemetry = (bool(telemetry) if telemetry is not None
                           else sink is not None)
@@ -414,7 +470,160 @@ class FedSAEServer:
         return E_true_all, ids
 
     # ------------------------------------------------------------------
+    # the device drivers: the server step on the device (core.graphs)
+    # ------------------------------------------------------------------
+    def device_state(self) -> Dict:
+        """The device round's carry, built from the host-side state
+        (float32 history and values, int32 quarantine counters)."""
+        dev, f32 = self.device, torch.float32
+        state = {
+            "params": self.params,
+            "L": torch.as_tensor(self.L).to(dev, f32),
+            "H": torch.as_tensor(self.H).to(dev, f32),
+            "theta": torch.as_tensor(self.theta).to(dev, f32),
+            "values": torch.as_tensor(self.values.v).to(dev, f32),
+        }
+        if self._quarantine:
+            for name in ("q_fail", "q_try", "q_susp"):
+                state[name] = torch.as_tensor(
+                    getattr(self, name)).to(dev, torch.int32)
+        if self.residual is not None:
+            state["residual"] = self.residual
+        return state
+
+    def _absorb_state(self, state: Dict):
+        """Copy the device carry back into the host-side state (float64
+        containers hold the float32 values exactly)."""
+        self.params = {k: v.clone() for k, v in state["params"].items()}
+        for name in ("L", "H", "theta"):
+            setattr(self, name, state[name].cpu().numpy().astype(np.float64))
+        self.values.v = state["values"].cpu().numpy().astype(np.float64)
+        if self._quarantine:
+            for name in ("q_fail", "q_try", "q_susp"):
+                setattr(self, name, state[name].cpu().numpy())
+        if self.residual is not None:
+            self.residual = state["residual"].clone()
+
+    def _program_loaded(self) -> RoundProgram:
+        """The device round program, built on first use, its carry loaded
+        from the host-side state."""
+        if self.program is None:
+            cfg = self.cfg
+            mu, sigma = self.het.device_params(self.device)
+            phases = (None if self._phases is None
+                      else torch.as_tensor(self._phases).to(self.device))
+            one_round = self.engine.make_device_round(
+                self.model, cfg.batch_size, self.max_iters, self.packed, cfg,
+                mu=mu, sigma=sigma, sel_gen=self.sel_gen,
+                data_gen=self.data_gen, phases=phases,
+                telemetry=self.telemetry, data_draws=self.data_draws)
+            self.program = RoundProgram(
+                one_round, self.device_state(),
+                self.block_size if self.cfg.driver == "scan" else 1,
+                self.device, graphed=self.graphed,
+                generators=(self.sel_gen, self.data_gen))
+        else:
+            self.program.load(self.device_state())
+        return self.program
+
+    def _block_inputs(self, t0: int, b: int) -> Dict[str, np.ndarray]:
+        """Rounds t0 .. t0 + b - 1's injected inputs, stacked: the fault
+        draws and ``device_draws``'s (z, g[, u])."""
+        out = {}
+        if self.cfg.faults is not None:
+            out.update(block_fault_draws(self.cfg.faults, t0, b,
+                                         self.ds.n_clients,
+                                         self.fault_draws))
+        if self.device_draws is not None:
+            rows = [self.device_draws(t) for t in range(t0, t0 + b)]
+            rows = [r if isinstance(r, dict) else dict(zip("zgu", r))
+                    for r in rows]
+            for name in rows[0]:
+                out[name] = np.stack([np.asarray(r[name], np.float32)
+                                      for r in rows])
+        return out
+
+    def _take_block(self, stats: Dict, t0: int, b: int):
+        """Records (acc and test_loss left for the caller), cohorts and
+        budgets of a pulled block of stats."""
+        self.cohorts.extend(np.asarray(stats["ids"]))
+        self.budgets.extend(np.asarray(stats["n_iters"]))
+        return records_from_block_stats(stats, t0, b)
+
+    def _device_round(self, t: int) -> RoundRecord:
+        """Round t on the device, eagerly (the host driver with
+        ``rng_impl="device"``): one pull of its stats."""
+        prog = self.program
+        prog.begin_block(t, self._block_inputs(t, 1))
+        prog.run(1)
+        stats = prog.pull(1)
+        self.host_syncs += 1
+        return self._take_block(stats, t, 1)[0]
+
+    def _run_scan(self, T: int, verbose: bool, t_start: int,
+                  checkpoint_dir: Optional[str], checkpoint_every: int):
+        """The scan driver: blocks of ``block_size`` rounds, one stats pull
+        a block, the eval at block ends where a round was due."""
+        cfg = self.cfg
+        prog = self._program_loaded()
+        t0 = t_start
+        while t0 < T:
+            b = min(self.block_size, T - t0)
+            start = time.perf_counter()
+            inputs = self._block_inputs(t0, b)
+            if prog.graphed and prog.graph is None:
+                prog.begin_block(t0, inputs)
+                prog.capture()                # synchronizes: outside
+            with sync_checked(self.device):   # no host read in a block
+                prog.begin_block(t0, inputs)
+                prog.run(b)
+            stats = prog.pull(b)              # the block's one host pull
+            self.host_syncs += 1
+            recs = self._take_block(stats, t0, b)
+            due = (t0 + b == T) or any(
+                (t0 + i) % cfg.eval_every == 0 for i in range(b))
+            prev = self._records.last
+            prev_acc = prev.acc if prev is not None else float("nan")
+            acc, tl = prev_acc, float("nan")
+            if due:
+                acc, tl = self.eval_fn(prog.carry["params"], self.test_x,
+                                       self.test_y)
+                acc, tl = float(acc), float(tl)
+                self.host_syncs += 1          # ...plus the eval readback
+            wall = time.perf_counter() - start
+            for i, rec in enumerate(recs):
+                last = i == b - 1
+                rec.acc = acc if last else prev_acc
+                rec.test_loss = tl if last else float("nan")
+                rec.wall_time_s = wall / b
+                self._emit_round(rec)
+            if verbose:
+                print(f"[{cfg.algo}/scan] rounds {t0:3d}-{t0 + b - 1:3d} "
+                      f"acc={acc:.3f} dropout={recs[-1].dropout:.2f} "
+                      f"loss={recs[-1].train_loss:.3f}")
+            t0 += b
+            if checkpoint_dir and (
+                    (checkpoint_every > 0 and t0 % checkpoint_every == 0)
+                    or t0 == T):
+                # block boundaries only: align checkpoint_every with
+                # block_size for a resumed run's eval cadence to match
+                self._absorb_state(prog.carry)
+                save_server_state(self, checkpoint_dir, t0)
+        self._absorb_state(prog.carry)
+        return self.history
+
+    # ------------------------------------------------------------------
     def run_round(self, t: int) -> Dict:
+        """Round t on the host driver; returns its stats row.  With
+        ``rng_impl="device"`` the round runs on the device and the
+        host-side state is synced back after it."""
+        if self.rng_impl == "device":
+            self._program_loaded()
+            rec = self._device_round(t)
+            self._absorb_state(self.program.carry)
+            row = dataclasses.asdict(rec)
+            row["n_iters"] = self.budgets[-1]
+            return row
         cfg = self.cfg
         fm = cfg.faults
         fd = self._round_fault_draws(t)
@@ -471,6 +680,7 @@ class FedSAEServer:
             # the observed upload set: screened rows count as crashes
             uploaders = uploaders & ~corrupt
         self.cohorts.append(np.asarray(ids))
+        self.budgets.append(n_iters.astype(np.int32))
         if uploaders.any():
             self.values.update(ids[uploaders], losses[uploaders])
         stats = {
@@ -522,18 +732,27 @@ class FedSAEServer:
             if not checkpoint_dir:
                 raise ValueError("resume=True requires checkpoint_dir")
             t_start = restore_server_state(self, checkpoint_dir)
+        if self.cfg.driver == "scan":
+            return self._run_scan(T, verbose, t_start, checkpoint_dir,
+                                  int(checkpoint_every))
+        device = self.rng_impl == "device"
+        prog = self._program_loaded() if device else None
         for t in range(t_start, T):
             start = time.perf_counter()
-            row = self.run_round(t)
+            if device:
+                rec = self._device_round(t)
+                params = prog.carry["params"]
+            else:
+                rec = record_from_row(t, self.run_round(t))
+                params = self.params
             if t % self.cfg.eval_every == 0 or t == T - 1:
-                acc, tl = self.eval_fn(self.params, self.test_x, self.test_y)
-                row["acc"], row["test_loss"] = float(acc), float(tl)
+                acc, tl = self.eval_fn(params, self.test_x, self.test_y)
+                rec.acc, rec.test_loss = float(acc), float(tl)
             else:
                 prev = self._records.last
-                row["acc"] = prev.acc if prev is not None else float("nan")
-                row["test_loss"] = float("nan")
-            row["wall_time_s"] = time.perf_counter() - start
-            rec = record_from_row(t, row)
+                rec.acc = prev.acc if prev is not None else float("nan")
+                rec.test_loss = float("nan")
+            rec.wall_time_s = time.perf_counter() - start
             self._emit_round(rec)
             if verbose and (t % 10 == 0 or t == T - 1):
                 print(f"[{self.cfg.algo}] round {t:3d} acc={rec.acc:.3f} "
@@ -542,5 +761,9 @@ class FedSAEServer:
             if checkpoint_dir and (
                     (checkpoint_every > 0
                      and (t + 1) % checkpoint_every == 0) or t + 1 == T):
+                if device:
+                    self._absorb_state(prog.carry)
                 save_server_state(self, checkpoint_dir, t + 1)
+        if device:
+            self._absorb_state(prog.carry)
         return self.history

@@ -17,6 +17,12 @@ same axes as ``fold_in(fold_in(PRNGKey(seed), t), axis)``, threefry bits
 torch cannot replay; ``FedSAEServer(fault_draws=)`` takes the reference's
 masks and slowdowns in place of these.
 
+The device drivers read the same draws from the device: before each
+block of rounds ``block_fault_draws`` stacks rounds t0 .. t0 + b - 1 (or
+``fault_draws=``'s) into [b, N] tensors, copied to the device once, and
+``apply_availability_stragglers_device`` is the float32 twin of the
+workload shaping with the round index on the device.
+
 ``inject_upload_faults`` is the wire-corruption primitive: given the
 stacked post-SGD uploads it overwrites the corrupt rows with the mode's
 garbage.  It runs at the engine's upload-transform seam, never inside
@@ -110,6 +116,35 @@ def apply_availability_stragglers(fm: FaultModel, phases, t: int,
     return E_all
 
 
+def apply_availability_stragglers_device(fm: FaultModel, phases, t, E_all,
+                                         slowdown=None):
+    """Float32 twin of :func:`apply_availability_stragglers` on the device:
+    ``E_all / slowdown`` (float32 [N]), then off-duty clients zeroed.
+    ``phases`` is the int32 [N] tensor of ``fm.phases``; ``t`` the round
+    index, an int or a 0-d device tensor."""
+    if fm.straggler == "pareto":
+        E_all = E_all / slowdown
+    if fm.availability == "diurnal":
+        E_all = torch.where(availability_mask(fm, phases, t), E_all, 0.0)
+    return E_all
+
+
+def block_fault_draws(fm: FaultModel, t0: int, b: int, n_clients: int,
+                      fault_draws=None) -> Dict:
+    """Rounds ``t0 .. t0 + b - 1``'s draws stacked per axis: ``slowdown``
+    float32 [b, N], ``dropout`` and ``corrupt`` bool [b, N] (numpy; an
+    axis that is off is absent).  ``fault_draws(t)`` replaces
+    :func:`round_fault_draws` as in ``FedSAEServer(fault_draws=)``."""
+    draw = fault_draws or (lambda t: round_fault_draws(fm, t, n_clients))
+    rows = [draw(t) for t in range(t0, t0 + b)]
+    out = {}
+    for name, dtype in (("slowdown", np.float32), ("dropout", bool),
+                        ("corrupt", bool)):
+        if rows[0].get(name) is not None:
+            out[name] = np.stack([np.asarray(r[name], dtype) for r in rows])
+    return out
+
+
 def inject_upload_faults(params_k, global_params, mask, mode: str,
                          factor: float = 1e8):
     """Overwrite the masked rows of a stacked upload with garbage.
@@ -135,9 +170,8 @@ def inject_upload_faults(params_k, global_params, mask, mode: str,
             garbage = torch.full_like(p, float("inf"))
         elif mode == "sign_flip":
             garbage = 2.0 * g - p
-        else:  # explode
-            garbage = g + torch.tensor(factor, dtype=p.dtype,
-                                       device=p.device) * (p - g)
+        else:  # explode: the factor rounded to p's dtype, as a scalar
+            garbage = g + float(torch.tensor(factor, dtype=p.dtype)) * (p - g)
         return torch.where(m, garbage, p)
 
     return tree_map(row, params_k, global_params)

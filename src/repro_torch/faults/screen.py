@@ -24,20 +24,27 @@ FL model) and sanitizes in place, copying the global params into the
 rejected rows only, so a full-width silo stack is screened without a
 second copy.  That needs the [K] verdict on the host: one read a round.
 
+``screen_uploads_device`` is the form of the device drivers
+(``rng_impl="device"``, ``driver="scan"``), which may not read the host
+between two stats pulls: the same verdicts, ``bad`` kept on the device,
+and each rejected row replaced by the global row through ``torch.where``
+over the whole [K, ...] stack (a new stack; at most ~57k coordinates a
+row on the FL paths).
+
 ``quarantine_update`` and ``eligibility`` are the reliability layer on
 top: per-client attempted / screened-failure counters; a client whose
 failure rate crosses the threshold is suspended from selection for
 ``quarantine_rounds`` rounds (its counters reset on trip, so it re-earns
-trust after the suspension).  They are pure torch functions; the port's
-host driver does not call them (quarantine needs the device rng streams,
-ROADMAP A12).
+trust after the suspension).  They are pure torch functions of a round
+index ``t`` that may be a Python int or a 0-d device tensor; the device
+drivers call them (quarantine masks the device Gumbel-top-k).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 #: the most bytes of a leaf's rows the screen reads in one piece
 SCREEN_CHUNK_BYTES = 256 * 2 ** 20
@@ -81,9 +88,7 @@ def screen_uploads(global_params, params_k, weights, norm_bound: float):
                 d, ord=float("inf"), dim=1), out=amax[part])
             sq[part] += torch.sum(d.square_(), dim=1)
             del d
-    bound_sq = float(np.float32(norm_bound) ** np.float32(2))
-    bad = (weights > 0) & (torch.isnan(sq) | torch.isinf(amax)
-                           | (sq > bound_sq))
+    bad = _row_verdicts(amax, sq, weights, norm_bound)
     bad_host = bad.cpu()                      # the screen's one host read
     rows = [k for k, b in enumerate(bad_host.tolist()) if b]
     with torch.no_grad():
@@ -92,6 +97,41 @@ def screen_uploads(global_params, params_k, weights, norm_bound: float):
                 p[k].copy_(g)
     return params_k, torch.where(bad, torch.zeros_like(weights),
                                  weights), bad_host
+
+
+def _row_verdicts(amax, sq, weights, norm_bound: float):
+    """bool [K]: uploading rows (weight > 0) that are non-finite (sum of
+    squares NaN or inf-norm infinite) or whose float32 sum of squared
+    deltas exceeds ``norm_bound ** 2``."""
+    bound_sq = float(np.float32(norm_bound) ** np.float32(2))
+    return (weights > 0) & (torch.isnan(sq) | torch.isinf(amax)
+                            | (sq > bound_sq))
+
+
+def screen_uploads_device(global_params, params_k, weights,
+                          norm_bound: float):
+    """``screen_uploads`` without a host read.  Returns ``(params_k_clean,
+    weights_clean, bad)``: a new stack whose rejected rows hold the global
+    params, the weights with those rows at 0, and ``bad`` [K] bool on the
+    device.  The verdicts are ``screen_uploads``'s."""
+    leaves_k = tree_leaves(params_k)
+    leaves_g = tree_leaves(global_params)
+    K = weights.shape[0]
+    amax = torch.zeros((K,), dtype=torch.float32, device=weights.device)
+    sq = torch.zeros((K,), dtype=torch.float32, device=weights.device)
+    for p, g in zip(leaves_k, leaves_g):
+        d = (p - g).reshape(K, -1).to(torch.float32)
+        amax = torch.maximum(amax, torch.linalg.vector_norm(
+            d, ord=float("inf"), dim=1))
+        sq = sq + torch.sum(d.square_(), dim=1)
+    bad = _row_verdicts(amax, sq, weights, norm_bound)
+
+    def clean(p, g):
+        m = bad.reshape((-1,) + (1,) * (p.dim() - 1))
+        return torch.where(m, g.expand_as(p), p)
+
+    return (tree_map(clean, params_k, global_params),
+            torch.where(bad, torch.zeros_like(weights), weights), bad)
 
 
 def quarantine_update(fail, tries, susp_until, ids, attempted, failed, t,
@@ -105,7 +145,7 @@ def quarantine_update(fail, tries, susp_until, ids, attempted, failed, t,
     ids           int [K] selected clients (unique within a round)
     attempted     bool [K] rows that delivered an upload to the screen
     failed        bool [K] rows the screen rejected
-    t             current round index
+    t             current round index (an int or a 0-d device tensor)
 
     A client trips when it has at least ``min_tries`` attempts on record
     and its failure rate exceeds ``threshold``; tripping suspends it until
@@ -114,20 +154,18 @@ def quarantine_update(fail, tries, susp_until, ids, attempted, failed, t,
     (an int32 scalar tensor) counts clients serving a suspension after
     this update.
     """
-    i32, dev = torch.int32, tries.device
+    i32 = torch.int32
     ids = ids.long()
     tries = tries.index_add(0, ids, attempted.to(i32))
     fail = fail.index_add(0, ids, failed.to(i32))
     trip = ((tries >= min_tries)
             & (fail.to(torch.float32)
-               > torch.tensor(threshold, dtype=torch.float32, device=dev)
-               * tries.to(torch.float32)))
-    susp_until = torch.where(
-        trip, torch.tensor(int(t) + 1 + int(quarantine_rounds), dtype=i32,
-                           device=dev), susp_until)
-    zero = torch.zeros((), dtype=i32, device=dev)
-    tries = torch.where(trip, zero, tries)
-    fail = torch.where(trip, zero, fail)
+               > float(np.float32(threshold)) * tries.to(torch.float32)))
+    until = (t + (1 + int(quarantine_rounds))).to(i32) if torch.is_tensor(t) \
+        else int(t) + 1 + int(quarantine_rounds)
+    susp_until = torch.where(trip, until, susp_until)
+    tries = torch.where(trip, 0, tries)
+    fail = torch.where(trip, 0, fail)
     n_susp = (susp_until > t).sum(dtype=i32)
     return fail, tries, susp_until, n_susp
 

@@ -27,6 +27,15 @@
       --rounds 5 --metrics-out run.jsonl --trace-dir trace/
   PYTHONPATH=src python -m repro_torch.launch.fl_report run.jsonl
 
+  # the scan driver: blocks of 16 rounds, one host sync a block (on the
+  # card each round is one CUDA-graph replay); with quarantine of the
+  # clients whose uploads the screen keeps rejecting:
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --dataset femnist \
+      --paper-scale --sampling iid --rounds 64 --driver scan --block-size 16
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
+      --driver scan --block-size 4 --faults nan_upload --fault-prob 0.3 \
+      --quarantine-threshold 0.3
+
   # NaN uploads from 30% of the clients, caught by the upload screen, with
   # a checkpoint every 2 rounds; then resume the run from the latest:
   PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
@@ -144,6 +153,7 @@ def build_server(args, sink=None) -> FedSAEServer:
                        sampling=args.sampling, model=args.model,
                        upload_compress=args.compress,
                        topk_frac=args.topk_frac, backend=args.backend,
+                       driver=args.driver, block_size=args.block_size,
                        faults=build_faults(args), upload_screen=args.screen,
                        screen_norm_bound=args.screen_norm_bound,
                        quarantine_threshold=args.quarantine_threshold,
@@ -212,8 +222,8 @@ FAULT_MODES = {"none": "none", "crash": "crash", "nan_upload": "nan",
 
 #: reference flags the port takes at their default only: dest -> ROADMAP
 #: item
-NOT_PORTED = dict.fromkeys(("driver", "block_size", "shards",
-                            "cohort_capacity", "prefetch"), "A12")
+NOT_PORTED = dict.fromkeys(("shards", "cohort_capacity", "prefetch"),
+                           "A12 (ii)")
 
 
 def parse_capacity(spec: str):
@@ -262,8 +272,9 @@ def make_parser() -> argparse.ArgumentParser:
                          "card, their plain versions on the CPU")
     ap.add_argument("--driver", default="host", choices=("host", "scan"),
                     help="round loop driver: host runs one python iteration "
-                         "per round; scan (ROADMAP A12) fuses --block-size "
-                         "rounds with a single host sync per block")
+                         "per round; scan runs --block-size rounds on the "
+                         "device with a single host sync per block (on the "
+                         "card, one CUDA-graph replay a round)")
     ap.add_argument("--block-size", type=int, default=16,
                     help="rounds per fused segment (driver=scan)")
     ap.add_argument("--shards", type=int, default=0,
@@ -328,8 +339,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--quarantine-threshold", type=float, default=0.0,
                     help="> 0: suspend clients whose screened-upload rate "
                          "exceeds this fraction of their attempts for "
-                         "--quarantine-rounds rounds (needs the device rng "
-                         "streams, ROADMAP A12)")
+                         "--quarantine-rounds rounds (needs the screen and "
+                         "the device rng streams: --driver scan)")
     ap.add_argument("--quarantine-rounds", type=int, default=16)
     ap.add_argument("--quarantine-min-tries", type=int, default=3)
     ap.add_argument("--checkpoint-dir", default=None,
@@ -371,10 +382,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if value != ap.get_default(dest):
             flag = "--" + dest.replace("_", "-")
             ap.error(f"{flag} {value!r} is not ported yet (ROADMAP {item})")
-    if args.quarantine_threshold > 0:
-        ap.error(f"--quarantine-threshold {args.quarantine_threshold!r} "
-                 "needs the device rng streams, which are not ported yet "
-                 "(ROADMAP A12)")
     if args.model is not None and args.model not in LOCAL_STEPS:
         ap.error(f"--model {args.model} is not ported yet (ROADMAP "
                  "A13 (iii))")

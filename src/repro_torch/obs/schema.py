@@ -205,8 +205,8 @@ def record_from_row(t: int, row: Mapping) -> RoundRecord:
 def records_from_block_stats(stats: Mapping, t0: int,
                              n_rounds: int) -> List[RoundRecord]:
     """Slice a block of per-round stats (per-key [block, ...] arrays, as
-    the reference's scan driver pulls them) into per-round records
-    ``t0 .. t0 + n_rounds - 1``."""
+    the device drivers pull them: ``core.graphs.RoundProgram.pull``) into
+    per-round records ``t0 .. t0 + n_rounds - 1``."""
     out = []
     for i in range(n_rounds):
         row = {k: np.asarray(v)[i] for k, v in stats.items()}

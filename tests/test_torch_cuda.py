@@ -17,16 +17,19 @@ the geometric median) with Krum's and Bulyan's chosen clients equal, and
 two card runs of one LSTM round must give the same bits.  A faulted
 federation on the card is bitwise its crash twin and a killed and resumed
 run bitwise the uninterrupted one; against the CPU with the same draws it
-picks the same cohorts and budgets, params within 2e-5.  The three
-differentiable ops' gradients on the card are held against the same ops
-on the CPU (their plain versions) at 1e-4.  In bfloat16 the flash kernels run on the tensor cores and are also
-held to their rounding models (``ref.attention_lse_tc``,
-``ref.flash_attention_bwd_tc``, which round P and dS to bfloat16 where the
-kernels do) at rtol 2^-7 (one bfloat16 ulp) and atol 4e-3.  The fused
-cross-entropy's bfloat16 tensor-core backward (dlogits split into bf16 hi +
-lo, each gradient rounded once) is held per leaf to the plain recompute and
-to its rounding model ``ref.softmax_xent_bwd_tc`` at rtol 2^-7 and atol
-2^-9 max|want|.
+picks the same cohorts and budgets, params within 2e-5.  The scan driver's
+CUDA-graph replays are bitwise the host driver's eager device rounds
+(``rng_impl="device"``) with no host read inside a block, and a scan run
+killed and resumed at a block boundary is bitwise the uninterrupted one.
+The three differentiable ops' gradients on the card are held against the
+same ops on the CPU (their plain versions) at 1e-4.  In bfloat16 the
+flash kernels run on the tensor cores and are also held to their
+rounding models (``ref.attention_lse_tc``, ``ref.flash_attention_bwd_tc``,
+which round P and dS to bfloat16 where the kernels do) at rtol 2^-7 (one
+bfloat16 ulp) and atol 4e-3.  The fused cross-entropy's bfloat16
+tensor-core backward (dlogits split into bf16 hi + lo, each gradient
+rounded once) is held per leaf to the plain recompute and to its rounding
+model ``ref.softmax_xent_bwd_tc`` at rtol 2^-7 and atol 2^-9 max|want|.
 """
 import numpy as np
 import pytest
@@ -762,5 +765,80 @@ def test_cuda_kill_and_resume_bitwise(cuda_device, tmp_path):
     resumed = _fault_server(cuda_device, "mlp-topk_q8", "nan", rounds=4)
     resumed.run(checkpoint_dir=d, resume=True)
     _assert_servers_bitwise(full, resumed)
+    assert torch.equal(full.data_gen.get_state(),
+                       resumed.data_gen.get_state())
+
+
+def _scan_pair(device, path, corrupt=None, rounds=7, block=3, **over):
+    """The host driver with ``rng_impl="device"`` and the scan driver over
+    the same small federation, both run."""
+    host = _fault_server(device, path, corrupt, rounds=rounds,
+                         driver="host", rng_impl="device", block_size=block,
+                         **over)
+    scan = _fault_server(device, path, corrupt, rounds=rounds,
+                         driver="scan", block_size=block, **over)
+    host.run()
+    scan.run()
+    return host, scan
+
+
+def _assert_scan_bitwise(host, scan):
+    _assert_servers_bitwise(host, scan)
+    for b1, b2 in zip(host.budgets, scan.budgets):
+        assert np.array_equal(b1, b2)
+    for name in ("q_fail", "q_try", "q_susp"):
+        assert np.array_equal(getattr(host, name), getattr(scan, name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["mclr-iid", "mlp-topk_q8"])
+def test_cuda_scan_matches_host_device_rng(cuda_device, path):
+    """The scan driver's graph replays are bitwise the host driver's eager
+    device rounds over 3 blocks (3, 3 and a short 1): every replay draws
+    the next Philox offsets of the registered generators, so the cohorts
+    differ round to round and equal the eager run's; one stats pull and
+    one eval a block."""
+    host, scan = _scan_pair(cuda_device, path)
+    _assert_scan_bitwise(host, scan)
+    assert scan.program.graphed and scan.program.replays == 7
+    assert scan.host_syncs == 3 + 3
+    assert len({tuple(c) for c in scan.cohorts}) > 1
+    assert torch.equal(host.sel_gen.get_state(), scan.sel_gen.get_state())
+    assert torch.equal(host.data_gen.get_state(), scan.data_gen.get_state())
+
+
+@pytest.mark.cuda
+def test_cuda_scan_block_reads_nothing_on_the_host(cuda_device):
+    """A block of replays runs under ``set_sync_debug_mode("error")``
+    (``core.graphs.sync_checked``), which raises on any host read: the
+    faulted, screened, quarantining scan run passes through it, bitwise
+    its host twin, and the guard is live."""
+    from repro_torch.core.graphs import sync_checked
+    host, scan = _scan_pair(cuda_device, "mclr-iid", "nan",
+                            quarantine_threshold=0.3,
+                            quarantine_min_tries=1)
+    _assert_scan_bitwise(host, scan)
+    assert max(r.quarantined for r in scan._records.records) > 0
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with sync_checked(cuda_device):
+            torch.ones(1, device=cuda_device).sum().item()
+
+
+@pytest.mark.cuda
+def test_cuda_scan_kill_and_resume_bitwise(cuda_device, tmp_path):
+    """6 scan rounds in blocks of 3 against 3, a checkpoint at the block
+    boundary, a fresh server restored (both generators' states included)
+    and 3 more: bitwise."""
+    kw = dict(driver="scan", block_size=3)
+    full = _fault_server(cuda_device, "mlp-topk_q8", "nan", rounds=6, **kw)
+    full.run()
+    d = str(tmp_path / "ck")
+    _fault_server(cuda_device, "mlp-topk_q8", "nan", rounds=6, **kw).run(
+        rounds=3, checkpoint_dir=d)
+    resumed = _fault_server(cuda_device, "mlp-topk_q8", "nan", rounds=6,
+                            **kw)
+    resumed.run(checkpoint_dir=d, resume=True)
+    _assert_scan_bitwise(full, resumed)
+    assert torch.equal(full.sel_gen.get_state(), resumed.sel_gen.get_state())
     assert torch.equal(full.data_gen.get_state(),
                        resumed.data_gen.get_state())

@@ -533,7 +533,7 @@ def test_quarantine_needs_the_screen_and_device_rng():
     with pytest.raises(ValueError, match="requires the upload screen"):
         TServer(ds, cfg=TConfig(device="cpu", quarantine_threshold=0.5,
                                 upload_screen="off"))
-    with pytest.raises(ValueError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="needs the device rng streams"):
         TServer(ds, cfg=TConfig(
             device="cpu", quarantine_threshold=0.5,
             faults=FaultModel(corrupt="nan", corrupt_prob=0.2)))

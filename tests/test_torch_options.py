@@ -8,8 +8,9 @@ parser, and the keyword arguments of ``FedSAEServer.__init__`` and
 ``FedSAEServer.run``.  Each non-default value below is either one the port
 supports (it must be accepted) or one it refuses (``ValueError`` or
 ``NotImplementedError`` from the server, ``SystemExit`` from argparse, with
-"ROADMAP" in the message).  The telemetry, fault and checkpoint options
-are also driven through CPU rounds, which shows that they do their job.
+"ROADMAP" and the item in the message).  The telemetry, fault, checkpoint
+and device-driver options are also driven through CPU rounds, which shows
+that they do their job.
 """
 import argparse
 import dataclasses
@@ -59,12 +60,12 @@ FIELD_CASES = {
     "selection": [("active", OK), ("loss_proportional", OK)],
     "sampling": [("iid", OK)],
     "backend": [("pallas", OK)],
-    "driver": [("scan", REFUSED)],
-    "block_size": [(8, REFUSED)],
+    "driver": [("scan", OK)],
+    "block_size": [(8, OK)],
     "mesh_shards": [(2, REFUSED)],
     "cohort_capacity": [("auto", REFUSED), (4, REFUSED)],
     "prefetch": [("double_buffer", REFUSED)],
-    "fused_generic": [(False, REFUSED)],
+    "fused_generic": [(False, OK)],
     "upload_compress": [("topk_q8", OK)],
     "topk_frac": [(0.2, OK)],
     "agg_weighted": [(True, OK)],
@@ -72,10 +73,10 @@ FIELD_CASES = {
     "faults": [(FaultModel(corrupt="crash"), OK)],
     "upload_screen": [("off", OK), ("on", OK)],
     "screen_norm_bound": [(10.0, OK)],
-    "quarantine_threshold": [(0.5, REFUSED)],
+    "quarantine_threshold": [(0.5, OK)],
     "quarantine_rounds": [(4, OK)],
     "quarantine_min_tries": [(1, OK)],
-    "rng_impl": [("numpy", OK), ("device", REFUSED)],
+    "rng_impl": [("numpy", OK), ("device", OK)],
     "seed": [(3, OK)],
     "selection_seed": [(7, OK)],
     "eval_every": [(2, OK)],
@@ -102,8 +103,8 @@ FLAG_CASES = {
     "--lr": [("0.1", OK)],
     "--sampling": [("iid", OK)],
     "--backend": [("pallas", OK)],
-    "--driver": [("scan", REFUSED)],
-    "--block-size": [("8", REFUSED)],
+    "--driver": [("scan", OK)],
+    "--block-size": [("8", OK)],
     "--shards": [("2", REFUSED)],
     "--cohort-capacity": [("auto", REFUSED), ("4", REFUSED)],
     "--prefetch": [("double_buffer", REFUSED)],
@@ -121,7 +122,7 @@ FLAG_CASES = {
     "--pareto-alpha": [("3", OK)],
     "--screen": [("off", OK), ("on", OK)],
     "--screen-norm-bound": [("10", OK)],
-    "--quarantine-threshold": [("0.5", REFUSED)],
+    "--quarantine-threshold": [("0.5", OK)],
     "--quarantine-rounds": [("4", OK)],
     "--quarantine-min-tries": [("1", OK)],
     "--checkpoint-dir": [("ckpt", OK)],
@@ -141,9 +142,43 @@ INIT_CASES = {"sink": [RingBufferSink()], "telemetry": [True, False]}
 RUN_CASES = {"checkpoint_dir": ["ckpt"], "checkpoint_every": [2],
              "resume": [True]}
 
-#: the other fields a refused field needs to reach its refusal:
-#: quarantine is checked against the screen first (the reference's order)
-FIELD_CONTEXT = {"quarantine_threshold": dict(upload_screen="on")}
+#: the other fields a field needs: quarantine needs the screen and the
+#: device rng streams (the reference's checks), the block size a scan
+FIELD_CONTEXT = {"quarantine_threshold": dict(upload_screen="on",
+                                              rng_impl="device"),
+                 "block_size": dict(driver="scan")}
+
+#: the ROADMAP item each refused field names
+REFUSED_ITEMS = {"mesh_shards": "A12 (ii)", "cohort_capacity": "A12 (ii)",
+                 "prefetch": "A12 (ii)", "compute": "A15", "comm": "A15",
+                 "robustness": "A15"}
+
+
+def _one_round_scan(srv):
+    """A scan-driver field, driven one CPU round: one block, one stats
+    pull and one eval."""
+    srv.run(rounds=1)
+    assert len(srv.cohorts) == 1 and srv.host_syncs == 2
+
+
+def _one_round_device(srv):
+    """``rng_impl="device"`` on the host driver: one device round."""
+    srv.run(rounds=1)
+    assert len(srv.cohorts) == 1 and srv.program is not None
+
+
+def _one_round_quarantine(srv):
+    """Quarantine on: the round's record counts the suspended clients."""
+    srv.run(rounds=1)
+    assert srv._records.last.quarantined is not None
+
+
+#: accepted fields driven one CPU round: name -> check(server)
+FIELD_RUNS = {"driver": _one_round_scan, "block_size": _one_round_scan,
+              "fused_generic": _one_round_scan,
+              "rng_impl": _one_round_device,
+              "quarantine_threshold": _one_round_quarantine}
+FIELD_CONTEXT["fused_generic"] = dict(driver="scan")
 
 
 class _Captured(Exception):
@@ -213,11 +248,17 @@ def test_config_field_accepted_at_reference_default(name):
 @pytest.mark.parametrize("name,value,ok", [
     (n, v, ok) for n, cases in FIELD_CASES.items() for v, ok in cases])
 def test_config_field_non_default(name, value, ok):
+    kw = dict(FIELD_CONTEXT.get(name, {}), **{name: value})
     if ok:
-        assert getattr(_server(**{name: value}).cfg, name) == value
+        srv = _server(**kw)
+        assert getattr(srv.cfg, name) == value
+        if name in FIELD_RUNS and (name, value) != ("rng_impl", "numpy"):
+            FIELD_RUNS[name](srv)
         return
-    with pytest.raises((ValueError, NotImplementedError), match="ROADMAP"):
-        _server(**dict(FIELD_CONTEXT.get(name, {}), **{name: value}))
+    with pytest.raises((ValueError, NotImplementedError),
+                       match=r"ROADMAP " + REFUSED_ITEMS[name]
+                       .replace("(", r"\(").replace(")", r"\)")):
+        _server(**kw)
 
 
 @pytest.mark.parametrize("flag", sorted(REF_FLAGS))
@@ -259,9 +300,26 @@ def _wrote_checkpoint(out):
     assert [r for r, _ in list_checkpoints("ckpt")] == [1]
 
 
+def _ran_scan(out):
+    """``--driver scan`` / ``--block-size``: the scan driver's round."""
+    assert "final: acc=" in out
+
+
+def _quarantined(out):
+    """``--quarantine-threshold``: the screen counts and the quarantine
+    reports its suspended clients."""
+    assert "screened=" in out and "quarantined=" in out
+
+
 #: accepted flags whose job one CPU round shows: flag -> check(stdout)
 RUN_CHECKS = {"--metrics-out": _wrote_records, "--trace-dir": _wrote_trace,
-              "--faults": _screened, "--checkpoint-dir": _wrote_checkpoint}
+              "--faults": _screened, "--checkpoint-dir": _wrote_checkpoint,
+              "--driver": _ran_scan, "--block-size": _ran_scan,
+              "--quarantine-threshold": _quarantined}
+#: the other flags a driven flag needs
+RUN_CONTEXT = {"--block-size": ["--driver", "scan"],
+               "--quarantine-threshold": ["--driver", "scan", "--faults",
+                                          "nan_upload"]}
 
 
 @pytest.mark.parametrize("flag,value,ok", [
@@ -274,7 +332,8 @@ def test_flag_non_default(capsys, monkeypatch, tmp_path, flag, value, ok):
             REF_FLAGS[flag].default
         if flag in RUN_CHECKS:
             monkeypatch.chdir(tmp_path)
-            tfl.main(argv + ["--rounds", "1", "--quiet"])
+            tfl.main(argv + RUN_CONTEXT.get(flag, [])
+                     + ["--rounds", "1", "--quiet"])
             RUN_CHECKS[flag](capsys.readouterr().out)
         return
     with pytest.raises(SystemExit) as exit_:

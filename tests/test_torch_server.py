@@ -209,22 +209,35 @@ def test_cli_smoke_on_cpu(capsys, extra):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("driver", "scan", "A12"), ("rng_impl", "device", "A12"),
     ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
-    ("prefetch", "double_buffer", "A12"),
-    ("quarantine_threshold", 0.5, "A12")])
+    ("prefetch", "double_buffer", "A12"), ("compute", object(), "A15"),
+    ("comm", object(), "A15"), ("robustness", object(), "A15")])
 def test_unported_config_raises(field, value, item):
-    """Unported options raise naming their ROADMAP item; quarantine (with
-    the screen on) raises the reference's error at the server, which
-    names the device rng streams (A12) it needs."""
+    """Unported options raise naming their ROADMAP item: sharding,
+    capacity and prefetch A12 (ii), the grouped configs A15."""
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         TServer(tfemnist(**DS_KW), cfg=TConfig(
             device="cpu", upload_screen="on", **{field: value}))
 
 
+@pytest.mark.parametrize("field,value", [
+    ("driver", "scan"), ("rng_impl", "device"),
+    ("quarantine_threshold", 0.5)])
+def test_device_driver_config_accepted(field, value):
+    """The device drivers' options run a CPU round (quarantine with the
+    screen on and the device rng streams, as the reference requires)."""
+    kw = {field: value}
+    if field == "quarantine_threshold":
+        kw["rng_impl"] = "device"
+    srv = TServer(tfemnist(**DS_KW), cfg=TConfig(
+        device="cpu", upload_screen="on", **dict(CFG_KW, **kw)))
+    hist = srv.run(rounds=2)
+    assert len(hist["acc"]) == 2 and srv.rng_impl == "device"
+
+
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh_shards", 2, "A12"), ("driver", "scan", "A12"),
-    ("rng_impl", "device", "A12")])
+    ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
+    ("prefetch", "double_buffer", "A12")])
 def test_compression_with_an_unported_feature_raises(field, value, item):
     with pytest.raises(ValueError, match=f"ROADMAP {item}"):
         TConfig(upload_compress="topk_q8", **{field: value})
