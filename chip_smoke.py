@@ -163,6 +163,16 @@ last line):
    against CPU from injected draws: the same cohorts, params within 2e-5;
    the scan legs' launches are each program's real ones (the warm-up's,
    then one capture's times its replays);
+   then client-axis sharding and prefetch (``shard_phase``), at FEMNIST
+   paper scale, K=10: this process as a world-1 NCCL group, MCLR iid and
+   the MLP + topk_q8 on the scan driver (the round's collectives captured
+   in its graph, whose nodes are printed beside the replicated one's) and
+   on the host driver with device rng, capacity "full" and 10 each
+   bitwise the replicated run, capacity 4 (slots overflow) scan bitwise
+   host; two gloo ranks spawned on the one card (host driver, device
+   rng), each bitwise the world-1 run; ``prefetch="double_buffer"``
+   bitwise off on the scan driver; rounds/s of the replicated and the
+   world-1 sharded scan in turns;
 5. profile one steady round of each FL leg (Sent140's shuffle leg too,
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
@@ -2069,6 +2079,293 @@ def scan_phase(torch, np, FedSAEServer, ServerConfig, femnist, counted,
     return out
 
 
+def _run_summary(srv) -> dict:
+    """A finished server's state and records as host values: what two runs
+    must share to be the same run (cohorts, budgets, L/H/theta, values,
+    params, residual, the records but their wall times)."""
+    return {"cohorts": [c.tolist() for c in srv.cohorts],
+            "budgets": [b.tolist() for b in srv.budgets],
+            "L": srv.L, "H": srv.H, "theta": srv.theta,
+            "values": srv.values.v,
+            "params": {k: v.cpu() for k, v in srv.params.items()},
+            "residual": (None if srv.residual is None
+                         else srv.residual.cpu()),
+            "records": _scan_records(srv)}
+
+
+def _summary_diff(torch, np, a, b):
+    """The first field where two ``_run_summary`` dicts differ bitwise, or
+    None."""
+    for k in ("cohorts", "budgets", "records"):
+        if a[k] != b[k]:
+            return k
+    for k in ("L", "H", "theta", "values"):
+        if not np.array_equal(a[k], b[k]):
+            return k
+    for k in a["params"]:
+        if not torch.equal(a["params"][k], b["params"][k]):
+            return f"params {k}"
+    if (a["residual"] is None) != (b["residual"] is None) or (
+            a["residual"] is not None
+            and not torch.equal(a["residual"], b["residual"])):
+        return "residual"
+    return None
+
+
+#: CUgraphNodeType values (cuda.h) -> names
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty", 6: "wait_event",
+                    7: "event_record", 10: "mem_alloc", 11: "mem_free"}
+
+
+def graph_node_types(graph) -> dict:
+    """A kept CUDA graph's nodes counted by type (``cuGraphGetNodes``,
+    ``cuGraphNodeGetType``)."""
+    import ctypes
+    lib = ctypes.CDLL("libcuda.so.1")
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if lib.cuGraphGetNodes(g, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if lib.cuGraphGetNodes(g, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    out = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if lib.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                  ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _gloo_rank(rank, cfg, rounds):
+    """One rank of ``shard_phase``'s world of two gloo ranks on the one
+    card (spawned by ``launch.mesh.spawn_world``): the scan driver refuses
+    the gloo group, then the FEMNIST paper-scale federation runs on the
+    host driver with the device streams, sharded over the two ranks;
+    returns the run's summary and this rank's FL kernel launches."""
+    import torch
+    from repro_torch.core.graphs import FL_KERNELS
+    from repro_torch.core.server import FedSAEServer, ServerConfig
+    from repro_torch.data.federated import make_femnist_like
+    ds = make_femnist_like()
+    try:                    # gloo's collectives cannot join a CUDA graph
+        FedSAEServer(ds, cfg=ServerConfig(**dict(cfg, driver="scan",
+                                                 rng_impl="")))
+        raise AssertionError("the scan driver took a gloo group on CUDA")
+    except ValueError as e:
+        if "cannot be captured" not in str(e):
+            raise
+    before = {k: fn.launches for k, fn in FL_KERNELS.items()}
+    srv = FedSAEServer(ds, cfg=ServerConfig(**cfg))
+    srv.run(rounds=rounds)
+    torch.cuda.synchronize()
+    return {"summary": _run_summary(srv), "launches": {
+        k: fn.launches - before[k] for k, fn in FL_KERNELS.items()}}
+
+
+def shard_phase(torch, np, FedSAEServer, ServerConfig, femnist, counted,
+                frac):
+    """Phase 9: client-axis sharding and prefetch at FEMNIST paper scale
+    (200 clients, K=10, B=10, lr 0.03), every count set to 0 just before
+    and read just after.  This process joins a world-1 NCCL group and
+    runs, for MCLR iid and for the MLP + topk_q8, on the scan driver
+    (graphed: the round's collectives captured with it) and on the host
+    driver with device rng, 16 rounds each: the sharded run with capacity
+    "full" (the masked K lanes) and with capacity 10 (the compacted
+    lanes) bitwise its replicated run (cohorts, budgets, L/H/theta,
+    values, params, residual, records but the wall time); capacity 4
+    (slots overflow) scan bitwise host, overflow counted; the graph's
+    nodes with and without the collectives.  Then a world of two gloo
+    ranks spawned on the one card, the host driver with device rng,
+    MCLR iid (capacity "full") and MLP + topk_q8 (capacity 10), each
+    rank's run bitwise the world-1 run; any failure of the world fails
+    the phase.  Prefetch (``prefetch="double_buffer"``) bitwise off on
+    the scan driver, both models, in blocks of 8 and of 1.  Speed:
+    FEMNIST MCLR iid rounds/s of the replicated scan and the world-1
+    sharded scan in turns (40 rounds a turn after a 16-round warm-up,
+    twice), then one block of 16 replays of each under torch.profiler
+    (device ms, the device-to-device copies) and each graph's nodes by
+    type."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch import mesh
+    base = dict(algo="ira", n_selected=10, sampling="iid")
+    mlp = dict(model="mlp", upload_compress="topk_q8", topk_frac=frac)
+    out = {"legs": {}, "world1": {}}
+    reset_counts(counted)
+    real = {k: 0 for k in counted}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'store')}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+
+    def drive(label, driver, rounds=16, block=8, **cfg):
+        before = {k: fn.launches for k, fn in counted.items()}
+        srv = FedSAEServer(femnist, cfg=ServerConfig(**dict(
+            base, rounds=rounds, driver=driver, block_size=block,
+            rng_impl="device" if driver == "host" else "", **cfg)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches - before[k] for k, fn in counted.items()}
+        prog = srv.program
+        if prog.graphed:
+            got = {k: prog.launches().get(k, 0) for k in counted}
+        for k in counted:
+            real[k] += got[k]
+        for k, v in srv.params.items():
+            if not torch.isfinite(v).all():
+                raise RuntimeError(f"shard {label}: non-finite params {k}")
+        leg = dict(driver=driver, rounds=rounds, wall_s=wall,
+                   rounds_per_s=rounds / wall,
+                   overflowed=float(np.sum(srv.history["overflowed"])),
+                   launches={k: v for k, v in got.items() if v})
+        if prog.graphed:
+            leg.update(graph_nodes=prog.nodes, capture_ms=prog.capture_ms,
+                       replays=prog.replays)
+        out["legs"][f"{label} {driver}"] = leg
+        print(f"shard {label} {driver}: {json.dumps(leg)}", flush=True)
+        return srv
+
+    def same(label, a, b):
+        diff = _summary_diff(torch, np, _run_summary(a), _run_summary(b))
+        if diff is not None:
+            raise RuntimeError(f"shard {label}: not bitwise ({diff})")
+
+    try:
+        for name, extra in (("mclr iid", {}), ("mlp topk_q8", mlp)):
+            for driver in ("scan", "host"):
+                rep = drive(f"{name} replicated", driver, **extra)
+                for cap in ("full", 10):
+                    sh = drive(f"{name} world-1 capacity {cap}", driver,
+                               mesh_shards=1, cohort_capacity=cap, **extra)
+                    same(f"{name} {driver} capacity {cap}", rep, sh)
+                    if driver == "scan":
+                        out["world1"][f"{name} capacity {cap}"] = dict(
+                            graph_nodes=sh.program.nodes,
+                            replicated_graph_nodes=rep.program.nodes)
+                print(f"shard {name} {driver}: world-1 capacity full and "
+                      f"10 bitwise the replicated run over 16 rounds",
+                      flush=True)
+                if driver == "scan":
+                    pf = drive(f"{name} prefetch", "scan",
+                               prefetch="double_buffer", **extra)
+                    same(f"{name} prefetch", rep, pf)
+                    # blocks of one round: prepare, then execute
+                    same(f"{name} prefetch blocks of 1",
+                         drive(f"{name} blocks of 1", "scan", block=1,
+                               **extra),
+                         drive(f"{name} prefetch blocks of 1", "scan",
+                               block=1, prefetch="double_buffer", **extra))
+                    print(f"shard {name}: prefetch double_buffer bitwise "
+                          f"off on the scan driver, blocks of 8 and of 1",
+                          flush=True)
+            over = {d: drive(f"{name} world-1 capacity 4", d, mesh_shards=1,
+                             cohort_capacity=4, **extra)
+                    for d in ("scan", "host")}
+            diff = _scan_same_run(torch, np, over["host"], over["scan"], 8)
+            ovf = float(np.sum(over["scan"].history["overflowed"]))
+            if diff is not None or ovf <= 0:
+                raise RuntimeError(f"shard {name} capacity 4: scan vs host "
+                                   f"{diff}, overflowed {ovf}")
+            out["world1"][f"{name} capacity 4"] = dict(
+                overflowed=ovf, graph_nodes=over["scan"].program.nodes)
+            print(f"shard {name} capacity 4: {ovf:.0f} slots overflowed in "
+                  f"16 rounds, scan bitwise host (device rng)", flush=True)
+
+        # -- two gloo ranks on the one card ------------------------------
+        # (no slot overflows at capacity "full" or 10 = K, so the two
+        # layouts run the same federation)
+        out["world2_gloo"] = {}
+        for name, cap, extra in (("mclr iid", "full", {}),
+                                 ("mlp topk_q8", 10, mlp)):
+            cfg = dict(base, driver="host", rng_impl="device", rounds=8,
+                       cohort_capacity=cap, **extra)
+            one = drive(f"{name} world-1 for world-2", "host", rounds=8,
+                        mesh_shards=1, cohort_capacity=cap, **extra)
+            t0 = time.perf_counter()
+            ranks = mesh.spawn_world(_gloo_rank, 2, backend="gloo",
+                                     device="cuda",
+                                     args=(dict(cfg, mesh_shards=2), 8))
+            want = _run_summary(one)
+            diffs = []
+            for rank, r in enumerate(ranks):
+                got = dict(r["summary"])
+                if got["residual"] is not None:     # this rank's rows
+                    C = got["residual"].shape[0]
+                    got["residual"] = torch.cat(
+                        [want["residual"][:rank * C], got["residual"],
+                         want["residual"][(rank + 1) * C:]])
+                diffs.append(_summary_diff(torch, np, want, got))
+            if any(d is not None for d in diffs):
+                raise RuntimeError(f"shard world-2 gloo {name}: not the "
+                                   f"world-1 run ({diffs})")
+            for r in ranks:
+                for k in counted:
+                    real[k] += r["launches"].get(k, 0)
+            out["world2_gloo"][name] = dict(
+                wall_s=time.perf_counter() - t0,
+                launches=[r["launches"] for r in ranks])
+            print(f"shard world-2 gloo {name}: both ranks bitwise the "
+                  f"world-1 run over 8 rounds (capacity {cap}); launches "
+                  f"{[r['launches'] for r in ranks]}", flush=True)
+
+        # -- speed: replicated and world-1 sharded, in turns ------------
+        speed = {"replicated": [], "world-1 sharded": []}
+        last = {}
+        for _ in range(2):
+            for label, kw in (("replicated", {}),
+                              ("world-1 sharded", dict(mesh_shards=1))):
+                srv = FedSAEServer(femnist, cfg=ServerConfig(**dict(
+                    base, rounds=40, driver="scan", block_size=16, **kw)))
+                srv.run(rounds=16)                    # warm-up, capture
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                srv.run(rounds=40)
+                torch.cuda.synchronize()
+                speed[label].append(40 / (time.perf_counter() - t0))
+                last[label] = srv
+        # one block of 16 replays of each under torch.profiler, and each
+        # program's graph nodes by type (NCCL runs a world-1 collective
+        # as a device-to-device copy, no kernel)
+        blocks = {}
+        for label, srv in last.items():
+            prog = srv.program
+            prog.begin_block(40, srv._block_inputs(40, 16))
+            wall, device_ms, top, copy_ms, n = profiled(
+                torch, lambda: prog.run(16), part="Memcpy DtoD")
+            types = graph_node_types(prog.graph)
+            blocks[label] = dict(wall_ms=wall, device_ms=device_ms,
+                                 launches=n, dtod_copy_ms=copy_ms,
+                                 graph_nodes=prog.nodes, node_types=types,
+                                 top_ms=top[:4])
+        out["speed"] = dict(rounds_per_s=speed, block_of_16=blocks)
+        print(f"shard speed (FEMNIST MCLR iid scan, 40 rounds a turn; one "
+              f"block of 16 replays profiled): {json.dumps(out['speed'])}",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for k in ("fed_cohort_gather", "fed_local_sgd_mclr",
+              "fed_local_sgd_dense", "fed_compress_topk_q8"):
+        if real[k] <= 0:
+            raise RuntimeError(f"the shard path never launched {k}")
+    out["launches"] = real
+    print(f"path shard launches (replays x launches a capture, plus the "
+          f"eager rounds and the gloo ranks'): {json.dumps(real)}",
+          flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2677,6 +2974,12 @@ def main() -> int:
     scan = scan_phase(torch, np, FedSAEServer, ServerConfig, femnist,
                       counted, frac, make_sent140_like)
     path_launches["scan"] = scan["launches"]
+    # this slice's path: client-axis sharding (world-1 NCCL, world-2 gloo
+    # on the one card) and prefetch
+    torch.cuda.empty_cache()
+    shard = shard_phase(torch, np, FedSAEServer, ServerConfig, femnist,
+                        counted, frac)
+    path_launches["shard"] = shard["launches"]
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     scan_single_steps = sum(serving[a]["scan_single_step_launches"]
@@ -2793,7 +3096,7 @@ def main() -> int:
                       "profile": profiles, "serving": serving,
                       "training": training, "checks": checks,
                       "telemetry": telemetry, "faults": faults,
-                      "scan": scan}))
+                      "scan": scan, "shard": shard}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,12 @@ the uninterrupted run's.  The scan driver checkpoints at block
 boundaries, with its device carry synced back first.  The fault stream
 needs no state: it is drawn from ``(fault seed, t)`` every round.
 
+Under client-axis sharding (``mesh_shards=S``) the checkpoint is still
+the whole server's, as the reference's: every rank all-gathers the
+residual into ``[S, C, P]``, rank 0 alone writes the file (every other
+piece of state is replicated), and the ranks wait for it; on restore
+every rank reads the file and keeps its own row of the residual.
+
 Files are ``ckpt_<round>.pt`` under a caller-chosen directory, written
 atomically (``checkpoint.store``); ``restore_server_state`` loads the
 latest.
@@ -98,8 +104,15 @@ def save_server_state(server, directory: str, next_round: int) -> str:
         "het_rng_state": json.dumps(server.het._rng.bit_generator.state),
     }
     path = checkpoint_path(directory, next_round)
-    save_checkpoint(path, _server_tensors(server), step=int(next_round),
-                    metadata=metadata)
+    tree = _server_tensors(server)
+    if server.group is not None and server.residual is not None:
+        from repro_torch.launch.mesh import all_gather_1d
+        tree["residual"] = all_gather_1d(server.residual)   # [S, C, P]
+    if server.rank == 0:
+        save_checkpoint(path, tree, step=int(next_round), metadata=metadata)
+    if server.group is not None:
+        import torch.distributed as dist
+        dist.barrier()        # the file exists on return, on every rank
     return path
 
 
@@ -134,7 +147,10 @@ def restore_server_state(server, directory: str) -> int:
     if server.rng_impl == "device":
         server.sel_gen.set_state(tree["sel_gen"])
     if server.residual is not None:
-        server.residual = tree["residual"].to(dev)
+        residual = tree["residual"]
+        if server.group is not None:          # [S, C, P]: this rank's rows
+            residual = residual[server.rank]
+        server.residual = residual.to(dev)
     server.sel_rng.bit_generator.state = json.loads(
         metadata["sel_rng_state"])
     server.het._rng.bit_generator.state = json.loads(

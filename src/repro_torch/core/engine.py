@@ -78,8 +78,24 @@ float32 Ira/Fassa update, budgets), then execute (the device round, the
 uploaded set, the value update, the round's float32 stats with the
 telemetry extras, the screened counts and quarantine).  It reads nothing
 on the host, so ``core.graphs.RoundProgram`` runs it in place on device
-buffers, eagerly or replayed from a CUDA graph.  Not ported yet: the
-mesh-sharded driver and prefetch (ROADMAP A12 (ii)).
+buffers, eagerly or replayed from a CUDA graph.
+
+Client-axis sharding (``mesh=``, a ``launch.mesh.DataGroup``): one
+process per shard, each holding its own block of clients
+(``PackedClients.shard``) and, under compression, its own ``[C, P]``
+error-feedback rows.  Every rank runs the same round on the same
+replicated cohort and budgets; it gathers and trains only the cohort
+slots it owns, from its own arrays at shard-local offsets: all K lanes
+with the non-owned budgets zeroed (``capacity=None``, the masked mode), or
+only a dense ``[capacity]`` lane block (``selection.compact_lane_map``),
+the overflowed slots' budgets zeroed.  The ``[K, ...]`` stack and the
+losses are then rebuilt by one SUM all-reduce in which every slot is
+nonzero on exactly one rank (``x + 0 == x``: bitwise the replicated
+stack), and aggregation runs replicated, so every aggregator stays
+pluggable.  Selection needs no collective: the scores are replicated, so
+every rank's ``select_cohort_device`` returns the same cohort, the one the
+reference's local top-k, all-gather and merge return
+(``selection.select_cohort_sharded``).
 """
 from __future__ import annotations
 
@@ -93,7 +109,8 @@ from repro_torch.core import compression as comp
 from repro_torch.core import prediction as pred
 from repro_torch.core.aggregation import FedAvg
 from repro_torch.core.heterogeneity import sample_workloads_device
-from repro_torch.core.selection import (gumbel_noise, select_cohort_device,
+from repro_torch.core.selection import (cohort_overflow, compact_lane_map,
+                                        gumbel_noise, select_cohort_device,
                                         value_update_device)
 from repro_torch.faults.inject import (apply_availability_stragglers_device,
                                        inject_upload_faults)
@@ -419,7 +436,9 @@ class RoundEngine:
     # ------------------------------------------------------------------
     def make_packed_round(self, model, batch_size: int, max_iters: int,
                           max_n: int, sampling: str = "shuffle",
-                          device_round: bool = False) -> Callable:
+                          device_round: bool = False, mesh=None,
+                          capacity: Optional[int] = None,
+                          sizes=None) -> Callable:
         """Device-resident round over the packed federation.
 
         round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
@@ -438,7 +457,18 @@ class RoundEngine:
         rejected rows ``bad`` ([K] bool, CPU) last.
 
         ``device_round`` reads nothing on the host: the plain walk runs
-        all ``max_iters`` slots masked and ``bad`` stays on the device."""
+        all ``max_iters`` slots masked and ``bad`` stays on the device.
+
+        ``mesh`` (a ``launch.mesh.DataGroup``) makes the round sharded
+        (see the module docstring): ``flat_x``, ``flat_y``, ``offsets``
+        and ``lengths`` are then this rank's block (``PackedClients.
+        shard``), ``residual`` its ``[C, P]`` rows, ``sizes`` the [S * C]
+        global client lengths (ghost-padded), and ``capacity`` (a resolved
+        lane count, ``selection.resolve_capacity``; None = the masked
+        mode) compacts the owned slots; the overflowed slots' budgets are
+        zeroed before the round and in the aggregation weights.  The
+        minibatch draws are the full cohort's on every rank, each lane
+        taking its slot's."""
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
         if getattr(model, "kind", None) == "lm":
@@ -446,10 +476,36 @@ class RoundEngine:
                 "LM steps train through make_stream_round (the silo round); "
                 "their cross-device federation over the packed round is "
                 "ROADMAP A13 (iii)")
+        if mesh is None and capacity is not None:
+            raise ValueError(
+                "capacity compaction requires a sharded mesh; pass mesh= "
+                "or leave capacity=None for the replicated round")
         fuse_sgd = kops.fused_sgd_eligible(model, sampling)
         local_train = None if fuse_sgd else self._local_sgd(
             model, batch_size, max_iters, sampling, walk_all=device_round)
         gather = self._cohort_gather(max_n)
+
+        def draw(gen, n, dev):
+            """The cohort's minibatch draws from ``gen``: idx [K, max_iters,
+            B] iid, the permutation keys u [K, max_n] shuffle."""
+            if gen is None:
+                raise ValueError("pass gen= or draws=")
+            if sampling == "iid":
+                return iid_indices(gen, n, max_iters, batch_size)
+            return torch.rand((n.shape[0], max_n), generator=gen, device=dev)
+
+        def train(global_params, x, y, mask, n, n_iters, draws):
+            with stage(STAGE_LOCAL_SGD):
+                if fuse_sgd:
+                    return self._fused_sgd(model, global_params, x, y, n,
+                                           n_iters, draws)
+                return local_train(global_params, x, y, mask, n, n_iters,
+                                   draws)
+
+        if mesh is not None:
+            return self._sharded_round_fn(
+                max_n, gather, draw, train, device_round, mesh, capacity,
+                sizes)
 
         @torch.no_grad()
         def round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
@@ -460,37 +516,148 @@ class RoundEngine:
             if self.injecting and corrupt is None:
                 raise ValueError("an injecting round needs corrupt=")
             ids = ids.long()
-            offs = offsets[ids]
             n = torch.clamp(lengths[ids], max=max_n)
             with stage(STAGE_GATHER):
-                x, y, mask = gather(flat_x, flat_y, offs, n)
+                x, y, mask = gather(flat_x, flat_y, offsets[ids], n)
             if draws is None:
-                if gen is None:
-                    raise ValueError("pass gen= or draws=")
-                draws = (iid_indices(gen, n, max_iters, batch_size)
-                         if sampling == "iid"
-                         else torch.rand((n.shape[0], max_n), generator=gen,
-                                         device=x.device))
+                draws = draw(gen, n, x.device)
             elif not torch.is_tensor(draws):
                 draws = torch.from_numpy(np.array(draws)).to(x.device)
-            with stage(STAGE_LOCAL_SGD):
-                if fuse_sgd:
-                    params_k, losses = self._fused_sgd(
-                        model, global_params, x, y, n, n_iters, draws)
-                else:
-                    params_k, losses = local_train(global_params, x, y, mask,
-                                                   n, n_iters, draws)
+            params_k, losses = train(global_params, x, y, mask, n, n_iters,
+                                     draws)
             return self._finish_round(global_params, params_k, losses, n,
                                       n_iters, ids, residual, corrupt,
                                       on_device=device_round)
 
         return round_fn
 
+    def _sharded_round_fn(self, max_n: int, gather, draw, train,
+                          device_round: bool, mesh,
+                          capacity: Optional[int], sizes) -> Callable:
+        """The sharded packed round (``make_packed_round(mesh=)``): this
+        rank's lanes gathered and trained from its own block, compressed
+        against its own residual rows, the stack rebuilt by one SUM
+        all-reduce, then the replicated upload faults, screen and
+        aggregation of ``_finish``."""
+        from repro_torch.launch.mesh import all_reduce_sum
+        if sizes is None:
+            raise ValueError("a sharded round needs sizes=, the [S * C] "
+                             "global client lengths")
+        rank = int(mesh.rank)
+
+        @torch.no_grad()
+        def round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
+                     n_iters, gen=None, draws=None, residual=None,
+                     corrupt=None):
+            if self.compressing and residual is None:
+                raise ValueError("a compressing round needs residual=")
+            if self.injecting and corrupt is None:
+                raise ValueError("an injecting round needs corrupt=")
+            C = offsets.shape[0]
+            if sizes.shape[0] != mesh.world * C:
+                raise ValueError(
+                    f"{sizes.shape[0]} global client lengths for a layout "
+                    f"of {mesh.world} shards of {C}: build it with packed("
+                    f"shards={mesh.world})")
+            ids = ids.long()
+            K = ids.shape[0]
+            dev = flat_x.device
+            if capacity is not None:
+                n_iters = torch.where(cohort_overflow(ids, C, capacity),
+                                      torch.zeros_like(n_iters), n_iters)
+            # the full cohort's draws on every rank (the same bits as the
+            # replicated round), each lane taking its slot's
+            n_all = torch.clamp(sizes[ids], max=max_n)
+            if draws is None:
+                draws = draw(gen, n_all, dev)
+            elif not torch.is_tensor(draws):
+                draws = torch.from_numpy(np.array(draws)).to(dev)
+            if capacity is None:          # all K lanes, non-owned ones idle
+                slot = torch.arange(K, device=dev)
+                valid = (ids // C) == rank
+                lane_map = torch.where(valid, slot, K)
+            else:                         # the dense [capacity] lane block
+                lane_map = compact_lane_map(ids, C, rank, capacity)
+                valid = lane_map < K
+                slot = torch.where(valid, lane_map, 0)
+            local = torch.where(valid, ids[slot] % C, 0)
+            n = torch.where(valid, torch.clamp(lengths[local], max=max_n), 0)
+            iters = torch.where(valid, n_iters[slot],
+                                torch.zeros_like(n_iters[slot]))
+            with stage(STAGE_GATHER):
+                x, y, mask = gather(flat_x, flat_y, offsets[local], n)
+            params_k, losses = train(global_params, x, y, mask, n, iters,
+                                     draws[slot])
+            if self.compressing:
+                params_k, residual = self._shard_upload(
+                    global_params, params_k, residual, local, valid, iters,
+                    None if corrupt is None else corrupt[slot])
+            # lane results back to their [K] slots (the sentinel row K
+            # takes the idle lanes), then the ownership-masked rebuild: one
+            # SUM all-reduce of [K, P + 1] in which each slot is nonzero on
+            # one rank only
+            leaves = list(params_k.items())
+            flat = torch.cat([p.reshape(p.shape[0], -1) for _, p in leaves]
+                             + [losses.reshape(-1, 1).to(torch.float32)], 1)
+            flat = torch.zeros((K + 1, flat.shape[1]), dtype=flat.dtype,
+                               device=dev).index_copy(0, lane_map, flat)[:K]
+            flat = all_reduce_sum(flat)
+            params_k, at = {}, 0
+            for k, p in leaves:
+                width = p[0].numel()
+                params_k[k] = flat[:, at:at + width].reshape(
+                    (K,) + tuple(p.shape[1:])).contiguous()
+                at += width
+            losses = flat[:, at].contiguous()
+            if self._inject_post:
+                params_k = self._inject_faults(global_params, params_k,
+                                               corrupt, n_iters > 0)
+            new_global, any_up, bad = self._finish(
+                global_params, params_k, self._upload_weights(n_all, n_iters),
+                device_round)
+            out = (new_global, losses, any_up)
+            if self.compressing:
+                out = out + (residual,)
+            if self.screening:
+                out = out + (bad,)
+            return out
+
+        return round_fn
+
+    def _shard_upload(self, global_params, params_k, residual, local, valid,
+                      iters, corrupt_lane):
+        """Stage 3 on one rank's lanes: each executing lane compresses its
+        delta against the residual row of the client it serves (``local``)
+        and the updated rows scatter back, the idle and non-transmitting
+        lanes into a sentinel row C (cohort ids are distinct, so writers
+        never collide).  Fault injection at the seam as in
+        ``_finish_round``."""
+        uploaded = valid & (iters > 0)
+        keep = uploaded
+        if corrupt_lane is not None:
+            if self._inject_pre:      # sign_flip/explode: transmitted
+                params_k = self._inject_faults(global_params, params_k,
+                                               corrupt_lane, uploaded)
+                if self._block_residual:
+                    keep = uploaded & ~corrupt_lane
+            else:                     # nan/inf never transmits
+                uploaded = uploaded & ~corrupt_lane
+                keep = uploaded
+        params_k, new_rows = self._upload_transform(
+            global_params, params_k, residual[local], uploaded)
+        C = residual.shape[0]
+        rows = torch.where(keep, local, C)
+        ext = torch.cat([residual, residual.new_zeros((1,) +
+                                                      residual.shape[1:])])
+        return params_k, ext.index_copy(0, rows, new_rows)[:C]
+
     # ------------------------------------------------------------------
     def make_device_round(self, model, batch_size: int, max_iters: int,
                           packed, cfg, *, mu, sigma, sel_gen, data_gen,
                           phases=None, telemetry: bool = False,
-                          data_draws: Optional[Callable] = None) -> Callable:
+                          data_draws: Optional[Callable] = None, mesh=None,
+                          capacity: Optional[int] = None,
+                          sizes=None) -> Callable:
         """The whole server step of the device drivers, on the device.
 
         one_round(carry, t, inputs) -> (carry', stats)
@@ -521,12 +688,21 @@ class RoundEngine:
         ``upload_bytes``, ``dense_upload_bytes``, ``loss_hist`` and
         ``workload_hist``.  ``prepare`` and ``execute`` are exported as
         attributes: ``one_round`` is ``execute(*prepare(carry, t,
-        inputs))``."""
+        inputs))``.
+
+        ``mesh`` (a ``launch.mesh.DataGroup``) shards the round:
+        ``packed`` is this rank's block, ``sizes`` the [S * C] global
+        client lengths, ``carry["residual"]`` this rank's [C, P] rows, and
+        ``capacity`` the resolved lane count (None: the masked mode).  Every
+        rank selects the same cohort from the replicated scores; an
+        overflowed slot's E~ is forced to 0 before the workload update
+        (the crash branch), and ``overflowed`` counts them.  The server
+        refuses quarantine on a mesh."""
         fm = self.faults
         sampling = cfg.sampling
         K, algo = int(cfg.n_selected), cfg.algo
         max_n = packed.max_n
-        sizes = packed.lengths
+        sizes = packed.lengths if sizes is None else sizes
         wl = dict(U=cfg.U, alpha=cfg.alpha, gamma1=cfg.gamma1,
                   gamma2=cfg.gamma2, h_cap=cfg.h_cap,
                   fixed_epochs=cfg.fixed_epochs)
@@ -536,7 +712,8 @@ class RoundEngine:
         demote = fm is not None and fm.demotes
         round_fn = self.make_packed_round(model, batch_size, max_iters,
                                           max_n, sampling=sampling,
-                                          device_round=True)
+                                          device_round=True, mesh=mesh,
+                                          capacity=capacity, sizes=sizes)
         N = int(mu.shape[0])
 
         def prepare(carry, t, inputs):
@@ -559,7 +736,9 @@ class RoundEngine:
             ids = select_cohort_device(g, carry["values"], K, cfg.selection,
                                        cfg.beta, use_al=use_al, elig=elig)
             E_true = E_all[ids]
-            E_run = E_true
+            ovf = (None if capacity is None else
+                   cohort_overflow(ids, packed.clients_per_shard, capacity))
+            E_run = E_true if ovf is None else torch.where(ovf, 0.0, E_true)
             if fm is not None and fm.dropout_prob > 0.0:
                 E_run = torch.where(inputs["dropout"][ids], 0.0, E_run)
             corrupt = (inputs["corrupt"][ids]
@@ -580,7 +759,8 @@ class RoundEngine:
             n_iters = budget_iters(e_train, n, batch_size, max_iters)
             pf = {"t": t, "ids": ids, "n": n, "n_iters": n_iters,
                   "outcome": outcome, "assigned": assigned, "e_eff": e_eff,
-                  "E_true": E_true, "corrupt": corrupt, "u": inputs.get("u")}
+                  "E_true": E_true, "corrupt": corrupt, "ovf": ovf,
+                  "u": inputs.get("u")}
             return dict(carry, L=L2, H=H2, theta=th2), pf
 
         def execute(carry, pf):
@@ -613,7 +793,8 @@ class RoundEngine:
             stats = {
                 "ids": ids, "n_iters": n_iters,
                 "dropout": _mean(dropped), "dropped": dropped.sum(),
-                "overflowed": torch.zeros_like(n_up),
+                "overflowed": (torch.zeros_like(n_up) if pf["ovf"] is None
+                               else pf["ovf"].to(torch.float32).sum()),
                 "train_loss": torch.where(
                     n_up > 0, (losses * upf).sum() / torch.clamp(n_up,
                                                                  min=1.0),

@@ -30,6 +30,11 @@ wrappers' launch counters and the ``stage()`` profiler ranges run once, at
 capture.  ``launches`` reports each FL kernel's real launches (the
 warm-up's plus replays times the launches one capture recorded), and a
 trace of replays shows the kernels without their stage ranges.
+
+A sharded round (``group=``, a ``launch.mesh.DataGroup``) holds
+collectives.  On an NCCL group they are captured with the round; one
+warm-up all-reduce before the capture creates the communicator, so the
+capture only records.
 """
 from __future__ import annotations
 
@@ -111,15 +116,17 @@ class RoundProgram:
     graphed     capture and replay the round (CUDA devices only)
     generators  the device generators the round draws from (registered
                 with the graph)
+    group       the data group of a sharded round (None: replicated)
     """
 
     def __init__(self, one_round: Callable, carry: Dict, block_size: int,
-                 device, graphed: bool = False, generators=()):
+                 device, graphed: bool = False, generators=(), group=None):
         self.one_round = one_round
         self.device = torch.device(device)
         if graphed and self.device.type != "cuda":
             raise ValueError("a graphed round program needs a CUDA device")
         self.graphed = graphed
+        self.group = group
         self.block_size = int(block_size)
         self.generators = tuple(generators)
         self.carry = tree_map(lambda v: v.clone(), carry)
@@ -197,6 +204,11 @@ class RoundProgram:
         synchronizes)."""
         if not self.graphed or self.graph is not None:
             return
+        if self.group is not None:
+            # the communicator is created by its first collective: make
+            # it now, so that the capture records the round's only
+            from repro_torch.launch.mesh import all_reduce_sum
+            all_reduce_sum(torch.zeros(1, device=self.device))
         snap = self._snapshot()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))

@@ -18,8 +18,16 @@ the end of this module: every strategy ranks ``logits + g`` for a Gumbel
 draw ``g`` [N], and the top k are taken by a stable descending sort, so
 equal scores resolve lowest index first as the reference's
 ``lax.top_k`` does (the -inf scores of quarantined clients tie whenever
-fewer than k clients are eligible).  Capacity compaction (sharded
-cohorts) is ROADMAP A12 (ii).
+fewer than k clients are eligible).
+
+The reference's sharded selection is ported as functions
+(``local_topk_candidates``, ``merge_topk_candidates``, ``pad_scores``,
+``select_cohort_sharded``): each shard's local top-k of its block, the
+candidates all-gathered and re-ranked, bitwise the replicated cohort.
+The port's sharded round does not call them: its scores are replicated
+on every rank, so ``select_cohort_device`` there gives the same cohort
+with no collective.  The capacity helpers at the end compact each shard's owned cohort slots
+into a dense lane block, the reference's deterministic overflow policy.
 """
 from __future__ import annotations
 
@@ -157,8 +165,152 @@ def select_cohort_device(g, values, k: int, strategy: str = "random",
     so a block of rounds crosses the ``al_rounds`` boundary without a host
     decision; ``elig`` masks ineligible clients.  Ties resolve lowest
     index first (a stable descending sort)."""
-    scores = _cohort_scores(g, values, strategy, beta, use_al, elig)
+    return _topk_ids(_cohort_scores(g, values, strategy, beta, use_al, elig),
+                     k)
+
+
+def _topk_ids(scores, k: int):
+    """The indices of the k largest scores, lowest index first among
+    equal scores (``lax.top_k``'s order)."""
     return torch.sort(scores, descending=True, stable=True).indices[:k]
+
+
+# ---------------------------------------------------------------------------
+# sharded selection: local top-k per client shard, merged globally
+# ---------------------------------------------------------------------------
+#
+# Shard s owns the contiguous score block [s*C, (s+1)*C).  Each shard takes
+# a local top-min(k, C) of its block; the (score, global id) candidates are
+# all-gathered; the winners are the top k of an [S*C] vector holding the
+# candidates' scores at their global ids and -inf elsewhere.  Every shard
+# forwards at least min(k, C) candidates, so the candidates hold the global
+# top k, and the vector keeps global positions, so ties resolve at the
+# replicated top-k's indices: the merged cohort is bitwise
+# ``select_cohort_device``'s.
+
+
+def local_topk_candidates(scores_pad, shard: int, clients_per_shard: int,
+                          k: int):
+    """Shard-local candidates: (scores [kk], global ids [kk] int64) with
+    kk = min(k, C), from the [S*C] ghost-padded scores."""
+    C = clients_per_shard
+    block = torch.as_tensor(scores_pad)[shard * C:(shard + 1) * C]
+    local = _topk_ids(block, min(k, C))
+    return block[local], local + shard * C
+
+
+def merge_topk_candidates(cand_scores, cand_ids, n_pad: int, k: int):
+    """The global merge: scatter the candidates into an [n_pad] vector
+    (-inf elsewhere; candidate ids are disjoint across shards) and take
+    its top k (int64 [k])."""
+    cand_scores = torch.as_tensor(cand_scores)
+    sparse = torch.full((n_pad,), float("-inf"), dtype=torch.float32,
+                        device=cand_scores.device)
+    sparse = sparse.index_put(
+        (torch.as_tensor(cand_ids).reshape(-1).long(),),
+        cand_scores.reshape(-1).to(torch.float32))
+    return _topk_ids(sparse, k)
+
+
+def pad_scores(scores, n_shards: int):
+    """Ghost-pad an [N] score vector to [S * ceil(N / S)] with -inf, so a
+    ghost row (a client that does not exist) never wins a merge.  Returns
+    (padded scores, C)."""
+    scores = torch.as_tensor(scores).to(torch.float32)
+    N = scores.shape[0]
+    C = -(-N // n_shards)
+    pad = torch.full((n_shards * C - N,), float("-inf"),
+                     dtype=torch.float32, device=scores.device)
+    return torch.cat([scores, pad]), C
+
+
+def select_cohort_sharded(g, values, k: int, n_shards: int,
+                          strategy: str = "random", beta: float = 0.01,
+                          use_al=False, elig=None):
+    """The mesh-free twin of the sharded selection: every shard's local
+    top k, then the merge; the ids ``select_cohort_device`` returns, for
+    any shard count."""
+    scores, C = pad_scores(_cohort_scores(g, values, strategy, beta, use_al,
+                                          elig), n_shards)
+    cands = [local_topk_candidates(scores, s, C, k)
+             for s in range(n_shards)]
+    return merge_topk_candidates(torch.stack([v for v, _ in cands]),
+                                 torch.stack([i for _, i in cands]),
+                                 n_shards * C, k)
+
+
+# ---------------------------------------------------------------------------
+# capacity-compacted cohort execution
+# ---------------------------------------------------------------------------
+#
+# The masked sharded round runs all K cohort slots on every shard with the
+# non-owned budgets zeroed: sharding spreads the data, not the compute.
+# With a capacity each shard packs its owned slots into a dense
+# ``[capacity]`` lane block, runs only that, and scatters the results back
+# to their [K] slots.  A shard that owns more than ``capacity`` slots keeps
+# the first ``capacity`` in slot order; the rest overflow: such a client
+# runs nothing this round and the server treats it as a dropped straggler
+# (E~ = 0, the Ira/Fassa crash branch), counted in ``overflowed``.  Given
+# the cohort, the same slots always overflow.
+
+AUTO_CAPACITY_SLACK = 2   # "auto": ceil(K / S) * slack, capped at K
+
+
+def resolve_capacity(spec, k: int, n_shards: int):
+    """``ServerConfig.cohort_capacity`` -> a per-shard lane count or None.
+
+    None / "full" -> None (the masked full-K round); "auto" -> ``min(K,
+    AUTO_CAPACITY_SLACK * ceil(K / n_shards))``; an int is clamped to [1,
+    K].  Any other spec requires sharding."""
+    if spec is None or spec == "full":
+        return None
+    if not n_shards:
+        raise ValueError(
+            f"cohort_capacity={spec!r} requires mesh sharding "
+            "(ServerConfig.mesh_shards >= 1); only 'full' runs replicated")
+    if spec == "auto":
+        return min(k, AUTO_CAPACITY_SLACK * (-(-k // n_shards)))
+    cap = int(spec)
+    if cap < 1:
+        raise ValueError(f"cohort_capacity must be >= 1, got {cap}")
+    return min(cap, k)
+
+
+def cohort_shard_ranks(ids, clients_per_shard: int):
+    """int64 [K]: how many earlier slots (j < k) the shard owning slot k
+    (``ids[k] // C``) also owns."""
+    ids = torch.as_tensor(ids).long()
+    K = ids.shape[0]
+    shard = ids // clients_per_shard
+    same = shard[:, None] == shard[None, :]
+    ar = torch.arange(K, device=ids.device)
+    return (same & (ar[None, :] < ar[:, None])).sum(1)
+
+
+def cohort_overflow(ids, clients_per_shard: int, capacity: int):
+    """[K] bool: the slots the capacity policy drops (their shard already
+    keeps ``capacity`` earlier slots).  The engine zeroes their budgets,
+    the server sends them through the crash branch and counts them, all
+    from this one mask."""
+    return cohort_shard_ranks(ids, clients_per_shard) >= capacity
+
+
+def compact_lane_map(ids, clients_per_shard: int, shard: int,
+                     capacity: int):
+    """int64 [capacity]: the cohort slot lane l of ``shard`` runs, or K
+    (the unused-lane sentinel).  Lanes fill front to back in slot order,
+    so scattering lane results to these slots (dropping K) rebuilds the
+    shard's part of the [K] stack."""
+    ids = torch.as_tensor(ids).long()
+    K = ids.shape[0]
+    own = (ids // clients_per_shard) == shard
+    rank = torch.cumsum(own.long(), 0) - 1
+    keep = own & (rank < capacity)
+    lane = torch.where(keep, rank, capacity)
+    out = torch.full((capacity + 1,), K, dtype=torch.int64,
+                     device=ids.device)
+    out = out.index_put((lane,), torch.arange(K, device=ids.device))
+    return out[:capacity]
 
 
 def value_update_device(values, sizes, ids, losses, uploaded):

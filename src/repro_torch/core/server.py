@@ -62,8 +62,32 @@ slot masked either way).  Every aggregator of the reference's registry
 runs, with ``trim_ratio``, ``agg_weighted`` and ``n_byzantine`` passed to
 it as the reference passes them.  Not ported yet, and refused with a
 ValueError naming the ROADMAP item when set to anything but the default:
-mesh sharding, capacity compaction and prefetch (A12 (ii)), and the
-grouped sub-configs ``compute=``, ``comm=`` and ``robustness=`` (A15).
+the grouped sub-configs ``compute=``, ``comm=`` and ``robustness=`` (A15).
+
+Client-axis sharding (``mesh_shards=S``): one process per shard in a
+``torch.distributed`` default process group of world size S, which the
+caller creates (``launch.mesh.spawn_world``, ``fl_train --shards``,
+torchrun); the server raises without one, as the reference's
+``make_data_mesh`` does.  Every rank builds the same server from the same
+seeds and runs the same host algebra, so L/H/theta, the values and the
+history stay replicated; it holds only its own block of clients
+(``PackedClients.shard``) and, under compression, its own ``[C, P]``
+residual rows, and the round trains only the cohort slots it owns
+(``RoundEngine.make_packed_round(mesh=)``).  Only rank 0 emits into the
+sink, prints progress and writes checkpoints.  ``cohort_capacity``
+("full", "auto" or an int; sharded only) compacts each rank's owned
+slots into a dense lane block: an overflowed slot goes through the crash
+branch with E~ = 0, is counted in ``overflowed`` (and ``dropped``) and,
+with telemetry, the records carry each shard's ``lane_occupancy``.  On
+the card the ranks take one card each over NCCL and the scan driver
+captures the round's collectives in its graph; gloo (the CPU's backend,
+or two ranks on one card) runs the host drivers only.
+``prefetch="double_buffer"`` is accepted and refused where the
+reference refuses it (an unknown mode; the scan driver on a mesh), and
+runs the same single-round program as ``prefetch="off"``: the reference's
+prefetch reorders the same operations into the same bits, and on the
+card a round's prepare cannot overlap the previous round's execute,
+whose values it reads.
 
 Failure handling, as in the reference: every failure the server
 tolerates funnels into the zero-budget crash branch of the Ira/Fassa
@@ -119,10 +143,12 @@ from repro_torch.core.engine import RoundEngine
 from repro_torch.core.graphs import RoundProgram, sync_checked
 from repro_torch.core.heterogeneity import HeterogeneitySim
 from repro_torch.core.rounds import make_eval_fn
-from repro_torch.core.selection import (ValueTracker, get_selection,
+from repro_torch.core.selection import (ValueTracker, cohort_overflow,
+                                        get_selection, resolve_capacity,
                                         select_active)
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_data_group
 from repro_torch.faults.inject import (apply_availability_stragglers,
                                        block_fault_draws, round_fault_draws)
 from repro_torch.models.fl_models import resolve_local_step
@@ -136,12 +162,10 @@ from repro_torch.obs.sinks import NullSink, RingBufferSink, Sink
 ALGOS = ("ira", "fassa", "fedavg", "fedprox", "oracle")
 DRIVERS = ("host", "scan")
 RNG_IMPLS = ("numpy", "device")
+PREFETCH_MODES = ("off", "double_buffer")
 
 #: un-ported ServerConfig features: field -> (default, ROADMAP item)
 _NOT_PORTED = {
-    "mesh_shards": (0, "A12 (ii) (client-axis sharding)"),
-    "cohort_capacity": ("full", "A12 (ii) (capacity compaction)"),
-    "prefetch": ("off", "A12 (ii) (double-buffered prefetch)"),
     "compute": (None, "A15 (grouped config surface)"),
     "comm": (None, "A15 (grouped config surface)"),
     "robustness": (None, "A15 (grouped config surface)"),
@@ -212,10 +236,12 @@ class ServerConfig:
     rng_impl: str = ""           # "" auto (numpy on host, device on scan)
                                  # | numpy | device
     fused_generic: bool = True   # True and False run the same walk
+    mesh_shards: int = 0         # client-axis shards: one process each in
+                                 # the torch.distributed default group
+    cohort_capacity: object = "full"  # per-shard lanes: "full" (masked
+                                      # K lanes), "auto" or an int
+    prefetch: str = "off"        # off | double_buffer (scan driver)
     # reference features not ported yet (must stay at their defaults)
-    mesh_shards: int = 0
-    cohort_capacity: object = "full"
-    prefetch: str = "off"
     compute: object = None
     comm: object = None
     robustness: object = None
@@ -304,9 +330,37 @@ class FedSAEServer:
                     "quarantine needs the device rng streams (eligibility "
                     "masks thread through the device Gumbel-top-k); set "
                     "rng_impl='device'")
+            if cfg.mesh_shards:
+                raise ValueError(
+                    "quarantine is not supported on a sharded mesh — run "
+                    "it on the replicated drivers")
+        if cfg.prefetch not in PREFETCH_MODES:
+            raise ValueError(f"unknown prefetch mode {cfg.prefetch!r}; "
+                             f"choose from {PREFETCH_MODES}")
+        if cfg.driver == "scan" and cfg.prefetch != "off" and \
+                cfg.mesh_shards:
+            raise ValueError(
+                "prefetch=\"double_buffer\" is not supported on a sharded "
+                "mesh yet (the prepared bundle would need per-shard "
+                "carries through shard_map; run prefetch on the "
+                "replicated scan driver)")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        # the client-axis group (None: replicated); its rank alone writes
+        self.group = (make_data_group(cfg.mesh_shards, self.device)
+                      if cfg.mesh_shards else None)
+        self.rank = 0 if self.group is None else self.group.rank
+        if self.group is not None:
+            self.device = self.group.device
         self.graphed = cfg.driver == "scan" and self.device.type == "cuda"
+        if self.graphed and self.group is not None and \
+                torch.distributed.get_backend() != "nccl":
+            raise ValueError(
+                f"the scan driver captures the round, collectives included, "
+                f"as a CUDA graph, and a "
+                f"{torch.distributed.get_backend()} group's collectives "
+                f"cannot be captured: use the nccl backend (one rank a "
+                f"card) or driver='host' with rng_impl='device'")
         if self.graphed and data_draws is not None:
             raise ValueError(
                 "data_draws= reads the cohort on the host, which a captured "
@@ -348,7 +402,17 @@ class FedSAEServer:
         tau_max = math.ceil(self.max_n / cfg.batch_size)
         budget = max(cfg.h_cap, cfg.fixed_epochs)
         self.max_iters = int(math.ceil(budget * tau_max))
-        self.packed = dataset.packed(self.max_n, device=self.device)
+        if self.group is None:
+            self.packed = dataset.packed(self.max_n, device=self.device)
+            self.sizes_dev = self.packed.lengths
+        else:
+            whole = dataset.packed(self.max_n, shards=cfg.mesh_shards)
+            self.packed = whole.shard(self.rank, self.device)
+            # the [S * C] global client lengths, ghost rows 0: replicated
+            self.sizes_dev = whole.lengths.reshape(-1).to(self.device)
+        # per-shard executed lanes (None: the masked full-K mode)
+        self.capacity = resolve_capacity(cfg.cohort_capacity,
+                                         cfg.n_selected, cfg.mesh_shards)
         self.test_x = torch.from_numpy(dataset.test_x).to(self.device)
         self.test_y = torch.from_numpy(dataset.test_y).to(self.device)
 
@@ -360,10 +424,12 @@ class FedSAEServer:
             faults=cfg.faults,
             screen_norm=cfg.screen_norm_bound if self.screening else None)
         # error-feedback state: one [P] float32 row per client (None when
-        # the upload transform is off)
+        # the upload transform is off); sharded, this rank's C clients'
         n_params = comp.n_params_of(self.params)
+        n_rows = (dataset.n_clients if self.group is None
+                  else self.packed.clients_per_shard)
         self.residual = (
-            torch.zeros((dataset.n_clients, n_params), dtype=torch.float32,
+            torch.zeros((n_rows, n_params), dtype=torch.float32,
                         device=self.device)
             if self.engine.compressing else None)
         self.bytes_per_client = comp.upload_bytes_per_client(
@@ -372,16 +438,19 @@ class FedSAEServer:
             n_params, "none")
         self.round_fn = self.engine.make_packed_round(
             self.model, cfg.batch_size, self.max_iters, self.packed.max_n,
-            sampling=cfg.sampling)
+            sampling=cfg.sampling, mesh=self.group, capacity=self.capacity,
+            sizes=self.sizes_dev)
         self.select_fn = get_selection(cfg.selection)
         self.eval_fn = make_eval_fn(self.model)
         self.block_size = max(1, int(cfg.block_size))
         self.program: Optional[RoundProgram] = None   # the device round
         self.cohorts: List[np.ndarray] = []
         self.budgets: List[np.ndarray] = []   # [K] n_iters per round
-        self.sink: Sink = sink if sink is not None else NullSink()
         self.telemetry = (bool(telemetry) if telemetry is not None
                           else sink is not None)
+        # rank 0 alone emits: every rank keeps the same records
+        self.sink: Sink = (sink if sink is not None and self.rank == 0
+                           else NullSink())
         self._records = RingBufferSink()
         self.host_syncs = 0                   # device->host pulls
 
@@ -404,6 +473,31 @@ class FedSAEServer:
         """Every executed round flows through here."""
         self._records.emit(record)
         self.sink.emit(record)
+
+    def _lane_occupancy(self, ids) -> Optional[List[float]]:
+        """Each shard's executed-lane occupancy for the cohort ``ids``
+        (host side, from the already-pulled cohort): owned slots over K,
+        or kept slots over the capacity.  None when replicated."""
+        if self.group is None:
+            return None
+        S = self.cfg.mesh_shards
+        counts = np.bincount(np.asarray(ids)
+                             // self.packed.clients_per_shard,
+                             minlength=S)[:S]
+        if self.capacity is not None:
+            return (np.minimum(counts, self.capacity)
+                    / float(self.capacity)).tolist()
+        return (counts / float(self.cfg.n_selected)).tolist()
+
+    def _progress_line(self, tag: str, label: str, rec: RoundRecord,
+                       overflowed: float) -> str:
+        """The progress line of both drivers; ``overflowed=`` with a
+        capacity."""
+        ovf = ("" if self.capacity is None
+               else f" overflowed={overflowed:.0f}")
+        return (f"[{tag}] {label} acc={rec.acc:.3f} "
+                f"dropout={rec.dropout:.2f} "
+                f"loss={rec.train_loss:.3f}{ovf}")
 
     # ------------------------------------------------------------------
     def _workloads(self, ids: np.ndarray, E_true: np.ndarray):
@@ -516,12 +610,14 @@ class FedSAEServer:
                 self.model, cfg.batch_size, self.max_iters, self.packed, cfg,
                 mu=mu, sigma=sigma, sel_gen=self.sel_gen,
                 data_gen=self.data_gen, phases=phases,
-                telemetry=self.telemetry, data_draws=self.data_draws)
+                telemetry=self.telemetry, data_draws=self.data_draws,
+                mesh=self.group, capacity=self.capacity,
+                sizes=self.sizes_dev)
             self.program = RoundProgram(
                 one_round, self.device_state(),
                 self.block_size if self.cfg.driver == "scan" else 1,
                 self.device, graphed=self.graphed,
-                generators=(self.sel_gen, self.data_gen))
+                generators=(self.sel_gen, self.data_gen), group=self.group)
         else:
             self.program.load(self.device_state())
         return self.program
@@ -548,7 +644,11 @@ class FedSAEServer:
         budgets of a pulled block of stats."""
         self.cohorts.extend(np.asarray(stats["ids"]))
         self.budgets.extend(np.asarray(stats["n_iters"]))
-        return records_from_block_stats(stats, t0, b)
+        recs = records_from_block_stats(stats, t0, b)
+        if self.telemetry and self.group is not None:
+            for rec, ids in zip(recs, stats["ids"]):
+                rec.lane_occupancy = self._lane_occupancy(ids)
+        return recs
 
     def _device_round(self, t: int) -> RoundRecord:
         """Round t on the device, eagerly (the host driver with
@@ -598,9 +698,9 @@ class FedSAEServer:
                 rec.wall_time_s = wall / b
                 self._emit_round(rec)
             if verbose:
-                print(f"[{cfg.algo}/scan] rounds {t0:3d}-{t0 + b - 1:3d} "
-                      f"acc={acc:.3f} dropout={recs[-1].dropout:.2f} "
-                      f"loss={recs[-1].train_loss:.3f}")
+                print(self._progress_line(
+                    f"{cfg.algo}/scan", f"rounds {t0:3d}-{t0 + b - 1:3d}",
+                    recs[-1], float(np.sum(stats["overflowed"]))))
             t0 += b
             if checkpoint_dir and (
                     (checkpoint_every > 0 and t0 % checkpoint_every == 0)
@@ -629,11 +729,16 @@ class FedSAEServer:
         fd = self._round_fault_draws(t)
         E_true_all, ids = self._draw_round_inputs(t, fd)
         E_true = E_true_all[ids]
+        # capacity overflow: the slots the per-shard lane budget drops
+        # never run, E~ = 0 takes them through the crash branch
+        ovf = (np.zeros(len(ids), bool) if self.capacity is None
+               else cohort_overflow(ids, self.packed.clients_per_shard,
+                                    self.capacity).numpy())
         # seeded mid-round dropouts zero the workload; screened corruption
         # modes zero the OBSERVED workload, so Ira/Fassa evolves bitwise
         # like the crash-twin run, while the faulty client still trains
         # with the un-demoted budget (the garbage it would transmit)
-        E_run = E_true
+        E_run = np.where(ovf, 0.0, E_true)
         if fm is not None and fm.dropout_prob > 0.0:
             E_run = np.where(np.asarray(fd["dropout"])[ids], 0.0, E_run)
         corrupt = (np.asarray(fd["corrupt"], bool)[ids]
@@ -690,7 +795,7 @@ class FedSAEServer:
             "n_iters": n_iters,
             "dropout": float((outcome == pred.DROPPED).mean()),
             "dropped": float((outcome == pred.DROPPED).sum()),
-            "overflowed": 0.0,
+            "overflowed": float(ovf.sum()),
             "train_loss": float(losses[uploaders].mean()) if uploaders.any()
             else float("nan"),
             "assigned": float(np.mean(assigned)),
@@ -711,6 +816,9 @@ class FedSAEServer:
                 losses, upf, 0.0, LOSS_HIST_MAX, LOSS_HIST_BINS)
             stats["workload_hist"] = histogram_counts(
                 e_eff, upf, 0.0, cfg.h_cap, WORKLOAD_HIST_BINS)
+            occ = self._lane_occupancy(ids)
+            if occ is not None:
+                stats["lane_occupancy"] = occ
         return stats
 
     def run(self, rounds: Optional[int] = None, verbose: bool = False,
@@ -728,6 +836,7 @@ class FedSAEServer:
         run's."""
         T = rounds or self.cfg.rounds
         t_start = 0
+        verbose = verbose and self.rank == 0
         if resume:
             if not checkpoint_dir:
                 raise ValueError("resume=True requires checkpoint_dir")
@@ -755,9 +864,8 @@ class FedSAEServer:
             rec.wall_time_s = time.perf_counter() - start
             self._emit_round(rec)
             if verbose and (t % 10 == 0 or t == T - 1):
-                print(f"[{self.cfg.algo}] round {t:3d} acc={rec.acc:.3f} "
-                      f"dropout={rec.dropout:.2f} "
-                      f"loss={rec.train_loss:.3f}")
+                print(self._progress_line(self.cfg.algo, f"round {t:3d}",
+                                          rec, rec.overflowed))
             if checkpoint_dir and (
                     (checkpoint_every > 0
                      and (t + 1) % checkpoint_every == 0) or t + 1 == T):

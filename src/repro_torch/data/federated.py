@@ -12,7 +12,9 @@ datasets, matching the paper's published statistics:
 
 ``FederatedDataset.packed`` uploads the whole federation to the device once
 as a ``PackedClients`` of torch tensors; each round gathers its cohort
-there.  The reference's sharded layout is not ported yet.
+there.  ``packed(shards=S)`` builds the reference's sharded layout (client
+blocks of ``C = ceil(N / S)``, ghost-padded) and ``PackedClients.shard``
+moves one block to the device of the process that owns it.
 """
 from __future__ import annotations
 
@@ -32,12 +34,43 @@ class PackedClients:
 
     ``x``/``y`` carry ``max_n`` zero rows of tail slack past the last
     client's samples, so every client's ``[offset, offset + max_n)`` window
-    is in bounds (the contract the gather kernel copies against)."""
-    x: torch.Tensor        # [total + max_n, ...feat]
-    y: torch.Tensor        # [total + max_n] int32
-    offsets: torch.Tensor  # [n_clients] int32
-    lengths: torch.Tensor  # [n_clients] int32
+    is in bounds (the contract the gather kernel copies against).
+
+    Sharded layout (``packed(shards=S)``, the reference's): every array
+    gains a leading shard axis.  Shard ``s`` owns the contiguous client
+    block ``[s * C, (s + 1) * C)`` with ``C = clients_per_shard``, so
+    global client ``g`` lives on shard ``g // C`` at local row ``g % C``.
+    Each shard's flat arrays hold only its own clients' samples, with the
+    same ``max_n`` tail slack, zero-padded to a common length; ``offsets``
+    are shard-local.  The last shards may own ghost clients (``lengths ==
+    0``) when S does not divide the population: they are never selected
+    and gather nothing.  ``shard(rank, device)`` keeps one block (``rank``
+    is then its index, -1 for a whole layout)."""
+    x: torch.Tensor        # [total + max_n, ...feat]  (sharded: [S, L, ...])
+    y: torch.Tensor        # [total + max_n] int32     (sharded: [S, L])
+    offsets: torch.Tensor  # [n_clients] int32         (sharded: [S, C])
+    lengths: torch.Tensor  # [n_clients] int32         (sharded: [S, C])
     max_n: int             # cohort shard width
+    n_shards: int = 0            # 0 = the unsharded flat layout
+    clients_per_shard: int = 0   # C (sharded layouts only)
+    rank: int = -1               # the block a ``shard`` view holds
+
+    def shard(self, rank: int, device: DeviceLike = None) -> "PackedClients":
+        """Block ``rank`` of a sharded layout, moved to ``device``: x [L,
+        ...], y [L], and the shard-local offsets and lengths [C].  The
+        counterpart of the reference's ``shard_to``: each process holds
+        only its own clients' samples."""
+        if not self.n_shards or self.rank >= 0:
+            raise ValueError("shard() requires a whole sharded layout "
+                             "(FederatedDataset.packed(shards=S))")
+        if not 0 <= rank < self.n_shards:
+            raise ValueError(f"rank {rank} outside the layout's "
+                             f"{self.n_shards} shards")
+        dev = resolve_device(device)
+        return dataclasses.replace(
+            self, x=self.x[rank].to(dev), y=self.y[rank].to(dev),
+            offsets=self.offsets[rank].to(dev),
+            lengths=self.lengths[rank].to(dev), rank=int(rank))
 
 
 @dataclasses.dataclass
@@ -59,13 +92,18 @@ class FederatedDataset:
         return np.array([len(y) for y in self.clients_y])
 
     def packed(self, max_n: Optional[int] = None,
-               device: DeviceLike = None) -> PackedClients:
+               device: DeviceLike = None,
+               shards: Optional[int] = None) -> PackedClients:
         """One-time device upload of the whole federation.  ``max_n``
         bounds the per-round cohort shard width (default: the largest
-        client)."""
-        dev = resolve_device(device)
+        client).  ``shards`` selects the sharded layout (see
+        ``PackedClients``), built on the host: ``shard`` then moves one
+        block to its device."""
         ns = self.sizes
         m = int(max_n or ns.max())
+        if shards:
+            return self._packed_sharded(int(shards), m)
+        dev = resolve_device(device)
         offsets = np.zeros(len(ns), np.int64)
         np.cumsum(ns[:-1], out=offsets[1:])
         pad_x = np.zeros((m,) + self.clients_x[0].shape[1:],
@@ -78,6 +116,39 @@ class FederatedDataset:
             offsets=torch.from_numpy(offsets.astype(np.int32)).to(dev),
             lengths=torch.from_numpy(ns.astype(np.int32)).to(dev),
             max_n=m)
+
+    def _packed_sharded(self, shards: int, max_n: int) -> PackedClients:
+        """The reference's ``_packed_sharded``: ``shards`` contiguous
+        blocks of ``C = ceil(N / shards)`` clients (ghost-padded), each
+        block's samples concatenated with ``max_n`` rows of tail slack, all
+        blocks zero-padded to a common flat length."""
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        N = self.n_clients
+        C = -(-N // shards)
+        ns = self.sizes
+        feat = self.clients_x[0].shape[1:]
+        blocks = [list(range(s * C, min((s + 1) * C, N)))
+                  for s in range(shards)]
+        L = max((int(ns[b].sum()) if b else 0) for b in blocks) + max_n
+        x = np.zeros((shards, L) + feat, self.clients_x[0].dtype)
+        y = np.zeros((shards, L), np.int32)
+        offsets = np.zeros((shards, C), np.int32)
+        lengths = np.zeros((shards, C), np.int32)
+        for s, block in enumerate(blocks):
+            pos = 0
+            for j, g in enumerate(block):
+                n = len(self.clients_y[g])
+                offsets[s, j] = pos
+                lengths[s, j] = n
+                x[s, pos:pos + n] = self.clients_x[g]
+                y[s, pos:pos + n] = self.clients_y[g]
+                pos += n
+        return PackedClients(
+            x=torch.from_numpy(x), y=torch.from_numpy(y),
+            offsets=torch.from_numpy(offsets),
+            lengths=torch.from_numpy(lengths), max_n=max_n,
+            n_shards=shards, clients_per_shard=C)
 
 
 def power_law_sizes(rng: np.random.Generator, n_clients: int, total: int,

@@ -45,9 +45,22 @@
       --rounds 10 --faults nan_upload --fault-prob 0.3 \
       --checkpoint-dir ckpt/ --resume --metrics-out run.jsonl
 
+  # client-axis sharding: 2 gloo ranks on the CPU, spawned by the CLI
+  # itself, each holding half the clients, each rank's cohort slots
+  # compacted to 4 lanes; on the card one rank a card over NCCL
+  # (--device cuda --shards 2 needs two cards), or under torchrun:
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
+      --shards 2 --cohort-capacity 4 --rounds 4
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \
+      repro_torch.launch.fl_train --shards 2 --driver scan --sampling iid
+
+  # --prefetch double_buffer is accepted (refused on a sharded scan, as
+  # the reference refuses it) and runs the off program, the same bits
+
 Every flag of the reference CLI is accepted at its default; a value of a
 feature the port does not run yet exits with a usage error naming its
-ROADMAP item.
+ROADMAP item.  With ``--shards S`` only rank 0 writes: the progress lines,
+the final line, ``--metrics-out``, ``--trace-dir`` and the checkpoints.
 """
 from __future__ import annotations
 
@@ -55,6 +68,7 @@ import argparse
 import contextlib
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -137,7 +151,7 @@ def resume_from(args):
     return ckpts[-1][0]
 
 
-def build_server(args, sink=None) -> FedSAEServer:
+def build_server(args, sink=None, telemetry=None) -> FedSAEServer:
     make = DATASETS[args.dataset]
     ds = make() if args.paper_scale else make(**REDUCED[args.dataset])
     lr = args.lr if args.lr is not None else DEFAULT_LR.get(args.dataset,
@@ -159,8 +173,10 @@ def build_server(args, sink=None) -> FedSAEServer:
                        quarantine_threshold=args.quarantine_threshold,
                        quarantine_rounds=args.quarantine_rounds,
                        quarantine_min_tries=args.quarantine_min_tries,
-                       device=args.device)
-    return FedSAEServer(ds, cfg=cfg, sink=sink)
+                       mesh_shards=args.shards,
+                       cohort_capacity=args.cohort_capacity,
+                       prefetch=args.prefetch, device=args.device)
+    return FedSAEServer(ds, cfg=cfg, sink=sink, telemetry=telemetry)
 
 
 def silo_tokens(ri, cfg, K: int, max_steps: int, B: int = 2, S: int = 64):
@@ -219,12 +235,6 @@ def run_silo(args):
 FAULT_MODES = {"none": "none", "crash": "crash", "nan_upload": "nan",
                "inf_upload": "inf", "sign_flip_upload": "sign_flip",
                "explode_upload": "explode"}
-
-#: reference flags the port takes at their default only: dest -> ROADMAP
-#: item
-NOT_PORTED = dict.fromkeys(("shards", "cohort_capacity", "prefetch"),
-                           "A12 (ii)")
-
 
 def parse_capacity(spec: str):
     """--cohort-capacity accepts "full", "auto" or an int lane count (the
@@ -287,9 +297,9 @@ def make_parser() -> argparse.ArgumentParser:
                          "ceil(K/S)*slack capped at K, or an explicit int")
     ap.add_argument("--prefetch", default="off",
                     choices=("off", "double_buffer"),
-                    help="scan-driver cohort prefetch: double_buffer "
-                         "prepares round t+1 in the same step round t "
-                         "trains in")
+                    help="scan-driver cohort prefetch (the reference's "
+                         "reordering of the same operations; the port "
+                         "runs the off program, the same bits)")
     ap.add_argument("--compress", default="none",
                     choices=("none", "topk_q8"),
                     help="upload transform between local SGD and "
@@ -373,36 +383,85 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """Parse the flags; a flag of an unported feature set to anything but
-    its default exits through ``ap.error`` naming its ROADMAP item."""
+    """Parse the flags; a value of an unported feature exits through
+    ``ap.error`` naming its ROADMAP item."""
     ap = make_parser()
     args = ap.parse_args(argv)
-    for dest, item in NOT_PORTED.items():
-        value = getattr(args, dest)
-        if value != ap.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            ap.error(f"{flag} {value!r} is not ported yet (ROADMAP {item})")
     if args.model is not None and args.model not in LOCAL_STEPS:
         ap.error(f"--model {args.model} is not ported yet (ROADMAP "
                  "A13 (iii))")
     return args
 
 
+def _sharded_main(rank: int, argv):
+    """One rank of ``--shards S`` spawned by the CLI: the group exists."""
+    return main(argv)
+
+
+def join_world(args, argv):
+    """--shards S: join (or start) the client-axis group.  Returns None
+    when this process runs a rank, or rank 0's history after running a
+    spawned world whose ranks each run ``main(argv)``.  Under torchrun (``WORLD_SIZE`` set) this process
+    joins the group; otherwise the CLI spawns S ranks, one a card over
+    NCCL on --device cuda (S cards needed, as the reference's mesh needs
+    S devices), S gloo ranks on --device cpu."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+    if dist.is_initialized():
+        return None
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    if args.device == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if args.shards > have:
+            raise SystemExit(
+                f"--shards {args.shards} needs {args.shards} CUDA devices "
+                f"but only {have} exist (one rank a card); on the CPU run "
+                f"--device cpu (gloo)")
+    if "WORLD_SIZE" in os.environ:
+        import datetime
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        if backend == "nccl":
+            torch.cuda.set_device(local)
+        dist.init_process_group(backend, timeout=datetime.timedelta(
+            seconds=mesh.GROUP_TIMEOUT_S))
+        return None
+    results = mesh.spawn_world(_sharded_main, args.shards, backend=backend,
+                               device=args.device, args=(argv,))
+    return results[0]
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.silo_arch:
         return run_silo(args)
-    with make_sink(args, resume_from(args), path="flat",
-                   dataset=args.dataset, algo=args.algo,
-                   model=args.model) or contextlib.nullcontext() as sink:
-        srv = build_server(args, sink)
-        with trace_if(args.trace_dir):
+    if args.shards:
+        hist = join_world(args, list(sys.argv[1:] if argv is None
+                                     else argv))
+        if hist is not None:
+            return hist
+    import torch.distributed as dist
+    rank = dist.get_rank() if args.shards else 0
+    with (make_sink(args, resume_from(args), path="flat",
+                    dataset=args.dataset, algo=args.algo, model=args.model)
+          if rank == 0 else None) or contextlib.nullcontext() as sink:
+        srv = build_server(args, sink,
+                           telemetry=bool(args.metrics_out) or None)
+        with trace_if(args.trace_dir if rank == 0 else None):
             hist = srv.run(verbose=not args.quiet,
                            checkpoint_dir=args.checkpoint_dir,
                            checkpoint_every=args.checkpoint_every,
                            resume=args.resume)
+    if rank != 0:
+        return hist
     if sink is not None:
         print(f"metrics: {sink.path}")
+    # a compacted run reports how many cohort slots it dropped
+    ovf = "" if srv.capacity is None else (
+        f" overflowed={np.sum(hist['overflowed']):.0f}"
+        f"/{len(hist['overflowed']) * srv.cfg.n_selected:.0f} slots"
+        f" (capacity={srv.capacity})")
     recs = srv._records.records
     scr = [r.screened for r in recs if r.screened is not None]
     flt = "" if not scr else f" screened={np.sum(scr):.0f} uploads"
@@ -411,7 +470,7 @@ def main(argv=None):
         flt += f" quarantined={q[-1]:.0f} clients"
     print(f"final: acc={hist['acc'][-1]:.3f} "
           f"mean_dropout={np.nanmean(hist['dropout']):.3f} "
-          f"dropped={np.sum(hist['dropped']):.0f}{flt}")
+          f"dropped={np.sum(hist['dropped']):.0f}{ovf}{flt}", flush=True)
     return hist
 
 

@@ -16,6 +16,7 @@ import importlib, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
+assert "repro_torch.launch.mesh" in names
 for name in names:
     importlib.import_module(name)
 for name in repro_torch.__all__:
@@ -35,7 +36,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 57        # core.graphs included
+    assert int(n_modules) >= 58        # launch.mesh included
     assert bad == "", f"port pulled in: {bad}"
 
 

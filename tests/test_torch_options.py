@@ -13,12 +13,15 @@ and device-driver options are also driven through CPU rounds, which shows
 that they do their job.
 """
 import argparse
+import contextlib
 import dataclasses
 import inspect
 import json
 import os
+import tempfile
 
 import pytest
+import torch.distributed as dist
 
 import repro.launch.fl_train as rfl
 from repro.core.server import CommConfig as RComm
@@ -62,9 +65,9 @@ FIELD_CASES = {
     "backend": [("pallas", OK)],
     "driver": [("scan", OK)],
     "block_size": [(8, OK)],
-    "mesh_shards": [(2, REFUSED)],
-    "cohort_capacity": [("auto", REFUSED), (4, REFUSED)],
-    "prefetch": [("double_buffer", REFUSED)],
+    "mesh_shards": [(1, OK)],
+    "cohort_capacity": [("auto", OK), (4, OK)],
+    "prefetch": [("double_buffer", OK)],
     "fused_generic": [(False, OK)],
     "upload_compress": [("topk_q8", OK)],
     "topk_frac": [(0.2, OK)],
@@ -105,9 +108,9 @@ FLAG_CASES = {
     "--backend": [("pallas", OK)],
     "--driver": [("scan", OK)],
     "--block-size": [("8", OK)],
-    "--shards": [("2", REFUSED)],
-    "--cohort-capacity": [("auto", REFUSED), ("4", REFUSED)],
-    "--prefetch": [("double_buffer", REFUSED)],
+    "--shards": [("2", OK)],
+    "--cohort-capacity": [("auto", OK), ("4", OK)],
+    "--prefetch": [("double_buffer", OK)],
     "--compress": [("topk_q8", OK)],
     "--topk-frac": [("0.2", OK)],
     "--faults": [(m, OK) for m in rfl.FAULT_MODES if m != "none"],
@@ -143,15 +146,16 @@ RUN_CASES = {"checkpoint_dir": ["ckpt"], "checkpoint_every": [2],
              "resume": [True]}
 
 #: the other fields a field needs: quarantine needs the screen and the
-#: device rng streams (the reference's checks), the block size a scan
+#: device rng streams (the reference's checks), the block size and
+#: prefetch a scan, a capacity sharding (its one-rank group: ``_group``)
 FIELD_CONTEXT = {"quarantine_threshold": dict(upload_screen="on",
                                               rng_impl="device"),
-                 "block_size": dict(driver="scan")}
+                 "block_size": dict(driver="scan"),
+                 "prefetch": dict(driver="scan"),
+                 "cohort_capacity": dict(mesh_shards=1)}
 
 #: the ROADMAP item each refused field names
-REFUSED_ITEMS = {"mesh_shards": "A12 (ii)", "cohort_capacity": "A12 (ii)",
-                 "prefetch": "A12 (ii)", "compute": "A15", "comm": "A15",
-                 "robustness": "A15"}
+REFUSED_ITEMS = {"compute": "A15", "comm": "A15", "robustness": "A15"}
 
 
 def _one_round_scan(srv):
@@ -173,11 +177,23 @@ def _one_round_quarantine(srv):
     assert srv._records.last.quarantined is not None
 
 
+def _one_round_sharded(srv):
+    """Sharding over the one-rank group: this rank holds every client,
+    and a capacity below K overflows the rest of the cohort."""
+    srv.run(rounds=1)
+    assert srv.group is not None and srv.packed.rank == 0
+    want = 0 if srv.capacity is None else 4 - min(srv.capacity, 4)
+    assert srv._records.last.overflowed == want
+
+
 #: accepted fields driven one CPU round: name -> check(server)
 FIELD_RUNS = {"driver": _one_round_scan, "block_size": _one_round_scan,
               "fused_generic": _one_round_scan,
               "rng_impl": _one_round_device,
-              "quarantine_threshold": _one_round_quarantine}
+              "quarantine_threshold": _one_round_quarantine,
+              "prefetch": _one_round_scan,
+              "mesh_shards": _one_round_sharded,
+              "cohort_capacity": _one_round_sharded}
 FIELD_CONTEXT["fused_generic"] = dict(driver="scan")
 
 
@@ -245,15 +261,33 @@ def test_config_field_accepted_at_reference_default(name):
     assert getattr(srv.cfg, name) == default
 
 
+@contextlib.contextmanager
+def _group(kw):
+    """A one-rank gloo group around a sharded server's life (none
+    otherwise)."""
+    if not kw.get("mesh_shards"):
+        yield
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("name,value,ok", [
     (n, v, ok) for n, cases in FIELD_CASES.items() for v, ok in cases])
 def test_config_field_non_default(name, value, ok):
     kw = dict(FIELD_CONTEXT.get(name, {}), **{name: value})
     if ok:
-        srv = _server(**kw)
-        assert getattr(srv.cfg, name) == value
-        if name in FIELD_RUNS and (name, value) != ("rng_impl", "numpy"):
-            FIELD_RUNS[name](srv)
+        with _group(kw):
+            srv = _server(**kw)
+            assert getattr(srv.cfg, name) == value
+            if name in FIELD_RUNS and (name, value) != ("rng_impl", "numpy"):
+                FIELD_RUNS[name](srv)
         return
     with pytest.raises((ValueError, NotImplementedError),
                        match=r"ROADMAP " + REFUSED_ITEMS[name]
@@ -315,9 +349,12 @@ def _quarantined(out):
 RUN_CHECKS = {"--metrics-out": _wrote_records, "--trace-dir": _wrote_trace,
               "--faults": _screened, "--checkpoint-dir": _wrote_checkpoint,
               "--driver": _ran_scan, "--block-size": _ran_scan,
+              "--prefetch": _ran_scan,
               "--quarantine-threshold": _quarantined}
-#: the other flags a driven flag needs
+#: the other flags a driven flag needs (``--shards`` spawns its ranks: the
+#: CLI run is ``test_torch_sharding.py``'s)
 RUN_CONTEXT = {"--block-size": ["--driver", "scan"],
+               "--prefetch": ["--driver", "scan"],
                "--quarantine-threshold": ["--driver", "scan", "--faults",
                                           "nan_upload"]}
 

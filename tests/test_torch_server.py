@@ -208,16 +208,31 @@ def test_cli_smoke_on_cpu(capsys, extra):
     assert "final: acc=" in capsys.readouterr().out
 
 
+#: the error each A12 (ii) value (ported: sharding, capacity, prefetch)
+#: raises, as the reference's, in a config that cannot run it: sharding
+#: without a process group, capacity without sharding, prefetch on a mesh
+A12_MISUSE = {"mesh_shards": ({}, "needs a torch.distributed default "
+                                  "process group"),
+              "cohort_capacity": ({}, "requires mesh sharding"),
+              "prefetch": (dict(driver="scan", mesh_shards=1),
+                           "not supported on a sharded mesh")}
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
     ("prefetch", "double_buffer", "A12"), ("compute", object(), "A15"),
     ("comm", object(), "A15"), ("robustness", object(), "A15")])
 def test_unported_config_raises(field, value, item):
-    """Unported options raise naming their ROADMAP item: sharding,
-    capacity and prefetch A12 (ii), the grouped configs A15."""
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
+    """Unported options raise naming their ROADMAP item: the grouped
+    configs A15.  The A12 (ii) options are ported: each raises the
+    reference's error where it cannot run (``A12_MISUSE``)."""
+    if item == "A12":
+        extra, match = A12_MISUSE[field]
+    else:
+        extra, match = {}, f"ROADMAP {item}"
+    with pytest.raises(ValueError, match=match):
         TServer(tfemnist(**DS_KW), cfg=TConfig(
-            device="cpu", upload_screen="on", **{field: value}))
+            device="cpu", upload_screen="on", **extra, **{field: value}))
 
 
 @pytest.mark.parametrize("field,value", [
@@ -239,8 +254,15 @@ def test_device_driver_config_accepted(field, value):
     ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
     ("prefetch", "double_buffer", "A12")])
 def test_compression_with_an_unported_feature_raises(field, value, item):
-    with pytest.raises(ValueError, match=f"ROADMAP {item}"):
-        TConfig(upload_compress="topk_q8", **{field: value})
+    """Compression with the A12 (ii) options, once refused by item: the
+    config is accepted, and the server raises the reference's error where
+    the combination cannot run (``A12_MISUSE``)."""
+    extra, match = A12_MISUSE[field]
+    cfg = TConfig(device="cpu", upload_compress="topk_q8", **extra,
+                  **{field: value})
+    assert getattr(cfg, field) == value
+    with pytest.raises(ValueError, match=match):
+        TServer(tfemnist(**DS_KW), cfg=cfg)
 
 
 @pytest.mark.parametrize("kw", [
