@@ -173,6 +173,20 @@ last line):
    rng), each bitwise the world-1 run; ``prefetch="double_buffer"``
    bitwise off on the scan driver; rounds/s of the replicated and the
    world-1 sharded scan in turns;
+   then an architecture id as the packed round's local step
+   (``lm_fed_phase``, the lanes trained in turn in one [K, ...] stack)
+   on a Sent140-like token federation: Llama-3.2-3B at full width and
+   depth, K=2, 2 rounds on the numpy host driver (iid, FedAvg,
+   uncompressed) with finite losses, L <= H, the peak memory (< 80 GB)
+   and the flash and cross-entropy launches its budgets imply (56, 28,
+   1 and 1 a local step under remat); the Llama and Falcon-Mamba smoke
+   LMs the reference's CLI resolves, on the numpy host driver (iid,
+   shuffle, topk_q8, nan uploads bitwise their crash twin), the scan
+   driver bitwise the device-rng host driver, a world-1 NCCL sharded
+   scan bitwise the replicated one and a scan kill/resume bitwise, each
+   leg's launches checked against its budgets and its rounds/s and
+   graph nodes printed; and the float32 Llama smoke round card vs CPU
+   within 1e-4;
 5. profile one steady round of each FL leg (Sent140's shuffle leg too,
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
@@ -946,6 +960,7 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     """Phase 4 (and 5): ``serve.generate`` at full width with random
     weights.  Every kernel's count is set to 0 just before the counted run
     and read just after; ``want`` maps kernel name -> launches."""
+    from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
     model = build_model(cfg)
     dev = torch.device("cuda")
@@ -954,7 +969,7 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     params = model.init(torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     tokens = serve.prompt_tokens(cfg, batch, prompt, dev)
     serve.generate(model, params, tokens[:, :64], 2)      # warm-up
     reset_counts(counted)
@@ -1460,6 +1475,7 @@ def _same_run(torch, np, a, b):
     """Two servers' runs bitwise equal: cohorts, history (L, H, theta, the
     values), params and, when compressing, the residual.  Returns the
     first difference's name, or None."""
+    from repro_torch.tree import tree_items
     if len(a.cohorts) != len(b.cohorts) or not all(
             np.array_equal(x, y) for x, y in zip(a.cohorts, b.cohorts)):
         return "cohorts"
@@ -1468,8 +1484,9 @@ def _same_run(torch, np, a, b):
             return name
     if not np.array_equal(a.values.v, b.values.v):
         return "values"
-    for k in a.params:
-        if not torch.equal(a.params[k], b.params[k]):
+    bp = dict(tree_items(b.params))
+    for k, v in tree_items(a.params):
+        if not torch.equal(v, bp[k]):
             return f"params {k}"
     if a.residual is not None and not torch.equal(a.residual, b.residual):
         return "residual"
@@ -2083,11 +2100,12 @@ def _run_summary(srv) -> dict:
     """A finished server's state and records as host values: what two runs
     must share to be the same run (cohorts, budgets, L/H/theta, values,
     params, residual, the records but their wall times)."""
+    from repro_torch.tree import tree_items
     return {"cohorts": [c.tolist() for c in srv.cohorts],
             "budgets": [b.tolist() for b in srv.budgets],
             "L": srv.L, "H": srv.H, "theta": srv.theta,
             "values": srv.values.v,
-            "params": {k: v.cpu() for k, v in srv.params.items()},
+            "params": {k: v.cpu() for k, v in tree_items(srv.params)},
             "residual": (None if srv.residual is None
                          else srv.residual.cpu()),
             "records": _scan_records(srv)}
@@ -2366,12 +2384,458 @@ def shard_phase(torch, np, FedSAEServer, ServerConfig, femnist, counted,
     return out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def lm_launches(cfg, steps, evals=0, passes=0, xent_tc=True):
+    """The LM kernels' launches of ``steps`` local steps, ``evals`` test
+    evals and ``passes`` post-training loss passes (shuffle) of
+    ``from_model(cfg)``, derived from ``models/decoder.py``: a step runs
+    each layer's mixer forward once, twice under remat (the group is
+    recomputed in the backward), the flash backward once a layer (the
+    scan's backward is the plain recompute: no launch) and the loss as
+    one cross-entropy chunk forward and backward (25-token rows: S - 1 =
+    24 positions, below the 1,024-position chunk, so one chunk); an eval
+    runs the forward without remat twice (``accuracy``, then ``loss``:
+    one chunk); a pass once.  The backward launches its kernel on the
+    tensor-core route only (``xent_tc``)."""
+    L = cfg.n_layers
+    mixer = ("selective_scan_fwd" if cfg.family == "ssm"
+             else "flash_attention_fwd")
+    want = {mixer: L * (2 if cfg.remat else 1) * steps
+            + 2 * L * evals + L * passes,
+            "fused_softmax_xent_fwd": steps + evals + passes,
+            "fused_softmax_xent_bwd": steps if xent_tc else 0}
+    if mixer == "flash_attention_fwd":
+        want["flash_attention_bwd"] = L * steps
+    return want
+
+
+def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen):
+    """Phase 10's kernels at the shapes its legs give them, outside the
+    count: for each config of ``cfgs`` (arch label -> config) and each
+    batch of ``rows`` (label -> sequences: a local step's minibatch, the
+    test split), the flash forward (and, for a step, backward) on q/k/v
+    [rows, S, H, hd] and the fused cross-entropy forward (and backward)
+    on h [rows * S, d], W [d, V], all bfloat16 as the legs run them, each
+    against its plain version at phase 2's tolerances and each taking the
+    tensor cores as the legs did; the selective scan at [rows, S, d_inner,
+    N] against its plain version, all on ``gen``'s device.  Returns
+    {kernel: max_abs_err}."""
+    dev = gen.device
+    bf16 = torch.bfloat16
+    fa, fa_bwd = counted["flash_attention_fwd"], counted["flash_attention_bwd"]
+    fx, bx = counted["fused_softmax_xent_fwd"], counted["fused_softmax_xent_bwd"]
+    from repro_torch.kernels.fused_xent import fused_softmax_xent_fwd_lse
+    errs = {}
+
+    def note(kernel, label, e, tol, ok, tc_moved=True):
+        errs[kernel] = max(errs.get(kernel, 0.0), *e)
+        print(f"lm shapes {kernel} {label}: max_abs_err "
+              f"{[float(f'{x:.3e}') for x in e]} (tol {tol})", flush=True)
+        if not ok:
+            raise RuntimeError(f"lm shapes: {kernel} differs from its plain "
+                               f"version at {label}")
+        if not tc_moved:
+            raise RuntimeError(f"lm shapes: {kernel} did not take the "
+                               f"tensor cores at {label}")
+
+    for arch, cfg in cfgs.items():
+        for what, B in rows.items():
+            step = what == "step"
+            label = f"{arch} {what}"
+            if cfg.family == "ssm":
+                args = scan_inputs(torch, B, S, cfg.d_inner, cfg.ssm_state,
+                                   gen, dev)
+                y, hT = counted["selective_scan_fwd"](*args)
+                wy, wh = ref.selective_scan(*args)
+                torch.cuda.synchronize()
+                e = [float((y - wy).abs().max()), float((hT - wh).abs().max())]
+                note("selective_scan_fwd",
+                     f"{label} B={B} S={S} d={cfg.d_inner} "
+                     f"N={cfg.ssm_state}", e, SCAN_TOL,
+                     torch.allclose(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
+                     and torch.allclose(hT, wh, rtol=SCAN_TOL,
+                                        atol=SCAN_TOL))
+            else:
+                hd = cfg.resolved_head_dim
+                q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
+                                           device=dev).to(bf16)
+                               for H in (cfg.n_heads, cfg.n_kv_heads,
+                                         cfg.n_kv_heads, cfg.n_heads))
+                shape = f"q={tuple(q.shape)} k={tuple(k.shape)}"
+                tc0 = fa.tensor_core_launches
+                out, lse = fa(q, k, v, True, 0)
+                want, want_lse = ref.attention_lse(q, k, v, causal=True)
+                torch.cuda.synchronize()
+                tol = LM_TOL["bfloat16"]
+                note("flash_attention_fwd", f"{label} {shape}",
+                     [float((out.float() - want.float()).abs().max()),
+                      float((lse - want_lse).abs().max())],
+                     f"{tol}, lse 2e-5",
+                     torch.allclose(out.float(), want.float(), rtol=tol,
+                                    atol=tol)
+                     and torch.allclose(lse, want_lse, rtol=2e-5,
+                                        atol=2e-5),
+                     fa.tensor_core_launches == tc0 + 1)
+                if step:
+                    tc0 = fa_bwd.tensor_core_launches
+                    got = fa_bwd(q, k, v, want.contiguous(), want_lse, do,
+                                 True, 0)
+                    wants = ref.flash_attention_bwd(q, k, v, want,
+                                                    want_lse, do,
+                                                    causal=True)
+                    torch.cuda.synchronize()
+                    atol, rtol = BWD_TOL["bfloat16"]
+                    note("flash_attention_bwd", f"{label} {shape}",
+                         [float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, wants)],
+                         f"atol {atol}, rtol {rtol}",
+                         all(torch.allclose(g.float(), w.float(), rtol=rtol,
+                                            atol=atol)
+                             for g, w in zip(got, wants)),
+                         fa_bwd.tensor_core_launches == tc0 + 1)
+                del q, k, v, do, out, lse, want, want_lse
+            T, d, V = B * S, cfg.d_model, cfg.vocab_size
+            h = torch.randn((T, d), generator=gen, device=dev).to(bf16)
+            W = (torch.randn((d, V), generator=gen, device=dev)
+                 * d ** -0.5).to(bf16)
+            labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                                   dtype=torch.int32)
+            shape = f"h={tuple(h.shape)} W={tuple(W.shape)}"
+            tc0 = fx.tensor_core_launches
+            got, lse = fused_softmax_xent_fwd_lse(h, W, labels)
+            want, want_lse = ref.softmax_xent_lse(h, W, labels)
+            torch.cuda.synchronize()
+            note("fused_softmax_xent_fwd", f"{label} {shape}",
+                 [float((got - want).abs().max()),
+                  float((lse - want_lse).abs().max())], XENT_TOL,
+                 torch.allclose(got, want, rtol=XENT_TOL, atol=XENT_TOL)
+                 and torch.allclose(lse, want_lse, rtol=XENT_TOL,
+                                    atol=XENT_TOL),
+                 fx.tensor_core_launches == tc0 + 1)
+            if step:
+                # a loss cotangent like the step's: mask / count
+                g = torch.full((T,), 1.0 / T, device=dev)
+                tc0 = bx.tensor_core_launches
+                dh, dW = bx(h, W, labels, lse, g)
+                wants = ops._recompute_vjp(ref.softmax_xent, (h, W, labels),
+                                           (g,))[:2]
+                torch.cuda.synchronize()
+                scales = [float(w.float().abs().max()) for w in wants]
+                note("fused_softmax_xent_bwd", f"{label} {shape}",
+                     [float((a.float() - w.float()).abs().max())
+                      for a, w in zip((dh, dW), wants)],
+                     "rtol 2^-7, atol 2^-9 max|want|",
+                     all(torch.allclose(a.float(), w.float(),
+                                        rtol=XENT_BWD_RTOL,
+                                        atol=XENT_BWD_ATOL * sc)
+                         for a, w, sc in zip((dh, dW), wants, scales)),
+                     bx.tensor_core_launches == tc0 + 1)
+                del dh, dW, wants
+            del h, W, got, lse, want, want_lse
+            torch.cuda.empty_cache()
+    return errs
+
+
+def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
+                 get_config, make_sent140_like):
+    """Phase 10: an architecture id as every client's local step of the
+    packed round (ROADMAP A13 (iii)), the lanes trained one after another
+    in place in their rows of one [K, ...] stack, every count set to 0
+    just before and read just after.  The federation is Sent140-like from
+    seed 0 (20 clients, 300 tweets of 25 tokens, vocabulary 300, at most
+    20 a client; the test split cut to its first 64 rows), B=10, lr 5e-3.
+
+    1. Llama-3.2-3B at full width and depth (``from_model(get_config(
+       "llama3.2-3b"))``: 3.61 B float32 params, bf16 compute, remat on),
+       K=2, h_cap = fixed_epochs = 4 (max_iters 8), the numpy host driver,
+       iid, FedAvg, no compression (an error-feedback residual would be
+       [N, P], 14.4 GB a client), 2 rounds: finite losses and params,
+       L <= H, the peak device memory (< 80 GB), and the launches the
+       recorded budgets imply (``lm_launches``: 56 flash forwards, 28
+       backwards, one cross-entropy chunk forward and backward a local
+       step; 56 flash forwards and one chunk an eval).  Then the scan
+       driver at the same width, K=1, h_cap = fixed_epochs = 2 (max_iters
+       4), one block of 2 rounds: the same checks, its graph nodes,
+       capture time and peak memory printed.
+    2. The smoke configs the reference's CLI resolves (``model=
+       "llama3.2-3b"`` and ``"falcon-mamba-7b"``, bf16), K=4, h_cap =
+       fixed_epochs = 2 (max_iters 4), 4 rounds a leg: the numpy host
+       driver iid and shuffle; the scan driver (blocks of 2: every lane's
+       4 slots masked in the graph, no host read inside a block) bitwise
+       the host driver with device rng; a world-1 NCCL sharded scan
+       bitwise the replicated scan; topk_q8 (one compress launch a
+       round); nan uploads at 0.5 with the screen bitwise their crash
+       twin; a scan run killed and resumed at its block boundary bitwise
+       the straight run.  Every leg's LM and FL launches are checked
+       against its budgets (the scan legs': the warm-up's, the evals'
+       and replays x one capture's), its rounds/s, budgets and graph
+       nodes printed, the cross-entropy's route (tensor-core launches).
+    3. The LM kernels at these legs' own shapes (``check_lm_fed_shapes``,
+       outside the count): a local step's 10 sequences and the test
+       split's 64, 24 positions, at full width and at both smoke widths.
+    4. The float32 Llama smoke packed round on the card and on the CPU
+       from the same init and draws, 2 rounds: the same cohorts, budgets
+       and L/H, params and losses within 1e-4 (outside the count)."""
+    import datetime
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.faults import FaultModel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.api import from_model
+    from repro_torch.tree import tree_items
+    out = {"legs": {}}
+    reset_counts(counted)
+    real = {k: 0 for k in counted}
+    real_tc = {k: 0 for k in tensor_core_counts(counted)}
+    ds = make_sent140_like(seed=0, n_clients=20, total=300, vocab=300,
+                           max_size=20)
+    ds = FederatedDataset(ds.name, ds.clients_x, ds.clients_y,
+                          ds.test_x[:64], ds.test_y[:64], ds.n_classes,
+                          task="text")
+    base = dict(algo="ira", batch_size=10, lr=5e-3, sampling="iid")
+
+    def drive(label, arch_cfg, rounds, model=None, run_kw=None,
+              resumed=0, **cfg):
+        """One leg: a server run, its real launches (the scan legs' put
+        together from the program's counts) checked against its budgets
+        and added to the path's."""
+        before = {k: fn.launches for k, fn in counted.items()}
+        tc_before = tensor_core_counts(counted)
+        srv = FedSAEServer(ds, model=model, cfg=ServerConfig(**dict(
+            base, rounds=rounds, **cfg)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run(**(run_kw or {}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: fn.launches - before[k] for k, fn in counted.items()}
+        tc = {k: v - tc_before[k] for k, v in
+              tensor_core_counts(counted).items()}
+        prog = srv.program
+        if prog is not None and prog.graphed:
+            # the counters ran at the warm-up, once at capture and in the
+            # evals: add the other replays' launches
+            for k in got:
+                got[k] += (prog.replays - 1) * prog.per_replay.get(k, 0)
+            for k in tc:
+                tc[k] += ((prog.replays - 1)
+                          * prog.per_replay_tensor_core.get(k, 0))
+        for k in counted:
+            real[k] += got[k]
+        for k in tc:
+            real_tc[k] += tc[k]
+        # what the budgets imply: the numpy host driver runs each lane's
+        # budget, the device rounds every lane's max_iters slots (the
+        # scan's warm-up round too); one eval a round on the host drivers,
+        # a block on the scan
+        n = (run_kw or {}).get("rounds", rounds) - resumed
+        K = int(srv.cfg.n_selected)
+        device = srv.rng_impl == "device"
+        executed = (prog.replays + 1 if prog is not None and prog.graphed
+                    else n)
+        steps = (executed * K * srv.max_iters if device
+                 else int(sum(int(b.sum()) for b in srv.budgets[-n:])))
+        evals = (-(-n // srv.block_size) if srv.cfg.driver == "scan"
+                 else n)
+        passes = executed * K if srv.cfg.sampling == "shuffle" else 0
+        xent_tc = tc["fused_softmax_xent_fwd"] == got[
+            "fused_softmax_xent_fwd"]
+        want = dict({k: 0 for k in counted},
+                    **lm_launches(arch_cfg, steps, evals, passes, xent_tc),
+                    fed_cohort_gather=executed)
+        if srv.engine.compressing:
+            want["fed_compress_topk_q8"] = executed
+        if got != want:
+            raise RuntimeError(f"lm {label}: launched {got}, the budgets "
+                               f"({steps} local steps, {evals} evals, "
+                               f"{passes} passes) imply {want}")
+        hist = srv.history
+        loss = np.asarray(hist["train_loss"], np.float64)
+        if not np.isfinite(loss[~np.isnan(loss)]).all() or not np.isfinite(
+                loss).any() or not (srv.L <= srv.H).all():
+            raise RuntimeError(f"lm {label}: losses {hist['train_loss']}, "
+                               f"L {srv.L}, H {srv.H}")
+        for k, v in tree_items(srv.params):
+            if not torch.isfinite(v).all():
+                raise RuntimeError(f"lm {label}: non-finite params {k}")
+        leg = dict(rounds=n, wall_s=wall, rounds_per_s=n / wall,
+                   local_steps=steps, max_iters=srv.max_iters,
+                   budgets=[b.tolist() for b in srv.budgets[-n:]],
+                   train_loss=hist["train_loss"][-n:],
+                   xent_route="tensor cores" if xent_tc else "CUDA cores",
+                   launches={k: v for k, v in got.items() if v},
+                   tensor_core_launches={k: v for k, v in tc.items() if v})
+        if prog is not None and prog.graphed:
+            leg.update(graph_nodes=prog.nodes, capture_ms=prog.capture_ms,
+                       replays=prog.replays)
+        out["legs"][label] = leg
+        print(f"lm {label}: {json.dumps(leg)}", flush=True)
+        return srv
+
+    def same(label, a, b, budgets=True):
+        diff = _same_run(torch, np, a, b)
+        if diff is None and budgets and not all(
+                np.array_equal(x, y) for x, y in zip(a.budgets, b.budgets)):
+            diff = "budgets"
+        if diff is not None:
+            raise RuntimeError(f"lm {label}: not bitwise ({diff})")
+        print(f"lm {label}: bitwise", flush=True)
+
+    # -- 1. Llama-3.2-3B at full width -----------------------------------
+    full_cfg = get_config("llama3.2-3b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = drive("llama3.2-3b full width host iid", full_cfg, 2,
+                 model=from_model(full_cfg), n_selected=2, h_cap=4.0,
+                 fixed_epochs=4.0)
+    peak = torch.cuda.max_memory_allocated()
+    if peak >= 80e9:
+        raise RuntimeError(f"lm full width: peak {peak / 1e9:.1f} GB")
+    leg = out["legs"]["llama3.2-3b full width host iid"]
+    # round 1's wall less one eval (timed again here, outside the count)
+    # over its local steps: the steady local step, the round's gather
+    # and aggregation included
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full.eval_fn(full.params, full.test_x, full.test_y)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    leg.update(peak_gb=peak / 1e9, peak_gib=peak / 2**30,
+               params=sum(v.numel() for _, v in tree_items(full.params)),
+               round_wall_s=full.wall_times, eval_s=eval_s,
+               ms_per_local_step=(full.wall_times[1] - eval_s)
+               / max(int(full.budgets[1].sum()), 1) * 1e3)
+    print(f"lm full width: {leg['params']} params, peak "
+          f"{leg['peak_gb']:.2f} GB ({leg['peak_gib']:.2f} GiB), round "
+          f"walls {[round(w, 3) for w in full.wall_times]} s (eval "
+          f"included; an eval {eval_s * 1e3:.1f} ms), round 1: "
+          f"{leg['ms_per_local_step']:.1f} ms a local step", flush=True)
+    del full
+    torch.cuda.empty_cache()
+    # the device driver at full width: the scan, K=1 (at K=2 the capture
+    # does not fit: the server's params, the program's carry, the new
+    # global and the stack with the aggregation's temporaries pass 80 GB),
+    # h_cap = fixed_epochs = 2 (max_iters 4), one block of 2 rounds, the
+    # lane's 4 slots masked in one captured graph
+    torch.cuda.reset_peak_memory_stats()
+    label = "llama3.2-3b full width scan iid"
+    fscan = drive(label, full_cfg, 2, model=from_model(full_cfg),
+                  n_selected=1, h_cap=2.0, fixed_epochs=2.0, driver="scan",
+                  block_size=2)
+    leg = out["legs"][label]
+    leg.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+    print(f"lm full width scan: {leg['graph_nodes']} graph nodes, capture "
+          f"{leg['capture_ms']:.1f} ms, {leg['replays']} replays of "
+          f"{fscan.max_iters} local steps, peak {leg['peak_gb']:.2f} GB "
+          f"allocated, {leg['peak_reserved_gb']:.2f} GB reserved", flush=True)
+    del fscan
+    torch.cuda.empty_cache()
+
+    # -- 2. the smoke configs ----------------------------------------------
+    smoke = dict(n_selected=4, h_cap=2.0, fixed_epochs=2.0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'store')}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120))
+    try:
+        for arch in ("llama3.2-3b", "falcon-mamba-7b"):
+            acfg = get_config(arch, smoke=True)
+            kw = dict(smoke, model=arch)
+            drive(f"{arch} host iid", acfg, 4, **kw)
+            drive(f"{arch} host shuffle", acfg, 4,
+                  **dict(kw, sampling="shuffle"))
+            host = drive(f"{arch} device-rng host iid", acfg, 4,
+                         rng_impl="device", block_size=2, **kw)
+            scan = drive(f"{arch} scan iid", acfg, 4, driver="scan",
+                         block_size=2, **kw)
+            same(f"{arch} scan vs device-rng host", host, scan)
+            sharded = drive(f"{arch} world-1 sharded scan iid", acfg, 4,
+                            driver="scan", block_size=2, mesh_shards=1,
+                            **kw)
+            same(f"{arch} world-1 NCCL sharded scan vs replicated", scan,
+                 sharded)
+            drive(f"{arch} host iid topk_q8", acfg, 4,
+                  upload_compress="topk_q8", **kw)
+            fm = dict(seed=1, corrupt_prob=0.5)
+            nan = drive(f"{arch} host iid nan", acfg, 4,
+                        faults=FaultModel(corrupt="nan", **fm), **kw)
+            crash = drive(f"{arch} host iid crash", acfg, 4,
+                          faults=FaultModel(corrupt="crash", **fm),
+                          upload_screen="on", **kw)
+            if not sum(r.screened for r in nan._records.records):
+                raise RuntimeError(f"lm {arch}: no nan upload screened")
+            same(f"{arch} nan + screen vs its crash twin", nan, crash,
+                 budgets=False)
+            ck = os.path.join(tmp, f"ck_{arch}")
+            drive(f"{arch} scan killed", acfg, 4, driver="scan",
+                  block_size=2, run_kw=dict(rounds=2, checkpoint_dir=ck),
+                  **kw)
+            resumed = drive(f"{arch} scan resumed", acfg, 4, driver="scan",
+                            block_size=2, resumed=2,
+                            run_kw=dict(checkpoint_dir=ck, resume=True),
+                            **kw)
+            same(f"{arch} scan kill/resume vs straight", scan, resumed)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = dict(real)
+    out["tensor_core_launches"] = dict(real_tc)
+    print(f"path lm_fed launches: {json.dumps(real)}, tensor-core "
+          f"{json.dumps(real_tc)}", flush=True)
+
+    # -- 3. the kernels at the legs' shapes (outside the count) ----------
+    out["shape_errs"] = check_lm_fed_shapes(
+        torch, counted, ops, ref,
+        {"llama3.2-3b full width": full_cfg,
+         "llama3.2-3b smoke": get_config("llama3.2-3b", smoke=True),
+         "falcon-mamba-7b smoke": get_config("falcon-mamba-7b", smoke=True)},
+        {"step": base["batch_size"], "eval": len(ds.test_y)},
+        ds.clients_x[0].shape[1] - 1, torch.Generator("cuda").manual_seed(3))
+
+    # -- 4. card vs CPU, float32 Llama smoke (outside the count) --------
+    acfg = get_config("llama3.2-3b", smoke=True).replace(dtype="float32")
+    step = from_model(acfg)
+    init = params_to_numpy(step.init_params(
+        torch.Generator("cpu").manual_seed(0)))
+
+    def draws(t, ids, n):
+        r = np.random.default_rng(100 + t)
+        return (r.random((len(ids), 4, 10))
+                * np.maximum(n, 1)[:, None, None]).astype(np.int32)
+
+    runs = []
+    for where in ("cuda", "cpu"):
+        srv = FedSAEServer(ds, model=step, cfg=ServerConfig(**dict(
+            base, **smoke, rounds=2, device=where)), init_params=init,
+            data_draws=draws)
+        srv.run()
+        runs.append(srv)
+    card, cpu = runs
+    if not (all(np.array_equal(a, b) for a, b in zip(card.cohorts,
+                                                     cpu.cohorts))
+            and all(np.array_equal(a, b) for a, b in zip(card.budgets,
+                                                         cpu.budgets))
+            and np.array_equal(card.L, cpu.L)
+            and np.array_equal(card.H, cpu.H)):
+        raise RuntimeError("lm card vs CPU: cohorts, budgets or L/H differ")
+    cp = dict(tree_items(cpu.params))
+    p_err = max(float((v.cpu() - cp[k]).abs().max())
+                for k, v in tree_items(card.params))
+    l_err = float(np.nanmax(np.abs(np.subtract(
+        card.history["train_loss"], cpu.history["train_loss"]))))
+    if not p_err <= TRAIN_TOL or not l_err <= TRAIN_TOL:
+        raise RuntimeError(f"lm card vs CPU: params differ by {p_err}, "
+                           f"losses by {l_err} (tol {TRAIN_TOL})")
+    out["card_vs_cpu"] = dict(params_max_abs_err=p_err,
+                              loss_max_abs_err=l_err,
+                              budgets=[b.tolist() for b in card.budgets])
+    print(f"lm card vs CPU, float32 Llama smoke, 2 host rounds: same "
+          f"cohorts, budgets and L/H; params max_abs_err {p_err:.3e}, "
+          f"losses {l_err:.3e} (tol {TRAIN_TOL})", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2980,13 +3444,19 @@ def main() -> int:
     shard = shard_phase(torch, np, FedSAEServer, ServerConfig, femnist,
                         counted, frac)
     path_launches["shard"] = shard["launches"]
+    # this slice's path: an architecture id as the packed round's local
+    # step (Llama-3.2-3B at full width, the smoke LMs on every driver)
+    torch.cuda.empty_cache()
+    lm_fed = lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
+                          get_config, make_sent140_like)
+    path_launches["lm_fed"] = lm_fed["launches"]
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     scan_single_steps = sum(serving[a]["scan_single_step_launches"]
                             for a in serving)
     tc_runs = [serving[a]["tensor_core_launches"] for a in serving] + [
         training[t]["tensor_core_launches"] for t in training] + [
-        faults["tensor_core_launches"]]
+        faults["tensor_core_launches"], lm_fed["tensor_core_launches"]]
     tc_total = {k: sum(r[k] for r in tc_runs) for k in tc_runs[0]}
     print(f"main path launches: {json.dumps(launches)}", flush=True)
     for name, n in launches.items():
@@ -3091,12 +3561,16 @@ def main() -> int:
          "tensor_core_launches": tc_total["fused_softmax_xent_bwd"],
          **xent_bwd_row},
     ]
+    for row in kernels:
+        if row["name"] in lm_fed["shape_errs"]:
+            row["lm_fed_shapes_max_abs_err"] = lm_fed["shape_errs"][
+                row["name"]]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
                       "profile": profiles, "serving": serving,
                       "training": training, "checks": checks,
                       "telemetry": telemetry, "faults": faults,
-                      "scan": scan, "shard": shard}))
+                      "scan": scan, "shard": shard, "lm_fed": lm_fed}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

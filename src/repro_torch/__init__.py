@@ -28,6 +28,9 @@ from __future__ import annotations
 _EXPORTS = {
     "FedSAEServer": "repro_torch.core.server",
     "ServerConfig": "repro_torch.core.server",
+    "ComputeConfig": "repro_torch.core.server",
+    "CommConfig": "repro_torch.core.server",
+    "RobustnessConfig": "repro_torch.core.server",
     "RoundEngine": "repro_torch.core.engine",
     "LocalStep": "repro_torch.models.fl_models",
     "resolve_local_step": "repro_torch.models.fl_models",

@@ -47,6 +47,7 @@ import numpy as np
 from repro_torch.checkpoint.store import load_checkpoint, save_checkpoint
 from repro_torch.obs.schema import RoundRecord
 from repro_torch.obs.sinks import RingBufferSink
+from repro_torch.tree import tree_map
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -135,7 +136,7 @@ def restore_server_state(server, directory: str) -> int:
             f"{metadata.get('rng_impl')!r} but this server runs "
             f"{server.rng_impl!r}")
     dev = server.device
-    server.params = {k: v.to(dev) for k, v in tree["params"].items()}
+    server.params = tree_map(lambda t: t.to(dev), tree["params"])
     server.L = tree["L"].numpy()
     server.H = tree["H"].numpy()
     server.theta = tree["theta"].numpy()

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.core.aggregation import _flatten_clients, _unflatten_like
 from repro_torch.kernels import ops as kops
+from repro_torch.tree import tree_leaves
 
 COMPRESS_MODES = ("none", "topk_q8")
 
@@ -77,13 +78,13 @@ def upload_bytes_per_client(n_params: int, compress: str = "none",
 
 
 def flatten_global(global_params) -> torch.Tensor:
-    """Params dict -> [P] float32 vector (leaves in sorted-key order)."""
-    return torch.cat([global_params[name].reshape(-1).to(torch.float32)
-                      for name in sorted(global_params)])
+    """Params tree -> [P] float32 vector (leaves in sorted-key order)."""
+    return torch.cat([v.reshape(-1).to(torch.float32)
+                      for v in tree_leaves(global_params)])
 
 
 def n_params_of(global_params) -> int:
-    return sum(v.numel() for v in global_params.values())
+    return sum(v.numel() for v in tree_leaves(global_params))
 
 
 def unflatten_rows(mat, global_params):

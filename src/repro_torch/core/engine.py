@@ -10,10 +10,13 @@ A round is the reference's four-stage pipeline:
   2. LOCAL SGD   heterogeneous budgets: client k updates for its first
                  ``n_iters_k`` slots.  MCLR and the MLP with
                  ``sampling="iid"`` go through their fused kernels
-                 (``kernels.ops.fed_local_sgd_mclr`` / ``_dense``); every
-                 other step or sampling takes the plain path below, which
-                 differentiates ``LocalStep.loss`` with ``torch.func`` and
-                 batches the clients with ``vmap``;
+                 (``kernels.ops.fed_local_sgd_mclr`` / ``_dense``); an LM
+                 step (``kind="lm"``, an architecture id) trains the lanes
+                 one after another in place in their rows of one [K, ...]
+                 stack (``_lane_sgd``: its kernel ops cannot be batched by
+                 ``vmap``); every other step or sampling takes the plain
+                 path below, which differentiates ``LocalStep.loss`` with
+                 ``torch.func`` and batches the clients with ``vmap``;
   3. UPLOAD      with ``compress="topk_q8"`` each uploading client's delta
                  plus its error-feedback residual is top-k sparsified and
                  int8 quantised (``core.compression``, through
@@ -44,6 +47,10 @@ same for finite data and the round costs one host read of the budgets.
 A device round (``make_packed_round(device_round=True)``, the device
 drivers') reads nothing on the host: it walks all ``max_iters`` slots
 masked, the reference scan's own semantics, and screens on the device.
+The LM lanes stop each at its own budget on the host driver, and on the
+device drivers walk every slot with ``torch.where(active, p - lr * g, p)``
+(a masked slot's gradient never reaches the params, so a non-finite one
+cannot turn them NaN as the reference's ``p - lr * active * g`` would).
 
 Faults and the upload screen, as in the reference.  An engine built with
 an injecting ``faults`` (corrupt "nan", "inf", "sign_flip" or "explode")
@@ -121,7 +128,7 @@ from repro_torch.obs.profiling import (STAGE_AGGREGATE, STAGE_GATHER,
                                        STAGE_LOCAL_SGD, STAGE_UPLOAD, stage)
 from repro_torch.obs.schema import (LOSS_HIST_BINS, LOSS_HIST_MAX,
                                     WORKLOAD_HIST_BINS)
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 SAMPLINGS = ("shuffle", "iid")
 
@@ -166,6 +173,18 @@ def _mean(x):
     """Sum over the [K] axis divided by K, tensor by tensor."""
     s = x.to(torch.float32).sum()
     return s / torch.full_like(s, float(x.shape[0]))
+
+
+def _shuffle_walk(u, mask, nk_safe, max_iters: int, batch_size: int):
+    """The shuffle rule's batch indices idx [K, max_iters, B]: each
+    client's epoch permutation (``u`` [K, max_n] its sort keys, padded rows
+    last) walked modulo n_k."""
+    K = u.shape[0]
+    perm = torch.argsort(u + (1.0 - mask) * 1e9, dim=1, stable=True)
+    walk = (torch.arange(max_iters * batch_size, device=u.device)
+            .reshape(1, max_iters, batch_size) % nk_safe[:, None, None])
+    return torch.gather(perm, 1, walk.reshape(K, -1)).reshape(
+        K, max_iters, batch_size)
 
 
 def _rows(x, idx):
@@ -232,6 +251,107 @@ class RoundEngine:
             tree_leaves(params), tree_leaves(global_params)))
         return loss + 0.5 * self.prox_mu * sq
 
+    def _train_in_place(self, loss_fn, views, params, global_params,
+                        batch_at: Callable, steps: int, active=None):
+        """``steps`` SGD steps on ``params`` (views of one row of a [K, ...]
+        stack, updated in place), step i on ``batch_at(i)``; the silo
+        round's and the LM lanes' local step.  ``views`` cuts the params
+        into the autograd leaves the step trains (``LocalStep.leaf_views``)
+        and each step takes their gradients with ``torch.autograd.grad``.
+        Without ``active`` every step updates (the compacted walk: the
+        caller passes the lane's own budget); with it, a [steps] bool
+        device tensor, step i updates through ``torch.where(active[i], p -
+        lr * g, p)`` and its loss counts only if active (the device walk:
+        no host read, and a masked step's gradient never reaches the
+        params).  Under FedProx the objective carries the proximal term
+        anchored at ``global_params``.  Returns the sum of the counted
+        step losses (0-d float32)."""
+        tree = views(params)
+        leaves = tree_leaves(tree)
+        anchor = views(global_params) if self.prox_mu else None
+        lr = self.lr
+        total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        with torch.enable_grad():
+            for p in leaves:
+                p.requires_grad_(True)
+            try:
+                for i in range(steps):
+                    loss = self._prox(loss_fn(tree, batch_at(i)), tree,
+                                      anchor)
+                    grads = torch.autograd.grad(loss, leaves)
+                    with torch.no_grad():
+                        if active is None:
+                            for p, g in zip(leaves, grads):
+                                p.sub_(g.to(p.dtype) * lr)
+                            total = total + loss.detach()
+                        else:
+                            # where(a, p - lr * g, p) through one
+                            # temporary a leaf (a full-width LM's largest
+                            # leaf is 1.6 GB)
+                            a = active[i]
+                            for p, g in zip(leaves, grads):
+                                t = g.to(p.dtype) * lr
+                                torch.where(a, torch.sub(p, t, out=t), p,
+                                            out=p)
+                            total = total + torch.where(
+                                a, loss.detach(), 0.0)
+                    del loss, grads     # free them before the next forward
+            finally:
+                for p in leaves:
+                    p.requires_grad_(False)
+        return total
+
+    def _lane_sgd(self, model, global_params, x, y, mask, n_iters, idx,
+                  bmask, sampling: str, walk_all: bool, max_iters: int):
+        """The LM steps' local training: the cohort's lanes trained one
+        after another, in place in their rows of one preallocated [K, ...]
+        stack (``_train_in_place``), so a round holds the global params,
+        the stack and one lane's gradients.  The LM's kernel ops (flash
+        attention, the selective scan, the fused cross-entropy) launch
+        through ``ctypes`` on their tensors' pointers and cannot be batched
+        by ``vmap``.
+
+        Lane k's slot i takes rows ``idx[k, i]`` of its shard, masked by
+        ``bmask[k]`` (and by the padding mask under shuffle).  The numpy
+        host driver stops each lane at its own budget (one host read of
+        ``n_iters``); ``walk_all`` walks all ``max_iters`` slots of every
+        lane masked.  Returns (params_k, losses [K]): the loss is the mean
+        over executed slots (iid) or a post-training pass over the lane's
+        whole shard (shuffle)."""
+        views = getattr(model, "leaf_views", None) or (lambda p: p)
+        K = n_iters.shape[0]
+        stack = tree_map(lambda g: torch.empty(
+            (K,) + tuple(g.shape), dtype=g.dtype, device=g.device),
+            global_params)
+        steps = (None if walk_all else
+                 [min(int(v), max_iters) for v in n_iters.tolist()])
+        slots = torch.arange(max_iters, device=x.device)
+        losses = []
+        for k in range(K):
+            row = tree_map(lambda t: t[k], stack)
+            for dst, src in zip(tree_leaves(row), tree_leaves(global_params)):
+                dst.copy_(src)
+
+            def batch_at(i, k=k):
+                rows = idx[k, i]
+                m = bmask[k] if sampling == "iid" else mask[k][rows] * bmask[k]
+                return {"x": x[k][rows], "y": y[k][rows], "mask": m}
+
+            if walk_all:
+                total = self._train_in_place(
+                    model.loss, views, row, global_params, batch_at,
+                    max_iters, active=slots < n_iters[k])
+                count = torch.clamp(n_iters[k].to(torch.float32), min=1.0)
+            else:
+                total = self._train_in_place(
+                    model.loss, views, row, global_params, batch_at,
+                    steps[k])
+                count = max(steps[k], 1)
+            losses.append(total / count if sampling == "iid" else
+                          model.loss(row, {"x": x[k], "y": y[k],
+                                           "mask": mask[k]}))
+        return stack, torch.stack(losses)
+
     # ------------------------------------------------------------------
     @staticmethod
     def _cohort_gather(max_n: int) -> Callable:
@@ -282,6 +402,7 @@ class RoundEngine:
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
         B = batch_size
+        lm = getattr(model, "kind", None) == "lm"
 
         def local_train(global_params, x, y, mask, n, n_iters, draws):
             K = n.shape[0]
@@ -289,6 +410,12 @@ class RoundEngine:
             nk_safe = torch.clamp(n.long(), min=1)
             bmask = (torch.arange(B, device=dev)[None, :]
                      < nk_safe[:, None]).to(torch.float32)
+            if lm:
+                idx = draws.long() if sampling == "iid" else \
+                    _shuffle_walk(draws, mask, nk_safe, max_iters, B)
+                return self._lane_sgd(model, global_params, x, y, mask,
+                                      n_iters, idx, bmask, sampling,
+                                      walk_all, max_iters)
             n_steps = (max_iters if walk_all else
                        min(max_iters, int(n_iters.max())) if K else 0)
             if sampling == "iid":
@@ -306,12 +433,7 @@ class RoundEngine:
                          else torch.zeros(K, device=dev))
                 return params, total / torch.clamp(msk.sum(0), min=1.0)
 
-            perm = torch.argsort(draws + (1.0 - mask) * 1e9, dim=1,
-                                 stable=True)
-            walk = (torch.arange(max_iters * B, device=dev)
-                    .reshape(1, max_iters, B) % nk_safe[:, None, None])
-            idx = torch.gather(perm, 1, walk.reshape(K, -1)).reshape(
-                K, max_iters, B)
+            idx = _shuffle_walk(draws, mask, nk_safe, max_iters, B)
 
             def batch_at(i):
                 return {"x": _rows(x, idx[:, i]), "y": _rows(y, idx[:, i]),
@@ -471,11 +593,6 @@ class RoundEngine:
         taking its slot's."""
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
-        if getattr(model, "kind", None) == "lm":
-            raise NotImplementedError(
-                "LM steps train through make_stream_round (the silo round); "
-                "their cross-device federation over the packed round is "
-                "ROADMAP A13 (iii)")
         if mesh is None and capacity is not None:
             raise ValueError(
                 "capacity compaction requires a sharded mesh; pass mesh= "
@@ -596,19 +713,17 @@ class RoundEngine:
             # takes the idle lanes), then the ownership-masked rebuild: one
             # SUM all-reduce of [K, P + 1] in which each slot is nonzero on
             # one rank only
-            leaves = list(params_k.items())
-            flat = torch.cat([p.reshape(p.shape[0], -1) for _, p in leaves]
+            leaves = tree_leaves(params_k)
+            flat = torch.cat([p.reshape(p.shape[0], -1) for p in leaves]
                              + [losses.reshape(-1, 1).to(torch.float32)], 1)
             flat = torch.zeros((K + 1, flat.shape[1]), dtype=flat.dtype,
                                device=dev).index_copy(0, lane_map, flat)[:K]
-            flat = all_reduce_sum(flat)
-            params_k, at = {}, 0
-            for k, p in leaves:
-                width = p[0].numel()
-                params_k[k] = flat[:, at:at + width].reshape(
-                    (K,) + tuple(p.shape[1:])).contiguous()
-                at += width
-            losses = flat[:, at].contiguous()
+            parts = torch.split(all_reduce_sum(flat),
+                                [p[0].numel() for p in leaves] + [1], 1)
+            params_k = tree_unflatten(params_k, [
+                q.reshape((K,) + tuple(p.shape[1:])).contiguous()
+                for p, q in zip(leaves, parts)])
+            losses = parts[-1][:, 0].contiguous()
             if self._inject_post:
                 params_k = self._inject_faults(global_params, params_k,
                                                corrupt, n_iters > 0)
@@ -876,29 +991,13 @@ class RoundEngine:
         views = getattr(loss_fn, "leaf_views", None) or (lambda p: p)
         if not callable(loss_fn):
             loss_fn = loss_fn.loss
-        lr = self.lr
 
         def train_silo(params, global_params, silo_batches, steps: int):
             """``steps`` SGD steps on ``params`` (views of the silo's stack
             row, updated in place); returns the mean loss."""
-            tree = views(params)
-            leaves = tree_leaves(tree)
-            for p in leaves:
-                p.requires_grad_(True)
-            anchor = views(global_params) if self.prox_mu else None
-            total = torch.zeros((), dtype=torch.float32,
-                                device=leaves[0].device)
-            for i in range(steps):
-                batch = tree_map(lambda b: b[i], silo_batches)
-                loss = self._prox(loss_fn(tree, batch), tree, anchor)
-                grads = torch.autograd.grad(loss, leaves)
-                with torch.no_grad():
-                    for p, g in zip(leaves, grads):
-                        p.sub_(g.to(p.dtype) * lr)
-                total = total + loss.detach()
-                del loss, grads     # free them before the next forward
-            for p in leaves:
-                p.requires_grad_(False)
+            total = self._train_in_place(
+                loss_fn, views, params, global_params,
+                lambda i: tree_map(lambda b: b[i], silo_batches), steps)
             return total / max(steps, 1)
 
         def round_fn(global_params, batches, n_steps, weights):

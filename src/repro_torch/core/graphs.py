@@ -27,9 +27,11 @@ card.  On the CPU, which has no graphs, the same round runs eagerly.
 
 What a replay does not repeat: the Python side of the round.  The kernel
 wrappers' launch counters and the ``stage()`` profiler ranges run once, at
-capture.  ``launches`` reports each FL kernel's real launches (the
+capture.  ``launches`` reports each FL and LM kernel's real launches (the
 warm-up's plus replays times the launches one capture recorded), and a
-trace of replays shows the kernels without their stage ranges.
+trace of replays shows the kernels without their stage ranges.  A round
+whose local step is an LM (an architecture id) captures its lanes' K x
+``max_iters`` forward and backward passes, autograd included.
 
 A sharded round (``group=``, a ``launch.mesh.DataGroup``) holds
 collectives.  On an NCCL group they are captured with the round; one
@@ -47,7 +49,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
-                                 fed_local_sgd_dense)
+                                 fed_local_sgd_dense, flash_attention,
+                                 fused_xent, selective_scan)
 from repro_torch.tree import tree_leaves, tree_map
 
 #: the FL kernels' wrappers, whose launches a captured round records
@@ -57,6 +60,15 @@ FL_KERNELS = {
     "fed_local_sgd_dense": fed_local_sgd_dense.fed_local_sgd_dense,
     "fed_compress_topk_q8": fed_compress.fed_compress_topk_q8,
 }
+#: ... and the LM kernels' (an architecture id as the local step), whose
+#: tensor-core launches a captured round records apart
+LM_KERNELS = {
+    "flash_attention_fwd": flash_attention.flash_attention_fwd,
+    "flash_attention_bwd": flash_attention.flash_attention_bwd,
+    "fused_softmax_xent_fwd": fused_xent.fused_softmax_xent_fwd,
+    "fused_softmax_xent_bwd": fused_xent.fused_softmax_xent_bwd,
+    "selective_scan_fwd": selective_scan.selective_scan_fwd,
+}
 
 #: stats fields unpacked as integers (ids and counts are exact in float32:
 #: fewer than 2**24 clients and iterations)
@@ -65,7 +77,13 @@ INT_STATS = {"ids": np.int64, "n_iters": np.int32,
 
 
 def _kernel_counts() -> Dict[str, int]:
-    return {k: fn.launches for k, fn in FL_KERNELS.items()}
+    return {k: fn.launches
+            for k, fn in {**FL_KERNELS, **LM_KERNELS}.items()}
+
+
+def _tensor_core_counts() -> Dict[str, int]:
+    return {k: fn.tensor_core_launches for k, fn in LM_KERNELS.items()
+            if hasattr(fn, "tensor_core_launches")}
 
 
 def _diff(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
@@ -139,8 +157,11 @@ class RoundProgram:
         self.replays = 0
         self.nodes: Optional[int] = None
         self.capture_ms = 0.0
-        self.warmup_launches = {k: 0 for k in FL_KERNELS}
-        self.per_replay = {k: 0 for k in FL_KERNELS}
+        self.warmup_launches = {k: 0 for k in _kernel_counts()}
+        self.per_replay = dict(self.warmup_launches)
+        #: the flash and cross-entropy launches among those that took the
+        #: tensor cores, one capture's
+        self.per_replay_tensor_core = {k: 0 for k in _tensor_core_counts()}
 
     # -- state ----------------------------------------------------------
     def load(self, carry: Dict):
@@ -149,8 +170,11 @@ class RoundProgram:
             dst.copy_(src)
 
     def _snapshot(self):
-        return ([v.clone() for v in tree_leaves(self.carry)]
-                + [self.t.clone(), self.row.clone()],
+        """The state the warm-up round changes, copied to the host: a
+        device copy of a full-width LM's params would not fit beside the
+        round (14.4 GB at Llama-3.2-3B)."""
+        return ([v.to("cpu", copy=True) for v in tree_leaves(self.carry)]
+                + [self.t.to("cpu", copy=True), self.row.to("cpu", copy=True)],
                 [g.get_state() for g in self.generators])
 
     def _restore(self, snap):
@@ -218,15 +242,20 @@ class RoundProgram:
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.warmup_launches = _diff(_kernel_counts(), before)
         self._restore(snap)
+        del snap
         torch.cuda.synchronize(self.device)
+        # the capture allocates from the graph's own pool, which cannot
+        # take the blocks the warm-up left cached
+        torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph(keep_graph=True)   # to count its nodes
         for g in self.generators:
             graph.register_generator_state(g)
         t0 = time.perf_counter()
-        before = _kernel_counts()
+        before, tc_before = _kernel_counts(), _tensor_core_counts()
         with torch.cuda.graph(graph):
             self._step()
         self.per_replay = _diff(_kernel_counts(), before)
+        self.per_replay_tensor_core = _diff(_tensor_core_counts(), tc_before)
         self.nodes = graph_node_count(graph)
         graph.instantiate()
         torch.cuda.synchronize(self.device)
@@ -250,8 +279,8 @@ class RoundProgram:
         return self.layout.unpack(self.stats[:b].cpu().numpy())
 
     def launches(self) -> Dict[str, int]:
-        """Real FL kernel launches of a graphed program: the warm-up's,
-        then ``per_replay`` for each replay."""
+        """Real kernel launches of a graphed program (the FL and the LM
+        kernels'): the warm-up's, then ``per_replay`` for each replay."""
         return {k: self.warmup_launches[k] + self.replays * v
                 for k, v in self.per_replay.items()}
 

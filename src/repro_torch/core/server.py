@@ -60,9 +60,12 @@ CUDA tensor, their plain versions on the CPU), not by backend; so do
 ``fused_generic=True`` and ``False`` (the device round walks every budget
 slot masked either way).  Every aggregator of the reference's registry
 runs, with ``trim_ratio``, ``agg_weighted`` and ``n_byzantine`` passed to
-it as the reference passes them.  Not ported yet, and refused with a
-ValueError naming the ROADMAP item when set to anything but the default:
-the grouped sub-configs ``compute=``, ``comm=`` and ``robustness=`` (A15).
+it as the reference passes them.  The grouped sub-configs ``compute=``
+(``ComputeConfig``), ``comm=`` (``CommConfig``) and ``robustness=``
+(``RobustnessConfig``) reconcile with their flat twins as the
+reference's do: a group sets the flat fields it owns, conflicting
+explicit values raise, and a flat grouped field given without its group
+warns (``DeprecationWarning``).
 
 Client-axis sharding (``mesh_shards=S``): one process per shard in a
 ``torch.distributed`` default process group of world size S, which the
@@ -158,26 +161,56 @@ from repro_torch.obs.schema import (HISTORY_KEYS, LOSS_HIST_BINS,
                                     record_from_row,
                                     records_from_block_stats)
 from repro_torch.obs.sinks import NullSink, RingBufferSink, Sink
+from repro_torch.tree import tree_map
 
 ALGOS = ("ira", "fassa", "fedavg", "fedprox", "oracle")
 DRIVERS = ("host", "scan")
 RNG_IMPLS = ("numpy", "device")
 PREFETCH_MODES = ("off", "double_buffer")
 
-#: un-ported ServerConfig features: field -> (default, ROADMAP item)
-_NOT_PORTED = {
-    "compute": (None, "A15 (grouped config surface)"),
-    "comm": (None, "A15 (grouped config surface)"),
-    "robustness": (None, "A15 (grouped config surface)"),
-}
 UPLOAD_SCREENS = ("auto", "on", "off")
 BACKENDS = ("xla", "pallas")
 
 
-def _refuse(what: str, item: str):
-    """The ValueError every unported option raises: it names the option
-    and its ROADMAP item."""
-    return ValueError(f"{what} is not ported yet (ROADMAP {item})")
+@dataclasses.dataclass
+class ComputeConfig:
+    """How the round executes: driver, backend, mesh and lane budget."""
+    backend: str = "xla"         # xla | pallas
+    driver: str = "host"         # host | scan
+    block_size: int = 16         # rounds per device block (driver="scan")
+    rng_impl: str = ""           # "" auto | numpy | device
+    mesh_shards: int = 0         # 0 = replicated clients
+    cohort_capacity: object = "full"
+    prefetch: str = "off"        # off | double_buffer (runs the off
+                                 # program: the same bits)
+    fused_generic: bool = True   # True and False run the same walk
+
+
+@dataclasses.dataclass
+class CommConfig:
+    """What crosses the wire: the upload-transform stage."""
+    upload_compress: str = "none"   # none | topk_q8
+    topk_frac: float = 0.1
+
+
+@dataclasses.dataclass
+class RobustnessConfig:
+    """Fault injection and the defenses in front of aggregation."""
+    faults: object = None           # Optional[repro_torch.faults.FaultModel]
+    upload_screen: str = "auto"     # auto | on | off
+    screen_norm_bound: float = 1e4
+    quarantine_threshold: float = 0.0
+    quarantine_rounds: int = 16
+    quarantine_min_tries: int = 3
+
+
+# grouped sub-config -> the flat ServerConfig fields it owns (the flat
+# spellings stay accepted; see ServerConfig.__post_init__)
+_CONFIG_GROUPS = {
+    "compute": ComputeConfig,
+    "comm": CommConfig,
+    "robustness": RobustnessConfig,
+}
 
 
 @dataclasses.dataclass
@@ -207,7 +240,9 @@ class ServerConfig:
     seed: int = 0
     selection_seed: int = 1234   # fixed across frameworks (paper §IV-A)
     eval_every: int = 1
-    model: object = None         # None | "mclr" | "mlp" | "lstm" | a
+    model: object = None         # None | "mclr" | "mlp" | "lstm" | an
+                                 # arch id (its smoke config as a causal
+                                 # LM: models.api.from_model) | a
                                  # LocalStep
     upload_compress: str = "none"  # none | topk_q8 (top-k + int8 with
                                    # error feedback: core.compression)
@@ -241,22 +276,74 @@ class ServerConfig:
     cohort_capacity: object = "full"  # per-shard lanes: "full" (masked
                                       # K lanes), "auto" or an int
     prefetch: str = "off"        # off | double_buffer (scan driver)
-    # reference features not ported yet (must stay at their defaults)
-    compute: object = None
-    comm: object = None
-    robustness: object = None
+    # grouped sub-configs (``None`` = derive from the flat fields above).
+    # Passing a group sets its flat twins; passing a flat grouped kwarg
+    # without the group still works but warns.
+    compute: Optional[ComputeConfig] = None
+    comm: Optional[CommConfig] = None
+    robustness: Optional[RobustnessConfig] = None
 
     def __post_init__(self):
-        for name, (default, item) in _NOT_PORTED.items():
-            value = getattr(self, name)
-            if value is not default and value != default:
-                raise _refuse(f"ServerConfig.{name}={value!r}", item)
+        """Reconcile the grouped sub-configs with their flat twins, rule for
+        rule as the reference:
+
+          * group given, flat at its default          -> group value
+          * group given, flat explicitly set          -> flat value iff the
+            group left that field at ITS default (a ``dataclasses.replace``
+            on the flat spelling keeps working); conflicting explicit
+            values raise
+          * group omitted, flat explicitly set        -> flat value, with a
+            ``DeprecationWarning`` steering callers to the group
+          * neither                                   -> shared default
+
+        Afterwards the groups are rebuilt from the final flat values, so
+        ``cfg.compute.driver`` and ``cfg.driver`` never disagree."""
+        import warnings
+
+        for group_name, group_cls in _CONFIG_GROUPS.items():
+            group = getattr(self, group_name)
+            deprecated = []
+            for f in dataclasses.fields(group_cls):
+                flat = getattr(self, f.name)
+                flat_set = not _cfg_eq(flat, f.default)
+                if group is not None:
+                    gval = getattr(group, f.name)
+                    gset = not _cfg_eq(gval, f.default)
+                    if flat_set and gset and not _cfg_eq(flat, gval):
+                        raise ValueError(
+                            f"ServerConfig: {f.name}={flat!r} conflicts "
+                            f"with {group_name}.{f.name}={gval!r} — set it "
+                            "in one place")
+                    if not flat_set:
+                        object.__setattr__(self, f.name, gval)
+                elif flat_set:
+                    deprecated.append(f.name)
+            if deprecated:
+                warnings.warn(
+                    f"flat ServerConfig kwarg(s) {deprecated} are "
+                    f"deprecated; group them in {group_name}="
+                    f"{group_cls.__name__}(...)",
+                    DeprecationWarning, stacklevel=3)
+            object.__setattr__(self, group_name, group_cls(**{
+                f.name: getattr(self, f.name)
+                for f in dataclasses.fields(group_cls)}))
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; choose "
                              f"from {BACKENDS}")
         if self.algo not in ALGOS:
             raise ValueError(f"unknown algo {self.algo!r}; choose from "
                              f"{ALGOS}")
+
+
+def _cfg_eq(a, b) -> bool:
+    """Identity-tolerant equality for config values (FaultModel instances
+    may not define __eq__; None-vs-None and is-comparison cover them)."""
+    if a is b:
+        return True
+    try:
+        return bool(a == b)
+    except Exception:
+        return False
 
 
 def _aggregator_kwargs(cfg: ServerConfig) -> Dict:
@@ -588,7 +675,8 @@ class FedSAEServer:
     def _absorb_state(self, state: Dict):
         """Copy the device carry back into the host-side state (float64
         containers hold the float32 values exactly)."""
-        self.params = {k: v.clone() for k, v in state["params"].items()}
+        self.params = None      # free the old copy before the clone
+        self.params = tree_map(torch.clone, state["params"])
         for name in ("L", "H", "theta"):
             setattr(self, name, state[name].cpu().numpy().astype(np.float64))
         self.values.v = state["values"].cpu().numpy().astype(np.float64)

@@ -57,10 +57,16 @@
   # --prefetch double_buffer is accepted (refused on a sharded scan, as
   # the reference refuses it) and runs the off program, the same bits
 
-Every flag of the reference CLI is accepted at its default; a value of a
-feature the port does not run yet exits with a usage error naming its
-ROADMAP item.  With ``--shards S`` only rank 0 writes: the progress lines,
-the final line, ``--metrics-out``, ``--trace-dir`` and the checkpoints.
+  # a real decoder as every client's local step (the smoke config of the
+  # architecture, a causal LM over the clients' tokens, lr 5e-3), on the
+  # scan driver, sharded over two gloo ranks, uploads compressed:
+  PYTHONPATH=src python -m repro_torch.launch.fl_train --device cpu \
+      --dataset sent140 --model llama3.2-3b --driver scan --shards 2 \
+      --compress topk_q8
+
+Every flag of the reference CLI is accepted.  With ``--shards S`` only
+rank 0 writes: the progress lines, the final line, ``--metrics-out``,
+``--trace-dir`` and the checkpoints.
 """
 from __future__ import annotations
 
@@ -73,8 +79,9 @@ import sys
 import numpy as np
 
 from repro_torch.core.aggregation import AGGREGATORS
-from repro_torch.core.server import (ALGOS, BACKENDS, FedSAEServer,
-                                     ServerConfig)
+from repro_torch.core.server import (ALGOS, BACKENDS, CommConfig,
+                                     ComputeConfig, FedSAEServer,
+                                     RobustnessConfig, ServerConfig)
 from repro_torch.data.federated import DATASETS
 from repro_torch.faults import FaultModel
 from repro_torch.models.fl_models import LOCAL_STEPS
@@ -91,6 +98,8 @@ REDUCED = {
 
 #: the reference CLI's learning rate per dataset (0.03 for the others)
 DEFAULT_LR = {"synthetic": 0.01, "sent140": 0.3}
+#: ... and for an architecture id as the local step
+LM_LR = 5e-3
 
 
 def make_sink(args, resume_round=None, **meta):
@@ -154,8 +163,11 @@ def resume_from(args):
 def build_server(args, sink=None, telemetry=None) -> FedSAEServer:
     make = DATASETS[args.dataset]
     ds = make() if args.paper_scale else make(**REDUCED[args.dataset])
-    lr = args.lr if args.lr is not None else DEFAULT_LR.get(args.dataset,
-                                                            0.03)
+    # a real architecture (--model <arch id>) trains the causal LM and
+    # needs a small step, as in the reference CLI
+    lr = (args.lr if args.lr is not None
+          else LM_LR if args.model not in (None,) + LOCAL_STEPS
+          else DEFAULT_LR.get(args.dataset, 0.03))
     cfg = ServerConfig(algo=args.algo, rounds=args.rounds, lr=lr,
                        n_selected=min(10, ds.n_clients),
                        al_rounds=args.al_rounds, h_cap=24.0,
@@ -165,17 +177,24 @@ def build_server(args, sink=None, telemetry=None) -> FedSAEServer:
                        n_byzantine=args.n_byzantine,
                        selection=args.selection,
                        sampling=args.sampling, model=args.model,
-                       upload_compress=args.compress,
-                       topk_frac=args.topk_frac, backend=args.backend,
-                       driver=args.driver, block_size=args.block_size,
-                       faults=build_faults(args), upload_screen=args.screen,
-                       screen_norm_bound=args.screen_norm_bound,
-                       quarantine_threshold=args.quarantine_threshold,
-                       quarantine_rounds=args.quarantine_rounds,
-                       quarantine_min_tries=args.quarantine_min_tries,
-                       mesh_shards=args.shards,
-                       cohort_capacity=args.cohort_capacity,
-                       prefetch=args.prefetch, device=args.device)
+                       device=args.device,
+                       compute=ComputeConfig(
+                           backend=args.backend,
+                           driver=args.driver,
+                           block_size=args.block_size,
+                           mesh_shards=args.shards,
+                           cohort_capacity=args.cohort_capacity,
+                           prefetch=args.prefetch),
+                       comm=CommConfig(
+                           upload_compress=args.compress,
+                           topk_frac=args.topk_frac),
+                       robustness=RobustnessConfig(
+                           faults=build_faults(args),
+                           upload_screen=args.screen,
+                           screen_norm_bound=args.screen_norm_bound,
+                           quarantine_threshold=args.quarantine_threshold,
+                           quarantine_rounds=args.quarantine_rounds,
+                           quarantine_min_tries=args.quarantine_min_tries))
     return FedSAEServer(ds, cfg=cfg, sink=sink, telemetry=telemetry)
 
 
@@ -265,9 +284,9 @@ def make_parser() -> argparse.ArgumentParser:
                     help="cohort selection after the AL warm-up rounds")
     ap.add_argument("--model", default=None,
                     help="local step trained on each client: mclr | mlp | "
-                         "lstm (an architecture id over the packed "
-                         "federation is ROADMAP A13 (iii)).  Default: lstm "
-                         "for sent140, mclr elsewhere")
+                         "lstm | an architecture id (e.g. llama3.2-3b: its "
+                         "smoke config as a causal LM on a text dataset). "
+                         "Default: lstm for sent140, mclr elsewhere")
     ap.add_argument("--lr", type=float, default=None,
                     help="override the dataset default learning rate")
     ap.add_argument("--sampling", default="shuffle",
@@ -383,14 +402,8 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """Parse the flags; a value of an unported feature exits through
-    ``ap.error`` naming its ROADMAP item."""
-    ap = make_parser()
-    args = ap.parse_args(argv)
-    if args.model is not None and args.model not in LOCAL_STEPS:
-        ap.error(f"--model {args.model} is not ported yet (ROADMAP "
-                 "A13 (iii))")
-    return args
+    """Parse the flags."""
+    return make_parser().parse_args(argv)
 
 
 def _sharded_main(rank: int, argv):

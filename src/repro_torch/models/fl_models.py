@@ -10,8 +10,10 @@ kernel layer has a fused implementation for.  The engine differentiates
 
 This package ports MCLR, the paper's convex model, the two-layer tanh
 MLP and the LSTM sentiment classifier (Sent140); ``models.api.from_model``
-adapts the decoder LMs (``kind="lm"``), which train through
-``RoundEngine.make_stream_round`` (the silo round).
+adapts the decoder LMs (``kind="lm"``), which train through the silo
+round (``RoundEngine.make_stream_round``) and, as every client's local
+step, through the packed round, lane by lane in place
+(``RoundEngine._local_sgd``).
 """
 from __future__ import annotations
 
@@ -204,9 +206,11 @@ def resolve_local_step(spec, dataset) -> LocalStep:
     """Resolve a model spec to a ``LocalStep`` sized for ``dataset``.
 
     ``spec`` may be ``None`` (the dataset default: lstm for a text
-    dataset, mclr otherwise), a name from ``LOCAL_STEPS`` or an
-    already-built ``LocalStep`` (returned unchanged).  Architecture ids
-    raise ``NotImplementedError`` until their ROADMAP item lands."""
+    dataset, mclr otherwise), a name from ``LOCAL_STEPS``, an arch id
+    known to ``repro_torch.configs.get_config`` (its smoke config,
+    wrapped by ``models.api.from_model`` as a causal LM over the clients'
+    tokens), or an already-built ``LocalStep`` (returned unchanged: a
+    full-width ``from_model`` step goes in this way)."""
     if isinstance(spec, LocalStep):
         return spec
     n_features, n_classes, vocab = _dataset_dims(dataset)
@@ -221,8 +225,17 @@ def resolve_local_step(spec, dataset) -> LocalStep:
         if not text:
             raise ValueError("model='lstm' needs a text (token) dataset")
         return make_lstm(vocab)
-    raise NotImplementedError(
-        f"model={spec!r}: the port trains architecture ids through "
-        "models.api.from_model in the silo round (core.silo.SiloFedSAE); "
-        "their cross-device federation over the packed round is ROADMAP "
-        "A13 (iii)")
+    # arch id -> smoke config -> causal-LM LocalStep (lazy import: keeps
+    # fl_models free of the arch modules)
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import from_model
+
+    cfg = get_config(spec, smoke=True)
+    if not text:
+        raise ValueError(
+            f"model={spec!r} is a token-sequence architecture; use a text "
+            "dataset (e.g. sent140)")
+    if cfg.vocab_size < vocab:
+        raise ValueError(
+            f"arch vocab {cfg.vocab_size} < dataset vocab {vocab}")
+    return from_model(cfg)

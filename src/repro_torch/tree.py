@@ -23,3 +23,22 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
+
+
+def tree_items(tree, prefix: str = ""):
+    """(key path, leaf) pairs of ``tree`` in ``tree_leaves`` order, the
+    path's parts joined by "/"."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tree_items(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, t in enumerate(tree)
+                for x in tree_items(t, f"{prefix}{i}/")]
+    return [(prefix.rstrip("/"), tree)]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree of ``tree``'s structure whose leaves are ``leaves``, taken in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)

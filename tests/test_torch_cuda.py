@@ -14,7 +14,11 @@ fused cross-entropy 1e-4 (the reference's kernel-vs-oracle bounds,
 tests/test_kernels.py).  The Sent140 LSTM's loss and gradients on the card
 are held to the CPU's at 1e-5, the robust aggregators at 1e-6 (1e-5 for
 the geometric median) with Krum's and Bulyan's chosen clients equal, and
-two card runs of one LSTM round must give the same bits.  A faulted
+two card runs of one LSTM round must give the same bits.  The packed round
+with the float32 Llama smoke LM as every client's local step is held to
+the CPU's at 1e-4 (cohorts, budgets and L/H bitwise), and its scan driver
+(the lanes' passes captured in the graph) bitwise its host driver with
+device rng.  A faulted
 federation on the card is bitwise its crash twin and a killed and resumed
 run bitwise the uninterrupted one; against the CPU with the same draws it
 picks the same cohorts and budgets, params within 2e-5.  The scan driver's
@@ -43,9 +47,9 @@ from repro_torch.kernels import ref as tref
 from torch_cases import (COMPRESS_CASES, FAULT_CFG, FAULT_DS, FAULT_PATHS,
                          ROBUST_CASES, attention_case, cluster_case,
                          compress_case, dense_case, fault_kwargs,
-                         gather_case, gather_lanes_case, iid_draws,
-                         lstm_case, mclr_init, robust_stack_case, scan_case,
-                         sgd_case, xent_case)
+                         LM_CFG, gather_case, gather_lanes_case, iid_draws,
+                         lm_fed_case, lstm_case, mclr_init,
+                         robust_stack_case, scan_case, sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -842,3 +846,66 @@ def test_cuda_scan_kill_and_resume_bitwise(cuda_device, tmp_path):
     assert torch.equal(full.sel_gen.get_state(), resumed.sel_gen.get_state())
     assert torch.equal(full.data_gen.get_state(),
                        resumed.data_gen.get_state())
+
+
+# ---------------------------------------------------------------------------
+# an architecture id as the packed round's local step
+# ---------------------------------------------------------------------------
+
+LM_TOL = 1e-4
+
+
+def _lm_server(device, rounds=2, dtype="float32", **over):
+    from repro_torch.core.server import FedSAEServer, ServerConfig
+    ds, step, init = lm_fed_case(dtype=dtype)
+    cfg = ServerConfig(device=str(device), rounds=rounds,
+                       **dict(LM_CFG, **over))
+    kw = {} if over.get("driver") == "scan" or over.get("rng_impl") else \
+        dict(data_draws=iid_draws(6, LM_CFG["batch_size"]))
+    return FedSAEServer(ds, model=step, cfg=cfg, init_params=init, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_round_matches_the_cpu(cuda_device):
+    """Two host rounds of the float32 Llama smoke LM, lanes in turn, on the
+    card and on the CPU from the same init and draws: the same cohorts,
+    budgets and L/H; params and losses within 1e-4."""
+    from repro_torch.tree import tree_leaves
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        srv = _lm_server(device)
+        assert srv.max_iters == 6
+        runs.append((srv, srv.run()))
+    (card, hc), (cpu, hp) = runs
+    for a, b in zip(card.cohorts, cpu.cohorts):
+        assert np.array_equal(a, b)
+    for a, b in zip(card.budgets, cpu.budgets):
+        assert np.array_equal(a, b)
+    assert np.array_equal(card.L, cpu.L) and np.array_equal(card.H, cpu.H)
+    for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=LM_TOL, atol=LM_TOL)
+    np.testing.assert_allclose(hc["train_loss"], hp["train_loss"],
+                               rtol=LM_TOL, atol=LM_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_scan_matches_host_device_rng(cuda_device):
+    """The bf16 Llama smoke LM on the scan driver: one captured round (the
+    three lanes' six forward and backward passes each, flash and
+    cross-entropy kernels inside the graph) replayed a round, bitwise the
+    host driver's eager device rounds."""
+    from repro_torch.tree import tree_leaves
+    host = _lm_server(cuda_device, rounds=4, dtype="bfloat16",
+                      rng_impl="device", block_size=2)
+    scan = _lm_server(cuda_device, rounds=4, dtype="bfloat16",
+                      driver="scan", block_size=2)
+    host.run()
+    scan.run()
+    for a, b in zip(host.cohorts, scan.cohorts):
+        assert np.array_equal(a, b)
+    for a, b in zip(host.budgets, scan.budgets):
+        assert np.array_equal(a, b)
+    for a, b in zip(tree_leaves(host.params), tree_leaves(scan.params)):
+        assert torch.equal(a, b)
+    assert scan.program.graphed and scan.program.replays == 4
+    assert scan.program.per_replay["flash_attention_bwd"] > 0

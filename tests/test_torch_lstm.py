@@ -118,9 +118,9 @@ def test_resolve_local_step_defaults_and_errors():
     femnist = tfemnist(n_clients=6, total=100, dim=8, max_size=30)
     with pytest.raises(ValueError, match="needs a text"):
         tfl.resolve_local_step("lstm", femnist)
+    # arch ids on a text dataset resolve to the causal-LM step
     for spec in ("llama3.2-3b", "falcon-mamba-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-            tfl.resolve_local_step(spec, tds)
+        assert tfl.resolve_local_step(spec, tds).kind == "lm"
 
 
 def test_vocab_is_read_from_the_clients_shards_only():

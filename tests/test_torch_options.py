@@ -24,13 +24,13 @@ import pytest
 import torch.distributed as dist
 
 import repro.launch.fl_train as rfl
-from repro.core.server import CommConfig as RComm
-from repro.core.server import ComputeConfig as RCompute
 from repro.core.server import FedSAEServer as RServer
-from repro.core.server import RobustnessConfig as RRobustness
 from repro.core.server import ServerConfig as RConfig
 from repro_torch.checkpoint import list_checkpoints
+from repro_torch.core.server import CommConfig as TComm
+from repro_torch.core.server import ComputeConfig as TCompute
 from repro_torch.core.server import FedSAEServer as TServer
+from repro_torch.core.server import RobustnessConfig as TRobustness
 from repro_torch.core.server import ServerConfig as TConfig
 from repro_torch.data.federated import make_femnist_like, make_sent140_like
 from repro_torch.faults import FaultModel
@@ -84,9 +84,10 @@ FIELD_CASES = {
     "selection_seed": [(7, OK)],
     "eval_every": [(2, OK)],
     "model": [("mlp", OK), ("lstm", OK)],
-    "compute": [(RCompute(), REFUSED)],
-    "comm": [(RComm(), REFUSED)],
-    "robustness": [(RRobustness(), REFUSED)],
+    "compute": [(TCompute(driver="scan", block_size=8), OK)],
+    "comm": [(TComm(upload_compress="topk_q8", topk_frac=0.2), OK)],
+    "robustness": [(TRobustness(upload_screen="on",
+                                screen_norm_bound=10.0), OK)],
 }
 
 #: fl_train flag -> [(non-default value or None for a switch, accepted)]
@@ -102,7 +103,7 @@ FLAG_CASES = {
     "--agg-weighted": [(None, OK)],
     "--n-byzantine": [("1", OK)],
     "--selection": [("active", OK)],
-    "--model": [("mlp", OK), ("lstm", OK), ("llama3.2-3b", REFUSED)],
+    "--model": [("mlp", OK), ("lstm", OK), ("llama3.2-3b", OK)],
     "--lr": [("0.1", OK)],
     "--sampling": [("iid", OK)],
     "--backend": [("pallas", OK)],
@@ -154,8 +155,8 @@ FIELD_CONTEXT = {"quarantine_threshold": dict(upload_screen="on",
                  "prefetch": dict(driver="scan"),
                  "cohort_capacity": dict(mesh_shards=1)}
 
-#: the ROADMAP item each refused field names
-REFUSED_ITEMS = {"compute": "A15", "comm": "A15", "robustness": "A15"}
+#: the ROADMAP item each refused field names (none left)
+REFUSED_ITEMS = {}
 
 
 def _one_round_scan(srv):
@@ -186,6 +187,25 @@ def _one_round_sharded(srv):
     assert srv._records.last.overflowed == want
 
 
+def _one_round_group(srv):
+    """A group sets its flat twins, and its fields run: the compute
+    group's scan driver (one block, one stats pull, one eval), the comm
+    group's compression (the residual), the robustness group's screen."""
+    cfg = srv.cfg
+    for group in ("compute", "comm", "robustness"):
+        for f in dataclasses.fields(getattr(cfg, group)):
+            assert getattr(getattr(cfg, group), f.name) == \
+                getattr(cfg, f.name)
+    srv.run(rounds=1)
+    rec = srv._records.last
+    if cfg.driver == "scan":
+        assert cfg.block_size == 8 and srv.host_syncs == 2
+    if cfg.upload_compress == "topk_q8":
+        assert cfg.topk_frac == 0.2 and srv.residual is not None
+    if cfg.upload_screen == "on":
+        assert cfg.screen_norm_bound == 10.0 and rec.screened is not None
+
+
 #: accepted fields driven one CPU round: name -> check(server)
 FIELD_RUNS = {"driver": _one_round_scan, "block_size": _one_round_scan,
               "fused_generic": _one_round_scan,
@@ -193,7 +213,9 @@ FIELD_RUNS = {"driver": _one_round_scan, "block_size": _one_round_scan,
               "quarantine_threshold": _one_round_quarantine,
               "prefetch": _one_round_scan,
               "mesh_shards": _one_round_sharded,
-              "cohort_capacity": _one_round_sharded}
+              "cohort_capacity": _one_round_sharded,
+              "compute": _one_round_group, "comm": _one_round_group,
+              "robustness": _one_round_group}
 FIELD_CONTEXT["fused_generic"] = dict(driver="scan")
 
 
@@ -253,12 +275,21 @@ def test_the_cases_cover_every_reference_option():
     assert set(RUN_CASES) == set(run) - {"self", "rounds", "verbose"}
 
 
+def _value(cfg, name):
+    """A field's value; a group (materialized from the flat fields, in
+    both packages) as its fields."""
+    value = getattr(cfg, name)
+    return (dataclasses.asdict(value) if name in ("compute", "comm",
+                                                  "robustness") else value)
+
+
 @pytest.mark.parametrize("name", sorted(REF_FIELDS))
 def test_config_field_accepted_at_reference_default(name):
     default = _default(REF_FIELDS[name])
-    assert getattr(TConfig(), name) == default
+    assert _value(TConfig(), name) == _value(RConfig(), name)
     srv = _server(**{name: default})
-    assert getattr(srv.cfg, name) == default
+    assert _value(srv.cfg, name) == _value(RConfig(**{name: default}),
+                                           name)
 
 
 @contextlib.contextmanager

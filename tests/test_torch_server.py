@@ -24,6 +24,8 @@ from repro.models.fl_models import resolve_local_step as jresolve
 from repro_torch.core import prediction as tpred
 from repro_torch.core import selection as tsel
 from repro_torch.core.heterogeneity import HeterogeneitySim as THet
+from repro_torch.core.server import (CommConfig, ComputeConfig,
+                                     RobustnessConfig)
 from repro_torch.core.server import FedSAEServer as TServer
 from repro_torch.core.server import HISTORY_KEYS
 from repro_torch.core.server import ServerConfig as TConfig
@@ -210,26 +212,32 @@ def test_cli_smoke_on_cpu(capsys, extra):
 
 #: the error each A12 (ii) value (ported: sharding, capacity, prefetch)
 #: raises, as the reference's, in a config that cannot run it: sharding
-#: without a process group, capacity without sharding, prefetch on a mesh
-A12_MISUSE = {"mesh_shards": ({}, "needs a torch.distributed default "
-                                  "process group"),
-              "cohort_capacity": ({}, "requires mesh sharding"),
-              "prefetch": (dict(driver="scan", mesh_shards=1),
-                           "not supported on a sharded mesh")}
+#: without a process group, capacity without sharding, prefetch on a mesh;
+#: and each A15 group (ported) in a config whose explicit flat twin
+#: conflicts with it (the reference's ValueError, naming the field)
+MISUSE = {"mesh_shards": ({}, "needs a torch.distributed default "
+                              "process group"),
+          "cohort_capacity": ({}, "requires mesh sharding"),
+          "prefetch": (dict(driver="scan", mesh_shards=1),
+                       "not supported on a sharded mesh"),
+          "compute": (dict(block_size=8), "block_size=8 conflicts with "
+                                          "compute.block_size=4"),
+          "comm": (dict(topk_frac=0.3), "topk_frac=0.3 conflicts with "
+                                        "comm.topk_frac=0.2"),
+          "robustness": ({}, "upload_screen='on' conflicts with "
+                             "robustness.upload_screen='off'")}
 
 
 @pytest.mark.parametrize("field,value,item", [
     ("mesh_shards", 2, "A12"), ("cohort_capacity", "auto", "A12"),
-    ("prefetch", "double_buffer", "A12"), ("compute", object(), "A15"),
-    ("comm", object(), "A15"), ("robustness", object(), "A15")])
+    ("prefetch", "double_buffer", "A12"),
+    ("compute", ComputeConfig(block_size=4), "A15"),
+    ("comm", CommConfig(topk_frac=0.2), "A15"),
+    ("robustness", RobustnessConfig(upload_screen="off"), "A15")])
 def test_unported_config_raises(field, value, item):
-    """Unported options raise naming their ROADMAP item: the grouped
-    configs A15.  The A12 (ii) options are ported: each raises the
-    reference's error where it cannot run (``A12_MISUSE``)."""
-    if item == "A12":
-        extra, match = A12_MISUSE[field]
-    else:
-        extra, match = {}, f"ROADMAP {item}"
+    """The A12 (ii) options and the A15 groups are ported: each raises the
+    reference's error where it cannot run (``MISUSE``)."""
+    extra, match = MISUSE[field]
     with pytest.raises(ValueError, match=match):
         TServer(tfemnist(**DS_KW), cfg=TConfig(
             device="cpu", upload_screen="on", **extra, **{field: value}))
@@ -256,8 +264,8 @@ def test_device_driver_config_accepted(field, value):
 def test_compression_with_an_unported_feature_raises(field, value, item):
     """Compression with the A12 (ii) options, once refused by item: the
     config is accepted, and the server raises the reference's error where
-    the combination cannot run (``A12_MISUSE``)."""
-    extra, match = A12_MISUSE[field]
+    the combination cannot run (``MISUSE``)."""
+    extra, match = MISUSE[field]
     cfg = TConfig(device="cpu", upload_compress="topk_q8", **extra,
                   **{field: value})
     assert getattr(cfg, field) == value
@@ -288,20 +296,17 @@ def test_fault_options_run(kw):
     assert all(torch.isfinite(v).all() for v in srv.params.values())
 
 
-@pytest.mark.parametrize("spec,item", [("lstm", None),
-                                       ("llama3.2-3b", "A13"),
-                                       ("falcon-mamba-7b", "A13")])
-def test_unported_models_raise(spec, item):
-    """Architecture ids are refused by ROADMAP item; "lstm" on a dataset
-    without tokens raises the reference's ValueError."""
-    if item is None:
-        with pytest.raises(ValueError, match="needs a text"):
-            resolve_local_step(spec, tfemnist(**DS_KW))
-        with pytest.raises(ValueError, match="needs a text"):
-            jresolve(spec, jfemnist(**DS_KW))
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+@pytest.mark.parametrize("spec,match", [
+    ("lstm", "needs a text"),
+    ("llama3.2-3b", "token-sequence architecture"),
+    ("falcon-mamba-7b", "token-sequence architecture")])
+def test_unported_models_raise(spec, match):
+    """A token model on a dataset without tokens raises the reference's
+    ValueError: "lstm" and the architecture ids alike."""
+    with pytest.raises(ValueError, match=match):
         resolve_local_step(spec, tfemnist(**DS_KW))
+    with pytest.raises(ValueError, match=match):
+        jresolve(spec, jfemnist(**DS_KW))
 
 
 @pytest.mark.parametrize("name,kw,lr,sampling,extra", [

@@ -293,3 +293,30 @@ def iid_draws(max_iters, B, seed=100):
         return (r.random((len(ids), max_iters, B))
                 * np.maximum(n, 1)[:, None, None]).astype(np.int32)
     return draws
+
+
+#: the LM federation of the card tests (an architecture id as the local
+#: step): Sent140-like, the test split cut to its first rows
+LM_DS = dict(n_clients=8, total=80, vocab=300, max_size=16)
+LM_TEST_ROWS = 32
+LM_CFG = dict(algo="ira", n_selected=3, batch_size=4, h_cap=2.0,
+              fixed_epochs=2.0, lr=5e-3, sampling="iid")
+
+
+def lm_fed_case(arch="llama3.2-3b", dtype="float32", seed=0):
+    """(dataset, step, numpy init) of the LM federation: the smoke config
+    of ``arch`` in ``dtype`` as a ``from_model`` step, its params drawn
+    once on the CPU (the same init on the card and on the CPU)."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.data.federated import (FederatedDataset,
+                                            make_sent140_like)
+    from repro_torch.models.api import from_model
+    ds = make_sent140_like(**LM_DS)
+    ds = FederatedDataset(ds.name, ds.clients_x, ds.clients_y,
+                          ds.test_x[:LM_TEST_ROWS], ds.test_y[:LM_TEST_ROWS],
+                          ds.n_classes, task="text")
+    step = from_model(get_config(arch, smoke=True).replace(dtype=dtype))
+    init = params_to_numpy(step.init_params(
+        torch.Generator("cpu").manual_seed(seed)))
+    return ds, step, init

@@ -4,7 +4,10 @@ spawned child imports its target by module path).  Imports neither JAX
 nor the reference, so a rank starts in a few seconds.
 
 A case is a plain dict, so it pickles: ``ds`` the FEMNIST-like generator's
-arguments, ``cfg`` the ``ServerConfig`` fields (``faults`` as
+arguments (or, with ``lm``, the Sent140-like generator's plus
+``test_rows``, and ``lm`` the architecture id and dtype of the
+``from_model`` local step: ``lm_federation`` and ``lm_step``), ``cfg`` the
+``ServerConfig`` fields (``faults`` as
 ``FaultModel`` arguments), and optionally ``init`` (numpy params),
 ``device_draws`` (per round a dict of numpy arrays), ``data_draws`` (per
 round the [K, ...] minibatch draws), ``fault_draws`` (per round a dict),
@@ -19,6 +22,32 @@ import torch
 from repro_torch.core.server import FedSAEServer, ServerConfig
 from repro_torch.data.federated import make_femnist_like
 from repro_torch.faults import FaultModel
+from repro_torch.tree import tree_items
+
+
+def flat_params(params) -> dict:
+    """A params tree as ``{"/"-joined key path: numpy array}`` (a flat
+    dict keeps its keys)."""
+    return {k: v.detach().cpu().numpy() for k, v in tree_items(params)}
+
+
+def lm_federation(test_rows: int, **kw):
+    """The Sent140-like federation with its test split cut to its first
+    ``test_rows`` rows (the LM's eval runs over the whole split)."""
+    from repro_torch.data.federated import (FederatedDataset,
+                                            make_sent140_like)
+    ds = make_sent140_like(**kw)
+    return FederatedDataset(ds.name, ds.clients_x, ds.clients_y,
+                            ds.test_x[:test_rows], ds.test_y[:test_rows],
+                            ds.n_classes, task="text")
+
+
+def lm_step(arch: str, dtype: str):
+    """The ``from_model`` local step of ``arch``'s smoke config in
+    ``dtype``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import from_model
+    return from_model(get_config(arch, smoke=True).replace(dtype=dtype))
 
 
 def summary(srv) -> dict:
@@ -32,7 +61,7 @@ def summary(srv) -> dict:
     return {"cohorts": np.stack(srv.cohorts), "budgets": np.stack(srv.budgets),
             "L": srv.L.copy(), "H": srv.H.copy(), "theta": srv.theta.copy(),
             "values": srv.values.v.copy(),
-            "params": {k: v.cpu().numpy() for k, v in srv.params.items()},
+            "params": flat_params(srv.params),
             "residual": (None if srv.residual is None
                          else srv.residual.cpu().numpy()),
             "history": {k: np.asarray(v) for k, v in srv.history.items()},
@@ -53,8 +82,12 @@ def _server(case):
     if case.get("fault_draws") is not None:
         faults = case["fault_draws"]
         kw["fault_draws"] = lambda t: faults[t]
-    return FedSAEServer(make_femnist_like(**case["ds"]),
-                        cfg=ServerConfig(device="cpu", **cfg),
+    if case.get("lm") is not None:
+        ds, kw["model"] = (lm_federation(**case["ds"]),
+                           lm_step(*case["lm"]))
+    else:
+        ds = make_femnist_like(**case["ds"])
+    return FedSAEServer(ds, cfg=ServerConfig(device="cpu", **cfg),
                         init_params=case.get("init"),
                         telemetry=case.get("telemetry"), **kw)
 
