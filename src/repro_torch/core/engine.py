@@ -124,6 +124,7 @@ from repro_torch.faults.inject import (apply_availability_stragglers_device,
 from repro_torch.faults.screen import (eligibility, quarantine_update,
                                        screen_uploads, screen_uploads_device)
 from repro_torch.kernels import ops as kops
+from repro_torch.models.fl_models import as_local_step
 from repro_torch.obs.profiling import (STAGE_AGGREGATE, STAGE_GATHER,
                                        STAGE_LOCAL_SGD, STAGE_UPLOAD, stage)
 from repro_torch.obs.schema import (LOSS_HIST_BINS, LOSS_HIST_MAX,
@@ -131,6 +132,7 @@ from repro_torch.obs.schema import (LOSS_HIST_BINS, LOSS_HIST_MAX,
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 SAMPLINGS = ("shuffle", "iid")
+BACKENDS = ("xla", "pallas")
 
 
 def budget_iters(e_eff, n, batch_size: int, max_iters: int):
@@ -209,13 +211,25 @@ class RoundEngine:
     screen_norm
                the upload screen's delta l2 bound (None: no screen); a
                screening round function returns ``bad`` last
+    donate     the reference's buffer donation under ``jax.jit``; torch has
+               no counterpart, so it is kept and does nothing
+    backend    "xla" | "pallas", validated as the reference does; it selects
+               nothing: the port routes every kernel by device
+    fused_generic
+               the reference's fused generic iid walk; the port runs one
+               walk either way (its values are the unfused walk's)
     """
 
     def __init__(self, lr: float, aggregator=None,
-                 prox_mu: Optional[float] = None, compress: str = "none",
+                 prox_mu: Optional[float] = None, donate: bool = True,
+                 backend: str = "xla", compress: str = "none",
                  topk_frac: float = 0.1, faults=None,
-                 screen_norm: Optional[float] = None):
+                 screen_norm: Optional[float] = None,
+                 fused_generic: bool = True):
         self.lr = float(lr)
+        self.donate = bool(donate)
+        self.backend = self._resolve_backend(backend)
+        self.fused_generic = bool(fused_generic)
         self.aggregator = aggregator if aggregator is not None else FedAvg()
         self.prox_mu = float(prox_mu if prox_mu is not None
                              else getattr(self.aggregator, "prox_mu", 0.0))
@@ -243,6 +257,14 @@ class RoundEngine:
     @property
     def compressing(self) -> bool:
         return self.compress != "none"
+
+    def _resolve_backend(self, backend: Optional[str]) -> str:
+        backend = getattr(self, "backend", "xla") if backend is None \
+            else backend
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend!r}; choose from {BACKENDS}")
+        return backend
 
     def _prox(self, loss, params, global_params):
         if not self.prox_mu:
@@ -555,12 +577,98 @@ class RoundEngine:
             out = out + (bad,)
         return out
 
+    @staticmethod
+    def _drawer(sampling: str, batch_size: int, max_iters: int,
+                max_n: int) -> Callable:
+        """draw(gen, n, dev): the cohort's minibatch draws from ``gen``:
+        idx [K, max_iters, B] iid, the permutation keys u [K, max_n]
+        shuffle."""
+        def draw(gen, n, dev):
+            if gen is None:
+                raise ValueError("pass gen= or draws=")
+            if sampling == "iid":
+                return iid_indices(gen, n, max_iters, batch_size)
+            return torch.rand((n.shape[0], max_n), generator=gen, device=dev)
+        return draw
+
+    def _trainer(self, model, batch_size: int, max_iters: int,
+                 sampling: str, walk_all: bool = False) -> Callable:
+        """train(global_params, x, y, mask, n, n_iters, draws) -> (params_k,
+        losses [K]) inside the local-SGD stage: the fused kernel for an
+        eligible step (``kops.fused_sgd_eligible``), else ``_local_sgd``."""
+        if sampling not in SAMPLINGS:
+            raise ValueError(f"unknown sampling {sampling!r}")
+        fuse_sgd = kops.fused_sgd_eligible(model, sampling)
+        local_train = None if fuse_sgd else self._local_sgd(
+            model, batch_size, max_iters, sampling, walk_all=walk_all)
+
+        def train(global_params, x, y, mask, n, n_iters, draws):
+            with stage(STAGE_LOCAL_SGD):
+                if fuse_sgd:
+                    return self._fused_sgd(model, global_params, x, y, n,
+                                           n_iters, draws)
+                return local_train(global_params, x, y, mask, n, n_iters,
+                                   draws)
+        return train
+
+    # ------------------------------------------------------------------
+    def make_padded_round(self, model, batch_size: int, max_iters: int,
+                          sampling: str = "shuffle",
+                          backend: Optional[str] = None) -> Callable:
+        """The seed interface's round over host-stacked padded arrays.
+
+        round_fn(global_params, x, y, mask, n, n_iters, gen=None,
+                 draws=None) -> (new_global_params, client_losses [K],
+                                 uploaded_any)
+          x: [K, max_n, ...] padded client data;  mask: [K, max_n]
+          n: [K] true sample counts;  n_iters: [K] masked local-SGD budget
+
+        The arrays may be numpy or tensors; they go to the global params'
+        device.  The minibatch draws come from ``gen`` or are ``draws``
+        (idx [K, max_iters, B] iid, u [K, max_n] shuffle), as in the
+        packed round.  ``model`` goes through ``as_local_step``; an iid
+        MCLR or MLP step trains through its fused kernel.  Compression,
+        fault injection and the screen need the packed round."""
+        if self.compressing:
+            raise ValueError(
+                "upload compression needs the packed client axis for "
+                "residual state; the padded seed round does not support "
+                "it — use make_packed_round/make_segment_fn")
+        if self.injecting or self.screening:
+            raise ValueError(
+                "fault injection / upload screening are packed-round "
+                "features; the padded seed round does not support them — "
+                "use make_packed_round/make_segment_fn")
+        model = as_local_step(model)
+        self._resolve_backend(backend)
+        train = self._trainer(model, batch_size, max_iters, sampling)
+
+        @torch.no_grad()
+        def round_fn(global_params, x, y, mask, n, n_iters, gen=None,
+                     draws=None):
+            dev = tree_leaves(global_params)[0].device
+            x, y, mask, n, n_iters = (torch.as_tensor(a, device=dev)
+                                      for a in (x, y, mask, n, n_iters))
+            if draws is None:
+                draws = self._drawer(sampling, batch_size, max_iters,
+                                     x.shape[1])(gen, n, dev)
+            elif not torch.is_tensor(draws):
+                draws = torch.from_numpy(np.array(draws)).to(dev)
+            params_k, losses = train(global_params, x, y, mask, n, n_iters,
+                                     draws)
+            new_global, any_up, _ = self._finish(
+                global_params, params_k, self._upload_weights(n, n_iters))
+            return new_global, losses, any_up
+
+        return round_fn
+
     # ------------------------------------------------------------------
     def make_packed_round(self, model, batch_size: int, max_iters: int,
                           max_n: int, sampling: str = "shuffle",
                           device_round: bool = False, mesh=None,
                           capacity: Optional[int] = None,
-                          sizes=None) -> Callable:
+                          sizes=None, backend: Optional[str] = None
+                          ) -> Callable:
         """Device-resident round over the packed federation.
 
         round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
@@ -593,31 +701,16 @@ class RoundEngine:
         taking its slot's."""
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
+        model = as_local_step(model)
+        self._resolve_backend(backend)
         if mesh is None and capacity is not None:
             raise ValueError(
                 "capacity compaction requires a sharded mesh; pass mesh= "
                 "or leave capacity=None for the replicated round")
-        fuse_sgd = kops.fused_sgd_eligible(model, sampling)
-        local_train = None if fuse_sgd else self._local_sgd(
-            model, batch_size, max_iters, sampling, walk_all=device_round)
+        train = self._trainer(model, batch_size, max_iters, sampling,
+                              walk_all=device_round)
+        draw = self._drawer(sampling, batch_size, max_iters, max_n)
         gather = self._cohort_gather(max_n)
-
-        def draw(gen, n, dev):
-            """The cohort's minibatch draws from ``gen``: idx [K, max_iters,
-            B] iid, the permutation keys u [K, max_n] shuffle."""
-            if gen is None:
-                raise ValueError("pass gen= or draws=")
-            if sampling == "iid":
-                return iid_indices(gen, n, max_iters, batch_size)
-            return torch.rand((n.shape[0], max_n), generator=gen, device=dev)
-
-        def train(global_params, x, y, mask, n, n_iters, draws):
-            with stage(STAGE_LOCAL_SGD):
-                if fuse_sgd:
-                    return self._fused_sgd(model, global_params, x, y, n,
-                                           n_iters, draws)
-                return local_train(global_params, x, y, mask, n, n_iters,
-                                   draws)
 
         if mesh is not None:
             return self._sharded_round_fn(
@@ -990,7 +1083,7 @@ class RoundEngine:
                 "the cross-silo stream round does not support it")
         views = getattr(loss_fn, "leaf_views", None) or (lambda p: p)
         if not callable(loss_fn):
-            loss_fn = loss_fn.loss
+            loss_fn = as_local_step(loss_fn).loss
 
         def train_silo(params, global_params, silo_batches, steps: int):
             """``steps`` SGD steps on ``params`` (views of the silo's stack

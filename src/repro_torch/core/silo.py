@@ -59,18 +59,16 @@ class SiloFedSAE:
                  aggregator: str = "fedavg", sink: Optional[Sink] = None,
                  screen_norm: Optional[float] = None, init_params=None,
                  device: DeviceLike = None, **agg_kwargs):
-        from repro_torch.models.fl_models import LocalStep
+        from repro_torch.models.fl_models import LocalStep, as_local_step
 
         if hasattr(model, "train_loss"):
             step = LocalStep(
                 init_params=model.init,
                 loss=lambda p, b: model.train_loss(p, b)[0],
+                name=getattr(getattr(model, "cfg", None), "name", None),
                 leaf_views=getattr(model, "leaf_views", None))
-        elif isinstance(model, LocalStep):
-            step = model
         else:
-            raise TypeError(f"model must be a models.api.Model or a "
-                            f"LocalStep, got {type(model).__name__}")
+            step = as_local_step(model)
         self.device = resolve_device(device)
         self.model = model
         self.step = step

@@ -91,6 +91,24 @@ class FederatedDataset:
     def sizes(self) -> np.ndarray:
         return np.array([len(y) for y in self.clients_y])
 
+    def stacked(self, client_ids, max_n: Optional[int] = None):
+        """The selected clients in host-stacked padded numpy arrays, the
+        seed round's input (``core.rounds.make_round_fn``): x [K, max_n,
+        ...], y [K, max_n], mask [K, max_n], n [K]."""
+        ids = list(client_ids)
+        ns = np.array([len(self.clients_y[i]) for i in ids])
+        m = int(max_n or ns.max())
+        feat_shape = self.clients_x[ids[0]].shape[1:]
+        x = np.zeros((len(ids), m) + feat_shape, self.clients_x[ids[0]].dtype)
+        y = np.zeros((len(ids), m), np.int32)
+        mask = np.zeros((len(ids), m), np.float32)
+        for j, i in enumerate(ids):
+            n = min(len(self.clients_y[i]), m)
+            x[j, :n] = self.clients_x[i][:n]
+            y[j, :n] = self.clients_y[i][:n]
+            mask[j, :n] = 1.0
+        return x, y, mask, np.minimum(ns, m)
+
     def packed(self, max_n: Optional[int] = None,
                device: DeviceLike = None,
                shards: Optional[int] = None) -> PackedClients:

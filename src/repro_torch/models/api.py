@@ -102,4 +102,5 @@ def from_model(cfg_or_model, lm_seq_len: Optional[int] = None):
         return hit / torch.clamp(tok_mask.sum(), min=1)
 
     return LocalStep(init_params=model.init, loss=loss, accuracy=accuracy,
-                     kind="lm", leaf_views=model.leaf_views)
+                     kind="lm", name=f"model:{cfg.name}",
+                     leaf_views=model.leaf_views)

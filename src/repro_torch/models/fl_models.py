@@ -21,6 +21,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.func import grad_and_value
+
+from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 
 def mclr_init(generator: torch.Generator, n_features: int, n_classes: int,
@@ -137,53 +140,132 @@ def lstm_accuracy(params, batch):
     return _masked_accuracy(lstm_logits(params, batch["x"]), batch)
 
 
+class _MetaGenerator(torch.Generator):
+    """A generator whose ``device`` is the meta device: an init that draws
+    on its generator's device builds shapes only, with no storage."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 class LocalStep:
     """The model protocol ``RoundEngine`` consumes.
 
-    * ``init_params(generator)`` — build the params dict of tensors.
+    * ``init_params(generator)`` — build the params tree of tensors on the
+      generator's device (``init`` is its alias, as in the reference).
     * ``loss(params, batch)`` — masked-mean scalar loss; the engine takes
       its gradient with ``torch.func`` and applies the SGD update.
     * ``accuracy(params, batch)`` — optional; only evaluation uses it.
     * ``kind`` — the family tag the kernel layer dispatches on
       (``repro_torch.kernels.ops.fused_sgd_eligible``).
+    * ``name`` — a label (``make_mclr`` etc. set theirs).
     * ``leaf_views`` — optional: maps a params tree to the tree ``loss``
       reads, with leaves cut into the views that the silo round trains as
       separate autograd leaves (the LM's per-layer rows of its stacked
       blocks, ``decoder.layer_views``).
+
+    ``loss_and_grad`` and ``local_sgd_step`` are derived helpers;
+    ``param_treedef`` and ``n_params`` read the params' structure from an
+    init on the meta device (no storage), or from one CPU init when the
+    step's init does not build on its generator's device.
     """
 
     def __init__(self, init_params, loss, accuracy=None, kind=None,
-                 leaf_views=None):
+                 name=None, leaf_views=None):
         self.init_params = init_params
+        self.init = init_params
         self.loss = loss
         self.accuracy = accuracy
         self.kind = kind
+        self.name = name
         self.leaf_views = leaf_views
 
+    def loss_and_grad(self, params, batch):
+        """(loss, gradient tree of ``params``' structure)."""
+        grads, value = grad_and_value(self.loss)(params, batch)
+        return value, grads
 
-def make_mclr(n_features: int, n_classes: int) -> LocalStep:
-    return LocalStep(
-        init_params=lambda gen: mclr_init(gen, n_features, n_classes,
-                                          gen.device),
-        loss=mclr_loss, accuracy=mclr_accuracy, kind="mclr")
+    def local_sgd_step(self, params, batch, lr):
+        """One SGD step: (params - lr * grad, the loss before it)."""
+        loss, grads = self.loss_and_grad(params, batch)
+        return tree_map(lambda p, g: p - lr * g, params, grads), loss
+
+    def _shapes(self, generator=None):
+        if generator is not None:
+            return self.init_params(generator)
+        try:
+            return self.init_params(_MetaGenerator())
+        except (RuntimeError, NotImplementedError, TypeError):
+            return self.init_params(torch.Generator("cpu").manual_seed(0))
+
+    def param_treedef(self, generator=None):
+        """The params' key paths in the port's flatten order
+        (``repro_torch.tree``: dict keys sorted), the order the ``[K, P]``
+        upload contract (``core.compression``) relies on."""
+        return tuple(path for path, _ in tree_items(self._shapes(generator)))
+
+    def n_params(self, generator=None) -> int:
+        return sum(int(v.numel()) for v in
+                   tree_leaves(self._shapes(generator)))
 
 
-def make_mlp(n_features: int, n_classes: int, hidden: int = 64) -> LocalStep:
-    return LocalStep(
-        init_params=lambda gen: mlp_init(gen, n_features, hidden, n_classes,
-                                         gen.device),
-        loss=mlp_loss, accuracy=mlp_accuracy, kind="mlp")
+class FLModel(LocalStep):
+    """The init/loss/accuracy triple as a thin ``LocalStep`` subclass, the
+    reference's facade: every ``make_mclr``/``make_mlp``/``make_lstm``
+    model is one."""
+
+    def __init__(self, init, loss, accuracy, kind=None):
+        super().__init__(init_params=init, loss=loss, accuracy=accuracy,
+                         kind=kind)
+
+
+def as_local_step(obj) -> LocalStep:
+    """Coerce engine inputs to the ``LocalStep`` seam: a ``LocalStep`` is
+    returned unchanged (identity), any object with a callable ``loss`` and
+    a callable ``init_params`` or ``init`` is wrapped (its ``accuracy``,
+    ``kind`` and ``name`` carried), anything else raises a ``TypeError``."""
+    if isinstance(obj, LocalStep):
+        return obj
+    loss = getattr(obj, "loss", None)
+    init = getattr(obj, "init_params", None) or getattr(obj, "init", None)
+    if callable(loss) and callable(init):
+        return LocalStep(init_params=init, loss=loss,
+                         accuracy=getattr(obj, "accuracy", None),
+                         kind=getattr(obj, "kind", None),
+                         name=getattr(obj, "name", None))
+    raise TypeError(
+        f"cannot interpret {obj!r} as a LocalStep: need callable "
+        "loss(params, batch) and init_params(rng)/init(rng)")
+
+
+def _named(step: FLModel, name: str) -> FLModel:
+    step.name = name
+    return step
+
+
+def make_mclr(n_features: int, n_classes: int) -> FLModel:
+    return _named(FLModel(
+        init=lambda gen: mclr_init(gen, n_features, n_classes, gen.device),
+        loss=mclr_loss, accuracy=mclr_accuracy, kind="mclr"), "mclr")
+
+
+def make_mlp(n_features: int, n_classes: int, hidden: int = 64) -> FLModel:
+    return _named(FLModel(
+        init=lambda gen: mlp_init(gen, n_features, hidden, n_classes,
+                                  gen.device),
+        loss=mlp_loss, accuracy=mlp_accuracy, kind="mlp"), "mlp")
 
 
 def make_lstm(vocab: int, n_classes: int = 2, embed: int = 32,
-              hidden: int = 64) -> LocalStep:
+              hidden: int = 64) -> FLModel:
     """The Sent140 LSTM.  It has no ``kind``: no fused local-SGD kernel
     exists for it, so the engine trains it on the plain ``torch.func``
     path, as the reference trains it through ``jax.grad``."""
-    return LocalStep(
-        init_params=lambda gen: lstm_init(gen, vocab, embed, hidden,
-                                          n_classes, gen.device),
-        loss=lstm_loss, accuracy=lstm_accuracy)
+    return _named(FLModel(
+        init=lambda gen: lstm_init(gen, vocab, embed, hidden, n_classes,
+                                   gen.device),
+        loss=lstm_loss, accuracy=lstm_accuracy), "lstm")
 
 
 #: the built-in steps ``resolve_local_step`` builds by name
@@ -209,10 +291,12 @@ def resolve_local_step(spec, dataset) -> LocalStep:
     dataset, mclr otherwise), a name from ``LOCAL_STEPS``, an arch id
     known to ``repro_torch.configs.get_config`` (its smoke config,
     wrapped by ``models.api.from_model`` as a causal LM over the clients'
-    tokens), or an already-built ``LocalStep`` (returned unchanged: a
-    full-width ``from_model`` step goes in this way)."""
-    if isinstance(spec, LocalStep):
-        return spec
+    tokens), or any other object, which ``as_local_step`` takes (a
+    ``LocalStep`` returned unchanged: a full-width ``from_model`` step goes
+    in this way; a duck-typed model wrapped; anything else a
+    ``TypeError``)."""
+    if spec is not None and not isinstance(spec, str):
+        return as_local_step(spec)
     n_features, n_classes, vocab = _dataset_dims(dataset)
     text = vocab is not None
     if spec is None:
