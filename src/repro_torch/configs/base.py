@@ -134,16 +134,16 @@ INPUT_SHAPES = {
 #: every architecture id of the reference, and the ROADMAP item that ports
 #: the ones this package does not serve yet (None: ported)
 ARCH_ITEMS = {
-    "minitron-8b": "A13 (ii): configs beyond the two served archs",
-    "granite-moe-1b-a400m": "A13 (ii): MoE (moe.py)",
-    "internvl2-2b": "A13 (ii): VLM",
-    "mistral-large-123b": "A13 (ii): configs beyond the two served archs",
-    "whisper-tiny": "A13 (ii): the encoder-decoder (encdec.py)",
+    "minitron-8b": None,
+    "granite-moe-1b-a400m": None,
+    "internvl2-2b": "A13 (ii) (b): the VLM patch prefix",
+    "mistral-large-123b": None,
+    "whisper-tiny": "A13 (ii) (c): the encoder-decoder (encdec.py)",
     "llama3.2-3b": None,
-    "granite-8b": "A13 (ii): configs beyond the two served archs",
-    "kimi-k2-1t-a32b": "A13 (ii): MoE (moe.py)",
+    "granite-8b": None,
+    "kimi-k2-1t-a32b": None,
     "falcon-mamba-7b": None,
-    "jamba-1.5-large-398b": "A13 (ii): the jamba hybrid with MoE",
+    "jamba-1.5-large-398b": None,
 }
 ARCH_IDS = tuple(ARCH_ITEMS)
 PORTED_ARCHS = tuple(a for a, item in ARCH_ITEMS.items() if item is None)
@@ -171,19 +171,18 @@ def check_ported(cfg: ArchConfig) -> None:
     ``cfg`` the port does not implement yet."""
     unported = []
     if cfg.is_encoder_decoder:
-        unported.append("the encoder-decoder (ROADMAP A13 (ii))")
-    if cfg.n_experts:
-        unported.append("MoE FFNs (ROADMAP A13 (ii))")
+        unported.append("the encoder-decoder (ROADMAP A13 (ii) (c))")
     if cfg.n_patches:
-        unported.append("the VLM patch prefix (ROADMAP A13 (ii))")
+        unported.append("the VLM patch prefix (ROADMAP A13 (ii) (b))")
     if cfg.ssm_input_dtype != "float32":
         unported.append(f"ssm_input_dtype={cfg.ssm_input_dtype!r} (only "
                         "float32; the bf16 scan inputs are a reference perf "
-                        "variant, ROADMAP A13 (ii))")
+                        "variant, ROADMAP A13 (ii) (d))")
     if cfg.ssm_scan != "chunked":
         unported.append(f"ssm_scan={cfg.ssm_scan!r} (the port's scan is "
                         "sequential on every device: the step loop on the "
-                        "CPU, the CUDA kernel on the card)")
+                        "CPU, the CUDA kernel on the card; ROADMAP A13 (ii) "
+                        "(d))")
     if cfg.dtype not in ("bfloat16", "float32") or cfg.param_dtype not in (
             "bfloat16", "float32"):
         unported.append(f"dtype={cfg.dtype!r}/param_dtype="

@@ -41,8 +41,8 @@ def synth_batch(cfg, gen: torch.Generator, batch: int, seq: int,
     each, from numpy seeded by one draw of ``gen``."""
     if cfg.is_encoder_decoder or cfg.n_patches:
         raise ValueError(f"{cfg.name}: synth_batch covers decoder-only "
-                         "configs; the encoder-decoder and the VLM prefix "
-                         "are ROADMAP A13 (ii)")
+                         "configs; the VLM prefix and the encoder-decoder "
+                         "are ROADMAP A13 (ii) (b) and (c)")
     seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
     ri = np.random.default_rng(seed)
     draw = lambda: torch.as_tensor(ri.integers(0, cfg.vocab_size,

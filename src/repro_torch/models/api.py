@@ -5,7 +5,7 @@ A ``Model`` bundles init / train_loss / prefill / decode_step / init_cache
 for a decoder-only config, as ``repro.models.api`` does, plus
 ``leaf_views`` (``decoder.layer_views``), the per-layer split of its
 params that the silo round trains.  ``from_model`` adapts one to the
-``LocalStep`` seam.  The encoder-decoder is ROADMAP A13 (ii).
+``LocalStep`` seam.  The encoder-decoder is ROADMAP A13 (ii) (c).
 """
 from __future__ import annotations
 
@@ -96,7 +96,7 @@ def from_model(cfg_or_model, lm_seq_len: Optional[int] = None):
         h = decoder.embed_inputs(params, cfg, {"tokens": inputs})
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S)
-        h, _ = decoder.forward(params, cfg, h, positions, "train")
+        h, _, _ = decoder.forward(params, cfg, h, positions, "train")
         pred = torch.argmax(L.logits_fn(params["embeddings"], cfg, h), -1)
         hit = ((pred == labels) & tok_mask).sum()
         return hit / torch.clamp(tok_mask.sum(), min=1)

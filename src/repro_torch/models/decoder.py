@@ -1,5 +1,6 @@
-"""Decoder-only LM (dense attention and Mamba stacks), the port's copy of
-``repro/models/decoder.py``: training loss, prefill and decode.
+"""Decoder-only LM (dense attention, MoE, Mamba and hybrid stacks), the
+port's copy of ``repro/models/decoder.py``: training loss, prefill and
+decode.
 
 Layers are ``n_groups`` repetitions of a ``period``-layer block pattern
 (period 1 for uniform stacks).  Per-position params are stacked on a
@@ -10,7 +11,9 @@ those views of its stacked storage as separate autograd leaves, so that
 no layer's backward fills a gradient the size of the whole stack.  With
 ``cfg.remat`` the training forward recomputes each group in the backward
 pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
-MoE FFNs and the VLM prefix raise for their ROADMAP item (A13 (ii)).
+An MoE FFN (``models.moe``) adds its load-balance loss to the blocks'
+``aux``, which the training loss weighs in; the VLM prefix raises for its
+ROADMAP item (A13 (ii) (b)).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import check_ported
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as Mb
+from repro_torch.models import moe as Moe
 
 
 def block_kinds(cfg, pos: int) -> Tuple[str, str]:
@@ -58,6 +62,8 @@ def _init_one_pos(generator, cfg, pos: int, device, G: int):
         params["mixer"] = Mb.init_mamba(generator, cfg, device, stack=G)
     if ffn == "dense":
         params["ffn"] = L.init_ffn(generator, cfg, device=device, stack=G)
+    elif ffn == "moe":
+        params["ffn"] = Moe.init_moe(generator, cfg, device=device, stack=G)
     return params
 
 
@@ -84,7 +90,9 @@ def init_params(generator: torch.Generator, cfg):
 
 
 def _apply_block(pparams, cfg, pos, h, positions, mode, cache, cur_index):
+    """One block: (h, the mixer's new cache, the MoE aux loss or 0)."""
     mixer, ffn = block_kinds(cfg, pos)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if mixer == "attn":
         if mode == "decode":
             out, new_mixer_cache = L.attn_decode(
@@ -100,8 +108,9 @@ def _apply_block(pparams, cfg, pos, h, positions, mode, cache, cur_index):
     if ffn == "dense":
         h = h + L.ffn_forward(pparams["ffn"], cfg, h)
     elif ffn == "moe":
-        raise ValueError("MoE FFNs are not ported (ROADMAP A13 (ii))")
-    return h, new_mixer_cache
+        out, aux = Moe.moe_forward(pparams["ffn"], cfg, h)
+        h = h + out
+    return h, new_mixer_cache, aux
 
 
 def _kv_to_cache(cfg, kv, positions):
@@ -164,51 +173,59 @@ def layer_views(params):
 
 
 def _train_forward(params, cfg, h, positions):
-    """Training pass: no cache; with ``cfg.remat`` (and a gradient wanted)
-    each group is recomputed in the backward pass."""
+    """Training pass: (h, aux summed over the blocks), no cache; with
+    ``cfg.remat`` (and a gradient wanted) each group is recomputed in the
+    backward pass, its aux too."""
     period = cfg.attn_period or 1
 
-    def group_body(h, gparams):
+    def group_body(h, aux, gparams):
         for p in range(period):
-            h, _ = _apply_block(gparams[f"pos{p}"], cfg, p, h, positions,
-                                "train", None, None)
-        return h
+            h, _, a = _apply_block(gparams[f"pos{p}"], cfg, p, h, positions,
+                                   "train", None, None)
+            aux = aux + a
+        return h, aux
 
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for g in range(n_groups(cfg)):
         gparams = _group(params["blocks"], g)
         if remat:
-            h = checkpoint(group_body, h, gparams, use_reentrant=False)
+            h, aux = checkpoint(group_body, h, aux, gparams,
+                                use_reentrant=False)
         else:
-            h = group_body(h, gparams)
-    return h
+            h, aux = group_body(h, aux, gparams)
+    return h, aux
 
 
 def forward(params, cfg, h, positions, mode: str, cache=None, cur_index=None):
-    """h: [B, S, d] embeddings.  Returns (h_out, new_cache).
+    """h: [B, S, d] embeddings.  Returns (h_out, new_cache, aux_loss).
 
     mode: "train" (no cache: new_cache is None), "prefill" (cache emitted)
-    or "decode" (cache consumed and updated; S == 1)."""
+    or "decode" (cache consumed and updated; S == 1).  aux_loss sums the
+    MoE blocks' load-balance losses (0 without MoE)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "train":
-        return _train_forward(params, cfg, h, positions), None
+        h, aux = _train_forward(params, cfg, h, positions)
+        return h, None, aux
     period = cfg.attn_period or 1
     new_cache: Dict[str, Dict[str, torch.Tensor]] = {
         f"pos{p}": {} for p in range(period)}
     G = n_groups(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for g in range(G):
         for p in range(period):
             key = f"pos{p}"
             pc = None if cache is None else _group(cache[key], g)
-            h, nc = _apply_block(_group(params["blocks"][key], g), cfg, p, h,
-                                 positions, mode, pc, cur_index)
+            h, nc, a = _apply_block(_group(params["blocks"][key], g), cfg, p,
+                                    h, positions, mode, pc, cur_index)
+            aux = aux + a
             for name, t in nc.items():
                 if name not in new_cache[key]:
                     new_cache[key][name] = torch.empty(
                         (G,) + tuple(t.shape), dtype=t.dtype, device=t.device)
                 new_cache[key][name][g] = t
-    return h, new_cache
+    return h, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -218,10 +235,10 @@ def forward(params, cfg, h, positions, mode: str, cache=None, cur_index=None):
 
 def embed_inputs(params, cfg, batch):
     """Input embeddings from a batch dict (no VLM prefix: ROADMAP A13
-    (ii))."""
+    (ii) (b))."""
     if cfg.n_patches or "patches" in batch:
         raise ValueError("the VLM patch prefix is not ported (ROADMAP A13 "
-                         "(ii))")
+                         "(ii) (b))")
     return L.embed_tokens(params["embeddings"], cfg, batch["tokens"])
 
 
@@ -229,18 +246,21 @@ def train_loss(params, cfg, batch):
     """batch: tokens [B, S], labels [B, S], optional mask [B, S] (bool) ->
     (loss, {"lm_loss", "aux_loss"}): the masked mean next-token
     cross-entropy, its chunks through the fused cross-entropy op (the
-    kernel on a CUDA tensor, its plain version on a CPU one).  aux_loss is
-    0: the MoE load-balancing term comes with MoE (ROADMAP A13 (ii))."""
+    kernel on a CUDA tensor, its plain version on a CPU one), plus ``0.01
+    * aux / n_layers`` for an MoE config (aux: the blocks' summed
+    load-balance losses).  As in the reference, "lm_loss" is that total
+    and "aux_loss" the summed aux."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     h = embed_inputs(params, cfg, batch)
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
-    h, _ = forward(params, cfg, h, positions, "train")
+    h, _, aux = forward(params, cfg, h, positions, "train")
     loss = L.chunked_lm_loss(params["embeddings"], cfg, h, batch["labels"],
                              batch.get("mask"), use_fused=True)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / max(1, cfg.n_layers)
     return loss, {"lm_loss": loss, "aux_loss": aux}
 
 
@@ -253,12 +273,13 @@ def prefill(params, cfg, batch):
     S = h.shape[1]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
-    h, cache = forward(params, cfg, h, positions, "prefill")
+    h, cache, _ = forward(params, cfg, h, positions, "prefill")
     return L.logits_fn(params["embeddings"], cfg, h[:, -1]), cache
 
 
 def decode_step(params, cfg, cache, tokens, cur_index):
     """tokens: [B, 1]; cur_index: tokens already in the cache."""
     h = L.embed_tokens(params["embeddings"], cfg, tokens)
-    h, cache = forward(params, cfg, h, None, "decode", cache, int(cur_index))
+    h, cache, _ = forward(params, cfg, h, None, "decode", cache,
+                          int(cur_index))
     return L.logits_fn(params["embeddings"], cfg, h[:, -1]), cache

@@ -49,12 +49,39 @@ def linear(x, w):
     return x @ w
 
 
+class _SiLU(torch.autograd.Function):
+    """``x * s``, ``s = 1 / (1 + exp(-x))``, with JAX's derivative of it:
+    ``g * s + (g * x) * (s * (1 - s))`` (``lax.logistic``'s JVP).  The
+    autograd of the forward's ops would divide ``exp(-x)`` by ``(1 +
+    exp(-x))^2``, which is inf / inf = NaN once ``exp(-x)`` overflows
+    (x below about -88 in float32), as an MoE expert's un-normalised
+    input can reach."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        return x * s, s
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output[1])
+        ctx.mark_non_differentiable(output[1])
+
+    @staticmethod
+    def backward(ctx, g, _):
+        x, s = ctx.saved_tensors
+        return g * s + (g * x) * (s * (1.0 - s))
+
+
 def silu(x):
     """``x * sigmoid(x)`` with ``sigmoid(x) = 1 / (1 + exp(-x))`` as
     separate ops, which is how the reference's ``jax.nn.silu`` runs: in
     bfloat16 each step is rounded (``F.silu`` and ``torch.sigmoid`` round
-    once and differ from it in ~1/3 of bf16 values)."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    once and differ from it in ~1/3 of bf16 values).  Its backward is the
+    reference's (``_SiLU``)."""
+    return _SiLU.apply(x)[0]
 
 
 # ---------------------------------------------------------------------------

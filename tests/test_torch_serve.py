@@ -144,14 +144,20 @@ def test_serve_cli_runs_on_the_cpu(arch, capsys):
 
 
 def test_unported_archs_and_fields_raise_with_their_roadmap_item():
-    for arch in ("granite-moe-1b-a400m", "whisper-tiny", "internvl2-2b"):
-        with pytest.raises(ValueError, match="ROADMAP A13"):
+    for arch, item in (("internvl2-2b", r"A13 \(ii\) \(b\)"),
+                       ("whisper-tiny", r"A13 \(ii\) \(c\)")):
+        with pytest.raises(ValueError, match="ROADMAP " + item):
             get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
+    # MoE is ported: granite-moe resolves and n_experts passes
+    assert get_config("granite-moe-1b-a400m").n_experts == 32
     cfg = get_config("falcon-mamba-7b", smoke=True)
+    check_ported(get_config("llama3.2-3b", smoke=True).replace(
+        n_experts=4, experts_per_token=2))
     for bad in (dict(ssm_scan="sequential"),
-                dict(ssm_input_dtype="bfloat16"), dict(n_experts=4)):
+                dict(ssm_input_dtype="bfloat16"), dict(n_patches=4),
+                dict(is_encoder_decoder=True)):
         with pytest.raises(ValueError, match="not ported"):
             check_ported(cfg.replace(**bad))
 
