@@ -186,7 +186,29 @@ last line):
    scan bitwise the replicated one and a scan kill/resume bitwise, each
    leg's launches checked against its budgets and its rounds/s and
    graph nodes printed; and the float32 Llama smoke round card vs CPU
-   within 1e-4;
+   within 1e-4; granite-moe-1b-a400m (the MoE FFN, 1.38 B params) at
+   full width the same way, K=2 on the numpy host driver and K=2 on the
+   scan driver, its cross-entropy on the CUDA-core route (V = 49,155 is
+   not a multiple of 8: the forward kernel on the CUDA cores, the
+   backward the plain recompute, both printed); the smoke configs of
+   granite-moe, mistral-large-123b, kimi-k2-1t-a32b and the jamba hybrid
+   by id (``model=<id>``, as ``fl_train --model <id>``), 2 rounds on the
+   scan driver bitwise the device-rng host driver; the LM kernels at these
+   legs' shapes (flash at hd = 64 and the jamba smoke's window, the
+   cross-entropy at V = 49,155, the scan at the jamba smoke's width, and
+   granite-moe's silo shape);
+   granite-moe-1b-a400m, Minitron-8B and Granite-8B served at full width
+   (batch 4, prompt 2048, 32 tokens; one flash launch a layer of the
+   prefill), granite-moe trained cross-silo at full width as Llama is;
+   and the seed interface's padded round (``padded_phase``:
+   ``make_round_fn`` on FEMNIST paper data, K=10, B=10, max_iters 960,
+   MCLR and MLP iid 3 rounds each with their fused kernels, MCLR shuffle
+   1 round, card vs CPU within 2e-5); the smoke configs of the decoder
+   family are served and trained card vs CPU in phase 3 beside Llama's
+   and Falcon's; and, outside the count, why the full-width MoE legs
+   scale their random expert ``w_down`` by ``MOE_DOWN_SCALE`` and train
+   at ``MOE_LR`` (``moe_scale_phase``: the activations' growth through
+   granite-moe's 24 layers at either scale, 8 SGD steps at each lr);
 5. profile one steady round of each FL leg (Sent140's shuffle leg too,
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
@@ -203,6 +225,7 @@ each in float32).
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -766,25 +789,33 @@ def train_card_vs_cpu(torch, np, get_config, build_model, arch):
           f"{TRAIN_TOL})", flush=True)
 
 
-def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
-    """Phase 4 (and 5): cross-silo FedSAE training Llama-3.2-3B at full
-    width and depth, K=2 silos, B=1, S=2048.  Every kernel's count is set
-    to 0 just before the counted rounds and read just after; each local
-    step must launch 56 flash forwards (28 layers, each recomputed under
-    remat), 28 flash backwards and 2 cross-entropy chunks forward and
-    backward, every flash and cross-entropy call on the tensor cores, and
-    the plain ``ref.softmax_xent`` recompute must not run."""
+def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
+              arch="llama3.2-3b", lr=5e-3):
+    """Phase 4 (and 5): cross-silo FedSAE training ``arch`` at full width
+    and depth, K=2 silos, B=1, S=2048.  Every kernel's count is set to 0
+    just before the counted rounds and read just after; each local step
+    must launch two flash forwards an attention layer (each recomputed
+    under remat: 56 for Llama-3.2-3B's 28 layers), one flash backward a
+    layer and 2 cross-entropy chunks forward, every flash call on the
+    tensor cores.  On the cross-entropy's tensor-core route (d and V
+    multiples of 8) a step launches 2 backward chunks and the plain
+    ``ref.softmax_xent`` recompute must not run; on the CUDA-core route
+    (granite-moe's V = 49,155) the forward takes the CUDA cores and each
+    chunk's backward is that plain recompute (counted, printed)."""
     from repro_torch.core.silo import SiloFedSAE
     from repro_torch.obs import RingBufferSink
     from repro_torch.tree import tree_leaves, tree_map
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config(arch)
+    xent_tc = cfg.vocab_size % 8 == 0 and cfg.d_model % 8 == 0
+    n_attn, _ = mixer_layers(cfg)
     model = build_model(cfg)
     K, max_steps, B, S = 2, 4, 1, 2048
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ring = RingBufferSink()
-    fed = SiloFedSAE(model, K, lr=5e-3, max_steps=max_steps, seed=0,
-                     sink=ring)
+    fed = SiloFedSAE(dataclasses.replace(model, init=tamed_init(model.init,
+                                                                cfg)),
+                     K, lr=lr, max_steps=max_steps, seed=0, sink=ring)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(fed.params))
@@ -831,30 +862,39 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
             or not all(math.isfinite(r.wall_time_s) for r in recs)):
         raise RuntimeError(f"silo records {[r.to_json() for r in recs]}, "
                            f"losses {stats['loss']}")
-    want = {"flash_attention_fwd": 56 * steps,
-            "flash_attention_bwd": 28 * steps,
-            "fused_softmax_xent_fwd": 2 * steps,
-            "fused_softmax_xent_bwd": 2 * steps}
+    chunks = S // 1024
+    want = {"flash_attention_fwd": 2 * n_attn * steps,
+            "flash_attention_bwd": n_attn * steps,
+            "fused_softmax_xent_fwd": chunks * steps,
+            "fused_softmax_xent_bwd": chunks * steps if xent_tc else 0}
     if {k: launches[k] for k in want} != want or any(
             launches[k] for k in launches if k not in want):
-        raise RuntimeError(f"silo path launched {launches} in {steps} "
-                           f"steps, wanted {want}")
-    # every flash and cross-entropy call of the bf16 path on the tensor
-    # cores, none on the float32 or CUDA-core routes, and no plain recompute
+        raise RuntimeError(f"silo path {arch} launched {launches} in "
+                           f"{steps} steps, wanted {want}")
+    # every flash call of the bf16 path on the tensor cores; the
+    # cross-entropy on its route, its backward the kernel there or the
+    # plain recompute on the CUDA-core route
     want_tc = {k: want[k] for k in tc_launches}
-    if tc_launches != want_tc or recomputes:
-        raise RuntimeError(f"silo path: tensor-core launches {tc_launches}, "
-                           f"wanted {want_tc}; {len(recomputes)} plain "
-                           f"cross-entropy recomputes")
+    if not xent_tc:
+        want_tc["fused_softmax_xent_fwd"] = 0
+    want_recomputes = 0 if xent_tc else chunks * steps
+    if tc_launches != want_tc or len(recomputes) != want_recomputes:
+        raise RuntimeError(f"silo path {arch}: tensor-core launches "
+                           f"{tc_launches}, wanted {want_tc}; "
+                           f"{len(recomputes)} plain cross-entropy "
+                           f"recomputes, wanted {want_recomputes}")
+    xent_route = ("tensor cores" if xent_tc else
+                  "CUDA cores, backward the plain recompute")
     walls = [r["wall_s"] for r in rounds_out]
-    summary = dict(params=n_params, init_s=init_s, silos=K,
+    summary = dict(arch=arch, lr=lr, params=n_params, init_s=init_s, silos=K,
                    max_steps=max_steps, batch=B, seq=S, rounds=rounds_out,
-                   local_steps=steps,
+                   local_steps=steps, xent_route=xent_route,
+                   plain_xent_recomputes=len(recomputes),
                    ms_per_local_step=sum(walls) / steps * 1e3,
                    peak_gib=peak, launches=launches,
                    tensor_core_launches=tc_launches,
                    records=[r.to_json() for r in recs])
-    print(f"main path silo llama3.2-3b (full width, {n_params} params f32, "
+    print(f"main path silo {arch} (full width, {n_params} params f32, "
           f"bf16 compute, remat): {rounds} rounds x {K} silos, B={B}, S={S}:"
           f" round wall {[round(w, 3) for w in walls]} s, {steps} local "
           f"steps ({summary['ms_per_local_step']:.1f} ms each, round "
@@ -862,7 +902,8 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
           f"{[round(r['loss'], 4) for r in rounds_out]}, budgets "
           f"{[r['n_steps'] for r in rounds_out]}, peak {peak:.1f} GiB; "
           f"launches {json.dumps(launches)}, tensor-core "
-          f"{json.dumps(tc_launches)}; one RoundRecord a round, "
+          f"{json.dumps(tc_launches)}; cross-entropy route {xent_route} "
+          f"({len(recomputes)} plain recomputes); one RoundRecord a round, "
           f"train_loss == stats['loss'], wall_time_s "
           f"{[round(r.wall_time_s, 3) for r in recs]}", flush=True)
 
@@ -889,7 +930,7 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2):
         alloc_retries=after["num_alloc_retries"]
         - before["num_alloc_retries"],
         cuda_mallocs=after["num_device_alloc"] - before["num_device_alloc"])
-    print(f"profile silo llama3.2-3b one local step (B=1, S=2048): step "
+    print(f"profile silo {arch} one local step (B=1, S=2048): step "
           f"{step_ms:.1f} ms unprofiled; {json.dumps(summary['profile'])}",
           flush=True)
     del row, fed
@@ -966,7 +1007,7 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.init(torch.Generator(dev).manual_seed(0))
+    params = tamed_init(model.init, cfg)(torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -2384,64 +2425,126 @@ def shard_phase(torch, np, FedSAEServer, ServerConfig, femnist, counted,
     return out
 
 
+#: A random full-depth MoE's residual stream grows doubly exponentially:
+#: the experts take the un-normalised ``x`` (the reference's
+#: ``moe.py:168``) and its expert stacks are drawn at scale E^-0.5, so
+#: each MoE layer adds ~c x^2.  At the init, granite-moe-1b-a400m's
+#: activations overflow to inf and NaN within its first layers, in the
+#: reference and the port alike.  The full-width
+#: MoE legs scale the drawn ``w_down`` of every expert stack by this
+#: factor, which keeps all 24 layers' activations near their input's
+#: scale (ROADMAP §C, "Reference caveats"; ``moe_scale_phase`` prints the
+#: growth at either scale).
+MOE_DOWN_SCALE = 1e-3
+#: The same growth runs away under training: on the LM federation's
+#: tweets SGD at the LM legs' 5e-3 turns the loss NaN within a few steps,
+#: and at 5e-4 the scaled ``w_down`` regrows within a round's 8 steps
+#: (``moe_scale_phase`` prints each lr's steps).  The full-width MoE
+#: training legs take this lr.
+MOE_LR = 1e-5
+#: the lrs ``moe_scale_phase`` steps at: the LM legs', a tenth of it, and
+#: ``MOE_LR``
+MOE_PROBE_LRS = (5e-3, 5e-4, MOE_LR)
+
+
+def tamed_init(init, cfg, scale=MOE_DOWN_SCALE):
+    """``init`` with the expert stacks' ``w_down`` ([G, E, f, d]) scaled by
+    ``scale`` for an MoE config; ``init`` itself otherwise."""
+    if not cfg.n_experts:
+        return init
+    from repro_torch.tree import tree_items
+
+    def init_scaled(generator):
+        params = init(generator)
+        for path, leaf in tree_items(params):
+            if path.endswith("ffn/w_down") and leaf.dim() == 4:
+                leaf.mul_(scale)
+        return params
+    return init_scaled
+
+
+#: the smoke configs of this slice's decoder family that ``lm_fed_phase``
+#: runs on the scan driver against the device-rng host driver
+NEW_SMOKE_ARCHS = ("granite-moe-1b-a400m", "mistral-large-123b",
+                   "kimi-k2-1t-a32b", "jamba-1.5-large-398b")
+
+
+def mixer_layers(cfg):
+    """(attention layers, Mamba layers) of a decoder config: the hybrid's
+    period-P group walk has one attention layer a group."""
+    period = cfg.attn_period or 1
+    attn = sum(cfg.is_attn_layer(p) for p in range(period))
+    G = cfg.n_layers // period
+    return attn * G, (period - attn) * G
+
+
 def lm_launches(cfg, steps, evals=0, passes=0, xent_tc=True):
     """The LM kernels' launches of ``steps`` local steps, ``evals`` test
     evals and ``passes`` post-training loss passes (shuffle) of
     ``from_model(cfg)``, derived from ``models/decoder.py``: a step runs
     each layer's mixer forward once, twice under remat (the group is
-    recomputed in the backward), the flash backward once a layer (the
-    scan's backward is the plain recompute: no launch) and the loss as
-    one cross-entropy chunk forward and backward (25-token rows: S - 1 =
-    24 positions, below the 1,024-position chunk, so one chunk); an eval
-    runs the forward without remat twice (``accuracy``, then ``loss``:
-    one chunk); a pass once.  The backward launches its kernel on the
-    tensor-core route only (``xent_tc``)."""
-    L = cfg.n_layers
-    mixer = ("selective_scan_fwd" if cfg.family == "ssm"
-             else "flash_attention_fwd")
-    want = {mixer: L * (2 if cfg.remat else 1) * steps
-            + 2 * L * evals + L * passes,
-            "fused_softmax_xent_fwd": steps + evals + passes,
+    recomputed in the backward), the flash backward once an attention
+    layer (the scan's backward is the plain recompute: no launch) and the
+    loss as one cross-entropy chunk forward and backward (25-token rows:
+    S - 1 = 24 positions, below the 1,024-position chunk, so one chunk);
+    an eval runs the forward without remat twice (``accuracy``, then
+    ``loss``: one chunk); a pass once.  The MoE FFN launches no kernel.
+    The backward launches its kernel on the tensor-core route only
+    (``xent_tc``)."""
+    n_attn, n_mamba = mixer_layers(cfg)
+    fwd = (2 if cfg.remat else 1) * steps + 2 * evals + passes
+    want = {"fused_softmax_xent_fwd": steps + evals + passes,
             "fused_softmax_xent_bwd": steps if xent_tc else 0}
-    if mixer == "flash_attention_fwd":
-        want["flash_attention_bwd"] = L * steps
+    if n_attn:
+        want["flash_attention_fwd"] = n_attn * fwd
+        want["flash_attention_bwd"] = n_attn * steps
+    if n_mamba:
+        want["selective_scan_fwd"] = n_mamba * fwd
     return want
 
 
-def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen):
-    """Phase 10's kernels at the shapes its legs give them, outside the
+def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen,
+                        tag="lm shapes"):
+    """The LM kernels at the shapes a path's legs give them, outside the
     count: for each config of ``cfgs`` (arch label -> config) and each
     batch of ``rows`` (label -> sequences: a local step's minibatch, the
-    test split), the flash forward (and, for a step, backward) on q/k/v
-    [rows, S, H, hd] and the fused cross-entropy forward (and backward)
-    on h [rows * S, d], W [d, V], all bfloat16 as the legs run them, each
-    against its plain version at phase 2's tolerances and each taking the
-    tensor cores as the legs did; the selective scan at [rows, S, d_inner,
-    N] against its plain version, all on ``gen``'s device.  Returns
-    {kernel: max_abs_err}."""
+    test split), on an attention layer the flash forward (and, for a step,
+    backward) on q/k/v [rows, S, H, hd] with the config's window, on a
+    Mamba layer the selective scan at [rows, S, d_inner, N], and the fused
+    cross-entropy forward (and backward) on h [rows * S, d], W [d, V], all
+    bfloat16 as the legs run them, each against its plain version at
+    phase 2's tolerances and each on the route the legs took: the flash
+    calls on the tensor cores, the cross-entropy on the tensor cores when
+    d and V are multiples of 8 (``fused_xent.tensor_core_route``), else
+    on the CUDA cores with the plain recompute as its backward (printed,
+    no kernel to hold).  All on ``gen``'s device.  Returns {kernel:
+    max_abs_err}."""
+    from repro_torch.kernels.fused_xent import (fused_softmax_xent_fwd_lse,
+                                                tensor_core_route)
     dev = gen.device
     bf16 = torch.bfloat16
     fa, fa_bwd = counted["flash_attention_fwd"], counted["flash_attention_bwd"]
     fx, bx = counted["fused_softmax_xent_fwd"], counted["fused_softmax_xent_bwd"]
-    from repro_torch.kernels.fused_xent import fused_softmax_xent_fwd_lse
     errs = {}
 
-    def note(kernel, label, e, tol, ok, tc_moved=True):
+    def note(kernel, label, e, tol, ok, route_ok=True):
         errs[kernel] = max(errs.get(kernel, 0.0), *e)
-        print(f"lm shapes {kernel} {label}: max_abs_err "
+        print(f"{tag} {kernel} {label}: max_abs_err "
               f"{[float(f'{x:.3e}') for x in e]} (tol {tol})", flush=True)
         if not ok:
-            raise RuntimeError(f"lm shapes: {kernel} differs from its plain "
+            raise RuntimeError(f"{tag}: {kernel} differs from its plain "
                                f"version at {label}")
-        if not tc_moved:
-            raise RuntimeError(f"lm shapes: {kernel} did not take the "
-                               f"tensor cores at {label}")
+        if not route_ok:
+            raise RuntimeError(f"{tag}: {kernel} took the wrong route at "
+                               f"{label}")
 
     for arch, cfg in cfgs.items():
+        n_attn, n_mamba = mixer_layers(cfg)
+        window = cfg.window_size if cfg.attention == "sliding_window" else 0
         for what, B in rows.items():
             step = what == "step"
             label = f"{arch} {what}"
-            if cfg.family == "ssm":
+            if n_mamba:
                 args = scan_inputs(torch, B, S, cfg.d_inner, cfg.ssm_state,
                                    gen, dev)
                 y, hT = counted["selective_scan_fwd"](*args)
@@ -2454,16 +2557,18 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen):
                      torch.allclose(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
                      and torch.allclose(hT, wh, rtol=SCAN_TOL,
                                         atol=SCAN_TOL))
-            else:
+            if n_attn:
                 hd = cfg.resolved_head_dim
                 q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
                                            device=dev).to(bf16)
                                for H in (cfg.n_heads, cfg.n_kv_heads,
                                          cfg.n_kv_heads, cfg.n_heads))
-                shape = f"q={tuple(q.shape)} k={tuple(k.shape)}"
+                shape = (f"q={tuple(q.shape)} k={tuple(k.shape)} "
+                         f"window={window}")
                 tc0 = fa.tensor_core_launches
-                out, lse = fa(q, k, v, True, 0)
-                want, want_lse = ref.attention_lse(q, k, v, causal=True)
+                out, lse = fa(q, k, v, True, window)
+                want, want_lse = ref.attention_lse(q, k, v, causal=True,
+                                                   window=window)
                 torch.cuda.synchronize()
                 tol = LM_TOL["bfloat16"]
                 note("flash_attention_fwd", f"{label} {shape}",
@@ -2478,10 +2583,11 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen):
                 if step:
                     tc0 = fa_bwd.tensor_core_launches
                     got = fa_bwd(q, k, v, want.contiguous(), want_lse, do,
-                                 True, 0)
+                                 True, window)
                     wants = ref.flash_attention_bwd(q, k, v, want,
                                                     want_lse, do,
-                                                    causal=True)
+                                                    causal=True,
+                                                    window=window)
                     torch.cuda.synchronize()
                     atol, rtol = BWD_TOL["bfloat16"]
                     note("flash_attention_bwd", f"{label} {shape}",
@@ -2499,8 +2605,10 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen):
                  * d ** -0.5).to(bf16)
             labels = torch.randint(0, V, (T,), generator=gen, device=dev,
                                    dtype=torch.int32)
-            shape = f"h={tuple(h.shape)} W={tuple(W.shape)}"
-            tc0 = fx.tensor_core_launches
+            tc = tensor_core_route(h, W)
+            shape = (f"h={tuple(h.shape)} W={tuple(W.shape)} route "
+                     f"{'tensor cores' if tc else 'CUDA cores'}")
+            tc0, n0 = fx.tensor_core_launches, fx.launches
             got, lse = fused_softmax_xent_fwd_lse(h, W, labels)
             want, want_lse = ref.softmax_xent_lse(h, W, labels)
             torch.cuda.synchronize()
@@ -2510,8 +2618,13 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen):
                  torch.allclose(got, want, rtol=XENT_TOL, atol=XENT_TOL)
                  and torch.allclose(lse, want_lse, rtol=XENT_TOL,
                                     atol=XENT_TOL),
-                 fx.tensor_core_launches == tc0 + 1)
-            if step:
+                 fx.launches == n0 + 1 and fx.tensor_core_launches == tc0 + tc)
+            if step and not tc:
+                print(f"{tag} fused_softmax_xent_bwd {label} {shape}: no "
+                      f"kernel on this route; the op's backward is the "
+                      f"plain recompute (ops._recompute_vjp of "
+                      f"ref.softmax_xent)", flush=True)
+            if step and tc:
                 # a loss cotangent like the step's: mask / count
                 g = torch.full((T,), 1.0 / T, device=dev)
                 tc0 = bx.tensor_core_launches
@@ -2555,7 +2668,10 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
        step; 56 flash forwards and one chunk an eval).  Then the scan
        driver at the same width, K=1, h_cap = fixed_epochs = 2 (max_iters
        4), one block of 2 rounds: the same checks, its graph nodes,
-       capture time and peak memory printed.
+       capture time and peak memory printed.  Then granite-moe-1b-a400m
+       the same way (1.38 B params, its random expert ``w_down`` scaled by
+       ``MOE_DOWN_SCALE``, lr ``MOE_LR``), K=2 on the scan driver too, its
+       cross-entropy on the CUDA-core route (V = 49,155).
     2. The smoke configs the reference's CLI resolves (``model=
        "llama3.2-3b"`` and ``"falcon-mamba-7b"``, bf16), K=4, h_cap =
        fixed_epochs = 2 (max_iters 4), 4 rounds a leg: the numpy host
@@ -2565,13 +2681,15 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
        bitwise the replicated scan; topk_q8 (one compress launch a
        round); nan uploads at 0.5 with the screen bitwise their crash
        twin; a scan run killed and resumed at its block boundary bitwise
-       the straight run.  Every leg's LM and FL launches are checked
+       the straight run.  The smoke configs of ``NEW_SMOKE_ARCHS`` by id,
+       2 rounds on the scan driver bitwise the device-rng host driver.  Every leg's LM and FL launches are checked
        against its budgets (the scan legs': the warm-up's, the evals'
        and replays x one capture's), its rounds/s, budgets and graph
        nodes printed, the cross-entropy's route (tensor-core launches).
     3. The LM kernels at these legs' own shapes (``check_lm_fed_shapes``,
        outside the count): a local step's 10 sequences and the test
-       split's 64, 24 positions, at full width and at both smoke widths.
+       split's 64, 24 positions, at both full widths and at every smoke
+       width; and granite-moe's silo shape (one 2,048-token row).
     4. The float32 Llama smoke packed round on the card and on the CPU
        from the same init and draws, 2 rounds: the same cohorts, budgets
        and L/H, params and losses within 1e-4 (outside the count)."""
@@ -2683,56 +2801,74 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
             raise RuntimeError(f"lm {label}: not bitwise ({diff})")
         print(f"lm {label}: bitwise", flush=True)
 
-    # -- 1. Llama-3.2-3B at full width -----------------------------------
-    full_cfg = get_config("llama3.2-3b")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    full = drive("llama3.2-3b full width host iid", full_cfg, 2,
-                 model=from_model(full_cfg), n_selected=2, h_cap=4.0,
-                 fixed_epochs=4.0)
-    peak = torch.cuda.max_memory_allocated()
-    if peak >= 80e9:
-        raise RuntimeError(f"lm full width: peak {peak / 1e9:.1f} GB")
-    leg = out["legs"]["llama3.2-3b full width host iid"]
-    # round 1's wall less one eval (timed again here, outside the count)
-    # over its local steps: the steady local step, the round's gather
-    # and aggregation included
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    full.eval_fn(full.params, full.test_x, full.test_y)
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
-    leg.update(peak_gb=peak / 1e9, peak_gib=peak / 2**30,
-               params=sum(v.numel() for _, v in tree_items(full.params)),
-               round_wall_s=full.wall_times, eval_s=eval_s,
-               ms_per_local_step=(full.wall_times[1] - eval_s)
-               / max(int(full.budgets[1].sum()), 1) * 1e3)
-    print(f"lm full width: {leg['params']} params, peak "
-          f"{leg['peak_gb']:.2f} GB ({leg['peak_gib']:.2f} GiB), round "
-          f"walls {[round(w, 3) for w in full.wall_times]} s (eval "
-          f"included; an eval {eval_s * 1e3:.1f} ms), round 1: "
-          f"{leg['ms_per_local_step']:.1f} ms a local step", flush=True)
-    del full
-    torch.cuda.empty_cache()
-    # the device driver at full width: the scan, K=1 (at K=2 the capture
-    # does not fit: the server's params, the program's carry, the new
-    # global and the stack with the aggregation's temporaries pass 80 GB),
-    # h_cap = fixed_epochs = 2 (max_iters 4), one block of 2 rounds, the
-    # lane's 4 slots masked in one captured graph
-    torch.cuda.reset_peak_memory_stats()
-    label = "llama3.2-3b full width scan iid"
-    fscan = drive(label, full_cfg, 2, model=from_model(full_cfg),
-                  n_selected=1, h_cap=2.0, fixed_epochs=2.0, driver="scan",
-                  block_size=2)
-    leg = out["legs"][label]
-    leg.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-               peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
-    print(f"lm full width scan: {leg['graph_nodes']} graph nodes, capture "
-          f"{leg['capture_ms']:.1f} ms, {leg['replays']} replays of "
-          f"{fscan.max_iters} local steps, peak {leg['peak_gb']:.2f} GB "
-          f"allocated, {leg['peak_reserved_gb']:.2f} GB reserved", flush=True)
-    del fscan
-    torch.cuda.empty_cache()
+    # -- 1. full width: Llama-3.2-3B, then granite-moe-1b-a400m ----------
+    def full_width(arch, scan_K, lr=base["lr"]):
+        """K=2 on the numpy host driver (h_cap = fixed_epochs = 4:
+        max_iters 8), then the scan driver at K=``scan_K`` (h_cap =
+        fixed_epochs = 2: max_iters 4, one block of 2 rounds), both at
+        ``lr``; each leg's peak memory, the host leg's ms a local step,
+        the scan leg's graph nodes and capture time."""
+        fcfg = get_config(arch)
+
+        def step():
+            s = from_model(fcfg)
+            s.init_params = s.init = tamed_init(s.init_params, fcfg)
+            return s
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"{arch} full width host iid"
+        full = drive(label, fcfg, 2, model=step(), n_selected=2,
+                     h_cap=4.0, fixed_epochs=4.0, lr=lr)
+        peak = torch.cuda.max_memory_allocated()
+        if peak >= 80e9:
+            raise RuntimeError(f"lm {arch} full width: peak "
+                               f"{peak / 1e9:.1f} GB")
+        leg = out["legs"][label]
+        # round 1's wall less one eval (timed again here, outside the
+        # count) over its local steps: the steady local step, the round's
+        # gather and aggregation included
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full.eval_fn(full.params, full.test_x, full.test_y)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        leg.update(peak_gb=peak / 1e9, peak_gib=peak / 2**30,
+                   params=sum(v.numel() for _, v in tree_items(full.params)),
+                   round_wall_s=full.wall_times, eval_s=eval_s,
+                   ms_per_local_step=(full.wall_times[1] - eval_s)
+                   / max(int(full.budgets[1].sum()), 1) * 1e3)
+        print(f"lm {arch} full width: {leg['params']} params, peak "
+              f"{leg['peak_gb']:.2f} GB ({leg['peak_gib']:.2f} GiB), round "
+              f"walls {[round(w, 3) for w in full.wall_times]} s (eval "
+              f"included; an eval {eval_s * 1e3:.1f} ms), round 1: "
+              f"{leg['ms_per_local_step']:.1f} ms a local step, "
+              f"cross-entropy route {leg['xent_route']}", flush=True)
+        del full
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        label = f"{arch} full width scan iid"
+        fscan = drive(label, fcfg, 2, model=step(),
+                      n_selected=scan_K, h_cap=2.0, fixed_epochs=2.0,
+                      driver="scan", block_size=2, lr=lr)
+        leg = out["legs"][label]
+        leg.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   peak_reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+        print(f"lm {arch} full width scan K={scan_K}: {leg['graph_nodes']} "
+              f"graph nodes, capture {leg['capture_ms']:.1f} ms, "
+              f"{leg['replays']} replays of {scan_K} x {fscan.max_iters} "
+              f"local steps, peak {leg['peak_gb']:.2f} GB allocated, "
+              f"{leg['peak_reserved_gb']:.2f} GB reserved, cross-entropy "
+              f"route {leg['xent_route']}", flush=True)
+        del fscan
+        torch.cuda.empty_cache()
+        return fcfg
+
+    # Llama's scan at K=2 does not fit (the server's params, the program's
+    # carry, the new global and the stack with the aggregation's
+    # temporaries pass 80 GB); granite-moe's copies are 5.5 GB
+    full_cfg = full_width("llama3.2-3b", 1)
+    moe_cfg = full_width("granite-moe-1b-a400m", 2, lr=MOE_LR)
 
     # -- 2. the smoke configs ----------------------------------------------
     smoke = dict(n_selected=4, h_cap=2.0, fixed_epochs=2.0)
@@ -2778,6 +2914,17 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
                             run_kw=dict(checkpoint_dir=ck, resume=True),
                             **kw)
             same(f"{arch} scan kill/resume vs straight", scan, resumed)
+        # the decoder family this slice ports, by id as ``fl_train --model
+        # <id>`` resolves it (its bf16 smoke config): 2 rounds on the scan
+        # driver bitwise the device-rng host driver
+        for arch in NEW_SMOKE_ARCHS:
+            acfg = get_config(arch, smoke=True)
+            kw = dict(smoke, model=arch)
+            host = drive(f"{arch} device-rng host iid", acfg, 2,
+                         rng_impl="device", block_size=2, **kw)
+            scan = drive(f"{arch} scan iid", acfg, 2, driver="scan",
+                         block_size=2, **kw)
+            same(f"{arch} scan vs device-rng host", host, scan)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2787,13 +2934,22 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
           f"{json.dumps(real_tc)}", flush=True)
 
     # -- 3. the kernels at the legs' shapes (outside the count) ----------
+    gen = torch.Generator("cuda").manual_seed(3)
+    cfgs = {"llama3.2-3b full width": full_cfg,
+            "granite-moe-1b-a400m full width": moe_cfg}
+    cfgs.update({f"{a} smoke": get_config(a, smoke=True)
+                 for a in ("llama3.2-3b", "falcon-mamba-7b")
+                 + NEW_SMOKE_ARCHS})
     out["shape_errs"] = check_lm_fed_shapes(
-        torch, counted, ops, ref,
-        {"llama3.2-3b full width": full_cfg,
-         "llama3.2-3b smoke": get_config("llama3.2-3b", smoke=True),
-         "falcon-mamba-7b smoke": get_config("falcon-mamba-7b", smoke=True)},
+        torch, counted, ops, ref, cfgs,
         {"step": base["batch_size"], "eval": len(ds.test_y)},
-        ds.clients_x[0].shape[1] - 1, torch.Generator("cuda").manual_seed(3))
+        ds.clients_x[0].shape[1] - 1, gen)
+    # and at the silo's shape: one 2,048-token row a step
+    for k, e in check_lm_fed_shapes(
+            torch, counted, ops, ref,
+            {"granite-moe-1b-a400m full width": moe_cfg}, {"step": 1}, 2048,
+            gen, tag="silo shapes").items():
+        out["shape_errs"][k] = max(out["shape_errs"].get(k, 0.0), e)
 
     # -- 4. card vs CPU, float32 Llama smoke (outside the count) --------
     acfg = get_config("llama3.2-3b", smoke=True).replace(dtype="float32")
@@ -2835,6 +2991,162 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
     print(f"lm card vs CPU, float32 Llama smoke, 2 host rounds: same "
           f"cohorts, budgets and L/H; params max_abs_err {p_err:.3e}, "
           f"losses {l_err:.3e} (tol {TRAIN_TOL})", flush=True)
+    return out
+
+
+def moe_scale_phase(torch, np, get_config, make_sent140_like):
+    """Why the full-width MoE legs scale their random ``w_down`` and take
+    ``MOE_LR`` (outside the count): granite-moe-1b-a400m at full width, a
+    forward pass over 10 of the LM federation's tweets (24 positions) at
+    the init's ``w_down`` and at ``MOE_DOWN_SCALE``, printing the largest
+    |h| after each layer; then at the scaled init 8 SGD steps
+    (``LocalStep.local_sgd_step``) at each of ``MOE_PROBE_LRS``, printing
+    the losses and the largest |w_down|.  Fails unless the scaled forward
+    and the steps at ``MOE_LR`` stay finite."""
+    from repro_torch.models import decoder
+    from repro_torch.models.api import from_model
+    from repro_torch.tree import tree_items
+    cfg = get_config("granite-moe-1b-a400m")
+    step = from_model(cfg)
+    dev = torch.device("cuda")
+    tweets = np.concatenate(make_sent140_like(
+        seed=0, n_clients=20, total=300, vocab=300, max_size=20).clients_x)
+    ri = np.random.default_rng(1)
+    batches = [torch.as_tensor(tweets[ri.integers(0, len(tweets), 10)],
+                               dtype=torch.int32, device=dev)
+               for _ in range(8)]
+    out = {"max_h": {}, "steps": {}}
+
+    def init(scale):
+        return tamed_init(step.init_params, cfg, scale)(
+            torch.Generator(dev).manual_seed(7))
+
+    for scale in (1.0, MOE_DOWN_SCALE):
+        params = init(scale)
+        h = decoder.embed_inputs(params, cfg, {"tokens": batches[0][:, :-1]})
+        B, S = h.shape[:2]
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+        mags = []
+        with torch.no_grad():
+            for g in range(cfg.n_layers):
+                h, _, _ = decoder._apply_block(
+                    decoder._group(params["blocks"], g)["pos0"], cfg, 0, h,
+                    pos, "train", None, None)
+                mags.append(float(h.float().abs().max()))
+        out["max_h"][str(scale)] = mags
+        print(f"moe scale granite-moe-1b-a400m w_down x {scale}: max|h| "
+              f"after each layer {[float(f'{m:.3g}') for m in mags]}",
+              flush=True)
+        del params, h
+        torch.cuda.empty_cache()
+    if not all(math.isfinite(m) for m in out["max_h"][str(MOE_DOWN_SCALE)]):
+        raise RuntimeError("moe scale: the scaled forward is not finite")
+    for lr in MOE_PROBE_LRS:
+        params = init(MOE_DOWN_SCALE)
+        losses, w_down = [], []
+        for x in batches:
+            params, loss = step.local_sgd_step(
+                params, {"x": x, "mask": torch.ones(10, device=dev)}, lr)
+            losses.append(float(loss))
+            w_down.append(max(float(v.abs().max()) for k, v in
+                              tree_items(params) if k.endswith("ffn/w_down")))
+        out["steps"][str(lr)] = dict(losses=losses, max_w_down=w_down)
+        print(f"moe scale granite-moe-1b-a400m lr {lr}: losses "
+              f"{[round(x, 4) for x in losses]}, max|w_down| "
+              f"{[float(f'{x:.3g}') for x in w_down]}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+    if not all(math.isfinite(x) for x in out["steps"][str(MOE_LR)]["losses"]):
+        raise RuntimeError(f"moe scale: the steps at lr {MOE_LR} are not "
+                           f"finite")
+    return out
+
+
+def padded_phase(torch, np, femnist, counted):
+    """The seed interface's padded round (``core.rounds.make_round_fn``
+    over ``RoundEngine.make_padded_round``, ROADMAP A16) on FEMNIST at
+    paper scale: K=10 host-stacked clients a round (``stacked``), B=10,
+    lr 0.03, max_iters 960, budgets drawn in [0, 960] (one lane 0, one
+    960), numpy draws.  MCLR iid and the MLP iid 3 rounds each, MCLR
+    shuffle 1 round, each on the card and on the CPU from the same init,
+    clients, budgets and draws: params and losses within 2e-5.  Every
+    count is set to 0 just before; the card's iid legs launch the fused
+    local-SGD kernel once a round (B2 for MCLR, B3 for the MLP), the
+    shuffle leg none (the plain walk), the CPU runs none."""
+    from repro_torch.convert import params_from_reference, params_to_numpy
+    from repro_torch.core.rounds import make_round_fn
+    from repro_torch.models.fl_models import make_mclr, make_mlp
+    K, B, max_iters, lr = 10, 10, 960, 0.03
+    max_n = int(femnist.sizes.max())
+    d, C = femnist.clients_x[0].shape[1], femnist.n_classes
+    out = {"legs": {}}
+    reset_counts(counted)
+    for label, step, sampling, rounds, kernel in (
+            ("mclr iid", make_mclr(d, C), "iid", 3, "fed_local_sgd_mclr"),
+            ("mlp iid", make_mlp(d, C), "iid", 3, "fed_local_sgd_dense"),
+            ("mclr shuffle", make_mclr(d, C), "shuffle", 1, None)):
+        init = params_to_numpy(step.init_params(
+            torch.Generator().manual_seed(0)))
+        ri = np.random.default_rng(5)
+        plan = []
+        for _ in range(rounds):
+            x, y, mask, n = femnist.stacked(
+                ri.choice(femnist.n_clients, K, replace=False), max_n)
+            n_iters = ri.integers(0, max_iters + 1, K).astype(np.int32)
+            n_iters[0], n_iters[1] = 0, max_iters
+            draws = ((ri.random((K, max_iters, B))
+                      * np.maximum(n, 1)[:, None, None]).astype(np.int32)
+                     if sampling == "iid"
+                     else ri.random((K, max_n)).astype(np.float32))
+            plan.append(((x, y, mask, n, n_iters), draws))
+        runs = {}
+        for where in ("cuda", "cpu"):
+            fn = make_round_fn(step, lr, B, max_iters, sampling=sampling)
+            params = params_from_reference(init, where)
+            before = {k: f.launches for k, f in counted.items()}
+            walls, losses = [], []
+            for args, draws in plan:
+                t0 = time.perf_counter()
+                params, loss, up = fn(params, *args, draws=draws)
+                if where == "cuda":
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append(loss.cpu())
+                if not bool(up):
+                    raise RuntimeError(f"padded {label}: nothing uploaded")
+            got = {k: f.launches - before[k] for k, f in counted.items()}
+            runs[where] = (params, torch.stack(losses), got, walls)
+        (pc, lc, got, walls), (pp, lp, got_cpu, cpu_walls) = (
+            runs["cuda"], runs["cpu"])
+        want = {k: 0 for k in counted}
+        if kernel:
+            want[kernel] = rounds
+        if got != want or any(got_cpu.values()):
+            raise RuntimeError(f"padded {label}: the card launched {got}, "
+                               f"wanted {want}; the CPU {got_cpu}")
+        p_err = max(float((pc[k].cpu() - pp[k]).abs().max()) for k in pp)
+        l_err = float((lc - lp).abs().max())
+        if not (all(torch.allclose(pc[k].cpu(), pp[k], rtol=TOL, atol=TOL)
+                    for k in pp)
+                and torch.allclose(lc, lp, rtol=TOL, atol=TOL)):
+            raise RuntimeError(f"padded {label}: card and CPU differ, "
+                               f"params {p_err}, losses {l_err}")
+        for k, v in pc.items():
+            if not torch.isfinite(v).all():
+                raise RuntimeError(f"padded {label}: non-finite {k}")
+        out["legs"][label] = dict(
+            rounds=rounds, launches={k: v for k, v in got.items() if v},
+            params_max_abs_err=p_err, loss_max_abs_err=l_err,
+            round_wall_s=walls, cpu_round_wall_s=cpu_walls,
+            budgets=[a[4].tolist() for a, _ in plan])
+        print(f"padded {label}: {rounds} rounds card vs CPU, params "
+              f"max_abs_err {p_err:.3e}, losses {l_err:.3e} (tol {TOL}); "
+              f"launches {json.dumps(out['legs'][label]['launches'])}; "
+              f"round wall card {[round(w, 4) for w in walls]} s, CPU "
+              f"{[round(w, 3) for w in cpu_walls]} s", flush=True)
+    out["launches"] = {k: f.launches for k, f in counted.items()}
+    print(f"path padded launches: {json.dumps(out['launches'])}",
+          flush=True)
     return out
 
 
@@ -3235,7 +3547,7 @@ def main() -> int:
         torch, np, FedSAEServer, ServerConfig, make_sent140_like),
         "robust_card_vs_cpu": robust_card_vs_cpu(torch, np, aggregation)}
 
-    for arch in ("llama3.2-3b", "falcon-mamba-7b"):
+    for arch in ("llama3.2-3b", "falcon-mamba-7b") + NEW_SMOKE_ARCHS:
         serve_card_vs_cpu(torch, get_config, build_model, serve, arch)
         train_card_vs_cpu(torch, np, get_config, build_model, arch)
 
@@ -3393,12 +3705,27 @@ def main() -> int:
     path_launches["serve_falcon-mamba-7b"] = \
         serving["falcon-mamba-7b"]["launches"]
     torch.cuda.empty_cache()
+    # the decoder family at full width where it fits one card: the MoE
+    # (granite-moe-1b-a400m, 24 layers), Minitron-8B (32) and Granite-8B
+    # (36), one flash launch a layer of the prefill
+    for arch in ("granite-moe-1b-a400m", "minitron-8b", "granite-8b"):
+        serving[arch] = serve_path(
+            torch, get_config, build_model, serve, arch, 4, 2048, gen_steps,
+            counted, {"flash_attention_fwd": get_config(arch).n_layers})
+        path_launches[f"serve_{arch}"] = serving[arch]["launches"]
+        torch.cuda.empty_cache()
     # this slice's path: cross-silo FedSAE training at full width, then the
     # centralized training CLI on the smoke config
     training = {"silo_llama3.2-3b": silo_path(torch, np, get_config,
                                               build_model, counted, ref)}
     path_launches["silo_llama3.2-3b"] = \
         training["silo_llama3.2-3b"]["launches"]
+    torch.cuda.empty_cache()
+    training["silo_granite-moe-1b-a400m"] = silo_path(
+        torch, np, get_config, build_model, counted, ref,
+        arch="granite-moe-1b-a400m", lr=MOE_LR)
+    path_launches["silo_granite-moe-1b-a400m"] = \
+        training["silo_granite-moe-1b-a400m"]["launches"]
     torch.cuda.empty_cache()
     reset_counts(counted)
     t0 = time.perf_counter()
@@ -3450,6 +3777,11 @@ def main() -> int:
     lm_fed = lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
                           get_config, make_sent140_like)
     path_launches["lm_fed"] = lm_fed["launches"]
+    # this slice's path: the seed interface's padded round
+    padded = padded_phase(torch, np, femnist, counted)
+    path_launches["padded"] = padded["launches"]
+    # why the full-width MoE legs scale w_down and cut the lr
+    moe_scale = moe_scale_phase(torch, np, get_config, make_sent140_like)
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     scan_single_steps = sum(serving[a]["scan_single_step_launches"]
@@ -3553,6 +3885,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused_xent.py:50",
          "launches": launches["fused_softmax_xent_fwd"],
          "tensor_core_launches": tc_total["fused_softmax_xent_fwd"],
+         "cuda_core_launches": launches["fused_softmax_xent_fwd"]
+         - tc_total["fused_softmax_xent_fwd"],
          **xent_row},
         {"name": "fused_softmax_xent_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_xent_bwd.cu",
@@ -3570,7 +3904,8 @@ def main() -> int:
                       "profile": profiles, "serving": serving,
                       "training": training, "checks": checks,
                       "telemetry": telemetry, "faults": faults,
-                      "scan": scan, "shard": shard, "lm_fed": lm_fed}))
+                      "scan": scan, "shard": shard, "lm_fed": lm_fed,
+                      "padded": padded, "moe_scale": moe_scale}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

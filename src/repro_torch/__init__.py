@@ -33,6 +33,7 @@ _EXPORTS = {
     "RobustnessConfig": "repro_torch.core.server",
     "RoundEngine": "repro_torch.core.engine",
     "LocalStep": "repro_torch.models.fl_models",
+    "as_local_step": "repro_torch.models.fl_models",
     "resolve_local_step": "repro_torch.models.fl_models",
     "FederatedDataset": "repro_torch.data.federated",
     "params_from_reference": "repro_torch.convert",

@@ -667,8 +667,7 @@ class RoundEngine:
                           max_n: int, sampling: str = "shuffle",
                           device_round: bool = False, mesh=None,
                           capacity: Optional[int] = None,
-                          sizes=None, backend: Optional[str] = None
-                          ) -> Callable:
+                          sizes=None) -> Callable:
         """Device-resident round over the packed federation.
 
         round_fn(global_params, flat_x, flat_y, offsets, lengths, ids,
@@ -702,7 +701,6 @@ class RoundEngine:
         if sampling not in SAMPLINGS:
             raise ValueError(f"unknown sampling {sampling!r}")
         model = as_local_step(model)
-        self._resolve_backend(backend)
         if mesh is None and capacity is not None:
             raise ValueError(
                 "capacity compaction requires a sharded mesh; pass mesh= "

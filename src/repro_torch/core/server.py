@@ -142,7 +142,7 @@ from repro_torch.convert import params_from_reference
 from repro_torch.core import compression as comp
 from repro_torch.core import prediction as pred
 from repro_torch.core.aggregation import get_aggregator
-from repro_torch.core.engine import RoundEngine
+from repro_torch.core.engine import BACKENDS, RoundEngine
 from repro_torch.core.graphs import RoundProgram, sync_checked
 from repro_torch.core.heterogeneity import HeterogeneitySim
 from repro_torch.core.rounds import make_eval_fn
@@ -169,7 +169,6 @@ RNG_IMPLS = ("numpy", "device")
 PREFETCH_MODES = ("off", "double_buffer")
 
 UPLOAD_SCREENS = ("auto", "on", "off")
-BACKENDS = ("xla", "pallas")
 
 
 @dataclasses.dataclass

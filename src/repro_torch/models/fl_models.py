@@ -21,9 +21,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.func import grad_and_value
-
-from repro_torch.tree import tree_items, tree_leaves, tree_map
+from repro_torch.tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 
 def mclr_init(generator: torch.Generator, n_features: int, n_classes: int,
@@ -182,9 +180,14 @@ class LocalStep:
         self.leaf_views = leaf_views
 
     def loss_and_grad(self, params, batch):
-        """(loss, gradient tree of ``params``' structure)."""
-        grads, value = grad_and_value(self.loss)(params, batch)
-        return value, grads
+        """(loss, gradient tree of ``params``' structure), by autograd on
+        detached leaves (``torch.func`` cannot take an LM's remat
+        checkpoints); a leaf the loss does not read gets zeros."""
+        leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = self.loss(tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        return loss.detach(), tree_unflatten(params, list(grads))
 
     def local_sgd_step(self, params, batch, lr):
         """One SGD step: (params - lr * grad, the loss before it)."""

@@ -65,9 +65,9 @@ def _bmm(a, b):
 
 
 def route(params, cfg, x):
-    """The router: (gates [B, S, k] float32, eidx [B, S, k] int64, probs
-    [B, S, E] float32, aux 0-d float32), the Switch load-balance loss
-    ``E * sum(mean(probs) * mean(one_hot(top-1)))``."""
+    """The router: (gates [B, S, k] float32, eidx [B, S, k] int64, aux
+    0-d float32), aux the Switch load-balance loss ``E * sum(mean(probs)
+    * mean(one_hot(top-1)))``."""
     E, k = cfg.n_experts, cfg.experts_per_token
     h = rms_norm(x, params["norm"], cfg.norm_eps)
     logits = h.to(torch.float32) @ params["router"].to(torch.float32)
@@ -80,7 +80,7 @@ def route(params, cfg, x):
     top1 = (eidx[..., :1] == torch.arange(E, device=x.device)).to(
         torch.float32)
     aux = E * torch.sum(me * top1.mean(dim=(0, 1)))
-    return gates, eidx, probs, aux
+    return gates, eidx, aux
 
 
 def assign(eidx, E: int, C: int):
@@ -111,13 +111,13 @@ def assign(eidx, E: int, C: int):
     return dest, keep
 
 
-def moe_forward(params, cfg, x, d_ff=None):
+def moe_forward(params, cfg, x):
     """x: [B, S, d] -> (out [B, S, d] in x's dtype, aux 0-d float32)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     C = moe_capacity(cfg, S)
     cdt = cfg.compute_dtype
-    gates, eidx, _, aux = route(params, cfg, x)
+    gates, eidx, aux = route(params, cfg, x)
     dest, _ = assign(eidx, E, C)                         # [B, S*k]
 
     # dispatch: token t's copy j to its slot; a kept slot gets one token

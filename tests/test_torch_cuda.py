@@ -48,8 +48,9 @@ from torch_cases import (COMPRESS_CASES, FAULT_CFG, FAULT_DS, FAULT_PATHS,
                          ROBUST_CASES, attention_case, cluster_case,
                          compress_case, dense_case, fault_kwargs,
                          LM_CFG, gather_case, gather_lanes_case, iid_draws,
-                         lm_fed_case, lstm_case, mclr_init,
-                         robust_stack_case, scan_case, sgd_case, xent_case)
+                         lm_fed_case, lstm_case, mclr_init, moe_case,
+                         padded_round_case, robust_stack_case, scan_case,
+                         sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -306,6 +307,13 @@ FLASH_CASES = [
     (1, 1000, 1000, 4, 2, 128, True, 0, torch.bfloat16),
     (1, 200, 200, 8, 8, 128, False, 0, torch.bfloat16),
     (1, 64, 64, 2, 1, 20, True, 0, torch.bfloat16),
+    # granite-moe's heads (16 q / 8 kv, hd 64), kimi-k2's head dim (112),
+    # the jamba smoke's windowed attention past its window
+    (1, 512, 512, 16, 8, 64, True, 0, torch.bfloat16),
+    (10, 24, 24, 16, 8, 64, True, 0, torch.bfloat16),  # its 24-token rows
+    (1, 256, 256, 8, 2, 112, True, 0, torch.bfloat16),
+    (2, 80, 80, 4, 2, 32, True, 64, torch.bfloat16),
+    (1, 80, 80, 4, 2, 32, True, 64, torch.float32),
 ]
 # the bf16 route (tensor cores) against its rounding model: one bf16 ulp
 MODEL_RTOL, MODEL_ATOL = 2 ** -7, 4e-3
@@ -447,6 +455,7 @@ XENT_CASES = [
     (100, 48, 1000, torch.float32),
     (300, 96, 5000, torch.bfloat16),
     (1, 32, 300, torch.float32),
+    (256, 1024, 49155, torch.bfloat16),     # granite-moe's odd vocabulary
 ]
 
 
@@ -476,6 +485,7 @@ XENT_ROUTES = [
     (200, 64, 700, torch.bfloat16, False),
     (150, 36, 704, torch.bfloat16, False),
     (150, 32, 700, torch.float32, False),
+    (64, 1024, 49155, torch.bfloat16, False),   # V % 8 != 0: CUDA cores
 ]
 #: the backward kernels' bound against the plain recompute, per leaf:
 #: rtol 2^-7 (one bf16 ulp) and atol 2^-9 max|want|
@@ -855,9 +865,10 @@ def test_cuda_scan_kill_and_resume_bitwise(cuda_device, tmp_path):
 LM_TOL = 1e-4
 
 
-def _lm_server(device, rounds=2, dtype="float32", **over):
+def _lm_server(device, rounds=2, dtype="float32", arch="llama3.2-3b",
+               **over):
     from repro_torch.core.server import FedSAEServer, ServerConfig
-    ds, step, init = lm_fed_case(dtype=dtype)
+    ds, step, init = lm_fed_case(arch=arch, dtype=dtype)
     cfg = ServerConfig(device=str(device), rounds=rounds,
                        **dict(LM_CFG, **over))
     kw = {} if over.get("driver") == "scan" or over.get("rng_impl") else \
@@ -909,3 +920,107 @@ def test_cuda_lm_scan_matches_host_device_rng(cuda_device):
         assert torch.equal(a, b)
     assert scan.program.graphed and scan.program.replays == 4
     assert scan.program.per_replay["flash_attention_bwd"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "jamba-1.5-large-398b"])
+def test_cuda_moe_and_hybrid_scan_match_host_device_rng(cuda_device, arch):
+    """A MoE smoke LM and the jamba hybrid (bf16) on the scan driver: the
+    routing, dispatch and combine inside the captured graph (no host
+    read), bitwise the host driver's eager device rounds."""
+    from repro_torch.tree import tree_leaves
+    runs = [_lm_server(cuda_device, rounds=4, dtype="bfloat16", arch=arch,
+                       block_size=2, **kw)
+            for kw in (dict(rng_impl="device"), dict(driver="scan"))]
+    for srv in runs:
+        srv.run()
+    host, scan = runs
+    for a, b in zip(host.cohorts, scan.cohorts):
+        assert np.array_equal(a, b)
+    for a, b in zip(host.budgets, scan.budgets):
+        assert np.array_equal(a, b)
+    for a, b in zip(tree_leaves(host.params), tree_leaves(scan.params)):
+        assert torch.equal(a, b)
+    assert scan.program.graphed and scan.program.replays == 4
+
+
+# ---------------------------------------------------------------------------
+# the padded seed round and the MoE FFN
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,sampling", [("mclr", "iid"), ("mlp", "iid"),
+                                            ("mclr", "shuffle")])
+def test_cuda_padded_round_matches_the_cpu(cuda_device, model, sampling):
+    """``make_round_fn`` on the card and on the CPU from the same init,
+    stacked clients and draws: params and losses within 2e-5; the iid
+    MCLR and MLP steps launch their fused kernels (one launch a round)."""
+    from repro_torch.convert import params_from_reference, params_to_numpy
+    from repro_torch.core.rounds import make_round_fn
+    from repro_torch.models.fl_models import make_mclr, make_mlp
+    ds, (x, y, mask, n, n_iters), draws = padded_round_case(sampling)
+    step = (make_mclr if model == "mclr" else make_mlp)(64, ds.n_classes)
+    init = params_to_numpy(step.init_params(torch.Generator().manual_seed(1)))
+    kernel = {"mclr": fed_local_sgd.fed_local_sgd_mclr,
+              "mlp": fed_local_sgd_dense.fed_local_sgd_dense}[model]
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        fn = make_round_fn(step, 0.05, 4, 40, sampling=sampling)
+        before = kernel.launches
+        p, losses, up = fn(params_from_reference(init, device), x, y, mask,
+                           n, n_iters, draws=draws)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernel.launches == before + (sampling == "iid")
+        outs.append((p, losses, bool(up)))
+    (pc, lc, uc), (pp, lp, up) = outs
+    for k in pp:
+        torch.testing.assert_close(pc[k].cpu(), pp[k], rtol=TOL, atol=TOL)
+    torch.testing.assert_close(lc.cpu(), lp, rtol=TOL, atol=TOL)
+    assert uc == up
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,S", [("float32", 48), ("bfloat16", 48),
+                                     ("float32", 1)])
+def test_cuda_moe_forward_matches_the_cpu(cuda_device, dtype, S):
+    """``moe_forward`` on the card against the CPU on the same params and
+    inputs: in float32 the same routing (expert ids and slots) and out
+    within 1e-5 of its scale, aux within 1e-5, gradients within 1e-4; in
+    bfloat16 out within 2e-2.  Forced overflow (capacity factor 0.25)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m", smoke=True).replace(
+        dtype=dtype, capacity_factor=0.25)
+    params = moe.init_moe(torch.Generator().manual_seed(0), cfg)
+    x, cot = (torch.from_numpy(a) for a in moe_case(S))
+    x = x.to(cfg.compute_dtype)
+    runs = []
+    for device in (cuda_device, torch.device("cpu")):
+        p = {k: v.to(device).requires_grad_() for k, v in params.items()}
+        xd = x.to(device).requires_grad_()
+        _, eidx, _ = moe.route(p, cfg, xd)
+        dest, keep = moe.assign(eidx, cfg.n_experts,
+                                moe.moe_capacity(cfg, S))
+        out, aux = moe.moe_forward(p, cfg, xd)
+        (torch.sum(out.float() * cot.to(device)) + aux).backward()
+        runs.append([t.detach().cpu() for t in (eidx, dest, keep, out, aux,
+                                                xd.grad)]
+                    + [p[k].grad.cpu() for k in sorted(p)])
+    card, cpu = runs
+    if dtype == "float32":
+        for a, b in zip(card[:3], cpu[:3]):
+            assert torch.equal(a, b)
+        scale = max(1.0, float(cpu[3].abs().max()))
+        torch.testing.assert_close(card[3], cpu[3], rtol=1e-5,
+                                   atol=1e-5 * scale)
+        torch.testing.assert_close(card[4], cpu[4], rtol=1e-5, atol=1e-5)
+        for a, b in zip(card[5:], cpu[5:]):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(card[3].float(), cpu[3].float(),
+                                   rtol=2e-2, atol=2e-2)
+    if S > 1:
+        assert not bool(cpu[2].all())

@@ -17,6 +17,8 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 assert "repro_torch.launch.mesh" in names
+assert "repro_torch.models.moe" in names
+assert "repro_torch.configs.jamba_1_5_large_398b" in names
 for name in names:
     importlib.import_module(name)
 for name in repro_torch.__all__:
@@ -36,7 +38,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 58        # launch.mesh included
+    assert int(n_modules) >= 65        # the MoE and six configs included
     assert bad == "", f"port pulled in: {bad}"
 
 
@@ -67,3 +69,4 @@ def test_kernel_ab_script_imports_neither_jax_nor_reference():
             roots.add((node.module or "").split(".")[0])
     assert {"chip_smoke", "repro_torch", "torch"} <= roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
+

@@ -249,3 +249,35 @@ def test_silo_takes_a_duck():
     assert isinstance(fed.step, tfl.LocalStep) and fed.step.name == "duck"
     with pytest.raises(TypeError):
         SiloFedSAE(object(), 2, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "falcon-mamba-7b"])
+def test_loss_and_grad_of_an_lm_step_under_remat(arch):
+    """``loss_and_grad`` of a ``from_model`` step whose config recomputes
+    each layer group (``remat``: ``torch.utils.checkpoint``, which
+    ``torch.func`` cannot differentiate) against the reference step's, on
+    its params and a masked token batch, float32, 1e-4."""
+    from repro.configs import get_config as jget_config
+    from repro.models.api import from_model as jfrom
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import from_model
+
+    jcfg = jget_config(arch, smoke=True).replace(dtype="float32", remat=True)
+    cfg = get_config(arch, smoke=True).replace(dtype="float32", remat=True)
+    jstep, step = jfrom(jcfg), from_model(cfg)
+    jp = jstep.init_params(jax.random.PRNGKey(0))
+    p = params_from_reference(jax.tree.map(np.asarray, jp), "cpu")
+    toks = np.random.default_rng(4).integers(0, 300, (4, 9)).astype(np.int32)
+    mask = np.array([1, 1, 1, 0], np.float32)
+    value, grads = step.loss_and_grad(
+        p, {"x": torch.from_numpy(toks), "mask": torch.from_numpy(mask)})
+    jvalue, jgrads = jstep.loss_and_grad(
+        jp, {"x": jnp.asarray(toks), "mask": jnp.asarray(mask)})
+    np.testing.assert_allclose(float(value), float(jvalue), rtol=1e-4,
+                               atol=1e-4)
+    want = dict(tree_items(jax.tree.map(np.asarray, jgrads)))
+    got = dict(tree_items(grads))
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-4, atol=1e-4,
+                                   err_msg=k)

@@ -92,7 +92,7 @@ def test_routing_is_the_reference_routing(B, S, over):
     jcfg, cfg, jp, tp, jx, tx = _case(B=B, S=S, **over)
     assert moe.moe_capacity(cfg, S) == jmoe.moe_capacity(jcfg, S)
     want_e, want_dest, want_keep = reference_routing(jp, jcfg, jx)
-    gates, eidx, _, _ = moe.route(tp, cfg, tx)
+    gates, eidx, _ = moe.route(tp, cfg, tx)
     np.testing.assert_array_equal(eidx.numpy(), want_e)
     dest, keep = moe.assign(eidx, cfg.n_experts, moe.moe_capacity(cfg, S))
     np.testing.assert_array_equal(keep.numpy(), want_keep)

@@ -320,3 +320,26 @@ def lm_fed_case(arch="llama3.2-3b", dtype="float32", seed=0):
     init = params_to_numpy(step.init_params(
         torch.Generator("cpu").manual_seed(seed)))
     return ds, step, init
+
+
+def padded_round_case(sampling, max_iters=40, B=4, seed=3):
+    """The seed round's inputs on ``FAULT_DS``: 10 clients host-stacked
+    (``stacked``), budgets from 0 to ``max_iters``, and numpy draws (idx
+    [10, max_iters, B] iid, u [10, max_n] shuffle)."""
+    from repro_torch.data.federated import make_femnist_like
+    ds = make_femnist_like(**FAULT_DS)
+    x, y, mask, n = ds.stacked(np.arange(0, 30, 3), int(ds.sizes.max()))
+    n_iters = np.array([0, 3, 12, 40, 7, 1, 0, 25, 9, 40], np.int32)
+    r = np.random.default_rng(seed)
+    draws = ((r.random((10, max_iters, B)) * np.maximum(n, 1)[:, None, None])
+             .astype(np.int32) if sampling == "iid"
+             else r.random((10, x.shape[1])).astype(np.float32))
+    return ds, (x, y, mask, n, n_iters), draws
+
+
+def moe_case(S, B=2, seed=1):
+    """x [B, S, 128] float32 and a cotangent of its shape: the MoE smoke
+    width (granite-moe-1b-a400m's)."""
+    r = np.random.default_rng(seed)
+    return (r.normal(size=(B, S, 128)).astype(np.float32),
+            r.normal(size=(B, S, 128)).astype(np.float32))
