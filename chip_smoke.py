@@ -1440,12 +1440,16 @@ def telemetry_phase(torch, np, FedSAEServer, ServerConfig, femnist,
             before = {k: fn.launches for k, fn in counted.items()}
             tdir = os.path.join(tmp, label)
             with trace_if(tdir):
-                # a first kernel for the trace to start on: the first
-                # launch after the profiler starts can be lost (seen once
-                # for the round's gather), and this one is no FL kernel,
-                # so the round's launches are all counted
-                torch.ones(1, device="cuda").add_(1)
-                torch.cuda.synchronize()
+                # kernels for the trace to start on: the first launches
+                # after the profiler starts can be lost (seen twice for
+                # the round's gather, once after one warm-up kernel), and
+                # these are no FL kernels, so the round's launches are all
+                # counted; a pause between them lets the activity tracing
+                # settle before the round
+                for _ in range(3):
+                    torch.ones(1, device="cuda").add_(1)
+                    torch.cuda.synchronize()
+                    time.sleep(0.05)
                 srv.run_round(srv.cfg.rounds)
                 torch.cuda.synchronize()
             launched = {k: fn.launches - before[k]
