@@ -35,7 +35,7 @@ DS_KW = dict(n_clients=20, total=600, dim=DIM, max_size=24)
 CFG_KW = dict(n_selected=5, lr=0.05, batch_size=4, rounds=2, h_cap=6.0,
               fixed_epochs=4.0, selection="random", sampling="iid")
 
-BUILDERS = {"mclr": (lambda m: m.make_mclr(DIM, 5)),
+MAKERS = {"mclr": (lambda m: m.make_mclr(DIM, 5)),
             "mlp": (lambda m: m.make_mlp(DIM, 5, hidden=8)),
             "lstm": (lambda m: m.make_lstm(40))}
 
@@ -54,11 +54,11 @@ def _key_paths(tree):
     return tuple("/".join(str(k.key) for k in path) for path, _ in flat)
 
 
-@pytest.mark.parametrize("name", sorted(BUILDERS))
+@pytest.mark.parametrize("name", sorted(MAKERS))
 def test_local_step_protocol_methods(name):
     """The reference test's protocol checks on the port's step, and its
     values against the reference step's on the same params."""
-    jstep, step = BUILDERS[name](jfl), BUILDERS[name](tfl)
+    jstep, step = MAKERS[name](jfl), MAKERS[name](tfl)
     assert step.name == jstep.name == name
     assert step.kind == jstep.kind and step.init is step.init_params
     rng = jax.random.PRNGKey(0)
