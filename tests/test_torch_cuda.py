@@ -1024,3 +1024,28 @@ def test_cuda_moe_forward_matches_the_cpu(cuda_device, dtype, S):
                                    rtol=2e-2, atol=2e-2)
     if S > 1:
         assert not bool(cpu[2].all())
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_serves_past_its_window_like_the_cpu(cuda_device):
+    """The jamba smoke (float32) prefills 80 positions, past its 64-slot
+    window, then decodes 4 greedy tokens into the ring buffer, on the card
+    and on the CPU from the same params: the same tokens, logits within
+    1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference, params_to_numpy
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    cfg = get_config("jamba-1.5-large-398b", smoke=True).replace(
+        dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    runs = []
+    for p, device in ((params_from_reference(params_to_numpy(params),
+                                             cuda_device), cuda_device),
+                      (params, torch.device("cpu"))):
+        tokens = serve.prompt_tokens(cfg, 2, cfg.window_size + 16, device)
+        runs.append(serve.generate(model, p, tokens, 4))
+    (tok_card, lg_card, _), (tok_cpu, lg_cpu, _) = runs
+    assert torch.equal(tok_card.cpu(), tok_cpu)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
