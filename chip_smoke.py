@@ -69,6 +69,14 @@ last line):
      max|want| per leaf, the rounding model ``ref.softmax_xent_bwd_tc``
      printed; no one library call computes it; bound: the three products'
      3 x 2 T d V flop in bf16;
+   - at the shapes the VLM and the encoder-decoder give them
+     (``check_slice_shapes``): the flash forward and backward at
+     whisper-tiny's encoder (B=4, S=T=1,500 frames, 6/6 heads, hd 64,
+     non-causal, bf16, the last k tile partial) on the tensor cores, and
+     the cross-entropy forward on its CUDA-core route at a 1,024-row
+     chunk of whisper-tiny (d=384, V=51,865) and internvl2-2b (d=2,048,
+     V=92,553), each against its plain version and timed beside its
+     bound;
 3. check the port end to end on small federations: the same server on
    the card and on the CPU, with the same init and minibatch draws, picks
    the same cohorts and workloads; MCLR ends within 2e-5, the MLP with
@@ -86,7 +94,12 @@ last line):
    same params: the same greedy tokens, logits within 1e-4; and train
    them there: ``train_loss`` and every gradient leaf within 1e-4, and one
    ``SiloFedSAE`` round with the same L, H and step budgets and losses
-   and global params within 1e-4;
+   and global params within 1e-4; the same for the smoke configs of the
+   decoder family, of internvl2-2b (patches before the prompt; the silo
+   CLI's token-only batches leave its ``modality_proj`` as it was) and of
+   whisper-tiny (frames; silo batches with frames), and for the
+   Falcon-Mamba smoke with ``ssm_scan="sequential"`` and
+   ``ssm_input_dtype="bfloat16"`` (``SSM_OPTIONS``);
 4. the main paths, each with every kernel's launch count set to 0 just
    before and read just after: ``FedSAEServer`` on FEMNIST at paper scale
    (200 clients, K=10), MCLR with algo="ira" for 5 rounds with
@@ -200,6 +213,18 @@ last line):
    granite-moe-1b-a400m, Minitron-8B and Granite-8B served at full width
    (batch 4, prompt 2048, 32 tokens; one flash launch a layer of the
    prefill), granite-moe trained cross-silo at full width as Llama is;
+   internvl2-2b (1.89 B params) served at full width (batch 4, 512
+   patches + 1,536 tokens, 32 tokens; 24 flash launches) and
+   whisper-tiny (batch 4, 1,500 frames under a 4-token decoder prompt,
+   32 tokens; 4 non-causal and 4 causal flash launches), both trained
+   cross-silo at full width (K=2, max_steps 4, 2 rounds; internvl2 at
+   B=1, 512 patches + 1,536 tokens, remat; whisper at B=4, 1,500 frames
+   under 448 tokens), their cross-entropy on the CUDA-core route with
+   the plain recompute as backward, and both through ``launch.train
+   --smoke``; internvl2-2b as the packed round's local step at full
+   width (K=2 host, K=2 scan) and by id at smoke size on every driver
+   (topk_q8 too), and ``model="whisper-tiny"`` refused with the
+   reference's error;
    and the seed interface's padded round (``padded_phase``:
    ``make_round_fn`` on FEMNIST paper data, K=10, B=10, max_iters 960,
    MCLR and MLP iid 3 rounds each with their fused kernels, MCLR shuffle
@@ -725,35 +750,229 @@ def check_xent(torch, fx, fx_lse, bx, ops, ref, gen, dev):
              "profiled_ms": dict(zip(("dlogits", "dh", "dW"), split_ms))})
 
 
-def silo_batches(torch, cfg, K, max_steps, B, S, ri, device):
-    """One round's batches as ``launch.fl_train.run_silo`` makes them:
-    its token stream, labels = the tokens."""
+def check_slice_shapes(torch, counted, ref, gen, dev):
+    """Phase 2: the kernels at the shapes the VLM and the encoder-decoder
+    give them, against their plain versions, then times beside their
+    bounds: the flash forward and backward at whisper-tiny's encoder
+    (B=4, S=T=1,500 frames, 6/6 heads, hd 64, non-causal, bf16: the last
+    k tile partial), on the tensor cores, with their rounding-model
+    errors; library ``F.scaled_dot_product_attention`` (its backward for
+    the backward); and the fused cross-entropy forward on its CUDA-core
+    route at a 1,024-row chunk of whisper-tiny (d=384, V=51,865) and of
+    internvl2-2b (d=2,048, V=92,553): neither V is a multiple of 8; library
+    ``logsumexp(h.float() @ W.float()) - gold``.  Bounds: the flash's
+    unmasked pairs at 4 (forward) or 10 (backward) hd flop each, the
+    cross-entropy's 2 T d V, all at the bf16 tensor cores' rate, or the
+    bytes, whichever is larger.  Returns {kernel: {shape label: fields}}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.fused_xent import (fused_softmax_xent_fwd_lse,
+                                                tensor_core_route)
+    fa, fa_bwd = counted["flash_attention_fwd"], counted["flash_attention_bwd"]
+    fx = counted["fused_softmax_xent_fwd"]
+    out = {"flash_attention_fwd": {}, "flash_attention_bwd": {},
+           "fused_softmax_xent_fwd": {}}
+    B, S, H, hd = 4, 1500, 6, 64
+    label = f"whisper-tiny encoder B={B} S=T={S} {H}/{H} hd={hd} non-causal"
+    q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
+                               device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    tc0 = fa.tensor_core_launches
+    o, lse = fa(q, k, v, False, 0)
+    want, want_lse = ref.attention_lse(q, k, v, causal=False)
+    model = ref.attention_lse_tc(q, k, v, causal=False)[0]
+    torch.cuda.synchronize()
+    tol = LM_TOL["bfloat16"]
+    err = float((o.float() - want.float()).abs().max())
+    e_lse = float((lse - want_lse).abs().max())
+    e_model = float((o.float() - model.float()).abs().max())
+    if fa.tensor_core_launches != tc0 + 1:
+        raise RuntimeError(f"flash forward took the wrong route ({label})")
+    if not (torch.isfinite(o).all() and torch.allclose(
+            o.float(), want.float(), rtol=tol, atol=tol)
+            and torch.allclose(lse, want_lse, rtol=2e-5, atol=2e-5)):
+        raise RuntimeError(f"flash kernel differs from plain ({label}): out "
+                           f"{err}, lse {e_lse}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    spin(torch)
+    ms = time_ms(torch, lambda: fa(q, k, v, False, 0), 20)
+    plain = time_ms(torch, lambda: ref.attention_lse(q, k, v, causal=False),
+                    3)
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                  20)
+    pairs = B * H * S * S
+    flops = 4 * hd * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    out["flash_attention_fwd"][label] = dict(
+        max_abs_err=err, lse_max_abs_err=e_lse,
+        rounding_model_max_abs_err=e_model, ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    print(f"flash_attention_fwd {label} bf16 (tensor cores): out max_abs_err "
+          f"{err:.3e} (tol {tol}), lse {e_lse:.3e}, rounding model "
+          f"{e_model:.3e}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B)", flush=True)
+
+    o = want.contiguous()
+    tc0 = fa_bwd.tensor_core_launches
+    got = fa_bwd(q, k, v, o, want_lse, do, False, 0)
+    wants = ref.flash_attention_bwd(q, k, v, o, want_lse, do, causal=False)
+    models = ref.flash_attention_bwd_tc(q, k, v, o, want_lse, do,
+                                        causal=False)
+    torch.cuda.synchronize()
+    atol, rtol = BWD_TOL["bfloat16"]
+    errs = [float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, wants)]
+    e_model = max(float((g.float() - m.float()).abs().max())
+                  for g, m in zip(got, models))
+    if fa_bwd.tensor_core_launches != tc0 + 1:
+        raise RuntimeError(f"flash backward took the wrong route ({label})")
+    if not all(torch.isfinite(g).all() and torch.allclose(
+            g.float(), w.float(), rtol=rtol, atol=atol)
+            for g, w in zip(got, wants)):
+        raise RuntimeError(f"flash bwd kernel differs from plain ({label}): "
+                           f"dq/dk/dv {errs}")
+    del got, wants, models
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+    og = F.scaled_dot_product_attention(qg, kg, vg)
+    dot = do.transpose(1, 2)
+    spin(torch)
+    ms = time_ms(torch, lambda: fa_bwd(q, k, v, o, want_lse, do, False, 0),
+                 20)
+    plain = time_ms(torch, lambda: ref.flash_attention_bwd(
+        q, k, v, o, want_lse, do, causal=False), 3)
+    lib = time_ms(torch, lambda: torch.autograd.grad(
+        og, (qg, kg, vg), dot, retain_graph=True), 20)
+    flops = 10 * hd * pairs
+    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+        + 4 * B * H * S
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+    out["flash_attention_bwd"][label] = dict(
+        max_abs_err=max(errs), rounding_model_max_abs_err=e_model, ms=ms,
+        plain_ms=plain, bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    print(f"flash_attention_bwd {label} bf16 (tensor cores): dq/dk/dv "
+          f"max_abs_err {errs} (atol {atol}, rtol {rtol}), rounding model "
+          f"{e_model:.3e}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+          f"TFLOP/s), plain {plain:.4f} ms, sdpa backward {lib:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {flops} flop, {nbytes} B)",
+          flush=True)
+    del q, k, v, do, o, lse, want, want_lse, model, qg, kg, vg, og
+    torch.cuda.empty_cache()
+
+    T = 1024
+    for arch, d, V in (("whisper-tiny", 384, 51865),
+                       ("internvl2-2b", 2048, 92553)):
+        label = f"{arch} chunk T={T} d={d} V={V}"
+        h = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
+        W = (torch.randn((d, V), generator=gen, device=dev)
+             * d ** -0.5).to(torch.bfloat16)
+        labels = torch.randint(0, V, (T,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        if tensor_core_route(h, W):
+            raise RuntimeError(f"{label}: expected the CUDA-core route")
+        tc0, n0 = fx.tensor_core_launches, fx.launches
+        got, lse = fused_softmax_xent_fwd_lse(h, W, labels)
+        want, want_lse = ref.softmax_xent_lse(h, W, labels)
+        torch.cuda.synchronize()
+        if fx.launches != n0 + 1 or fx.tensor_core_launches != tc0:
+            raise RuntimeError(f"xent forward took the wrong route ({label})")
+        err = float((got - want).abs().max())
+        e_lse = float((lse - want_lse).abs().max())
+        if not (torch.isfinite(got).all() and torch.allclose(
+                got, want, rtol=XENT_TOL, atol=XENT_TOL)
+                and torch.allclose(lse, want_lse, rtol=XENT_TOL,
+                                   atol=XENT_TOL)):
+            raise RuntimeError(f"xent kernel differs from plain ({label}): "
+                               f"{err}, lse {e_lse}")
+
+        def library():
+            logits = h.float() @ W.float()
+            return (torch.logsumexp(logits, -1)
+                    - logits.gather(1, labels.long()[:, None])[:, 0])
+
+        spin(torch)
+        ms = time_ms(torch, lambda: fx(h, W, labels), 10)
+        plain = time_ms(torch, lambda: ref.softmax_xent(h, W, labels), 5)
+        lib = time_ms(torch, library, 5)
+        flops = 2 * T * d * V
+        nbytes = 2 * (h.numel() + W.numel()) + 8 * T
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        out["fused_softmax_xent_fwd"][label] = dict(
+            max_abs_err=err, lse_max_abs_err=e_lse, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            route="CUDA cores")
+        print(f"fused_softmax_xent_fwd {label} bf16 (CUDA cores: V not a "
+              f"multiple of 8; the backward is the plain recompute): "
+              f"max_abs_err {err:.3e}, lse {e_lse:.3e} (tol {XENT_TOL}); "
+              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain:.4f} ms, logsumexp(h.float() @ W.float()) - gold "
+              f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops} flop, "
+              f"{nbytes} B)", flush=True)
+        del h, W, got, lse, want, want_lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def silo_batches(torch, cfg, K, max_steps, B, S, ri, device, patches=False):
+    """One round's batches as ``launch.fl_train.run_silo`` makes them: its
+    token stream, labels = the tokens.  An encoder-decoder's steps also
+    carry S frames [B, S, 128] from ``ri.normal``, under min(
+    max_decoder_len, S) tokens (the CLI's token-only batches cannot train
+    one); with ``patches`` a VLM's steps carry P = min(n_patches, S // 4)
+    patches [B, P, 1024] before S - P tokens, drawn after them from
+    ``ri.normal`` (without it, the CLI's token-only batches)."""
     from repro_torch.launch.fl_train import silo_tokens
-    toks = torch.as_tensor(silo_tokens(ri, cfg, K, max_steps, B, S),
+    from repro_torch.models.api import VLM_FRONTEND_DIM
+    from repro_torch.models.encdec import FRONTEND_DIM
+    normal = lambda *shape: torch.as_tensor(ri.normal(size=shape),
+                                            dtype=torch.float32,
+                                            device=device)
+    patches = patches and cfg.n_patches
+    T, extra = S, {}
+    if cfg.is_encoder_decoder:
+        T = min(cfg.max_decoder_len, S)
+    elif patches:
+        T = S - min(cfg.n_patches, S // 4)
+    toks = torch.as_tensor(silo_tokens(ri, cfg, K, max_steps, B, T),
                            device=device)
-    return {"tokens": toks, "labels": toks}
+    if cfg.is_encoder_decoder:
+        extra["frames"] = normal(K, max_steps, B, S, FRONTEND_DIM)
+    elif patches:
+        extra["patches"] = normal(K, max_steps, B, S - T, VLM_FRONTEND_DIM)
+    return dict(extra, tokens=toks, labels=toks)
 
 
-def train_card_vs_cpu(torch, np, get_config, build_model, arch):
-    """Phase 3: a smoke config trained in float32 on the card and on the
-    CPU from the same params: train_loss and every gradient leaf, then one
-    SiloFedSAE round each."""
+def train_card_vs_cpu(torch, np, get_config, build_model, train, arch,
+                      over=None):
+    """Phase 3: a smoke config (with ``over``'s fields) trained in float32
+    on the card and on the CPU from the same params: train_loss and every
+    gradient leaf (a VLM's and an encoder-decoder's batch the train CLI's,
+    ``train.synth_batch_from``), then one SiloFedSAE round each on the
+    silo CLI's batches (an encoder-decoder's with frames); a VLM's
+    token-only silo round leaves its ``modality_proj`` as it was (a zero
+    gradient; FedAvg of the equal rows within 1e-6 of it)."""
     from repro_torch.convert import params_from_reference, params_to_numpy
     from repro_torch.core.silo import SiloFedSAE
     from repro_torch.tree import tree_leaves
-    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                               **(over or {}))
     model = build_model(cfg)
     init = params_to_numpy(model.init(torch.Generator("cpu").manual_seed(0)))
     ri = np.random.default_rng(3)
-    toks = ri.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    if cfg.is_encoder_decoder or cfg.n_patches:
+        batch = {k: v.numpy() for k, v in train.synth_batch_from(
+            cfg, ri, 2, 64).items()}
+    else:
+        toks = ri.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+        batch = {"tokens": toks, "labels": toks}
     runs = []
     for where in ("cuda", "cpu"):
         params = params_from_reference(init, where)
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        t = torch.as_tensor(toks, device=where)
-        loss, _ = model.train_loss(params, {"tokens": t, "labels": t})
+        loss, _ = model.train_loss(params, {
+            k: torch.as_tensor(v, device=where) for k, v in batch.items()})
         grads = torch.autograd.grad(loss, leaves)
         runs.append((float(loss.detach()), [g.cpu() for g in grads]))
     (l_card, g_card), (l_cpu, g_cpu) = runs
@@ -782,34 +1001,54 @@ def train_card_vs_cpu(torch, np, get_config, build_model, arch):
     if p_err > TRAIN_TOL or loss_err > TRAIN_TOL:
         raise RuntimeError(f"{arch} silo: card and CPU params differ by "
                            f"{p_err}, losses by {loss_err}")
-    print(f"train {arch} smoke float32, card vs CPU: train_loss {l_card:.6f} "
-          f"vs {l_cpu:.6f}, grads max_abs_err {g_err:.3e}; one SiloFedSAE "
-          f"round (budgets {on_card.last_n_steps.tolist()}): same L/H, "
-          f"params max_abs_err {p_err:.3e}, loss diff {loss_err:.3e} (tol "
-          f"{TRAIN_TOL})", flush=True)
+    note = ""
+    if cfg.n_patches:
+        proj = on_card.params["modality_proj"].cpu()
+        want = torch.from_numpy(init["modality_proj"])
+        moved = float((proj - want).abs().max())
+        if not torch.allclose(proj, want, rtol=1e-6, atol=0):
+            raise RuntimeError(f"{arch} token-only silo round moved "
+                               f"modality_proj by {moved}")
+        note = (f"; token-only batches: modality_proj unchanged (max_abs "
+                f"{moved:.3e}, FedAvg's rounding)")
+    label = f"{arch}{' ' + json.dumps(over) if over else ''}"
+    print(f"train {label} smoke float32, card vs CPU: train_loss "
+          f"{l_card:.6f} vs {l_cpu:.6f}, grads max_abs_err {g_err:.3e}; one "
+          f"SiloFedSAE round (budgets {on_card.last_n_steps.tolist()}): same "
+          f"L/H, params max_abs_err {p_err:.3e}, loss diff {loss_err:.3e} "
+          f"(tol {TRAIN_TOL}){note}", flush=True)
 
 
 def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
-              arch="llama3.2-3b", lr=5e-3):
+              arch="llama3.2-3b", lr=5e-3, B=1, S=2048):
     """Phase 4 (and 5): cross-silo FedSAE training ``arch`` at full width
-    and depth, K=2 silos, B=1, S=2048.  Every kernel's count is set to 0
-    just before the counted rounds and read just after; each local step
-    must launch two flash forwards an attention layer (each recomputed
-    under remat: 56 for Llama-3.2-3B's 28 layers), one flash backward a
-    layer and 2 cross-entropy chunks forward, every flash call on the
-    tensor cores.  On the cross-entropy's tensor-core route (d and V
-    multiples of 8) a step launches 2 backward chunks and the plain
-    ``ref.softmax_xent`` recompute must not run; on the CUDA-core route
-    (granite-moe's V = 49,155) the forward takes the CUDA cores and each
-    chunk's backward is that plain recompute (counted, printed)."""
+    and depth, K=2 silos, B rows of S positions a step (a VLM's
+    S // 4 of them patches, an encoder-decoder's S frames under
+    min(448, S) tokens: ``silo_batches``).  Every kernel's count is set
+    to 0 just before the counted rounds and read just after; each local
+    step must launch one flash forward an attention layer, two on a
+    decoder under remat (56 for Llama-3.2-3B's 28 layers; the
+    encoder-decoder's encoder and decoder layers once each), one flash
+    backward a layer and one cross-entropy forward a loss chunk (1,024
+    token positions, or one chunk of them all where 1,024 does not divide
+    them), every flash call on the tensor cores.  On the cross-entropy's
+    tensor-core route (d and V multiples of 8) a step launches a backward
+    a chunk and the plain ``ref.softmax_xent`` recompute must not run; on
+    the CUDA-core route (the odd vocabularies: granite-moe's V = 49,155,
+    internvl2's 92,553, whisper's 51,865) the forward takes the CUDA cores
+    and each chunk's backward is that plain recompute (counted,
+    printed)."""
     from repro_torch.core.silo import SiloFedSAE
     from repro_torch.obs import RingBufferSink
     from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config(arch)
     xent_tc = cfg.vocab_size % 8 == 0 and cfg.d_model % 8 == 0
-    n_attn, _ = mixer_layers(cfg)
+    if cfg.is_encoder_decoder:
+        n_attn, fwd_per_attn = cfg.n_encoder_layers + cfg.n_layers, 1
+    else:
+        n_attn, fwd_per_attn = mixer_layers(cfg)[0], 1 + bool(cfg.remat)
     model = build_model(cfg)
-    K, max_steps, B, S = 2, 4, 1, 2048
+    K, max_steps = 2, 4
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ring = RingBufferSink()
@@ -821,8 +1060,9 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     n_params = sum(t.numel() for t in tree_leaves(fed.params))
     ri = np.random.default_rng(0)
     sizes = np.asarray(ri.integers(100, 1000, K))
-    all_batches = [silo_batches(torch, cfg, K, max_steps, B, S, ri, "cuda")
-                   for _ in range(rounds)]
+    all_batches = [silo_batches(torch, cfg, K, max_steps, B, S, ri, "cuda",
+                                patches=True) for _ in range(rounds)]
+    T_tok = all_batches[0]["tokens"].shape[-1]
     plain_xent, recomputes = ref.softmax_xent, []
 
     def counted_plain_xent(*a):
@@ -862,8 +1102,8 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
             or not all(math.isfinite(r.wall_time_s) for r in recs)):
         raise RuntimeError(f"silo records {[r.to_json() for r in recs]}, "
                            f"losses {stats['loss']}")
-    chunks = S // 1024
-    want = {"flash_attention_fwd": 2 * n_attn * steps,
+    chunks = T_tok // 1024 if T_tok % 1024 == 0 else 1
+    want = {"flash_attention_fwd": fwd_per_attn * n_attn * steps,
             "flash_attention_bwd": n_attn * steps,
             "fused_softmax_xent_fwd": chunks * steps,
             "fused_softmax_xent_bwd": chunks * steps if xent_tc else 0}
@@ -883,24 +1123,32 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
                            f"{tc_launches}, wanted {want_tc}; "
                            f"{len(recomputes)} plain cross-entropy "
                            f"recomputes, wanted {want_recomputes}")
+    if peak * 2**30 >= 80e9:
+        raise RuntimeError(f"silo path {arch}: peak {peak:.1f} GiB")
     xent_route = ("tensor cores" if xent_tc else
                   "CUDA cores, backward the plain recompute")
     walls = [r["wall_s"] for r in rounds_out]
+    per_step = {k: v / steps for k, v in launches.items() if v}
     summary = dict(arch=arch, lr=lr, params=n_params, init_s=init_s, silos=K,
-                   max_steps=max_steps, batch=B, seq=S, rounds=rounds_out,
-                   local_steps=steps, xent_route=xent_route,
+                   max_steps=max_steps, batch=B, seq=S, tokens=T_tok,
+                   rounds=rounds_out, local_steps=steps,
+                   xent_route=xent_route,
                    plain_xent_recomputes=len(recomputes),
                    ms_per_local_step=sum(walls) / steps * 1e3,
                    peak_gib=peak, launches=launches,
+                   launches_per_step=per_step,
                    tensor_core_launches=tc_launches,
                    records=[r.to_json() for r in recs])
+    remat = "remat" if fwd_per_attn == 2 else "no remat"
     print(f"main path silo {arch} (full width, {n_params} params f32, "
-          f"bf16 compute, remat): {rounds} rounds x {K} silos, B={B}, S={S}:"
-          f" round wall {[round(w, 3) for w in walls]} s, {steps} local "
+          f"bf16 compute, {remat}): {rounds} rounds x {K} silos, B={B}, "
+          f"S={S} ({T_tok} tokens): round wall "
+          f"{[round(w, 3) for w in walls]} s, {steps} local "
           f"steps ({summary['ms_per_local_step']:.1f} ms each, round "
           f"overhead included), losses "
           f"{[round(r['loss'], 4) for r in rounds_out]}, budgets "
           f"{[r['n_steps'] for r in rounds_out]}, peak {peak:.1f} GiB; "
+          f"launches a step {json.dumps(per_step)}; "
           f"launches {json.dumps(launches)}, tensor-core "
           f"{json.dumps(tc_launches)}; cross-entropy route {xent_route} "
           f"({len(recomputes)} plain recomputes); one RoundRecord a round, "
@@ -930,19 +1178,22 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
         alloc_retries=after["num_alloc_retries"]
         - before["num_alloc_retries"],
         cuda_mallocs=after["num_device_alloc"] - before["num_device_alloc"])
-    print(f"profile silo {arch} one local step (B=1, S=2048): step "
+    print(f"profile silo {arch} one local step (B={B}, S={S}): step "
           f"{step_ms:.1f} ms unprofiled; {json.dumps(summary['profile'])}",
           flush=True)
     del row, fed
     return summary
 
 
-def serve_card_vs_cpu(torch, get_config, build_model, serve, arch):
-    """Phase 3: one smoke config served in float32 on the card and on the
-    CPU from the same params (drawn on the CPU): same tokens, close
-    logits."""
+def serve_card_vs_cpu(torch, get_config, build_model, serve, arch,
+                      over=None):
+    """Phase 3: one smoke config (with ``over``'s fields) served in float32
+    on the card and on the CPU from the same params (drawn on the CPU) and
+    the serve driver's batch (a VLM's patches, an encoder-decoder's
+    frames): same tokens, close logits."""
     from repro_torch.convert import params_from_reference, params_to_numpy
-    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    cfg = get_config(arch, smoke=True).replace(dtype="float32",
+                                               **(over or {}))
     model = build_model(cfg)
     params = model.init(torch.Generator("cpu").manual_seed(0))
     on_card = params_from_reference(params_to_numpy(params), "cuda")
@@ -952,18 +1203,19 @@ def serve_card_vs_cpu(torch, get_config, build_model, serve, arch):
               else 40)
     runs = []
     for p, where in ((on_card, "cuda"), (params, "cpu")):
-        tokens = serve.prompt_tokens(cfg, 3, prompt, where)
-        runs.append(serve.generate(model, p, tokens, 6))
+        batch = serve.prompt_batch(cfg, 3, prompt, where)
+        runs.append(serve.generate(model, p, batch, 6))
     (tok_card, lg_card, _), (tok_cpu, lg_cpu, _) = runs
     err = float((lg_card.cpu() - lg_cpu).abs().max())
+    label = f"{arch}{' ' + json.dumps(over) if over else ''}"
     if not torch.equal(tok_card.cpu(), tok_cpu):
-        raise RuntimeError(f"{arch} smoke: card and CPU generated different "
-                           f"tokens:\n{tok_card.cpu()}\n{tok_cpu}")
+        raise RuntimeError(f"{label} smoke: card and CPU generated "
+                           f"different tokens:\n{tok_card.cpu()}\n{tok_cpu}")
     if not torch.allclose(lg_card.cpu(), lg_cpu, rtol=SERVE_TOL,
                           atol=SERVE_TOL):
-        raise RuntimeError(f"{arch} smoke: card and CPU logits differ by "
+        raise RuntimeError(f"{label} smoke: card and CPU logits differ by "
                            f"{err}")
-    print(f"serve {arch} smoke float32, batch 3, prompt {prompt}, 6 "
+    print(f"serve {label} smoke float32, batch 3, prompt {prompt}, 6 "
           f"tokens, card vs CPU: same tokens {tok_cpu[0].tolist()}, last "
           f"logits max_abs_err {err:.3e} (tol {SERVE_TOL})", flush=True)
 
@@ -1001,10 +1253,14 @@ def profiled(torch, fn, part="flash_"):
 
 
 def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
-               gen, counted, want):
+               gen, counted, want, dec_tokens=None):
     """Phase 4 (and 5): ``serve.generate`` at full width with random
-    weights.  Every kernel's count is set to 0 just before the counted run
-    and read just after; ``want`` maps kernel name -> launches."""
+    weights on the serve driver's batch of ``prompt`` positions
+    (``serve.prompt_batch``: a VLM's prompt // 4 of them patches, an
+    encoder-decoder's ``prompt`` frames under its first ``dec_tokens``
+    decoder tokens).  Every kernel's count is set to 0 just before the
+    counted run and read just after; ``want`` maps kernel name ->
+    launches."""
     from repro_torch.tree import tree_leaves
     cfg = get_config(arch)
     model = build_model(cfg)
@@ -1015,10 +1271,17 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
-    tokens = serve.prompt_tokens(cfg, batch, prompt, dev)
-    serve.generate(model, params, tokens[:, :64], 2)      # warm-up
+    def prompt_batch(n):
+        out = serve.prompt_batch(cfg, batch, n, dev)
+        if dec_tokens:
+            out["tokens"] = out["tokens"][:, :dec_tokens]
+        return out
+
+    inputs = prompt_batch(prompt)
+    n_tok = inputs["tokens"].shape[1]
+    serve.generate(model, params, prompt_batch(64), 2)      # warm-up
     reset_counts(counted)
-    out, logits, times = serve.generate(model, params, tokens, gen)
+    out, logits, times = serve.generate(model, params, inputs, gen)
     launches = {k: fn.launches for k, fn in counted.items()}
     tc_launches = tensor_core_counts(counted)
     single_steps = counted["selective_scan_fwd"].single_step_launches
@@ -1042,7 +1305,8 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
                            f"launches, wanted one per layer and decode "
                            f"step ({cfg.n_layers * gen})")
     summary = dict(
-        params=n_params, init_s=init_s, batch=batch, prompt=prompt, gen=gen,
+        params=n_params, init_s=init_s, batch=batch, prompt=prompt,
+        prompt_tokens=n_tok, gen=gen,
         prefill_ms=times["prefill_s"] * 1e3,
         prefill_tokens_per_s=batch * prompt / times["prefill_s"],
         decode_s=times["decode_s"],
@@ -1053,7 +1317,8 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
         tensor_core_launches=tc_launches,
         scan_single_step_launches=single_steps)
     print(f"main path serve {arch} (full width, {n_params} params f32, "
-          f"{cfg.dtype} compute): batch {batch}, prompt {prompt}: prefill "
+          f"{cfg.dtype} compute): batch {batch}, prompt {prompt} positions "
+          f"({n_tok} tokens): prefill "
           f"{summary['prefill_ms']:.1f} ms "
           f"({summary['prefill_tokens_per_s']:.0f} tok/s), {gen} greedy "
           f"steps in {times['decode_s'] * 1e3:.1f} ms "
@@ -1067,14 +1332,13 @@ def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
         state = {}
 
         def prefill():
-            state["logits"], state["cache"] = model.prefill(
-                params, {"tokens": tokens})
+            state["logits"], state["cache"] = model.prefill(params, inputs)
 
         def decode4():
             tok = torch.argmax(state["logits"], -1)[:, None].to(torch.int32)
             for i in range(4):
                 lg, state["cache"] = model.decode_step(
-                    params, state["cache"], tok, prompt + i)
+                    params, state["cache"], tok, n_tok + i)
                 tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
 
         prof = {}
@@ -2453,6 +2717,13 @@ MOE_LR = 1e-5
 #: the lrs ``moe_scale_phase`` steps at: the LM legs', a tenth of it, and
 #: ``MOE_LR``
 MOE_PROBE_LRS = (5e-3, 5e-4, MOE_LR)
+#: the full-width internvl2-2b as the packed round's local step on the
+#: scan driver: K=2 (its 7.56 GB float32 copies fit where Llama's 14.4 GB
+#: did not)
+VLM_SCAN_K = 2
+#: the scan options of ROADMAP A13 (ii) (d), served and trained card vs
+#: CPU on the Falcon-Mamba smoke config
+SSM_OPTIONS = {"ssm_scan": "sequential", "ssm_input_dtype": "bfloat16"}
 
 
 def tamed_init(init, cfg, scale=MOE_DOWN_SCALE):
@@ -2474,7 +2745,7 @@ def tamed_init(init, cfg, scale=MOE_DOWN_SCALE):
 #: the smoke configs of this slice's decoder family that ``lm_fed_phase``
 #: runs on the scan driver against the device-rng host driver
 NEW_SMOKE_ARCHS = ("granite-moe-1b-a400m", "mistral-large-123b",
-                   "kimi-k2-1t-a32b", "jamba-1.5-large-398b")
+                   "kimi-k2-1t-a32b", "jamba-1.5-large-398b", "internvl2-2b")
 
 
 def mixer_layers(cfg):
@@ -2877,6 +3148,9 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
     # temporaries pass 80 GB); granite-moe's copies are 5.5 GB
     full_cfg = full_width("llama3.2-3b", 1)
     moe_cfg = full_width("granite-moe-1b-a400m", 2, lr=MOE_LR)
+    # the VLM (1.89 B params, 7.56 GB a copy in float32) on the clients'
+    # tokens alone: its modality_proj's gradient is zero; K=2 on the scan
+    vlm_cfg = full_width("internvl2-2b", VLM_SCAN_K)
 
     # -- 2. the smoke configs ----------------------------------------------
     smoke = dict(n_selected=4, h_cap=2.0, fixed_epochs=2.0)
@@ -2933,6 +3207,23 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
             scan = drive(f"{arch} scan iid", acfg, 2, driver="scan",
                          block_size=2, **kw)
             same(f"{arch} scan vs device-rng host", host, scan)
+        # the VLM by id on the numpy host driver too, and with topk_q8
+        acfg = get_config("internvl2-2b", smoke=True)
+        kw = dict(smoke, model="internvl2-2b")
+        drive("internvl2-2b host iid", acfg, 2, **kw)
+        drive("internvl2-2b host iid topk_q8", acfg, 2,
+              upload_compress="topk_q8", **kw)
+        # the encoder-decoder is no local step: the reference's error
+        try:
+            FedSAEServer(ds, cfg=ServerConfig(**dict(
+                base, rounds=1, model="whisper-tiny")))
+        except ValueError as e:
+            if "decoder-only" not in str(e):
+                raise
+            out["whisper_by_id"] = str(e)
+            print(f"lm whisper-tiny by id raises: {e}", flush=True)
+        else:
+            raise RuntimeError("lm whisper-tiny by id built a server")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2944,7 +3235,8 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
     # -- 3. the kernels at the legs' shapes (outside the count) ----------
     gen = torch.Generator("cuda").manual_seed(3)
     cfgs = {"llama3.2-3b full width": full_cfg,
-            "granite-moe-1b-a400m full width": moe_cfg}
+            "granite-moe-1b-a400m full width": moe_cfg,
+            "internvl2-2b full width": vlm_cfg}
     cfgs.update({f"{a} smoke": get_config(a, smoke=True)
                  for a in ("llama3.2-3b", "falcon-mamba-7b")
                  + NEW_SMOKE_ARCHS})
@@ -3038,7 +3330,7 @@ def moe_scale_phase(torch, np, get_config, make_sent140_like):
         with torch.no_grad():
             for g in range(cfg.n_layers):
                 h, _, _ = decoder._apply_block(
-                    decoder._group(params["blocks"], g)["pos0"], cfg, 0, h,
+                    decoder.group(params["blocks"], g)["pos0"], cfg, 0, h,
                     pos, "train", None, None)
                 mags.append(float(h.float().abs().max()))
         out["max_h"][str(scale)] = mags
@@ -3482,6 +3774,9 @@ def main() -> int:
         torch, fx, fused_xent.fused_softmax_xent_fwd_lse, fx_bwd, ops, ref,
         gen, dev)
     torch.cuda.empty_cache()
+    slice_rows = check_slice_shapes(
+        torch, {"flash_attention_fwd": fa, "flash_attention_bwd": fa_bwd,
+                "fused_softmax_xent_fwd": fx}, ref, gen, dev)
 
     # -- 3. end to end on a small federation: card vs CPU -----------------
     small = make_femnist_like(n_clients=30, total=900, dim=64, max_size=40)
@@ -3555,9 +3850,16 @@ def main() -> int:
         torch, np, FedSAEServer, ServerConfig, make_sent140_like),
         "robust_card_vs_cpu": robust_card_vs_cpu(torch, np, aggregation)}
 
-    for arch in ("llama3.2-3b", "falcon-mamba-7b") + NEW_SMOKE_ARCHS:
+    for arch in (("llama3.2-3b", "falcon-mamba-7b") + NEW_SMOKE_ARCHS
+                 + ("whisper-tiny",)):
         serve_card_vs_cpu(torch, get_config, build_model, serve, arch)
-        train_card_vs_cpu(torch, np, get_config, build_model, arch)
+        train_card_vs_cpu(torch, np, get_config, build_model, train, arch)
+    # the scan options: the sequential route and bf16 scan inputs, which
+    # the port computes as the reference's kernel route does
+    serve_card_vs_cpu(torch, get_config, build_model, serve,
+                      "falcon-mamba-7b", SSM_OPTIONS)
+    train_card_vs_cpu(torch, np, get_config, build_model, train,
+                      "falcon-mamba-7b", SSM_OPTIONS)
 
     # -- 4. the main paths ------------------------------------------------
     counted = {"fed_cohort_gather": gather, "fed_local_sgd_mclr": sgd,
@@ -3722,6 +4024,20 @@ def main() -> int:
             counted, {"flash_attention_fwd": get_config(arch).n_layers})
         path_launches[f"serve_{arch}"] = serving[arch]["launches"]
         torch.cuda.empty_cache()
+    # the VLM: 512 patches before 1,536 tokens (a flash launch a layer of
+    # the prefill); the encoder-decoder: Whisper's 30 s window of 1,500
+    # frames under a 4-token decoder prompt (its 4 encoder layers
+    # non-causal, its 4 decoder layers causal; decode runs no kernel)
+    serving["internvl2-2b"] = serve_path(
+        torch, get_config, build_model, serve, "internvl2-2b", 4, 2048,
+        gen_steps, counted, {"flash_attention_fwd": 24})
+    path_launches["serve_internvl2-2b"] = serving["internvl2-2b"]["launches"]
+    torch.cuda.empty_cache()
+    serving["whisper-tiny"] = serve_path(
+        torch, get_config, build_model, serve, "whisper-tiny", 4, 1500,
+        gen_steps, counted, {"flash_attention_fwd": 8}, dec_tokens=4)
+    path_launches["serve_whisper-tiny"] = serving["whisper-tiny"]["launches"]
+    torch.cuda.empty_cache()
     # this slice's path: cross-silo FedSAE training at full width, then the
     # centralized training CLI on the smoke config
     training = {"silo_llama3.2-3b": silo_path(torch, np, get_config,
@@ -3735,29 +4051,53 @@ def main() -> int:
     path_launches["silo_granite-moe-1b-a400m"] = \
         training["silo_granite-moe-1b-a400m"]["launches"]
     torch.cuda.empty_cache()
-    reset_counts(counted)
-    t0 = time.perf_counter()
-    cli_losses = train.main(["--arch", "llama3.2-3b", "--smoke", "--steps",
-                             "5"])
-    torch.cuda.synchronize()
-    cli_launches = {k: fn.launches for k, fn in counted.items()}
-    cli_tc = tensor_core_counts(counted)
-    want = dict({k: 0 for k in counted}, flash_attention_fwd=10,
-                flash_attention_bwd=10, fused_softmax_xent_fwd=5,
-                fused_softmax_xent_bwd=5)
-    want_tc = {k: want[k] for k in cli_tc}      # bf16: all tensor cores
-    if (cli_launches != want or cli_tc != want_tc
-            or not np.isfinite(cli_losses).all()):
-        raise RuntimeError(f"launch.train smoke: losses {cli_losses}, "
-                           f"launched {cli_launches} (tensor cores "
-                           f"{cli_tc}), wanted {want}")
-    training["train_cli_smoke"] = dict(
-        losses=cli_losses, wall_s=time.perf_counter() - t0,
-        launches=cli_launches, tensor_core_launches=cli_tc)
-    path_launches["train_cli_smoke"] = cli_launches
-    print(f"main path python -m repro_torch.launch.train --arch llama3.2-3b "
-          f"--smoke --steps 5: losses {[round(x, 4) for x in cli_losses]}; "
-          f"launches {json.dumps(cli_launches)}", flush=True)
+    # this slice's models trained cross-silo at full width: the VLM on
+    # 512 patches + 1,536 tokens a row, the encoder-decoder on 4 rows of
+    # Whisper's 30 s window (1,500 frames) under 448 tokens
+    for arch, kw in (("internvl2-2b", {}),
+                     ("whisper-tiny", dict(B=4, S=1500))):
+        training[f"silo_{arch}"] = silo_path(
+            torch, np, get_config, build_model, counted, ref, arch=arch,
+            **kw)
+        path_launches[f"silo_{arch}"] = training[f"silo_{arch}"]["launches"]
+        torch.cuda.empty_cache()
+
+    def train_cli(label, arch, steps, per_step):
+        """``launch.train --arch <arch> --smoke`` (batch 4, 128 positions),
+        its launches ``per_step`` times ``steps``, every flash and
+        cross-entropy call on the tensor cores (bf16)."""
+        reset_counts(counted)
+        t0 = time.perf_counter()
+        losses = train.main(["--arch", arch, "--smoke", "--steps",
+                             str(steps)])
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counted.items()}
+        tc = tensor_core_counts(counted)
+        want = dict({k: 0 for k in counted},
+                    **{k: n * steps for k, n in per_step.items()})
+        want_tc = {k: want[k] for k in tc}
+        if got != want or tc != want_tc or not np.isfinite(losses).all():
+            raise RuntimeError(f"launch.train {arch} smoke: losses {losses},"
+                               f" launched {got} (tensor cores {tc}), "
+                               f"wanted {want}")
+        training[label] = dict(losses=losses,
+                               wall_s=time.perf_counter() - t0,
+                               launches=got, tensor_core_launches=tc)
+        path_launches[label] = got
+        print(f"main path python -m repro_torch.launch.train --arch {arch} "
+              f"--smoke --steps {steps}: losses "
+              f"{[round(x, 4) for x in losses]}; launches {json.dumps(got)}",
+              flush=True)
+
+    one_each = dict(fused_softmax_xent_fwd=1, fused_softmax_xent_bwd=1)
+    train_cli("train_cli_smoke", "llama3.2-3b", 5, dict(
+        one_each, flash_attention_fwd=2, flash_attention_bwd=2))
+    # the VLM's batch: 16 patches + 112 tokens; the encoder-decoder's: 128
+    # frames under 32 tokens, its 2 encoder and 2 decoder layers
+    train_cli("train_cli_internvl2-2b", "internvl2-2b", 2, dict(
+        one_each, flash_attention_fwd=2, flash_attention_bwd=2))
+    train_cli("train_cli_whisper-tiny", "whisper-tiny", 2, dict(
+        one_each, flash_attention_fwd=4, flash_attention_bwd=4))
     # this slice's path: telemetry on the FL paths
     telemetry = telemetry_phase(torch, np, FedSAEServer, ServerConfig,
                                 femnist, counted, frac)
@@ -3907,6 +4247,8 @@ def main() -> int:
         if row["name"] in lm_fed["shape_errs"]:
             row["lm_fed_shapes_max_abs_err"] = lm_fed["shape_errs"][
                 row["name"]]
+        if row["name"] in slice_rows:
+            row["vlm_encdec_shapes"] = slice_rows[row["name"]]
     assert all(math.isfinite(k["ms"]) for k in kernels)
     print(json.dumps({"main_path": summary, "path_launches": path_launches,
                       "profile": profiles, "serving": serving,

@@ -11,13 +11,13 @@ JAX nor anything of ``repro``.  Typical use:
     hist = srv.run()
 
     from repro_torch import build_model, get_config
-    from repro_torch.launch.serve import generate, prompt_tokens
+    from repro_torch.launch.serve import generate, prompt_batch
 
     cfg = get_config("llama3.2-3b")         # full width; smoke=True: tiny
     model = build_model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0))
     out, logits, times = generate(model, params,
-                                  prompt_tokens(cfg, 4, 2048, "cuda"), 32)
+                                  prompt_batch(cfg, 4, 2048, "cuda"), 32)
 
 Every attribute resolves lazily (PEP 562), as in ``repro``: importing the
 package pulls in nothing heavy.

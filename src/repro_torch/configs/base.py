@@ -2,10 +2,9 @@
 
 The port's own copy of ``repro/configs/base.py``: the same ``ArchConfig``
 fields and defaults, with torch dtypes behind ``compute_dtype`` and
-``params_dtype``.  ``get_config`` resolves the architectures the port
-serves (``PORTED_ARCHS``); every other architecture of the reference, and
-every config field value the port does not honour, raises a ``ValueError``
-that names the ROADMAP item that ports it.
+``params_dtype``.  ``get_config`` resolves every architecture id of the
+reference (``PORTED_ARCHS``: all ten); ``check_ported`` refuses the config
+field values the port does not honour with a ``ValueError``.
 """
 from __future__ import annotations
 
@@ -131,22 +130,13 @@ INPUT_SHAPES = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
-#: every architecture id of the reference, and the ROADMAP item that ports
-#: the ones this package does not serve yet (None: ported)
-ARCH_ITEMS = {
-    "minitron-8b": None,
-    "granite-moe-1b-a400m": None,
-    "internvl2-2b": "A13 (ii) (b): the VLM patch prefix",
-    "mistral-large-123b": None,
-    "whisper-tiny": "A13 (ii) (c): the encoder-decoder (encdec.py)",
-    "llama3.2-3b": None,
-    "granite-8b": None,
-    "kimi-k2-1t-a32b": None,
-    "falcon-mamba-7b": None,
-    "jamba-1.5-large-398b": None,
-}
-ARCH_IDS = tuple(ARCH_ITEMS)
-PORTED_ARCHS = tuple(a for a, item in ARCH_ITEMS.items() if item is None)
+#: every architecture id of the reference, each with a config module here
+ARCH_IDS = ("minitron-8b", "granite-moe-1b-a400m", "internvl2-2b",
+            "mistral-large-123b", "whisper-tiny", "llama3.2-3b",
+            "granite-8b", "kimi-k2-1t-a32b", "falcon-mamba-7b",
+            "jamba-1.5-large-398b")
+#: the ids the port serves: all of them
+PORTED_ARCHS = ARCH_IDS
 
 
 def _module_name(arch_id: str) -> str:
@@ -155,34 +145,28 @@ def _module_name(arch_id: str) -> str:
 
 def get_config(arch_id: str, smoke: bool = False) -> ArchConfig:
     """Resolve ``--arch <id>`` to its config (or reduced smoke variant)."""
-    if arch_id not in ARCH_ITEMS:
+    if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    item = ARCH_ITEMS[arch_id]
-    if item is not None:
-        raise ValueError(f"arch {arch_id!r} is not ported yet (ROADMAP "
-                         f"{item}); the port serves {PORTED_ARCHS}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise a ``ValueError`` naming its ROADMAP item for every feature of
-    ``cfg`` the port does not implement yet."""
+    """Raise a ``ValueError`` for every field value of ``cfg`` the port
+    does not implement.  Every architecture field is ported; the
+    selective-scan options are accepted as the reference defines them:
+    its sequential route is the function the port's scan computes on
+    every device, and ``ssm_input_dtype`` feeds only the reference's
+    chunked route (ROADMAP §C), so the port's scan takes float32 inputs
+    under either value."""
     unported = []
-    if cfg.is_encoder_decoder:
-        unported.append("the encoder-decoder (ROADMAP A13 (ii) (c))")
-    if cfg.n_patches:
-        unported.append("the VLM patch prefix (ROADMAP A13 (ii) (b))")
-    if cfg.ssm_input_dtype != "float32":
-        unported.append(f"ssm_input_dtype={cfg.ssm_input_dtype!r} (only "
-                        "float32; the bf16 scan inputs are a reference perf "
-                        "variant, ROADMAP A13 (ii) (d))")
-    if cfg.ssm_scan != "chunked":
-        unported.append(f"ssm_scan={cfg.ssm_scan!r} (the port's scan is "
-                        "sequential on every device: the step loop on the "
-                        "CPU, the CUDA kernel on the card; ROADMAP A13 (ii) "
-                        "(d))")
+    if cfg.ssm_scan not in ("chunked", "sequential"):
+        unported.append(f"ssm_scan={cfg.ssm_scan!r} (chunked or "
+                        "sequential)")
+    if cfg.ssm_input_dtype not in ("float32", "bfloat16"):
+        unported.append(f"ssm_input_dtype={cfg.ssm_input_dtype!r} "
+                        "(float32 or bfloat16)")
     if cfg.dtype not in ("bfloat16", "float32") or cfg.param_dtype not in (
             "bfloat16", "float32"):
         unported.append(f"dtype={cfg.dtype!r}/param_dtype="

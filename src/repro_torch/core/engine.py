@@ -279,7 +279,9 @@ class RoundEngine:
         stack, updated in place), step i on ``batch_at(i)``; the silo
         round's and the LM lanes' local step.  ``views`` cuts the params
         into the autograd leaves the step trains (``LocalStep.leaf_views``)
-        and each step takes their gradients with ``torch.autograd.grad``.
+        and each step takes their gradients with ``torch.autograd.grad``
+        (a leaf the loss does not read, as a VLM's ``modality_proj`` on a
+        token-only batch, gets zeros, as under ``jax.grad``).
         Without ``active`` every step updates (the compacted walk: the
         caller passes the lane's own budget); with it, a [steps] bool
         device tensor, step i updates through ``torch.where(active[i], p -
@@ -300,7 +302,8 @@ class RoundEngine:
                 for i in range(steps):
                     loss = self._prox(loss_fn(tree, batch_at(i)), tree,
                                       anchor)
-                    grads = torch.autograd.grad(loss, leaves)
+                    grads = torch.autograd.grad(
+                        loss, leaves, materialize_grads=True)
                     with torch.no_grad():
                         if active is None:
                             for p, g in zip(leaves, grads):

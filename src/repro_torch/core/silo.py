@@ -45,14 +45,14 @@ class SiloFedSAE:
     """FedSAE-Ira over K silos training a production model.
 
     ``model`` is a ``models.api.Model`` (trained through its
-    ``train_loss``, one autograd leaf per layer via its ``leaf_views``) or
-    a ``LocalStep``.  ``init_params`` (a dict of numpy arrays, e.g. the
-    reference's init) replaces the torch-drawn init, which cannot
-    reproduce the reference's threefry draws.  ``device`` defaults to
-    cuda.  ``sink`` receives one ``RoundRecord`` a round.
-    ``screen_norm`` turns the upload screen on with that delta l2 bound:
-    a rejected silo is aggregated as a crashed one (weight 0, the global
-    params' value)."""
+    ``train_loss``, one autograd leaf per layer via its ``leaf_views``; a
+    decoder-only, VLM or encoder-decoder config) or a ``LocalStep``.
+    ``init_params`` (a dict of numpy arrays, e.g. the reference's init)
+    replaces the torch-drawn init, which cannot reproduce the reference's
+    threefry draws.  ``device`` defaults to cuda.  ``sink`` receives one
+    ``RoundRecord`` a round.  ``screen_norm`` turns the upload screen on
+    with that delta l2 bound: a rejected silo is aggregated as a crashed
+    one (weight 0, the global params' value)."""
 
     def __init__(self, model, n_silos: int, lr: float = 5e-3,
                  max_steps: int = 16, U: float = 2.0, seed: int = 0,
@@ -97,7 +97,9 @@ class SiloFedSAE:
 
     def run_round(self, batches, sizes: np.ndarray):
         """batches: tree of arrays or tensors with leading [K, max_steps,
-        ...] (moved to the device here)."""
+        ...] (moved to the device here): tokens and labels, and a VLM's
+        patches or an encoder-decoder's frames, as the model's
+        ``train_loss`` takes a batch."""
         t_start = time.perf_counter()
         E_true = np.minimum(self.het.sample_round() * self.steps_scale,
                             self.max_steps)

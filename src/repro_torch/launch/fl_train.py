@@ -211,7 +211,10 @@ def run_silo(args):
     """Cross-silo FedSAE (``core.silo.SiloFedSAE``) over the smoke config
     of ``--silo-arch``, with the reference CLI's traffic: sizes in
     [100, 1000) and per-silo token streams from ``default_rng(0)``, whose
-    labels are the tokens themselves (the reference's batches)."""
+    labels are the tokens themselves (the reference's batches).  A VLM
+    trains on these tokens alone (its ``modality_proj`` gets a zero
+    gradient); an encoder-decoder raises, since its batches need
+    frames."""
     import torch
 
     from repro_torch.configs import get_config
@@ -219,6 +222,12 @@ def run_silo(args):
     from repro_torch.models.api import build_model
 
     acfg = get_config(args.silo_arch, smoke=True)
+    if acfg.is_encoder_decoder:
+        raise ValueError(
+            f"--silo-arch {args.silo_arch}: the CLI's silo batches carry "
+            "tokens only, and an encoder-decoder needs frames (the "
+            "reference's CLI fails on them with KeyError: 'frames'); train "
+            "it through core.silo.SiloFedSAE with frames in each batch")
     model = build_model(acfg)
     agg_kwargs = ({"trim_ratio": args.trim_ratio}
                   if args.aggregator == "trimmed_mean" else {})

@@ -9,9 +9,16 @@ decode.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
       --smoke --device cpu
 
-Prompt tokens come from ``np.random.default_rng(0)``, as in the
-reference's ``repro.launch.serve``, so both drivers serve the same prompts.
-The weights are random, drawn from a torch generator seeded with 0.
+  # the VLM (patches before the prompt) and the encoder-decoder (frames):
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-2b \
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --smoke --device cpu
+
+Prompt batches come from ``np.random.default_rng(0)``, as in the
+reference's ``repro.launch.serve``, so both drivers serve the same prompts
+(``prompt_batch``).  The weights are random, drawn from a torch generator
+seeded with 0.
 """
 from __future__ import annotations
 
@@ -23,31 +30,56 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models.api import build_model
+from repro_torch.models.api import VLM_FRONTEND_DIM, build_model
+from repro_torch.models.encdec import FRONTEND_DIM
 
 
-def prompt_tokens(cfg, batch: int, prompt_len: int, device=None):
-    """The reference driver's prompt batch: int32 [batch, prompt_len]."""
+def prompt_batch(cfg, batch: int, prompt_len: int, device=None):
+    """The reference driver's prompt batch, drawn in its order from
+    ``default_rng(0)``: tokens int32 [batch, prompt_len]; for a VLM the
+    first prompt_len - P of them and patches float32 [batch, P,
+    VLM_FRONTEND_DIM], P = min(n_patches, prompt_len // 4); for an
+    encoder-decoder frames float32 [batch, prompt_len, FRONTEND_DIM] and
+    tokens [batch, min(max_decoder_len, prompt_len)]."""
     ri = np.random.default_rng(0)
-    return torch.as_tensor(ri.integers(0, cfg.vocab_size,
-                                       (batch, prompt_len)),
-                           dtype=torch.int32, device=device)
+    ints = lambda n: torch.as_tensor(ri.integers(0, cfg.vocab_size,
+                                                 (batch, n)),
+                                     dtype=torch.int32, device=device)
+    normal = lambda *shape: torch.as_tensor(ri.normal(size=shape),
+                                            dtype=torch.float32,
+                                            device=device)
+    out = {"tokens": ints(prompt_len)}
+    if cfg.is_encoder_decoder:
+        frames = normal(batch, prompt_len, FRONTEND_DIM)
+        out = {"frames": frames,
+               "tokens": ints(min(cfg.max_decoder_len, prompt_len))}
+    elif cfg.n_patches:
+        P = min(cfg.n_patches, prompt_len // 4)
+        out["tokens"] = out["tokens"][:, :prompt_len - P]
+        out["patches"] = normal(batch, P, VLM_FRONTEND_DIM)
+    return out
 
 
 @torch.inference_mode()
-def generate(model, params, tokens, gen: int):
-    """Prefill ``tokens`` [B, S], then ``gen`` greedy decode steps, exactly
-    as the reference driver's loop: the prefill cache holds S slots, so
-    every decode step writes slot S - 1 (``layers.attn_decode``).
+def generate(model, params, batch, gen: int):
+    """Prefill ``batch`` (tokens [B, S], and a VLM's patches or an
+    encoder-decoder's frames), then ``gen`` greedy decode steps, exactly
+    as the reference driver's loop: decode step i writes position ``S +
+    i`` with S the prompt's token count.  A decoder's prefill cache holds
+    its prefill's slots (a VLM's P patch positions among them, which that
+    count leaves out, as the reference's does), so each step writes slot
+    min(S + i, slots - 1) (``layers.attn_decode``); an encoder-decoder's
+    holds ``max_decoder_len``.
 
     Returns (generated [B, gen + 1] int32: the prefill's argmax and one
     token per step, the last step's logits [B, V], {"prefill_s",
     "decode_s"}: host wall times that end in a device sync)."""
+    tokens = batch["tokens"]
     sync = (torch.cuda.synchronize if tokens.device.type == "cuda"
             else (lambda: None))
     sync()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens})
+    logits, cache = model.prefill(params, batch)
     sync()
     t_prefill = time.perf_counter() - t0
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
@@ -78,8 +110,8 @@ def main(argv=None):
     model = build_model(cfg)
     params = model.init(torch.Generator(dev).manual_seed(0))
     B, S = args.batch, args.prompt_len
-    tokens = prompt_tokens(cfg, B, S, dev)
-    gen, logits, times = generate(model, params, tokens, args.gen)
+    gen, logits, times = generate(model, params,
+                                  prompt_batch(cfg, B, S, dev), args.gen)
     if not bool(torch.isfinite(logits).all()):
         raise RuntimeError("non-finite logits")
     print(f"prefill: {B}x{S} in {times['prefill_s'] * 1e3:.0f}ms")

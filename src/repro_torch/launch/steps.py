@@ -36,7 +36,8 @@ def make_train_step(model, optimizer):
 
     The gradient of ``model.train_loss`` is taken over the model's
     ``leaf_views`` (one autograd leaf per layer), then restacked, and the
-    optimizer's update returns new params and state."""
+    optimizer's update returns new params and state.  A leaf the loss does
+    not read gets a zero gradient, as under ``jax.value_and_grad``."""
     views = getattr(model, "leaf_views", None) or (lambda p: p)
 
     def train_step(params, opt_state, batch):
@@ -45,7 +46,8 @@ def make_train_step(model, optimizer):
         for p in leaves:
             p.requires_grad_(True)
         loss, _ = model.train_loss(tree, batch)
-        grads = iter(torch.autograd.grad(loss, leaves))
+        grads = iter(torch.autograd.grad(loss, leaves,
+                                         materialize_grads=True))
         for p in leaves:
             p.requires_grad_(False)
         gtree = _restack(tree_map(lambda _: next(grads), tree))

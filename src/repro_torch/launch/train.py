@@ -10,13 +10,21 @@ local step of cross-silo FL run centrally).
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
       --smoke --steps 5
 
+  # the VLM (patches before the tokens) and the encoder-decoder (frames):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-2b \
+      --smoke --steps 5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
+      --smoke --steps 5 --device cpu
+
 The flags are the reference's (``repro.launch.train``) plus ``--device``.
 Weights are random, drawn from a torch generator seeded with 0; each
-batch's tokens come from ``np.random.default_rng`` seeded by a draw of a
-torch generator seeded with 1 (the reference seeds it from a threefry
-draw, which torch cannot replay).  ``--checkpoint PATH`` writes the
-trained params after the last step (``checkpoint.save_checkpoint``:
-atomic, read back by ``checkpoint.load_checkpoint``).
+batch (tokens, and a VLM's patches or an encoder-decoder's frames) comes
+from ``np.random.default_rng`` seeded by a draw of a torch generator
+seeded with 1, in the reference's order (``synth_batch_from``; the
+reference seeds it from a threefry draw, which torch cannot replay).
+``--checkpoint PATH`` writes the trained params after the last step
+(``checkpoint.save_checkpoint``: atomic, read back by
+``checkpoint.load_checkpoint``).
 """
 from __future__ import annotations
 
@@ -30,25 +38,44 @@ from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models.api import build_model
+from repro_torch.models.api import VLM_FRONTEND_DIM, build_model
+from repro_torch.models.encdec import FRONTEND_DIM
 from repro_torch.optim import adamw, sgd
 from repro_torch.tree import tree_leaves
 
 
 def synth_batch(cfg, gen: torch.Generator, batch: int, seq: int,
                 device=None):
-    """Random next-token batch {"tokens", "labels"}: int32 [batch, seq]
-    each, from numpy seeded by one draw of ``gen``."""
-    if cfg.is_encoder_decoder or cfg.n_patches:
-        raise ValueError(f"{cfg.name}: synth_batch covers decoder-only "
-                         "configs; the VLM prefix and the encoder-decoder "
-                         "are ROADMAP A13 (ii) (b) and (c)")
+    """A random training batch from numpy seeded by one draw of ``gen``
+    (``synth_batch_from``)."""
     seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=gen))
-    ri = np.random.default_rng(seed)
-    draw = lambda: torch.as_tensor(ri.integers(0, cfg.vocab_size,
-                                               (batch, seq)),
-                                   dtype=torch.int32, device=device)
-    return {"tokens": draw(), "labels": draw()}
+    return synth_batch_from(cfg, np.random.default_rng(seed), batch, seq,
+                            device)
+
+
+def synth_batch_from(cfg, ri: np.random.Generator, batch: int, seq: int,
+                     device=None):
+    """The reference's ``synth_batch`` from its numpy generator ``ri``,
+    drawn in its order.  Decoder-only: tokens and labels int32 [batch, seq
+    - P], and for a VLM (P = min(n_patches, seq // 4) > 0) patches float32
+    [batch, P, VLM_FRONTEND_DIM].  Encoder-decoder: frames float32 [batch,
+    seq, FRONTEND_DIM], then tokens and labels int32 [batch, min(
+    max_decoder_len, seq)]."""
+    ints = lambda n: torch.as_tensor(ri.integers(0, cfg.vocab_size,
+                                                 (batch, n)),
+                                     dtype=torch.int32, device=device)
+    normal = lambda *shape: torch.as_tensor(ri.normal(size=shape),
+                                            dtype=torch.float32,
+                                            device=device)
+    if cfg.is_encoder_decoder:
+        frames = normal(batch, seq, FRONTEND_DIM)
+        T = min(cfg.max_decoder_len, seq)
+        return {"frames": frames, "tokens": ints(T), "labels": ints(T)}
+    P = min(cfg.n_patches, seq // 4) if cfg.n_patches else 0
+    out = {"tokens": ints(seq - P), "labels": ints(seq - P)}
+    if P:
+        out["patches"] = normal(batch, P, VLM_FRONTEND_DIM)
+    return out
 
 
 def main(argv=None):

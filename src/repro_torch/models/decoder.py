@@ -12,8 +12,10 @@ no layer's backward fills a gradient the size of the whole stack.  With
 ``cfg.remat`` the training forward recomputes each group in the backward
 pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 An MoE FFN (``models.moe``) adds its load-balance loss to the blocks'
-``aux``, which the training loss weighs in; the VLM prefix raises for its
-ROADMAP item (A13 (ii) (b)).
+``aux``, which the training loss weighs in.  A VLM config (``n_patches``)
+prepends a batch's projected patch embeddings to its token embeddings
+(``embed_inputs``): the training loss drops those positions, the prefill
+cache keeps them.
 """
 from __future__ import annotations
 
@@ -67,11 +69,13 @@ def _init_one_pos(generator, cfg, pos: int, device, G: int):
     return params
 
 
-def init_params(generator: torch.Generator, cfg):
+def init_params(generator: torch.Generator, cfg, extra_embed_dim: int = 0):
     """Params on the generator's device, per-position leaves stacked over
     the groups: {"embeddings": {...}, "blocks": {"pos<p>": {"mixer",
-    "ffn"}}}, the reference's tree.  Torch cannot reproduce the reference's
-    threefry draws; parity runs hand its params in instead
+    "ffn"}}}, plus "modality_proj" [extra_embed_dim, d] when
+    ``extra_embed_dim`` (a VLM's patch projection): the reference's tree.
+    Torch cannot reproduce the reference's threefry draws; parity runs
+    hand its params in instead
     (``repro_torch.convert.params_from_reference``)."""
     check_ported(cfg)
     device = generator.device
@@ -79,6 +83,10 @@ def init_params(generator: torch.Generator, cfg):
     G = n_groups(cfg)
     params: Dict[str, Any] = {
         "embeddings": L.init_embeddings(generator, cfg, device)}
+    if extra_embed_dim:
+        params["modality_proj"] = L.dense_init(
+            generator, (extra_embed_dim, cfg.d_model), cfg.params_dtype,
+            device=device)
     params["blocks"] = {f"pos{p}": _init_one_pos(generator, cfg, p, device,
                                                  G) for p in range(period)}
     return params
@@ -151,25 +159,25 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
 # ---------------------------------------------------------------------------
 
 
-def _group(tree, g: int):
+def group(tree, g: int):
     """Group ``g`` of a params or cache tree: row g of each stacked leaf,
     or element g of a per-group list (``layer_views``)."""
     if isinstance(tree, dict):
-        return {k: _group(v, g) for k, v in tree.items()}
+        return {k: group(v, g) for k, v in tree.items()}
     return tree[g]
 
 
-def layer_views(params):
-    """The params tree with every block leaf ([G, ...]) replaced by the list
-    of its G rows, views of the same storage.  Training these rows as
-    separate autograd leaves gives each layer a gradient of its own size;
-    the stacked leaf would give every layer's backward a zero-filled
-    gradient of the whole stack."""
+def layer_views(params, stacked=("blocks",)):
+    """The params tree with every leaf ([G, ...]) under the ``stacked``
+    keys replaced by the list of its G rows, views of the same storage.
+    Training these rows as separate autograd leaves gives each layer a
+    gradient of its own size; the stacked leaf would give every layer's
+    backward a zero-filled gradient of the whole stack."""
     def rows(tree):
         if isinstance(tree, dict):
             return {k: rows(v) for k, v in tree.items()}
         return list(tree.unbind(0))
-    return {k: (rows(v) if k == "blocks" else v) for k, v in params.items()}
+    return {k: (rows(v) if k in stacked else v) for k, v in params.items()}
 
 
 def _train_forward(params, cfg, h, positions):
@@ -188,7 +196,7 @@ def _train_forward(params, cfg, h, positions):
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for g in range(n_groups(cfg)):
-        gparams = _group(params["blocks"], g)
+        gparams = group(params["blocks"], g)
         if remat:
             h, aux = checkpoint(group_body, h, aux, gparams,
                                 use_reentrant=False)
@@ -216,8 +224,8 @@ def forward(params, cfg, h, positions, mode: str, cache=None, cur_index=None):
     for g in range(G):
         for p in range(period):
             key = f"pos{p}"
-            pc = None if cache is None else _group(cache[key], g)
-            h, nc, a = _apply_block(_group(params["blocks"][key], g), cfg, p,
+            pc = None if cache is None else group(cache[key], g)
+            h, nc, a = _apply_block(group(params["blocks"][key], g), cfg, p,
                                     h, positions, mode, pc, cur_index)
             aux = aux + a
             for name, t in nc.items():
@@ -234,22 +242,28 @@ def forward(params, cfg, h, positions, mode: str, cache=None, cur_index=None):
 
 
 def embed_inputs(params, cfg, batch):
-    """Input embeddings from a batch dict (no VLM prefix: ROADMAP A13
-    (ii) (b))."""
-    if cfg.n_patches or "patches" in batch:
-        raise ValueError("the VLM patch prefix is not ported (ROADMAP A13 "
-                         "(ii) (b))")
-    return L.embed_tokens(params["embeddings"], cfg, batch["tokens"])
+    """Input embeddings from a batch dict: the tokens' rows [B, T, d], and
+    for a VLM config with ``batch["patches"]`` [B, P, F] the patches
+    projected by ``modality_proj`` in the compute dtype before them, [B,
+    P + T, d].  A VLM batch without patches embeds its tokens alone (the
+    token-only batches of the silo CLI and of ``from_model``)."""
+    h = L.embed_tokens(params["embeddings"], cfg, batch["tokens"])
+    if cfg.n_patches and "patches" in batch:
+        pre = L.linear(batch["patches"].to(cfg.compute_dtype),
+                       params["modality_proj"])
+        h = torch.cat([pre, h], dim=1)
+    return h
 
 
 def train_loss(params, cfg, batch):
-    """batch: tokens [B, S], labels [B, S], optional mask [B, S] (bool) ->
-    (loss, {"lm_loss", "aux_loss"}): the masked mean next-token
-    cross-entropy, its chunks through the fused cross-entropy op (the
-    kernel on a CUDA tensor, its plain version on a CPU one), plus ``0.01
-    * aux / n_layers`` for an MoE config (aux: the blocks' summed
-    load-balance losses).  As in the reference, "lm_loss" is that total
-    and "aux_loss" the summed aux."""
+    """batch: tokens [B, S], labels [B, S], optional mask [B, S] (bool),
+    and for a VLM optional patches [B, P, F] -> (loss, {"lm_loss",
+    "aux_loss"}): the masked mean next-token cross-entropy over the token
+    positions (the P patch positions dropped), its chunks through the
+    fused cross-entropy op (the kernel on a CUDA tensor, its plain version
+    on a CPU one), plus ``0.01 * aux / n_layers`` for an MoE config (aux:
+    the blocks' summed load-balance losses).  As in the reference,
+    "lm_loss" is that total and "aux_loss" the summed aux."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     h = embed_inputs(params, cfg, batch)
@@ -257,6 +271,8 @@ def train_loss(params, cfg, batch):
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
     h, _, aux = forward(params, cfg, h, positions, "train")
+    if cfg.n_patches and "patches" in batch:
+        h = h[:, batch["patches"].shape[1]:]
     loss = L.chunked_lm_loss(params["embeddings"], cfg, h, batch["labels"],
                              batch.get("mask"), use_fused=True)
     if cfg.n_experts:
@@ -265,8 +281,9 @@ def train_loss(params, cfg, batch):
 
 
 def prefill(params, cfg, batch):
-    """batch["tokens"]: [B, S] -> (logits [B, V] for the next position,
-    cache with S slots per attention layer)."""
+    """batch["tokens"]: [B, S] (and a VLM's patches [B, P, F]) -> (logits
+    [B, V] for the next position, cache with S (P + S) slots per attention
+    layer)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     h = embed_inputs(params, cfg, batch)

@@ -294,10 +294,10 @@ def resolve_local_step(spec, dataset) -> LocalStep:
     dataset, mclr otherwise), a name from ``LOCAL_STEPS``, an arch id
     known to ``repro_torch.configs.get_config`` (its smoke config,
     wrapped by ``models.api.from_model`` as a causal LM over the clients'
-    tokens), or any other object, which ``as_local_step`` takes (a
-    ``LocalStep`` returned unchanged: a full-width ``from_model`` step goes
-    in this way; a duck-typed model wrapped; anything else a
-    ``TypeError``)."""
+    tokens; an encoder-decoder id raises its ``ValueError``), or any other
+    object, which ``as_local_step`` takes (a ``LocalStep`` returned
+    unchanged: a full-width ``from_model`` step goes in this way; a
+    duck-typed model wrapped; anything else a ``TypeError``)."""
     if spec is not None and not isinstance(spec, str):
         return as_local_step(spec)
     n_features, n_classes, vocab = _dataset_dims(dataset)

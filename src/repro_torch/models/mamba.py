@@ -9,6 +9,12 @@ step loop, as the reference's does.
 The reference's chunked associative scan is a TPU formulation of the same
 function and is not copied.  Decode keeps a constant [B, d_inner, N] state
 plus a [B, K-1, d_inner] conv ring.
+
+Both of the reference's scan options are accepted and computed as its
+kernel route computes them: ``ssm_scan="sequential"`` is the recurrence
+this module already runs, and ``ssm_input_dtype`` feeds only the
+reference's chunked route (its kernel and sequential routes ignore it),
+so the scan's inputs stay float32 under "bfloat16" too (ROADMAP §C).
 """
 from __future__ import annotations
 

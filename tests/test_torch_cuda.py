@@ -34,6 +34,9 @@ bfloat16 ulp) and atol 4e-3.  The fused cross-entropy's bfloat16
 tensor-core backward (dlogits split into bf16 hi + lo, each gradient
 rounded once) is held per leaf to the plain recompute and to its rounding
 model ``ref.softmax_xent_bwd_tc`` at rtol 2^-7 and atol 2^-9 max|want|.
+The VLM and encoder-decoder smoke configs serve on the card as on the CPU
+(the same tokens, logits within 1e-4), one flash launch an attention
+layer of the prefill.
 """
 import numpy as np
 import pytest
@@ -314,6 +317,10 @@ FLASH_CASES = [
     (1, 256, 256, 8, 2, 112, True, 0, torch.bfloat16),
     (2, 80, 80, 4, 2, 32, True, 64, torch.bfloat16),
     (1, 80, 80, 4, 2, 32, True, 64, torch.float32),
+    # whisper's encoder: non-causal, 6/6 heads of 64 over its 1,500
+    # frames, a length off the 64-row tile (the last k tile partial)
+    (2, 1500, 1500, 6, 6, 64, False, 0, torch.bfloat16),
+    (1, 1500, 1500, 6, 6, 64, False, 0, torch.float32),
 ]
 # the bf16 route (tensor cores) against its rounding model: one bf16 ulp
 MODEL_RTOL, MODEL_ATOL = 2 ** -7, 4e-3
@@ -456,6 +463,8 @@ XENT_CASES = [
     (300, 96, 5000, torch.bfloat16),
     (1, 32, 300, torch.float32),
     (256, 1024, 49155, torch.bfloat16),     # granite-moe's odd vocabulary
+    (256, 384, 51865, torch.bfloat16),      # whisper-tiny's
+    (256, 2048, 92553, torch.bfloat16),     # internvl2-2b's
 ]
 
 
@@ -486,6 +495,8 @@ XENT_ROUTES = [
     (150, 36, 704, torch.bfloat16, False),
     (150, 32, 700, torch.float32, False),
     (64, 1024, 49155, torch.bfloat16, False),   # V % 8 != 0: CUDA cores
+    (64, 384, 51865, torch.bfloat16, False),    # whisper-tiny's V
+    (64, 2048, 92553, torch.bfloat16, False),   # internvl2-2b's V
 ]
 #: the backward kernels' bound against the plain recompute, per leaf:
 #: rtol 2^-7 (one bf16 ulp) and atol 2^-9 max|want|
@@ -1044,8 +1055,39 @@ def test_cuda_hybrid_serves_past_its_window_like_the_cpu(cuda_device):
     for p, device in ((params_from_reference(params_to_numpy(params),
                                              cuda_device), cuda_device),
                       (params, torch.device("cpu"))):
-        tokens = serve.prompt_tokens(cfg, 2, cfg.window_size + 16, device)
-        runs.append(serve.generate(model, p, tokens, 4))
+        batch = serve.prompt_batch(cfg, 2, cfg.window_size + 16, device)
+        runs.append(serve.generate(model, p, batch, 4))
+    (tok_card, lg_card, _), (tok_cpu, lg_cpu, _) = runs
+    assert torch.equal(tok_card.cpu(), tok_cpu)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,prompt", [("internvl2-2b", 40),
+                                         ("whisper-tiny", 48)])
+def test_cuda_vlm_and_encdec_serve_like_the_cpu(cuda_device, arch, prompt):
+    """The VLM smoke (16 of the prompt's positions patches) and the
+    encoder-decoder smoke (48 frames, 32 decoder tokens), float32, served
+    4 greedy tokens on the card and on the CPU from the same params and
+    the serve driver's batch: the same tokens, logits within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import params_from_reference, params_to_numpy
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    cfg = get_config(arch, smoke=True).replace(dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    fa = flash_attention.flash_attention_fwd
+    runs = []
+    for p, device in ((params_from_reference(params_to_numpy(params),
+                                             cuda_device), cuda_device),
+                      (params, torch.device("cpu"))):
+        before = fa.launches
+        batch = serve.prompt_batch(cfg, 2, prompt, device)
+        runs.append(serve.generate(model, p, batch, 4))
+        if device.type == "cuda":     # one launch an attention layer
+            assert fa.launches - before == cfg.n_layers + (
+                cfg.n_encoder_layers if cfg.is_encoder_decoder else 0)
     (tok_card, lg_card, _), (tok_cpu, lg_cpu, _) = runs
     assert torch.equal(tok_card.cpu(), tok_cpu)
     torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)

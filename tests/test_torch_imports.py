@@ -19,6 +19,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 assert "repro_torch.launch.mesh" in names
 assert "repro_torch.models.moe" in names
 assert "repro_torch.configs.jamba_1_5_large_398b" in names
+assert "repro_torch.models.encdec" in names
+assert "repro_torch.configs.internvl2_2b" in names
+assert "repro_torch.configs.whisper_tiny" in names
 for name in names:
     importlib.import_module(name)
 for name in repro_torch.__all__:
@@ -38,7 +41,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 65        # the MoE and six configs included
+    assert int(n_modules) >= 68   # the MoE, encdec and all ten configs
     assert bad == "", f"port pulled in: {bad}"
 
 

@@ -186,14 +186,18 @@ def test_resolve_arch_id_errors_match_reference(spec, kind, match):
 
 def test_resolve_vocab_and_unported_archs():
     """A dataset vocabulary past the arch's raises the reference's error;
-    an arch whose item is open raises the port's, naming it."""
+    the encoder-decoder raises the reference's ``from_model`` error in
+    both packages (it is not a decoder-only LM)."""
     big = dict(DS, vocab=600)
     with pytest.raises(ValueError, match="arch vocab 512 < dataset vocab"):
         tresolve(LLAMA, worker.lm_federation(4, **big))
     with pytest.raises(ValueError, match="arch vocab 512 < dataset vocab"):
         jresolve(LLAMA, jsent140(**big))
-    with pytest.raises(ValueError, match=r"ROADMAP A13 \(ii\)"):
+    match = "from_model supports decoder-only architectures; whisper-tiny"
+    with pytest.raises(ValueError, match=match):
         tresolve("whisper-tiny", _tfed())
+    with pytest.raises(ValueError, match=match):
+        jresolve("whisper-tiny", _jfed())
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,7 @@ def _close_tree(got, want, tol):
 def test_prefill_and_decode_match_reference(arch, dtype, tol):
     jm, jp, tm, tp = _models(arch, dtype)
     B, S = 2, 16
-    tokens = serve.prompt_tokens(tm.cfg, B, S, "cpu")
+    tokens = serve.prompt_batch(tm.cfg, B, S, "cpu")["tokens"]
     jtok = jnp.asarray(tokens.numpy())
     logits, cache = tm.prefill(tp, {"tokens": tokens})
     with jax.disable_jit():
@@ -90,7 +90,7 @@ def test_decode_from_an_empty_cache_matches_reference(arch):
     teacher-forcing test layout), float32, op by op as above."""
     jm, jp, tm, tp = _models(arch, "float32")
     B, S = 2, 6
-    toks = serve.prompt_tokens(tm.cfg, B, S, "cpu")
+    toks = serve.prompt_batch(tm.cfg, B, S, "cpu")["tokens"]
     cache = tm.init_cache(B, S + 4, "cpu")
     jcache = jm.init_cache(B, S + 4)
     _close_tree(cache, jcache, 0.0)
@@ -111,7 +111,7 @@ def test_generate_reproduces_reference_driver_tokens(arch):
     with cur = S + i; the port's ``generate`` must give the same tokens."""
     jm, jp, tm, tp = _models(arch, "float32")
     B, S, gen = 2, 12, 5
-    tokens = serve.prompt_tokens(tm.cfg, B, S, "cpu")
+    tokens = serve.prompt_batch(tm.cfg, B, S, "cpu")["tokens"]
     jtokens = jnp.asarray(np.random.default_rng(0).integers(
         0, jm.cfg.vocab_size, (B, S)), jnp.int32)
     np.testing.assert_array_equal(tokens.numpy(), np.asarray(jtokens))
@@ -126,7 +126,7 @@ def test_generate_reproduces_reference_driver_tokens(arch):
         want.append(tok)
     want = np.asarray(jnp.concatenate(want, axis=1))
 
-    got, glogits, times = serve.generate(tm, tp, tokens, gen)
+    got, glogits, times = serve.generate(tm, tp, {"tokens": tokens}, gen)
     assert got.dtype == torch.int32 and tuple(got.shape) == (B, gen + 1)
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_allclose(glogits.numpy(), np.asarray(logits),
@@ -144,10 +144,12 @@ def test_serve_cli_runs_on_the_cpu(arch, capsys):
 
 
 def test_unported_archs_and_fields_raise_with_their_roadmap_item():
-    for arch, item in (("internvl2-2b", r"A13 \(ii\) \(b\)"),
-                       ("whisper-tiny", r"A13 \(ii\) \(c\)")):
-        with pytest.raises(ValueError, match="ROADMAP " + item):
-            get_config(arch)
+    """Every id of the reference resolves (the VLM and the
+    encoder-decoder too), and every architecture field and both scan
+    options pass ``check_ported``; an unknown id and a dtype the port does
+    not take still raise."""
+    assert get_config("internvl2-2b").n_patches == 1024
+    assert get_config("whisper-tiny").is_encoder_decoder
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     # MoE is ported: granite-moe resolves and n_experts passes
@@ -155,9 +157,12 @@ def test_unported_archs_and_fields_raise_with_their_roadmap_item():
     cfg = get_config("falcon-mamba-7b", smoke=True)
     check_ported(get_config("llama3.2-3b", smoke=True).replace(
         n_experts=4, experts_per_token=2))
-    for bad in (dict(ssm_scan="sequential"),
-                dict(ssm_input_dtype="bfloat16"), dict(n_patches=4),
-                dict(is_encoder_decoder=True)):
+    for ok in (dict(ssm_scan="sequential"),
+               dict(ssm_input_dtype="bfloat16"), dict(n_patches=4),
+               dict(is_encoder_decoder=True)):
+        check_ported(cfg.replace(**ok))
+    for bad in (dict(dtype="float16"), dict(param_dtype="float64"),
+                dict(ssm_scan="parallel"), dict(ssm_input_dtype="int8")):
         with pytest.raises(ValueError, match="not ported"):
             check_ported(cfg.replace(**bad))
 

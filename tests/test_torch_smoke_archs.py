@@ -1,6 +1,11 @@
 """The twin of ``tests/test_smoke_archs.py`` over every architecture the
-port serves (``PORTED_ARCHS``: the dense configs, the MoE configs, the
-Mamba and the jamba hybrid), each against the reference on the CPU.
+port serves (``PORTED_ARCHS``: all ten of the reference's ids, the dense
+configs, the MoE configs, the Mamba, the jamba hybrid, the VLM and the
+encoder-decoder), each against the reference on the CPU.  The batches
+follow the reference test's ``make_batch`` shapes, drawn with numpy: the
+VLM's P = min(n_patches, S // 4) patches [B, P, 1024] before S - P
+tokens, the encoder-decoder's frames [B, S, 128] and min(max_decoder_len,
+S) tokens.
 
 For each arch: the reduced smoke config (the reference's, field by
 field); the params tree ``params_from_reference`` carries across (its key
@@ -22,8 +27,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JARCH_IDS
 from repro.configs import get_config as jget_config
+from repro.models.api import VLM_FRONTEND_DIM as JVLM_DIM
 from repro.models.api import build_model as jbuild_model
+from repro.models.encdec import FRONTEND_DIM as JFRONTEND_DIM
 from repro.optim import sgd as jsgd
 from repro_torch.configs import PORTED_ARCHS, get_config
 from repro_torch.convert import params_from_reference, params_to_numpy
@@ -37,14 +45,32 @@ B, S = 2, 64
 TOL = 1e-4
 NEW_ARCHS = ("minitron-8b", "granite-8b", "mistral-large-123b",
              "granite-moe-1b-a400m", "kimi-k2-1t-a32b",
-             "jamba-1.5-large-398b")
+             "jamba-1.5-large-398b", "internvl2-2b", "whisper-tiny")
 
 
 def _batch(cfg, seq=S, seed=0):
+    """The reference test's ``make_batch`` layout at ``seq`` positions,
+    drawn with numpy: {"tokens", "labels"} and a VLM's "patches" or an
+    encoder-decoder's "frames"."""
     ri = np.random.default_rng(seed)
-    toks = ri.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
-    labels = ri.integers(0, cfg.vocab_size, (B, seq)).astype(np.int32)
-    return toks, labels
+    ints = lambda n: ri.integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
+    if cfg.is_encoder_decoder:
+        T = min(cfg.max_decoder_len, seq)
+        return {"frames": ri.normal(size=(B, seq, JFRONTEND_DIM)
+                                    ).astype(np.float32),
+                "tokens": ints(T), "labels": ints(T)}
+    P = min(cfg.n_patches, seq // 4) if cfg.n_patches else 0
+    out = {"tokens": ints(seq - P), "labels": ints(seq - P)}
+    if P:
+        out["patches"] = ri.normal(size=(B, P, JVLM_DIM)).astype(np.float32)
+    return out
+
+
+def _prompt(cfg, seq=S, seed=0):
+    """A prompt batch: ``_batch`` without its labels."""
+    out = _batch(cfg, seq, seed)
+    del out["labels"]
+    return out
 
 
 def _t(batch):
@@ -77,20 +103,22 @@ def _reference_run(jm, jp, cfg):
     positions the prefill logits and cache, then one greedy decode step's
     logits and cache (its token the prefill's argmax); and the decode of
     token 0 from an empty cache."""
-    toks, labels = _batch(cfg)
-    prompts = {seq: _batch(cfg, seq)[0] for seq in _prompt_lens(cfg)}
+    batch = _batch(cfg)
+    prompts = {seq: _prompt(cfg, seq) for seq in _prompt_lens(cfg)}
     opt = jsgd(0.1)
 
     @jax.jit
     def run(p):
         (loss, met), g = jax.value_and_grad(jm.train_loss, has_aux=True)(
-            p, {"tokens": toks, "labels": labels})
+            p, batch)
         p1, _ = opt.update(g, opt.init(p), p)
-        out = {"loss": loss, "aux": met["aux_loss"], "p1": p1}
+        out = {"loss": loss, "aux": met.get("aux_loss", jnp.float32(0)),
+               "p1": p1}
         for seq, prompt in prompts.items():
-            logits, cache = jm.prefill(p, {"tokens": prompt})
+            logits, cache = jm.prefill(p, prompt)
             tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
-            logits2, cache2 = jm.decode_step(p, cache, tok, jnp.int32(seq))
+            cur = prompt["tokens"].shape[1]
+            logits2, cache2 = jm.decode_step(p, cache, tok, jnp.int32(cur))
             out[f"s{seq}"] = (logits, cache, tok, logits2, cache2)
         empty = jm.init_cache(B, S)
         out["empty"] = (empty, jm.decode_step(
@@ -120,8 +148,8 @@ def arch_setup(request):
 
 def test_ported_archs_are_every_decoder_arch():
     assert set(NEW_ARCHS) | {"llama3.2-3b", "falcon-mamba-7b"} == set(
-        PORTED_ARCHS)
-    assert len(PORTED_ARCHS) == 8
+        PORTED_ARCHS) == set(JARCH_IDS)
+    assert len(PORTED_ARCHS) == 10
 
 
 def test_smoke_config_is_reduced(arch_setup):
@@ -156,18 +184,17 @@ def test_params_cross_from_the_reference(arch_setup):
 def test_forward_loss_finite(arch_setup):
     arch = arch_setup["arch"]
     _, _, tm, tp = arch_setup["bfloat16"]
-    toks, labels = _batch(tm.cfg)
-    loss, metrics = tm.train_loss(tp, {"tokens": torch.from_numpy(toks),
-                                       "labels": torch.from_numpy(labels)})
+    loss, metrics = tm.train_loss(tp, _t(_batch(tm.cfg)))
     assert loss.shape == () and torch.isfinite(loss), (arch, loss)
-    assert torch.isfinite(metrics["aux_loss"])
+    aux = metrics.get("aux_loss", torch.zeros(()))
+    assert torch.isfinite(aux)
     _, _, tm, tp = arch_setup["float32"]
-    batch = dict(zip(("tokens", "labels"), _batch(tm.cfg)))
-    loss, metrics = tm.train_loss(tp, _t(batch))
+    loss, metrics = tm.train_loss(tp, _t(_batch(tm.cfg)))
     ref = arch_setup["ref"]
     np.testing.assert_allclose(float(loss), ref["loss"], rtol=TOL, atol=TOL)
-    np.testing.assert_allclose(float(metrics["aux_loss"]), ref["aux"],
-                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        float(metrics.get("aux_loss", torch.zeros(()))), ref["aux"],
+        rtol=TOL, atol=TOL)
 
 
 def test_train_step_updates_and_finite(arch_setup):
@@ -176,7 +203,7 @@ def test_train_step_updates_and_finite(arch_setup):
     arch = arch_setup["arch"]
     for dtype in ("bfloat16", "float32"):
         jm, jp, tm, tp = arch_setup[dtype]
-        batch = dict(zip(("tokens", "labels"), _batch(tm.cfg)))
+        batch = _batch(tm.cfg)
         opt = sgd(0.1)
         p1, _, loss = make_train_step(tm, opt)(tp, opt.init(tp), _t(batch))
         assert torch.isfinite(loss), arch
@@ -192,13 +219,14 @@ def test_train_step_updates_and_finite(arch_setup):
 
 def _prefill_decode(arch_setup, dtype, seq, tok=None):
     _, _, tm, tp = arch_setup[dtype]
-    toks, _ = _batch(tm.cfg, seq)
-    logits, cache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)})
+    prompt = _t(_prompt(tm.cfg, seq))
+    logits, cache = tm.prefill(tp, prompt)
     assert tuple(logits.shape) == (B, tm.cfg.vocab_size)
     assert torch.isfinite(logits).all(), arch_setup["arch"]
     if tok is None:
         tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
-    logits2, cache2 = tm.decode_step(tp, cache, tok, seq)
+    logits2, cache2 = tm.decode_step(tp, cache, tok,
+                                     prompt["tokens"].shape[1])
     assert tuple(logits2.shape) == (B, tm.cfg.vocab_size)
     assert torch.isfinite(logits2).all(), arch_setup["arch"]
     return logits, cache, logits2, cache2
