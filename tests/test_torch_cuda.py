@@ -1091,3 +1091,32 @@ def test_cuda_vlm_and_encdec_serve_like_the_cpu(cuda_device, arch, prompt):
     (tok_card, lg_card, _), (tok_cpu, lg_cpu, _) = runs
     assert torch.equal(tok_card.cpu(), tok_cpu)
     torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_warm_profile_keeps_a_device_record_of_every_launch(
+        cuda_device, tmp_path):
+    """``obs.warm_profile`` opens its window after its warm-up launches: the
+    trace holds the block's 40 launches, each with its kernel record (the
+    same correlation id), and none of the warm-up's."""
+    import json
+
+    from repro_torch.obs import warm_profile
+    x = torch.zeros(1 << 16, device=cuda_device)
+    torch.cuda.synchronize()
+    with warm_profile() as prof:
+        for _ in range(40):
+            x.mul_(1.5)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    calls = {e["args"]["correlation"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "aunch" in e["name"]}
+    kernels = [e["args"]["correlation"] for e in events
+               if e.get("cat") == "kernel"]
+    assert len(calls) == 40
+    assert sorted(kernels) == sorted(calls)
