@@ -61,22 +61,27 @@ last line):
      bound: FlashAttention-2's five products per unmasked pair in bf16;
    - the fused cross-entropy forward (loss and lse) at Llama's loss chunk
      (T=1,024, d=3,072, V=128,256, bf16: the tensor-core route), a ragged
-     vocabulary (V=50,257, bf16) and float32 (both the CUDA-core route),
-     within 1e-4; library ``logsumexp(h.float() @ W.float()) - gold``;
-     bound: 2 T d V flop in bf16; then its backward kernels at the chunk
-     (dh, dW) against the plain recompute (``ref.softmax_xent`` under
-     autograd on the same bf16 leaves) within rtol 2^-7 and atol 2^-9
-     max|want| per leaf, the rounding model ``ref.softmax_xent_bwd_tc``
-     printed; no one library call computes it; bound: the three products'
-     3 x 2 T d V flop in bf16;
+     vocabulary in a contiguous W (V=50,257, bf16: rows not 16 bytes
+     apart) and float32 (both the CUDA-core route), within 1e-4; library
+     ``logsumexp(h.float() @ W.float()) - gold``; bound: 2 T d V flop in
+     bf16; then its backward kernels at the chunk (dh, dW) against the
+     plain recompute (``ref.softmax_xent`` under autograd on the same bf16
+     leaves) within rtol 2^-7 and atol 2^-9 max|want| per leaf, the
+     rounding model ``ref.softmax_xent_bwd_tc`` printed; library (timing
+     only): the autograd backward of the forward's library expression;
+     bound: the three products' 3 x 2 T d V flop in bf16; the backward's
+     four kernels' split from one profiled call;
    - at the shapes the VLM and the encoder-decoder give them
      (``check_slice_shapes``): the flash forward and backward at
      whisper-tiny's encoder (B=4, S=T=1,500 frames, 6/6 heads, hd 64,
      non-causal, bf16, the last k tile partial) on the tensor cores, and
-     the cross-entropy forward on its CUDA-core route at a 1,024-row
-     chunk of whisper-tiny (d=384, V=51,865) and internvl2-2b (d=2,048,
-     V=92,553), each against its plain version and timed beside its
-     bound;
+     the cross-entropy forward and backward on the tensor cores at a
+     1,024-row chunk of the odd vocabularies, whisper-tiny (d=384,
+     V=51,865), granite-moe (d=1,024, V=49,155) and internvl2-2b
+     (d=2,048, V=92,553), W in a ``[d, ceil8(V)]`` buffer whose pad
+     columns are NaN, each against its plain version (the backward also
+     against its rounding model) and timed beside its bound and library
+     call;
 3. check the port end to end on small federations: the same server on
    the card and on the CPU, with the same init and minibatch draws, picks
    the same cohorts and workloads; MCLR ends within 2e-5, the MLP with
@@ -201,9 +206,8 @@ last line):
    graph nodes printed; and the float32 Llama smoke round card vs CPU
    within 1e-4; granite-moe-1b-a400m (the MoE FFN, 1.38 B params) at
    full width the same way, K=2 on the numpy host driver and K=2 on the
-   scan driver, its cross-entropy on the CUDA-core route (V = 49,155 is
-   not a multiple of 8: the forward kernel on the CUDA cores, the
-   backward the plain recompute, both printed); the smoke configs of
+   scan driver, its cross-entropy on the tensor cores (V = 49,155, W
+   handed over pitched; no plain recompute, counted); the smoke configs of
    granite-moe, mistral-large-123b, kimi-k2-1t-a32b and the jamba hybrid
    by id (``model=<id>``, as ``fl_train --model <id>``), 2 rounds on the
    scan driver bitwise the device-rng host driver; the LM kernels at these
@@ -219,9 +223,9 @@ last line):
    32 tokens; 4 non-causal and 4 causal flash launches), both trained
    cross-silo at full width (K=2, max_steps 4, 2 rounds; internvl2 at
    B=1, 512 patches + 1,536 tokens, remat; whisper at B=4, 1,500 frames
-   under 448 tokens), their cross-entropy on the CUDA-core route with
-   the plain recompute as backward, and both through ``launch.train
-   --smoke``; internvl2-2b as the packed round's local step at full
+   under 448 tokens), their cross-entropy on the tensor cores with its
+   backward kernels (no plain recompute, counted), and both through
+   ``launch.train --smoke``; internvl2-2b as the packed round's local step at full
    width (K=2 host, K=2 scan) and by id at smoke size on every driver
    (topk_q8 too), and ``model="whisper-tiny"`` refused with the
    reference's error;
@@ -250,6 +254,7 @@ each in float32).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -635,10 +640,12 @@ def check_flash_bwd(torch, fa, ref, gen, dev):
 
 def check_xent(torch, fx, fx_lse, bx, ops, ref, gen, dev):
     """Phase 2: the fused cross-entropy forward against its plain version
-    at Llama-3.2-3B's loss chunk (tensor cores), a ragged vocabulary and
-    float32 (CUDA cores), then its backward kernels at the chunk against the
-    plain recompute; then times.  Returns the forward's and the backward's
-    JSON fields (launches filled in later)."""
+    at Llama-3.2-3B's loss chunk (tensor cores), a ragged vocabulary in a
+    contiguous bf16 W (V = 50,257: its rows are not 16 bytes apart, so the
+    CUDA cores) and float32 (CUDA cores), then its backward kernels at the
+    chunk against the plain recompute; then times (``xent_times``).
+    Returns the forward's and the backward's JSON fields (launches filled
+    in later)."""
     cases = [  # (label, T, d, V, dtype, tensor cores)
         ("llama chunk bf16", 1024, 3072, 128256, torch.bfloat16, True),
         ("ragged V=50257 bf16", 256, 3072, 50257, torch.bfloat16, False),
@@ -708,21 +715,47 @@ def check_xent(torch, fx, fx_lse, bx, ops, ref, gen, dev):
     del model, dh, dW
     torch.cuda.empty_cache()
 
-    def library():
-        logits = h.float() @ W.float()
+    spin(torch)
+    f_row, b_row = xent_times(torch, fx, bx, ops, ref, h, W, labels, lse, g)
+    f_row["max_abs_err"] = err
+    b_row.update(max_abs_err=max(b_err),
+                 rounding_model_max_abs_err=max(m_err))
+    return f_row, b_row
+
+
+#: the backward's kernels in a profile: (label, name fragment)
+XENT_BWD_PARTS = (("dlogits", "xent_dlogits_tc"), ("dh", "xent_dh_tc"),
+                  ("dh sum", "xent_dh_reduce"), ("dW", "xent_dw_tc"))
+
+
+def xent_times(torch, fx, bx, ops, ref, h, W, labels, lse, g, tag=""):
+    """Times of the cross-entropy forward and backward on (h, W, labels)
+    and the loss cotangent g, each beside its plain version, its bound and
+    its library yardstick (timing only): the forward against
+    ``logsumexp(h.float() @ W.float()) - gold``, the backward against that
+    expression's autograd backward (its graph built once); and the
+    backward's split by kernel from one profiled call.  Returns the
+    forward's and the backward's JSON fields (no errors, no launches)."""
+    (T, d), V = h.shape, W.shape[1]
+    hg, Wg = (t.detach().float().requires_grad_() for t in (h, W))
+
+    def library_expr(a, b):
+        logits = a @ b
         return (torch.logsumexp(logits, -1)
                 - logits.gather(1, labels.long()[:, None])[:, 0])
 
-    spin(torch)
+    out = library_expr(hg, Wg)
     ms = time_ms(torch, lambda: fx(h, W, labels), 10)
     plain = time_ms(torch, lambda: ref.softmax_xent(h, W, labels), 5)
-    lib = time_ms(torch, library, 5)
+    lib = time_ms(torch, lambda: library_expr(h.float(), W.float()), 5)
     b_ms = time_ms(torch, lambda: bx(h, W, labels, lse, g), 10)
     b_plain = time_ms(torch, lambda: ops._recompute_vjp(
         ref.softmax_xent, (h, W, labels), (g,)), 3)
-    parts = ("xent_dlogits_tc", "xent_grad_gemm_tc_kernel<true>",
-             "xent_grad_gemm_tc_kernel<false>")
-    split_ms = profiled(torch, lambda: bx(h, W, labels, lse, g), parts)[3]
+    b_lib = time_ms(torch, lambda: torch.autograd.grad(
+        out, (hg, Wg), g, retain_graph=True), 3)
+    del out, hg, Wg
+    split_ms = profiled(torch, lambda: bx(h, W, labels, lse, g),
+                        tuple(p for _, p in XENT_BWD_PARTS))[3]
     flops = 2 * T * d * V
     nbytes = 2 * (h.numel() + W.numel()) + 4 * T + 4 * T
     f_bound, f_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
@@ -731,23 +764,22 @@ def check_xent(torch, fx, fx_lse, bx, ops, ref, gen, dev):
     b_flops = 3 * flops
     b_bytes = 4 * (h.numel() + W.numel()) + 12 * T
     b_bound, b_by = bound(b_bytes, b_flops, BF16_FLOPS_PER_S)
-    print(f"fused_softmax_xent_fwd T={T} d={d} V={V} bf16 (tensor cores): "
-          f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-          f"{plain:.4f} ms, logsumexp(h.float() @ W.float()) - gold "
+    split = dict(zip((k for k, _ in XENT_BWD_PARTS), split_ms))
+    print(f"fused_softmax_xent_fwd {tag}T={T} d={d} V={V} bf16 (tensor "
+          f"cores): kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+          f"plain {plain:.4f} ms, logsumexp(h.float() @ W.float()) - gold "
           f"{lib:.4f} ms, bound {f_bound:.4f} ms ({f_by}: {flops} flop, "
           f"{nbytes} B)", flush=True)
-    print(f"fused_softmax_xent_bwd T={T} d={d} V={V} bf16 (tensor cores): "
-          f"kernels {b_ms:.4f} ms ({b_flops / b_ms / 1e9:.1f} TFLOP/s of "
-          f"useful work), plain recompute {b_plain:.4f} ms, bound "
+    print(f"fused_softmax_xent_bwd {tag}T={T} d={d} V={V} bf16 (tensor "
+          f"cores): kernels {b_ms:.4f} ms ({b_flops / b_ms / 1e9:.1f} "
+          f"TFLOP/s of useful work), plain recompute {b_plain:.4f} ms, the "
+          f"library expression's backward {b_lib:.4f} ms, bound "
           f"{b_bound:.4f} ms ({b_by}: {b_flops} flop, {b_bytes} B); one "
-          f"call profiled: dlogits {split_ms[0]:.4f} ms, dh "
-          f"{split_ms[1]:.4f} ms, dW {split_ms[2]:.4f} ms", flush=True)
-    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain,
-             "bound_ms": f_bound, "bound_by": f_by, "library_ms": lib},
-            {"max_abs_err": max(b_err), "ms": b_ms, "plain_ms": b_plain,
-             "bound_ms": b_bound, "bound_by": b_by, "library_ms": None,
-             "rounding_model_max_abs_err": max(m_err),
-             "profiled_ms": dict(zip(("dlogits", "dh", "dW"), split_ms))})
+          f"call profiled: {json.dumps(split)}", flush=True)
+    return ({"ms": ms, "plain_ms": plain, "bound_ms": f_bound,
+             "bound_by": f_by, "library_ms": lib},
+            {"ms": b_ms, "plain_ms": b_plain, "bound_ms": b_bound,
+             "bound_by": b_by, "library_ms": b_lib, "profiled_ms": split})
 
 
 def check_slice_shapes(torch, counted, ref, gen, dev):
@@ -757,20 +789,25 @@ def check_slice_shapes(torch, counted, ref, gen, dev):
     (B=4, S=T=1,500 frames, 6/6 heads, hd 64, non-causal, bf16: the last
     k tile partial), on the tensor cores, with their rounding-model
     errors; library ``F.scaled_dot_product_attention`` (its backward for
-    the backward); and the fused cross-entropy forward on its CUDA-core
-    route at a 1,024-row chunk of whisper-tiny (d=384, V=51,865) and of
-    internvl2-2b (d=2,048, V=92,553): neither V is a multiple of 8; library
-    ``logsumexp(h.float() @ W.float()) - gold``.  Bounds: the flash's
-    unmasked pairs at 4 (forward) or 10 (backward) hd flop each, the
-    cross-entropy's 2 T d V, all at the bf16 tensor cores' rate, or the
-    bytes, whichever is larger.  Returns {kernel: {shape label: fields}}."""
+    the backward); and the fused cross-entropy forward and backward on the
+    tensor cores at a 1,024-row chunk of whisper-tiny (d=384, V=51,865),
+    granite-moe (d=1,024, V=49,155) and internvl2-2b (d=2,048, V=92,553):
+    no V is a multiple of 8, so W is built as ``chunked_lm_loss`` builds
+    it, in a ``[d, ceil8(V)]`` buffer, its pad columns NaN; the forward
+    against its plain version, the backward against the rounding model
+    ``ref.softmax_xent_bwd_tc`` and the plain recompute; times from
+    ``xent_times``.  Bounds: the flash's unmasked pairs at 4 (forward) or
+    10 (backward) hd flop each, the cross-entropy's 2 T d V (3 of them
+    backward), all at the bf16 tensor cores' rate, or the bytes,
+    whichever is larger.  Returns {kernel: {shape label: fields}}."""
     import torch.nn.functional as F
+    from repro_torch.kernels import ops
     from repro_torch.kernels.fused_xent import (fused_softmax_xent_fwd_lse,
-                                                tensor_core_route)
+                                                pitched, tensor_core_route)
     fa, fa_bwd = counted["flash_attention_fwd"], counted["flash_attention_bwd"]
-    fx = counted["fused_softmax_xent_fwd"]
+    fx, bx = counted["fused_softmax_xent_fwd"], counted["fused_softmax_xent_bwd"]
     out = {"flash_attention_fwd": {}, "flash_attention_bwd": {},
-           "fused_softmax_xent_fwd": {}}
+           "fused_softmax_xent_fwd": {}, "fused_softmax_xent_bwd": {}}
     B, S, H, hd = 4, 1500, 6, 64
     label = f"whisper-tiny encoder B={B} S=T={S} {H}/{H} hd={hd} non-causal"
     q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
@@ -861,20 +898,23 @@ def check_slice_shapes(torch, counted, ref, gen, dev):
 
     T = 1024
     for arch, d, V in (("whisper-tiny", 384, 51865),
+                       ("granite-moe-1b-a400m", 1024, 49155),
                        ("internvl2-2b", 2048, 92553)):
         label = f"{arch} chunk T={T} d={d} V={V}"
         h = torch.randn((T, d), generator=gen, device=dev).to(torch.bfloat16)
-        W = (torch.randn((d, V), generator=gen, device=dev)
-             * d ** -0.5).to(torch.bfloat16)
+        W = nan_padded(pitched, (torch.randn(
+            (d, V), generator=gen, device=dev) * d ** -0.5).to(
+                torch.bfloat16))
         labels = torch.randint(0, V, (T,), generator=gen, device=dev,
                                dtype=torch.int32)
-        if tensor_core_route(h, W):
-            raise RuntimeError(f"{label}: expected the CUDA-core route")
+        if not tensor_core_route(h, W):
+            raise RuntimeError(f"{label}: a pitched W (strides "
+                               f"{W.stride()}) must take the tensor cores")
         tc0, n0 = fx.tensor_core_launches, fx.launches
         got, lse = fused_softmax_xent_fwd_lse(h, W, labels)
         want, want_lse = ref.softmax_xent_lse(h, W, labels)
         torch.cuda.synchronize()
-        if fx.launches != n0 + 1 or fx.tensor_core_launches != tc0:
+        if fx.launches != n0 + 1 or fx.tensor_core_launches != tc0 + 1:
             raise RuntimeError(f"xent forward took the wrong route ({label})")
         err = float((got - want).abs().max())
         e_lse = float((lse - want_lse).abs().max())
@@ -884,33 +924,84 @@ def check_slice_shapes(torch, counted, ref, gen, dev):
                                    atol=XENT_TOL)):
             raise RuntimeError(f"xent kernel differs from plain ({label}): "
                                f"{err}, lse {e_lse}")
-
-        def library():
-            logits = h.float() @ W.float()
-            return (torch.logsumexp(logits, -1)
-                    - logits.gather(1, labels.long()[:, None])[:, 0])
-
+        g = (torch.rand((T,), generator=gen, device=dev) + 0.5) / 2048
+        tc0 = bx.tensor_core_launches
+        dh, dW = bx(h, W, labels, lse, g)
+        models = ref.softmax_xent_bwd_tc(h, W, labels, lse, g)
+        wants = ops._recompute_vjp(ref.softmax_xent, (h, W, labels),
+                                   (g,))[:2]
+        torch.cuda.synchronize()
+        if bx.tensor_core_launches != tc0 + 1 or dW.shape != (d, V):
+            raise RuntimeError(f"xent backward: route or dW shape "
+                               f"{tuple(dW.shape)} ({label})")
+        b_err, m_err = [], []
+        for got_g, model, want_g in zip((dh, dW), models, wants):
+            for errs, ref_g in ((m_err, model), (b_err, want_g)):
+                sc = float(ref_g.float().abs().max())
+                errs.append(float((got_g.float() - ref_g.float())
+                                  .abs().max()))
+                if not (torch.isfinite(got_g).all() and torch.allclose(
+                        got_g.float(), ref_g.float(), rtol=XENT_BWD_RTOL,
+                        atol=XENT_BWD_ATOL * sc)):
+                    raise RuntimeError(f"xent backward differs from its "
+                                       f"plain version ({label}): dh/dW "
+                                       f"model {m_err}, recompute {b_err}")
+        print(f"fused_softmax_xent {label} bf16, W pitched with NaN pads "
+              f"(tensor cores): forward max_abs_err {err:.3e}, lse "
+              f"{e_lse:.3e} (tol {XENT_TOL}); backward dh/dW against the "
+              f"rounding model {m_err}, against the plain recompute "
+              f"{b_err} (rtol 2^-7, atol 2^-9 max|want|)", flush=True)
+        del got, want, want_lse, dh, dW, models, wants
+        torch.cuda.empty_cache()
         spin(torch)
-        ms = time_ms(torch, lambda: fx(h, W, labels), 10)
-        plain = time_ms(torch, lambda: ref.softmax_xent(h, W, labels), 5)
-        lib = time_ms(torch, library, 5)
-        flops = 2 * T * d * V
-        nbytes = 2 * (h.numel() + W.numel()) + 8 * T
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+        f_row, b_row = xent_times(torch, fx, bx, ops, ref, h, W, labels,
+                                  lse, g, tag=f"{arch} chunk ")
         out["fused_softmax_xent_fwd"][label] = dict(
-            max_abs_err=err, lse_max_abs_err=e_lse, ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-            route="CUDA cores")
-        print(f"fused_softmax_xent_fwd {label} bf16 (CUDA cores: V not a "
-              f"multiple of 8; the backward is the plain recompute): "
-              f"max_abs_err {err:.3e}, lse {e_lse:.3e} (tol {XENT_TOL}); "
-              f"kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain:.4f} ms, logsumexp(h.float() @ W.float()) - gold "
-              f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {flops} flop, "
-              f"{nbytes} B)", flush=True)
-        del h, W, got, lse, want, want_lse
+            f_row, max_abs_err=err, lse_max_abs_err=e_lse,
+            route="tensor cores")
+        out["fused_softmax_xent_bwd"][label] = dict(
+            b_row, max_abs_err=max(b_err),
+            rounding_model_max_abs_err=max(m_err), route="tensor cores")
+        del h, W, lse
         torch.cuda.empty_cache()
     return out
+
+
+def xent_on_tensor_cores(cfg) -> bool:
+    """Whether a config's loss takes the cross-entropy's tensor-core route:
+    bfloat16 compute and d a multiple of 8, whatever the vocabulary
+    (``chunked_lm_loss`` hands the kernels W in a ``[d, ceil8(V)]``
+    buffer)."""
+    import torch
+    return cfg.compute_dtype == torch.bfloat16 and cfg.d_model % 8 == 0
+
+
+def nan_padded(pitched, W):
+    """``pitched(W)`` (``fused_xent.pitched``) with the buffer's pad
+    columns (at and past V) set to NaN, so that a kernel that reads past V
+    shows it."""
+    P = pitched(W)
+    P.as_strided((P.shape[0], P.stride(0) - P.shape[1]), P.stride(),
+                 P.storage_offset() + P.shape[1]).fill_(float("nan"))
+    return P
+
+
+@contextlib.contextmanager
+def counting_recomputes(ref):
+    """While the block runs, count the plain ``ref.softmax_xent``
+    recomputes (the cross-entropy op's backward off the tensor-core
+    route): yields a list that gets one entry a call."""
+    plain, calls = ref.softmax_xent, []
+
+    def counted(*a):
+        calls.append(1)
+        return plain(*a)
+
+    ref.softmax_xent = counted
+    try:
+        yield calls
+    finally:
+        ref.softmax_xent = plain
 
 
 def silo_batches(torch, cfg, K, max_steps, B, S, ri, device, patches=False):
@@ -1032,17 +1123,17 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     backward a layer and one cross-entropy forward a loss chunk (1,024
     token positions, or one chunk of them all where 1,024 does not divide
     them), every flash call on the tensor cores.  On the cross-entropy's
-    tensor-core route (d and V multiples of 8) a step launches a backward
-    a chunk and the plain ``ref.softmax_xent`` recompute must not run; on
-    the CUDA-core route (the odd vocabularies: granite-moe's V = 49,155,
-    internvl2's 92,553, whisper's 51,865) the forward takes the CUDA cores
-    and each chunk's backward is that plain recompute (counted,
-    printed)."""
+    tensor-core route (bf16, d a multiple of 8: ``xent_on_tensor_cores``,
+    the odd vocabularies included: granite-moe's V = 49,155, internvl2's
+    92,553, whisper's 51,865) a step launches a backward a chunk and the
+    plain ``ref.softmax_xent`` recompute must not run; off it the forward
+    takes the CUDA cores and each chunk's backward is that plain recompute
+    (counted, printed)."""
     from repro_torch.core.silo import SiloFedSAE
     from repro_torch.obs import RingBufferSink
     from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config(arch)
-    xent_tc = cfg.vocab_size % 8 == 0 and cfg.d_model % 8 == 0
+    xent_tc = xent_on_tensor_cores(cfg)
     if cfg.is_encoder_decoder:
         n_attn, fwd_per_attn = cfg.n_encoder_layers + cfg.n_layers, 1
     else:
@@ -1063,16 +1154,9 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     all_batches = [silo_batches(torch, cfg, K, max_steps, B, S, ri, "cuda",
                                 patches=True) for _ in range(rounds)]
     T_tok = all_batches[0]["tokens"].shape[-1]
-    plain_xent, recomputes = ref.softmax_xent, []
-
-    def counted_plain_xent(*a):
-        recomputes.append(1)
-        return plain_xent(*a)
-
-    ref.softmax_xent = counted_plain_xent
     reset_counts(counted)
     rounds_out = []
-    try:
+    with counting_recomputes(ref) as recomputes:
         for r in range(rounds):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1082,8 +1166,6 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
                                    n_steps=fed.last_n_steps.tolist(),
                                    loss=stats["loss"][-1],
                                    L=fed.L.tolist(), H=fed.H.tolist()))
-    finally:
-        ref.softmax_xent = plain_xent
     launches = {k: fn.launches for k, fn in counted.items()}
     tc_launches = tensor_core_counts(counted)
     steps = sum(sum(r["n_steps"]) for r in rounds_out)
@@ -1224,6 +1306,10 @@ def profiled(torch, fn, part="flash_"):
     """(host wall ms, device ms, top kernels, part ms, device launches) of
     one call of ``fn`` under torch.profiler (``obs.warm_profile``: no
     device record lost at the window's start), ending in a device sync.
+    A window in which a kernel launch has no device record (the profiler
+    lost it: ``lost_records``) counts nothing: ``fn`` is profiled again,
+    up to ``TRACE_ATTEMPTS`` windows, each retry printed, and if every
+    window lost records, ``TraceIncomplete`` is raised.
     Device time sums the events that ran on the card (kernels, copies),
     each once: the CPU op that launched a kernel reports the same time
     again, so CPU events are left out, and so are the device spans of the
@@ -1234,11 +1320,21 @@ def profiled(torch, fn, part="flash_"):
     forward, backward and the backward's delta kernel)."""
     from torch.autograd import DeviceType
     from repro_torch.obs import warm_profile
-    with warm_profile() as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        with warm_profile() as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        lost, n_launches = lost_records(prof)
+        if not lost:
+            break
+        print(f"profiled: window {attempt} of {TRACE_ATTEMPTS}: {lost} of "
+              f"its {n_launches} kernel launches have no device record; "
+              f"profiling it again", flush=True)
+    else:
+        raise TraceIncomplete(f"all {TRACE_ATTEMPTS} profiled windows lost "
+                              f"device records")
     averages = [e for e in prof.key_averages()
                 if e.device_type != DeviceType.CPU
                 and not (e.is_user_annotation or e.key.startswith("fed."))]
@@ -1250,6 +1346,24 @@ def profiled(torch, fn, part="flash_"):
     return (wall, device, [(k[:60], t / 1e3) for k, t in top[:6]],
             part_ms[0] if isinstance(part, str) else part_ms,
             sum(e.count for e in averages))
+
+
+def trace_events(prof) -> list:
+    """The complete ("X") events of a finished profile, as its chrome
+    trace holds them (written to a temporary file and read back)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "window.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return [e for e in json.load(f)["traceEvents"]
+                    if e.get("ph") == "X"]
+
+
+def lost_records(prof):
+    """(launches without a device record, launches) of a finished
+    profile's window: ``unrecorded_launches`` of its trace events."""
+    return unrecorded_launches(trace_events(prof))
 
 
 def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
@@ -1524,7 +1638,23 @@ TRACE_ATTEMPTS = 3
 
 class TraceIncomplete(RuntimeError):
     """A trace with kernel launches that have no device record: the
-    profiler lost them, and the trace can check no stage range."""
+    profiler lost them, and the trace can check no stage range and count
+    no device time."""
+
+
+def unrecorded_launches(events):
+    """(lost, launches) of a trace's complete events: the kernel launches
+    recorded on the host (``cudaLaunchKernel`` / ``cuLaunchKernel`` calls,
+    by correlation id) and how many of them have no kernel event on the
+    device."""
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    recorded = {e["args"].get("correlation") for e in events
+                if e.get("cat") == "kernel"}
+    launches = [c for c, e in calls.items()
+                if re.match(r"cu(da)?LaunchKernel", e["name"])]
+    return sum(c not in recorded for c in launches), len(launches)
 
 
 def stage_ranges(path, launched, stages):
@@ -1544,15 +1674,10 @@ def stage_ranges(path, launched, stages):
     calls = {e["args"]["correlation"]: e for e in events
              if e.get("cat") in ("cuda_runtime", "cuda_driver")
              and "correlation" in e.get("args", {})}
-    recorded = {e["args"].get("correlation") for e in events
-                if e.get("cat") == "kernel"}
-    launches = [c for c, e in calls.items()
-                if re.match(r"cu(da)?LaunchKernel", e["name"])]
-    unrecorded = [c for c in launches if c not in recorded]
-    if unrecorded:
-        raise TraceIncomplete(f"{len(unrecorded)} of the window's "
-                              f"{len(launches)} kernel launches have no "
-                              f"device record")
+    lost, n_launches = unrecorded_launches(events)
+    if lost:
+        raise TraceIncomplete(f"{lost} of the window's {n_launches} kernel "
+                              f"launches have no device record")
     out = {s: dict(host_ms=0.0, device_ms=0.0, kernels=0) for s in STAGES}
     for r in ranges:
         out[r["name"]]["host_ms"] += r["dur"] / 1e3
@@ -2825,13 +2950,14 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen,
     cross-entropy forward (and backward) on h [rows * S, d], W [d, V], all
     bfloat16 as the legs run them, each against its plain version at
     phase 2's tolerances and each on the route the legs took: the flash
-    calls on the tensor cores, the cross-entropy on the tensor cores when
-    d and V are multiples of 8 (``fused_xent.tensor_core_route``), else
-    on the CUDA cores with the plain recompute as its backward (printed,
-    no kernel to hold).  All on ``gen``'s device.  Returns {kernel:
-    max_abs_err}."""
+    calls on the tensor cores, the cross-entropy on the tensor cores
+    whenever d is a multiple of 8 (``xent_on_tensor_cores``: W built into
+    a ``[d, ceil8(V)]`` buffer as ``chunked_lm_loss`` builds it, its pad
+    columns NaN), else on the CUDA cores with the plain recompute as its
+    backward (printed, no kernel to hold).  All on ``gen``'s device.
+    Returns {kernel: max_abs_err}."""
     from repro_torch.kernels.fused_xent import (fused_softmax_xent_fwd_lse,
-                                                tensor_core_route)
+                                                pitched, tensor_core_route)
     dev = gen.device
     bf16 = torch.bfloat16
     fa, fa_bwd = counted["flash_attention_fwd"], counted["flash_attention_bwd"]
@@ -2912,11 +3038,15 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen,
                 del q, k, v, do, out, lse, want, want_lse
             T, d, V = B * S, cfg.d_model, cfg.vocab_size
             h = torch.randn((T, d), generator=gen, device=dev).to(bf16)
-            W = (torch.randn((d, V), generator=gen, device=dev)
-                 * d ** -0.5).to(bf16)
+            W = nan_padded(pitched, (torch.randn(
+                (d, V), generator=gen, device=dev) * d ** -0.5).to(bf16))
             labels = torch.randint(0, V, (T,), generator=gen, device=dev,
                                    dtype=torch.int32)
             tc = tensor_core_route(h, W)
+            if tc != (d % 8 == 0):
+                raise RuntimeError(f"{tag}: {label} W {tuple(W.shape)} "
+                                   f"strides {W.stride()}: tensor-core "
+                                   f"route {tc}")
             shape = (f"h={tuple(h.shape)} W={tuple(W.shape)} route "
                      f"{'tensor cores' if tc else 'CUDA cores'}")
             tc0, n0 = fx.tensor_core_launches, fx.launches
@@ -2982,7 +3112,7 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
        capture time and peak memory printed.  Then granite-moe-1b-a400m
        the same way (1.38 B params, its random expert ``w_down`` scaled by
        ``MOE_DOWN_SCALE``, lr ``MOE_LR``), K=2 on the scan driver too, its
-       cross-entropy on the CUDA-core route (V = 49,155).
+       cross-entropy on the tensor cores (V = 49,155, W pitched).
     2. The smoke configs the reference's CLI resolves (``model=
        "llama3.2-3b"`` and ``"falcon-mamba-7b"``, bf16), K=4, h_cap =
        fixed_epochs = 2 (max_iters 4), 4 rounds a leg: the numpy host
@@ -3036,8 +3166,9 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
             base, rounds=rounds, **cfg)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        srv.run(**(run_kw or {}))
-        torch.cuda.synchronize()
+        with counting_recomputes(ref) as recomputes:
+            srv.run(**(run_kw or {}))
+            torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {k: fn.launches - before[k] for k, fn in counted.items()}
         tc = {k: v - tc_before[k] for k, v in
@@ -3069,8 +3200,15 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
         evals = (-(-n // srv.block_size) if srv.cfg.driver == "scan"
                  else n)
         passes = executed * K if srv.cfg.sampling == "shuffle" else 0
-        xent_tc = tc["fused_softmax_xent_fwd"] == got[
-            "fused_softmax_xent_fwd"]
+        xent_tc = xent_on_tensor_cores(arch_cfg)
+        if (tc["fused_softmax_xent_fwd"] != (got["fused_softmax_xent_fwd"]
+                                             if xent_tc else 0)
+                or (xent_tc and recomputes)):
+            raise RuntimeError(
+                f"lm {label}: cross-entropy forwards {got} of which "
+                f"{tc['fused_softmax_xent_fwd']} on the tensor cores, "
+                f"{len(recomputes)} plain recomputes; wanted "
+                f"{'every one and none' if xent_tc else 'none'}")
         want = dict({k: 0 for k in counted},
                     **lm_launches(arch_cfg, steps, evals, passes, xent_tc),
                     fed_cohort_gather=executed)
@@ -3094,6 +3232,7 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
                    budgets=[b.tolist() for b in srv.budgets[-n:]],
                    train_loss=hist["train_loss"][-n:],
                    xent_route="tensor cores" if xent_tc else "CUDA cores",
+                   plain_xent_recomputes=len(recomputes),
                    launches={k: v for k, v in got.items() if v},
                    tensor_core_launches={k: v for k, v in tc.items() if v})
         if prog is not None and prog.graphed:
@@ -3154,7 +3293,9 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
               f"walls {[round(w, 3) for w in full.wall_times]} s (eval "
               f"included; an eval {eval_s * 1e3:.1f} ms), round 1: "
               f"{leg['ms_per_local_step']:.1f} ms a local step, "
-              f"cross-entropy route {leg['xent_route']}", flush=True)
+              f"cross-entropy route {leg['xent_route']} "
+              f"({leg['plain_xent_recomputes']} plain recomputes)",
+              flush=True)
         del full
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3170,7 +3311,8 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
               f"{leg['replays']} replays of {scan_K} x {fscan.max_iters} "
               f"local steps, peak {leg['peak_gb']:.2f} GB allocated, "
               f"{leg['peak_reserved_gb']:.2f} GB reserved, cross-entropy "
-              f"route {leg['xent_route']}", flush=True)
+              f"route {leg['xent_route']} ({leg['plain_xent_recomputes']} "
+              f"plain recomputes)", flush=True)
         del fscan
         torch.cuda.empty_cache()
         return fcfg
@@ -3808,7 +3950,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     slice_rows = check_slice_shapes(
         torch, {"flash_attention_fwd": fa, "flash_attention_bwd": fa_bwd,
-                "fused_softmax_xent_fwd": fx}, ref, gen, dev)
+                "fused_softmax_xent_fwd": fx,
+                "fused_softmax_xent_bwd": fx_bwd}, ref, gen, dev)
 
     # -- 3. end to end on a small federation: card vs CPU -----------------
     small = make_femnist_like(n_clients=30, total=900, dim=64, max_size=40)
@@ -4097,29 +4240,36 @@ def main() -> int:
     def train_cli(label, arch, steps, per_step):
         """``launch.train --arch <arch> --smoke`` (batch 4, 128 positions),
         its launches ``per_step`` times ``steps``, every flash and
-        cross-entropy call on the tensor cores (bf16)."""
+        cross-entropy call on the tensor cores (bf16) and no plain
+        cross-entropy recompute."""
         reset_counts(counted)
         t0 = time.perf_counter()
-        losses = train.main(["--arch", arch, "--smoke", "--steps",
-                             str(steps)])
-        torch.cuda.synchronize()
+        with counting_recomputes(ref) as recomputes:
+            losses = train.main(["--arch", arch, "--smoke", "--steps",
+                                 str(steps)])
+            torch.cuda.synchronize()
         got = {k: fn.launches for k, fn in counted.items()}
         tc = tensor_core_counts(counted)
         want = dict({k: 0 for k in counted},
                     **{k: n * steps for k, n in per_step.items()})
         want_tc = {k: want[k] for k in tc}
-        if got != want or tc != want_tc or not np.isfinite(losses).all():
+        if (got != want or tc != want_tc or recomputes
+                or not np.isfinite(losses).all()):
             raise RuntimeError(f"launch.train {arch} smoke: losses {losses},"
                                f" launched {got} (tensor cores {tc}), "
-                               f"wanted {want}")
+                               f"wanted {want}; {len(recomputes)} plain "
+                               f"cross-entropy recomputes")
         training[label] = dict(losses=losses,
                                wall_s=time.perf_counter() - t0,
-                               launches=got, tensor_core_launches=tc)
+                               launches=got, tensor_core_launches=tc,
+                               xent_route="tensor cores",
+                               plain_xent_recomputes=len(recomputes))
         path_launches[label] = got
         print(f"main path python -m repro_torch.launch.train --arch {arch} "
               f"--smoke --steps {steps}: losses "
-              f"{[round(x, 4) for x in losses]}; launches {json.dumps(got)}",
-              flush=True)
+              f"{[round(x, 4) for x in losses]}; launches {json.dumps(got)}"
+              f"; cross-entropy route tensor cores ({len(recomputes)} plain "
+              f"recomputes)", flush=True)
 
     one_each = dict(fused_softmax_xent_fwd=1, fused_softmax_xent_bwd=1)
     train_cli("train_cli_smoke", "llama3.2-3b", 5, dict(

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's selective-scan, cohort-gather, local-SGD and top-k
-compressor kernels against an earlier version of their sources, on one
-CUDA card.
+"""Time the port's selective-scan, cohort-gather, local-SGD, top-k
+compressor and cross-entropy kernels against an earlier version of their
+sources, on one CUDA card.
 
     for k in selective_scan fed_gather fed_local_sgd fed_local_sgd_dense \
              fed_compress; do
@@ -9,7 +9,7 @@ CUDA card.
             > _scratch/old/$k.cu
     done
     python3 scripts/kernel_ab.py --old-dir _scratch/old [--split] [--ab] \
-        [--sgd] [--compress] [--stamps]
+        [--sgd] [--compress] [--stamps] [--xent]
 
 ``--split`` takes the old scan apart (the scan of the port's first
 version, one thread per channel with a staged chunk of 32 steps): it
@@ -68,6 +68,22 @@ device array; made by textual edits in the build directory) and one that
 returns at once, and prints, at K in {1, 10, 20} with P = 51,930, each
 phase's cycles (least, median and most over the CTAs) beside the
 stamped call's time and the empty launch's.
+
+``--xent`` times the fused cross-entropy against the old
+``fused_xent.cu`` and ``fused_xent_bwd.cu`` (``git show <commit>:...`` of
+both, and of the headers they include, ``xent_tc.cuh`` and
+``hopper_tc.cuh``, into the old directory), in turns (old, new, new, old),
+called through the old sources' own C entry points: at Llama-3.2-3B's
+loss chunk (T=1,024, d=3,072, V=128,256, bf16, the tensor-core route of
+both) the forward and the backward, the backward also split by kernel
+(one profiled call of each; ``chip_smoke.profiled``); at internvl2-2b's
+odd chunk (T=1,024, d=2,048, V=92,553) the old CUDA-core forward on a
+contiguous W against the new tensor-core forward on a pitched one, and
+the new backward against the plain recompute (``ref.softmax_xent`` under
+autograd), which took its place before; each result first held against
+its plain version (the forward within 1e-4, the backward per leaf against
+``ref.softmax_xent_bwd_tc`` at rtol 2^-7, atol 2^-9 max|want|), each time
+beside its bound.
 
 Times are medians of per-call CUDA-event times after a clock warm-up, as
 in ``chip_smoke.py``, whose helpers this script uses.  The card's name
@@ -756,18 +772,205 @@ def run_stamps(torch, build_dir, out):
     out["compress_stamps"] = rows
 
 
+OLD_XENT_FWD_ARGS = [P] * 6 + [I] * 6 + [P]
+OLD_XENT_BWD_ARGS = [P] * 10 + [I] * 4 + [P]
+
+
+def xent_inputs(torch, T, d, V, seed=0):
+    """(h, W, labels, g) bf16 on the card, W contiguous; g like a training
+    step's cotangent (mask / count, with some spread)."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    h = torch.randn((T, d), generator=gen, device="cuda").bfloat16()
+    W = (torch.randn((d, V), generator=gen, device="cuda")
+         * d ** -0.5).bfloat16()
+    labels = torch.randint(0, V, (T,), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    g = (torch.rand((T,), generator=gen, device="cuda") + 0.5) / 2048
+    return h, W, labels, g
+
+
+def old_xent_fwd(torch, lib, h, W, labels, tc: bool):
+    """A call of the old forward entry (contiguous W, split count by its
+    own rule: four blocks an SM over the row tiles, 128-column tiles)."""
+    import math
+    (T, d), V = h.shape, W.shape[1]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    split = max(1, min(math.ceil(V / 128),
+                       math.ceil(4 * n_sm / math.ceil(T / 128))))
+    loss = torch.empty((T,), device="cuda")
+    lse = torch.empty((T,), device="cuda")
+    part = torch.empty((3, split, T), device="cuda")
+
+    def call():
+        code = lib.fused_xent_fwd_launch(
+            h.data_ptr(), W.data_ptr(), labels.data_ptr(), loss.data_ptr(),
+            lse.data_ptr(), part.data_ptr(), T, d, V, split, 1, int(tc),
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"old xent forward failed: code {code}")
+        return loss, lse
+    return call
+
+
+def old_xent_bwd(torch, lib, h, W, labels, lse, g):
+    """A call of the old backward entry (W contiguous, V % 8 == 0)."""
+    (T, d), V = h.shape, W.shape[1]
+    Tp = -(-T // 8) * 8
+    hT = torch.zeros((d, Tp), dtype=h.dtype, device="cuda")
+    hT[:, :T] = h.t()
+    hi = torch.empty((T, V), dtype=torch.bfloat16, device="cuda")
+    lo = torch.empty_like(hi)
+    dh, dW = torch.empty_like(h), torch.empty_like(W)
+
+    def call():
+        code = lib.fused_xent_bwd_launch(
+            h.data_ptr(), hT.data_ptr(), W.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+            dh.data_ptr(), dW.data_ptr(), T, Tp, d, V,
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"old xent backward failed: code {code}")
+        return dh, dW
+    return call
+
+
+def check_xent_grads(torch, got, model, what):
+    errs = []
+    for a, b in zip(got, model):
+        sc = float(b.float().abs().max())
+        errs.append(float((a.float() - b.float()).abs().max()))
+        if not torch.allclose(a.float(), b.float(), rtol=cs.XENT_BWD_RTOL,
+                              atol=cs.XENT_BWD_ATOL * sc):
+            raise RuntimeError(f"{what}: dh/dW differ from the rounding "
+                               f"model: {errs}")
+    return errs
+
+
+def xent_bounds(T, d, V):
+    flops = 2 * T * d * V
+    f = cs.bound(2 * (T * d + d * V) + 8 * T, flops, cs.BF16_FLOPS_PER_S)
+    b = cs.bound(4 * (T * d + d * V) + 12 * T, 3 * flops,
+                 cs.BF16_FLOPS_PER_S)
+    return {"forward_ms": f[0], "forward_by": f[1], "backward_ms": b[0],
+            "backward_by": b[1]}
+
+
+def run_xent(torch, old_dir, build_dir, out):
+    from repro_torch.kernels import fused_xent, ops, ref
+    fx, bx = fused_xent.fused_softmax_xent_fwd, fused_xent.fused_softmax_xent_bwd
+    old_f = bind(nvcc(os.path.join(old_dir, "fused_xent.cu"),
+                      os.path.join(build_dir, "old_xent.so")),
+                 "fused_xent_fwd_launch", OLD_XENT_FWD_ARGS)
+    old_b = bind(nvcc(os.path.join(old_dir, "fused_xent_bwd.cu"),
+                      os.path.join(build_dir, "old_xent_bwd.so")),
+                 "fused_xent_bwd_launch", OLD_XENT_BWD_ARGS)
+    old_parts = (("dlogits", "xent_dlogits_tc"),
+                 ("dh", "xent_grad_gemm_tc_kernel<true>"),
+                 ("dW", "xent_grad_gemm_tc_kernel<false>"))
+    res = {}
+
+    # -- Llama-3.2-3B's chunk: both versions on the tensor cores ----------
+    T, d, V = 1024, 3072, 128256
+    h, W, labels, g = xent_inputs(torch, T, d, V)
+    want, want_lse = ref.softmax_xent_lse(h, W, labels)
+    o_fwd = old_xent_fwd(torch, old_f, h, W, labels, True)
+    n_fwd = lambda: fx(h, W, labels)                        # noqa: E731
+    ol, olse = (t.clone() for t in o_fwd())
+    nl, nlse = fused_xent.fused_softmax_xent_fwd_lse(h, W, labels)
+    torch.cuda.synchronize()
+    f_err = {"old": float((ol - want).abs().max()),
+             "new": float((nl - want).abs().max())}
+    for k, (l_, s_) in (("old", (ol, olse)), ("new", (nl, nlse))):
+        if not (torch.allclose(l_, want, rtol=cs.XENT_TOL, atol=cs.XENT_TOL)
+                and torch.allclose(s_, want_lse, rtol=cs.XENT_TOL,
+                                   atol=cs.XENT_TOL)):
+            raise RuntimeError(f"{k} xent forward differs from plain: "
+                               f"{f_err}")
+    lse = want_lse
+    model = ref.softmax_xent_bwd_tc(h, W, labels, lse, g)
+    o_bwd = old_xent_bwd(torch, old_b, h, W, labels, lse, g)
+    n_bwd = lambda: bx(h, W, labels, lse, g)                # noqa: E731
+    b_err = {"old": check_xent_grads(torch, [t.clone() for t in o_bwd()],
+                                     model, "old backward"),
+             "new": check_xent_grads(torch, n_bwd(), model, "new backward")}
+    del model
+    torch.cuda.empty_cache()
+    cs.spin(torch)
+    f_old, f_new = turns(torch, o_fwd, n_fwd, 10)
+    b_old, b_new = turns(torch, o_bwd, n_bwd, 10)
+    split = {}
+    for k, fn, parts in (("old", o_bwd, old_parts),
+                         ("new", n_bwd, cs.XENT_BWD_PARTS),
+                         ("new", n_bwd, cs.XENT_BWD_PARTS),
+                         ("old", o_bwd, old_parts)):
+        ms = cs.profiled(torch, fn, tuple(p for _, p in parts))[3]
+        split.setdefault(k, []).append(dict(zip((n for n, _ in parts), ms)))
+    row = {"shape": [T, d, V], "forward_ms": {"old": f_old, "new": f_new},
+           "backward_ms": {"old": b_old, "new": b_new},
+           "backward_split_ms": split, "forward_max_abs_err": f_err,
+           "backward_rounding_model_max_abs_err": b_err,
+           "bound_ms": xent_bounds(T, d, V)}
+    print(f"xent llama chunk {json.dumps(row)}", flush=True)
+    res["llama_chunk"] = row
+    del h, W, labels, g, o_bwd, ol, olse, nl, nlse, want, want_lse, lse
+    torch.cuda.empty_cache()
+
+    # -- internvl2-2b's odd chunk: the old CUDA-core forward and the plain
+    # recompute against the new tensor-core kernels on a pitched W --------
+    T, d, V = 1024, 2048, 92553
+    h, Wc, labels, g = xent_inputs(torch, T, d, V)
+    W = fused_xent.pitched(Wc)
+    if fused_xent.tensor_core_route(h, Wc) or not \
+            fused_xent.tensor_core_route(h, W):
+        raise RuntimeError("internvl2 chunk: the routes are not CUDA cores "
+                           "(contiguous W) and tensor cores (pitched W)")
+    want, lse = ref.softmax_xent_lse(h, Wc, labels)
+    o_fwd = old_xent_fwd(torch, old_f, h, Wc, labels, False)
+    n_fwd = lambda: fx(h, W, labels)                        # noqa: E731
+    f_err = {"old": float((o_fwd()[0] - want).abs().max()),
+             "new": float((n_fwd() - want).abs().max())}
+    if max(f_err.values()) > cs.XENT_TOL:
+        raise RuntimeError(f"internvl2 chunk forward: {f_err}")
+    plain_bwd = lambda: ops._recompute_vjp(                 # noqa: E731
+        ref.softmax_xent, (h, Wc, labels), (g,))
+    n_bwd = lambda: bx(h, W, labels, lse, g)                # noqa: E731
+    model = ref.softmax_xent_bwd_tc(h, Wc, labels, lse, g)
+    b_err = {"new": check_xent_grads(torch, n_bwd(), model, "new backward"),
+             "plain recompute": check_xent_grads(
+                 torch, plain_bwd()[:2], model, "plain recompute")}
+    del model
+    torch.cuda.empty_cache()
+    cs.spin(torch)
+    f_old, f_new = turns(torch, o_fwd, n_fwd, 10)
+    b_plain, b_new = turns(torch, plain_bwd, n_bwd, 3)
+    split = [dict(zip((n for n, _ in cs.XENT_BWD_PARTS), cs.profiled(
+        torch, n_bwd, tuple(p for _, p in cs.XENT_BWD_PARTS))[3]))]
+    row = {"shape": [T, d, V],
+           "forward_ms": {"old CUDA cores": f_old, "new": f_new},
+           "backward_ms": {"plain recompute": b_plain, "new": b_new},
+           "backward_split_ms": {"new": split}, "forward_max_abs_err": f_err,
+           "backward_rounding_model_max_abs_err": b_err,
+           "bound_ms": xent_bounds(T, d, V)}
+    print(f"xent internvl2 chunk {json.dumps(row)}", flush=True)
+    res["internvl2_chunk"] = row
+    out["xent_ab"] = res
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-dir", required=True,
                     help="directory holding the old selective_scan.cu, "
                          "fed_gather.cu, fed_local_sgd.cu, "
-                         "fed_local_sgd_dense.cu and fed_compress.cu")
+                         "fed_local_sgd_dense.cu and fed_compress.cu, or "
+                         "for --xent fused_xent.cu, fused_xent_bwd.cu, "
+                         "xent_tc.cuh and hopper_tc.cuh")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--ab", action="store_true")
     ap.add_argument("--sgd", action="store_true")
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--stamps", action="store_true")
+    ap.add_argument("--xent", action="store_true")
     ap.add_argument("--build-dir", default=os.path.join(ROOT, "_scratch",
                                                         "kernel_ab"))
     ap.add_argument("--out", default=os.path.join(ROOT, "_scratch",
@@ -792,6 +995,8 @@ def main() -> int:
         run_compress(torch, a.old_dir, a.build_dir, out, a.split)
     if a.stamps:
         run_stamps(torch, a.build_dir, out)
+    if a.xent:
+        run_xent(torch, a.old_dir, a.build_dir, out)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.dirname(a.out), exist_ok=True)
     with open(a.out, "w") as f:

@@ -76,11 +76,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_attention_bwd_error_string": ([I], ctypes.c_char_p),
     },
     "fused_xent": {
-        "fused_xent_fwd_launch": ([P] * 6 + [I] * 6 + [P], I),
+        "fused_xent_fwd_launch": ([P] * 6 + [I] * 7 + [P], I),
         "fused_xent_fwd_error_string": ([I], ctypes.c_char_p),
     },
     "fused_xent_bwd": {
-        "fused_xent_bwd_launch": ([P] * 10 + [I] * 4 + [P], I),
+        "fused_xent_bwd_launch": ([P] * 11 + [I] * 7 + [P], I),
         "fused_xent_bwd_error_string": ([I], ctypes.c_char_p),
     },
     "selective_scan": {

@@ -37,23 +37,27 @@
 //   in m, l or gold), so any V works; the TPU kernel asserts V % 512 == 0,
 //   which Llama's V = 128,256 does not meet.
 // That kernel takes float32, and bfloat16 that the tensor-core route below
-// cannot take (d or V not a multiple of 8, or a pointer not 16-byte
-// aligned).
+// cannot take (d not a multiple of 8, a row pitch of W that is not, or a
+// pointer not 16-byte aligned).
 //
-// bfloat16 with d % 8 == 0, V % 8 == 0 and 16-byte aligned pointers (TMA's
-// stride and address rules) takes the tensor cores instead
-// (xent_partial_tc_kernel below, the tile mainloop of xent_tc.cuh): the
-// same grid of (128-row tile, vocabulary split), each block walking its
-// 128-column vocabulary tiles, h tiles read K-major and W tiles MN-major by
-// TMA into a 4-stage ring, S = h W by wgmma into float32 accumulators.
-// bf16 x bf16 products are exact in float32, so this computes what the
-// reference computes (both operands upcast to float32) up to the order of
-// summation.  The online (m, l, gold) update runs on the accumulator
-// fragments: each thread holds 2 rows x 32 columns of a tile, and the four
-// lanes of a quad, which share a row, reduce the tile's max with shuffles;
-// l stays a per-lane partial sum under the row's common max until the end.
-// W is never padded or copied: the ragged last vocabulary tile loads zeros
-// past V, and those columns are masked.
+// W [d, V] is read through its row pitch ldw (>= V), so it may be the
+// [:, :V] view of a [d, ceil8(V)] buffer: an odd vocabulary (granite-moe's
+// 49,155, whisper-tiny's 51,865, internvl2-2b's 92,553) then meets TMA's
+// rule that rows start 16 bytes apart.  bfloat16 with d % 8 == 0,
+// ldw % 8 == 0 and 16-byte aligned pointers (TMA's stride and address
+// rules) takes the tensor cores (xent_partial_tc_kernel below, the tile
+// mainloop of xent_tc.cuh): the same grid of (128-row tile, vocabulary
+// split), each block walking its 256-column vocabulary tiles, h tiles read
+// K-major and W tiles MN-major by TMA into a 4-stage ring, S = h W by
+// wgmma into float32 accumulators.  bf16 x bf16 products are exact in
+// float32, so this computes what the reference computes (both operands
+// upcast to float32) up to the order of summation.  The online (m, l, gold)
+// update runs on the accumulator fragments: each thread holds 2 rows x 64
+// columns of a tile, and the four lanes of a quad, which share a row,
+// reduce the tile's max with shuffles; l stays a per-lane partial sum
+// under the row's common max until the end.  The ragged last vocabulary
+// tile loads zeros at and past V (the pitch's pad columns are never read),
+// and those columns are masked.
 //
 // Both routes end in the merge kernel, which also writes each row's
 // log-sum-exp lse = M + log(max(L, 1e-30)) in float32 when asked (the
@@ -89,7 +93,7 @@ __device__ __forceinline__ void load_slice(const T* __restrict__ h,
                                            float (&ha)[LOADS],
                                            float (&wa)[LOADS], int tid,
                                            int r0, int v0, int k0, int T_rows,
-                                           int d, int V) {
+                                           int d, int V, int ldw) {
 #pragma unroll
   for (int e = 0; e < LOADS; ++e) {
     const int idx = tid + e * THREADS;
@@ -98,7 +102,7 @@ __device__ __forceinline__ void load_slice(const T* __restrict__ h,
     ha[e] = (gr < T_rows && gk < d) ? to_f32(h[(long long)gr * d + gk]) : 0.f;
     const int wk = idx / BV, c = idx % BV;
     const int gwk = k0 + wk, gc = v0 + c;
-    wa[e] = (gwk < d && gc < V) ? to_f32(W[(long long)gwk * V + gc]) : 0.f;
+    wa[e] = (gwk < d && gc < V) ? to_f32(W[(long long)gwk * ldw + gc]) : 0.f;
   }
 }
 
@@ -107,7 +111,7 @@ __global__ void __launch_bounds__(THREADS)
 xent_partial_kernel(const T* __restrict__ h, const T* __restrict__ W,
                     const int* __restrict__ labels, float* __restrict__ part_m,
                     float* __restrict__ part_l, float* __restrict__ part_g,
-                    int T_rows, int d, int V, int n_split) {
+                    int T_rows, int d, int V, int ldw, int n_split) {
   __shared__ __align__(16) float As[BD * AP];   // h slice, [depth][row]
   __shared__ __align__(16) float Bs[BD * BV];   // W slice, [depth][column]
 
@@ -139,7 +143,7 @@ xent_partial_kernel(const T* __restrict__ h, const T* __restrict__ W,
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
     float ha[LOADS], wa[LOADS];
-    load_slice(h, W, ha, wa, tid, r0, v0, 0, T_rows, d, V);
+    load_slice(h, W, ha, wa, tid, r0, v0, 0, T_rows, d, V, ldw);
     for (int k0 = 0; k0 < d; k0 += BD) {
       __syncthreads();             // previous slice consumed
 #pragma unroll
@@ -150,7 +154,8 @@ xent_partial_kernel(const T* __restrict__ h, const T* __restrict__ W,
       }
       __syncthreads();
       if (k0 + BD < d)
-        load_slice(h, W, ha, wa, tid, r0, v0, k0 + BD, T_rows, d, V);
+        load_slice(h, W, ha, wa, tid, r0, v0, k0 + BD, T_rows, d, V,
+                   ldw);
 #pragma unroll
       for (int kk = 0; kk < BD; ++kk) {
         const float4 a0 = *reinterpret_cast<const float4*>(&As[kk * AP + ty * 4]);
@@ -235,15 +240,15 @@ __global__ void xent_merge_kernel(const float* __restrict__ part_m,
 
 template <typename T>
 int launch(const void* h, const void* W, const void* labels, void* loss,
-           void* lse, void* part, int T_rows, int d, int V, int n_split,
-           cudaStream_t stream) {
+           void* lse, void* part, int T_rows, int d, int V, int ldw,
+           int n_split, cudaStream_t stream) {
   float* pm = (float*)part;
   float* pl = pm + (long long)n_split * T_rows;
   float* pg = pl + (long long)n_split * T_rows;
   const dim3 grid((T_rows + BR - 1) / BR, n_split);
   xent_partial_kernel<T><<<grid, THREADS, 0, stream>>>(
       (const T*)h, (const T*)W, (const int*)labels, pm, pl, pg, T_rows, d, V,
-      n_split);
+      ldw, n_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   xent_merge_kernel<<<(T_rows + 255) / 256, 256, 0, stream>>>(
@@ -259,7 +264,7 @@ int launch(const void* h, const void* W, const void* labels, void* loss,
 
 namespace xtc {
 
-constexpr int FWD_NS = 4;       // stages of the ring: 128 KB
+constexpr int FWD_NS = 4;       // stages of the ring: 4 x 48 KB
 
 // Block (128-row tile, vocabulary split), the CUDA-core kernel's grid.
 __global__ void __launch_bounds__(THREADS, 1)
@@ -271,7 +276,7 @@ xent_partial_tc_kernel(const __grid_constant__ CUtensorMap hmap,
                        int n_split) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = ring_base(smem_raw);
-  ring_init<FWD_NS>(base);
+  ring_init<1, FWD_NS>(base);
   const int m0 = blockIdx.x * BM;
   const int split = blockIdx.y;
   const int n_vt = (V + BN - 1) / BN;
@@ -284,7 +289,8 @@ xent_partial_tc_kernel(const __grid_constant__ CUtensorMap hmap,
   if (tid >= 256) {                             // producer warp
     if (tid == 256)
       for (int vt = vt_begin; vt < vt_end; ++vt)
-        produce<false, FWD_NS>(base, &hmap, &wmap, m0, vt * BN, V, n_k, it);
+        produce<false, 1, FWD_NS>(base, &hmap, &hmap, &wmap, m0, vt * BN, V,
+                                  0, n_k, it);
     return;
   }
 
@@ -300,45 +306,38 @@ xent_partial_tc_kernel(const __grid_constant__ CUtensorMap hmap,
     l_run[i] = 0.f;
     gold[i] = 0.f;
   }
-  float acc[2][32];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int x = 0; x < 32; ++x) acc[j][x] = 0.f;
+  float acc[ACC];
+  zero(acc);
 
   for (int vt = vt_begin; vt < vt_end; ++vt) {
-    consume<false, FWD_NS>(base, acc, wg, lane, n_k, false, it);
+    consume<false, 1, FWD_NS>(base, acc, wg, lane, n_k, false, it);
     const int v0 = vt * BN;
     const bool ragged = v0 + BN > V;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = v0 + 64 * j + 8 * n + cq + e;
-            const float x = acc[j][4 * n + 2 * i + e];
-            if (!ragged || c < V) {
-              mx = fmaxf(mx, x);
-              if (c == lab[i]) gold[i] += x;
-            }
+        for (int e = 0; e < 2; ++e) {
+          const int c = v0 + 8 * n + cq + e;
+          const float x = acc[4 * n + 2 * i + e];
+          if (!ragged || c < V) {
+            mx = fmaxf(mx, x);
+            if (c == lab[i]) gold[i] += x;
           }
+        }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float m_new = fmaxf(m_run[i], mx);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = v0 + 64 * j + 8 * n + cq + e;
-            if (!ragged || c < V) ps += expf(acc[j][4 * n + 2 * i + e] - m_new);
-          }
+        for (int e = 0; e < 2; ++e) {
+          const int c = v0 + 8 * n + cq + e;
+          if (!ragged || c < V) ps += expf(acc[4 * n + 2 * i + e] - m_new);
+        }
       l_run[i] = l_run[i] * expf(m_run[i] - m_new) + ps;
       m_run[i] = m_new;
     }
@@ -362,13 +361,13 @@ xent_partial_tc_kernel(const __grid_constant__ CUtensorMap hmap,
 }
 
 int launch(const void* h, const void* W, const void* labels, void* loss,
-           void* lse, void* part, int T_rows, int d, int V, int n_split,
-           cudaStream_t stream) {
+           void* lse, void* part, int T_rows, int d, int V, int ldw,
+           int n_split, cudaStream_t stream) {
   CUtensorMap hmap, wmap;
-  int err = make_map_2d(&hmap, h, T_rows, d, BM);
-  if (!err) err = make_map_2d(&wmap, W, d, V, BK);
+  int err = make_map_2d(&hmap, h, T_rows, d, d, BM);
+  if (!err) err = make_map_2d(&wmap, W, d, V, ldw, BK);
   if (err) return err;
-  const int smem = Ring<FWD_NS>::ALLOC;
+  const int smem = Ring<1, FWD_NS>::alloc(0);
   cudaError_t e = cudaFuncSetAttribute(
       xent_partial_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -388,34 +387,37 @@ int launch(const void* h, const void* W, const void* labels, void* loss,
 
 }  // namespace xtc
 
-// dtype: 0 = float32, 1 = bfloat16 (h and W share it); labels int32 [T];
-// loss float32 [T]; lse: float32 [T] or null; part: float32 scratch of
-// 3 * n_split * T (partial m, l and gold per split and row).  n_split must
-// lie in [1, ceil(V / 128)].  tensor_cores = 1 takes the bf16 tensor-core
-// route, which needs dtype 1, d % 8 == 0, V % 8 == 0 and 16-byte aligned h
-// and W (the wrapper routes by exactly that); 0 the CUDA-core kernel.
+// dtype: 0 = float32, 1 = bfloat16 (h and W share it); h [T, d] contiguous;
+// W [d, V] with rows ldw >= V elements apart; labels int32 [T]; loss
+// float32 [T]; lse: float32 [T] or null; part: float32 scratch of
+// 3 * n_split * T (partial m, l and gold per split and row).
+// tensor_cores = 1 takes the bf16 tensor-core route, which needs dtype 1,
+// d % 8 == 0, ldw % 8 == 0 and 16-byte aligned h and W (the wrapper routes
+// by exactly that) and n_split in [1, ceil(V / 256)]; 0 the CUDA-core
+// kernel, n_split in [1, ceil(V / 128)].
 extern "C" int fused_xent_fwd_launch(const void* h, const void* W,
                                      const void* labels, void* loss,
                                      void* lse, void* part, int T_rows, int d,
-                                     int V, int n_split, int dtype,
+                                     int V, int ldw, int n_split, int dtype,
                                      int tensor_cores, void* stream) {
   if (T_rows <= 0) return 0;
-  const int n_vt = (V + BV - 1) / BV;
-  if (d <= 0 || V <= 0 || n_split < 1 || n_split > n_vt)
+  const int tile = tensor_cores ? xtc::BN : BV;
+  if (d <= 0 || V <= 0 || ldw < V || n_split < 1 ||
+      n_split > (V + tile - 1) / tile)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (tensor_cores) {
-    if (dtype != 1 || d % 8 || V % 8 || ((uintptr_t)h | (uintptr_t)W) % 16)
+    if (dtype != 1 || d % 8 || ldw % 8 || ((uintptr_t)h | (uintptr_t)W) % 16)
       return (int)cudaErrorInvalidValue;
-    return xtc::launch(h, W, labels, loss, lse, part, T_rows, d, V, n_split,
-                       st);
+    return xtc::launch(h, W, labels, loss, lse, part, T_rows, d, V, ldw,
+                       n_split, st);
   }
   if (dtype == 0)
-    return launch<float>(h, W, labels, loss, lse, part, T_rows, d, V,
+    return launch<float>(h, W, labels, loss, lse, part, T_rows, d, V, ldw,
                          n_split, st);
   if (dtype == 1)
     return launch<__nv_bfloat16>(h, W, labels, loss, lse, part, T_rows, d, V,
-                                 n_split, st);
+                                 ldw, n_split, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,10 +10,15 @@ The three model ops are differentiable, as the reference's ``custom_vjp``s
   the plain ``ref.selective_scan`` under autograd, as the reference's
   ``_ss_bwd`` does (it has no backward kernel);
 - ``fused_softmax_xent``: forward through the fused cross-entropy
-  (saving h, W, labels and lse); on the bfloat16 tensor-core route the
-  backward runs the backward kernels from lse, and on every other route
-  (the CPU, float32, unaligned bfloat16) it recomputes the plain
+  (saving h, W, labels and lse); on the bfloat16 tensor-core route (an odd
+  vocabulary's too, where W comes ``pitched``) the backward runs the
+  backward kernels from lse, and on every other route (the CPU, float32,
+  bfloat16 that TMA cannot address) it recomputes the plain
   ``ref.softmax_xent`` on the chunk, as the reference's ``_fx_bwd`` does.
+
+``pitched`` hands the cross-entropy its W: one cast copy into a
+``[d, ceil8(V)]`` buffer, as its ``[:, :V]`` view, differentiable in the
+source.
 
 The federated ops are forward-only: round functions are never
 differentiated through (the local-SGD kernels compute their gradients in
@@ -85,6 +90,17 @@ class _SelectiveScan(torch.autograd.Function):
                               (gy, gh))
 
 
+class _Pitched(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, W, dtype):
+        ctx.src_dtype = W.dtype
+        return fused_xent.pitched(W, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.src_dtype), None
+
+
 class _FusedSoftmaxXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, W, labels):
@@ -116,6 +132,15 @@ def selective_scan(dt, A, Bmat, Cmat, x, h0):
     [B, S, N]; h0: [B, d, N] -> (y [B, S, d] f32, hT [B, d, N] f32).
     Differentiable in every input."""
     return _SelectiveScan.apply(dt, A, Bmat, Cmat, x, h0)
+
+
+def pitched(W, dtype):
+    """W [d, V] cast to ``dtype`` into a ``[d, ceil8(V)]`` buffer with one
+    ``copy_``, as its ``[:, :V]`` view (``fused_xent.pitched``): the rows
+    of an odd vocabulary's W then start 16 bytes apart, as the
+    cross-entropy's tensor-core kernels need.  Differentiable in W: the
+    gradient of the view, cast back to W's dtype."""
+    return _Pitched.apply(W, dtype)
 
 
 def fused_softmax_xent(h, W, labels):

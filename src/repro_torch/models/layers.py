@@ -345,17 +345,22 @@ def chunked_lm_loss(params, cfg, h, labels, mask=None, chunk: int = 1024,
     that ``chunk`` does not divide is one chunk of length S, as in the
     reference.  ``use_fused`` takes each chunk through the fused
     cross-entropy op (``kernels.ops.fused_softmax_xent``: the kernel on a
-    CUDA tensor, its plain version, float32 product, on a CPU one);
-    otherwise the chunk's logits are the compute-dtype product, upcast."""
+    CUDA tensor, its plain version, float32 product, on a CPU one), with
+    the compute-dtype W cast once a loss into a ``[d, ceil8(V)]`` buffer
+    (``kernels.ops.pitched``, one copy) so that any vocabulary takes the
+    kernels' tensor-core route; otherwise the chunk's logits are the
+    compute-dtype product, upcast."""
     B, S, d = h.shape
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.bool, device=h.device)
     n_chunks = max(1, S // chunk)
     if S % chunk:
         n_chunks, chunk = 1, S
-    W = _unembed_matrix(params, cfg)
     if use_fused:
-        W = W.contiguous()      # the kernel reads [d, V] row-major
+        W = kops.pitched(params["tok"].T if cfg.tie_embeddings
+                         else params["unembed"], cfg.compute_dtype)
+    else:
+        W = _unembed_matrix(params, cfg)
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(n_chunks):

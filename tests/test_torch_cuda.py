@@ -52,8 +52,8 @@ from torch_cases import (COMPRESS_CASES, FAULT_CFG, FAULT_DS, FAULT_PATHS,
                          compress_case, dense_case, fault_kwargs,
                          LM_CFG, gather_case, gather_lanes_case, iid_draws,
                          lm_fed_case, lstm_case, mclr_init, moe_case,
-                         padded_round_case, robust_stack_case, scan_case,
-                         sgd_case, xent_case)
+                         padded_round_case, pitched_xent_case,
+                         robust_stack_case, scan_case, sgd_case, xent_case)
 
 TOL = 2e-5
 
@@ -494,7 +494,8 @@ XENT_ROUTES = [
     (200, 64, 700, torch.bfloat16, False),
     (150, 36, 704, torch.bfloat16, False),
     (150, 32, 700, torch.float32, False),
-    (64, 1024, 49155, torch.bfloat16, False),   # V % 8 != 0: CUDA cores
+    # an odd V in a contiguous W: rows not 16 bytes apart, CUDA cores
+    (64, 1024, 49155, torch.bfloat16, False),
     (64, 384, 51865, torch.bfloat16, False),    # whisper-tiny's V
     (64, 2048, 92553, torch.bfloat16, False),   # internvl2-2b's V
 ]
@@ -549,6 +550,102 @@ def test_cuda_fused_xent_routes(cuda_device, T, d, V, dtype, tc):
     else:
         with pytest.raises(ValueError, match="backward kernels take"):
             bx(h, W, labels, lse, g)
+
+
+# (T, d, V): odd vocabularies in a [d, ceil8(V)] buffer (the tensor-core
+# route), granite-moe's, whisper-tiny's and internvl2-2b's among them
+XENT_PITCHED = [
+    (37, 64, 1003),
+    (150, 96, 5001),
+    (64, 1024, 49155),
+    (64, 384, 51865),
+    (300, 2048, 92553),
+]
+
+
+def _pitched_on(device, T, d, V, pitch):
+    """(h, W, labels) bf16 on ``device``, W the [:, :V] view of a
+    [d, pitch] buffer whose pad columns hold NaN."""
+    h, _, buf, labels = pitched_xent_case(T, d, V, pitch)
+    h = torch.from_numpy(h).to(device, torch.bfloat16)
+    W = torch.from_numpy(buf).to(device, torch.bfloat16)[:, :V]
+    return h, W, torch.from_numpy(labels).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,V", XENT_PITCHED)
+def test_cuda_fused_xent_odd_vocabulary_on_the_tensor_cores(cuda_device, T,
+                                                            d, V):
+    """A pitched W of an odd vocabulary takes the tensor cores, forward and
+    backward kernels (one launch each), against the plain versions: the
+    loss and lse within 1e-4, dh and dW per leaf against the rounding
+    model and the plain recompute; dW comes back [d, V], a view of a
+    pitched buffer; no NaN from the pad reaches any output."""
+    h, W, labels = _pitched_on(cuda_device, T, d, V, fused_xent.pitch(V))
+    assert W.stride() == (fused_xent.pitch(V), 1)
+    assert fused_xent.tensor_core_route(h, W)
+    g = torch.from_numpy(np.random.default_rng(6).uniform(
+        0.5, 1.5, T).astype(np.float32)).to(cuda_device)
+    fx, bx = fused_xent.fused_softmax_xent_fwd, fused_xent.fused_softmax_xent_bwd
+    counts = lambda: (fx.launches, fx.tensor_core_launches, bx.launches,
+                      bx.tensor_core_launches)
+    before = counts()
+    loss, lse = fused_xent.fused_softmax_xent_fwd_lse(h, W, labels)
+    dh, dW = bx(h, W, labels, lse, g)
+    torch.cuda.synchronize()
+    assert counts() == tuple(b + 1 for b in before)
+    want_loss, want_lse = tref.softmax_xent_lse(h, W, labels)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    assert tuple(dW.shape) == (d, V) and dW.dtype == torch.bfloat16
+    assert dW.stride() == (fused_xent.pitch(V), 1)
+    assert tuple(dh.shape) == (T, d) and dh.is_contiguous()
+    assert bool(torch.isfinite(dh).all() and torch.isfinite(dW).all())
+    model = tref.softmax_xent_bwd_tc(h, W, labels, lse, g)
+    want = tops._recompute_vjp(tref.softmax_xent, (h, W, labels), (g,))[:2]
+    for got, m, w in zip((dh, dW), model, want):
+        _close_per_leaf(got, m, XENT_BWD_RTOL, XENT_BWD_ATOL)
+        _close_per_leaf(got, w, XENT_BWD_RTOL, XENT_BWD_ATOL)
+    # the op on the leaves: its backward the kernels too
+    leaves = [h.clone().requires_grad_(), W.detach().requires_grad_()]
+    (tops.fused_softmax_xent(*leaves, labels) * g).sum().backward()
+    assert counts() == tuple(b + 2 for b in before)
+    for leaf, m in zip(leaves, model):
+        _close_per_leaf(leaf.grad, m, XENT_BWD_RTOL, XENT_BWD_ATOL)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_xent_routes_w_by_its_pitch(cuda_device):
+    """A W whose rows lie a multiple of 8 elements apart takes the tensor
+    cores; one whose pitch is not (V + 3 here) takes the CUDA-core forward
+    and the plain recompute as backward, with the same values; a W whose
+    rows are not contiguous is refused."""
+    T, d, V = 100, 64, 1003
+    fx, bx = fused_xent.fused_softmax_xent_fwd, fused_xent.fused_softmax_xent_bwd
+    h, W, labels = _pitched_on(cuda_device, T, d, V, V + 3)
+    assert W.stride(0) % 8 and not fused_xent.tensor_core_route(h, W)
+    assert fused_xent.tensor_core_route(h, fused_xent.pitched(W))
+    counts = lambda: (fx.launches, fx.tensor_core_launches, bx.launches,
+                      bx.tensor_core_launches)
+    before = counts()
+    loss, lse = fused_xent.fused_softmax_xent_fwd_lse(h, W, labels)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1,) + before[1:]
+    want_loss, want_lse = tref.softmax_xent_lse(h, W, labels)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="backward kernels take"):
+        bx(h, W, labels, lse, torch.ones_like(lse))
+    leaves = [h.clone().requires_grad_(), W.detach().requires_grad_()]
+    tops.fused_softmax_xent(*leaves, labels).sum().backward()
+    assert counts() == (before[0] + 2,) + before[1:]
+    want = tops._recompute_vjp(tref.softmax_xent, (h, W, labels),
+                               (torch.ones_like(lse),))[:2]
+    for leaf, w in zip(leaves, want):
+        _close_per_leaf(leaf.grad, w, XENT_BWD_RTOL, XENT_BWD_ATOL)
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        fused_xent.fused_softmax_xent_fwd(h, fused_xent.pitched(W).T.T[:, ::2],
+                                          labels)
 
 
 @pytest.mark.cuda

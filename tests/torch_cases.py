@@ -140,6 +140,16 @@ def xent_case(T, d, V, seed=21):
     return h, W, labels
 
 
+def pitched_xent_case(T, d, V, pitch, seed=21):
+    """``xent_case``'s (h, W, labels) with W also laid in a [d, pitch]
+    buffer (pitch >= V) whose columns at and past V hold NaN: (h, W,
+    buffer, labels); a kernel that reads past V shows it."""
+    h, W, labels = xent_case(T, d, V, seed)
+    buf = np.full((d, pitch), np.nan, np.float32)
+    buf[:, :V] = W
+    return h, W, buf, labels
+
+
 def _slice(P, cs):
     """A rank's slice length at cluster size cs (the compressor's plan)."""
     return 4 * -(-(-(-P // cs)) // 4)
