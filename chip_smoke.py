@@ -242,6 +242,23 @@ last line):
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
    host wall, device time and the kernels that take it.
+6. the dry-run and its tooling (``dryrun_phase``), last, so that its
+   profiled steps follow every other profiler window: whole steps at
+   full width with random float32 weights and bf16 compute
+   (``DRYRUN_LEGS``): Llama-3.2-3B train_4k (one 4,096-token row, SGD,
+   remat), prefill_32k (B=1) and decode_32k (the mesh's per-device batch
+   of 8, or 4 when the trace says its 32,768-slot cache does not fit),
+   Falcon-Mamba-7B prefill_32k (B=1), each with its median step ms (CUDA
+   events), its own peak memory beside the trace's estimate on mesh
+   (1, 1), the trace's compute, memory and collective terms, the step's
+   share of the bf16 peak, its launches (counted like every main path's,
+   checked exactly: every flash and cross-entropy call on the tensor
+   cores) and one profiled step's top kernels; then ``python -m
+   repro_torch.launch.dryrun --all`` (every architecture x shape pair
+   traced on the meta device as one device's share of a 16x16 mesh) in
+   a subprocess beside the reference scripts' twins (``TWINS``) on the
+   card: each must exit 0; the report table and the dry-run's wall time
+   printed.
 
 It then prints one JSON line with every kernel's launches (the flash and
 cross-entropy kernels' tensor-core launches too), error, times and
@@ -266,6 +283,16 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(HERE, "src")
+if os.path.isdir(os.path.join(SRC, "repro_torch")):
+    # the H100 rates and the kernels' bound formulas (alone, without the
+    # repo's src/, main() says so and exits)
+    sys.path.insert(0, SRC)
+    from repro_torch.roofline.analysis import (  # noqa: F401
+        BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, SFU_PER_S,
+        bound, compress_work, dense_sgd_work, flash_bwd_work,
+        flash_fwd_work, gather_work, mclr_sgd_work, scan_bound, scan_work,
+        xent_bwd_work, xent_fwd_work)
 TOL = 2e-5                 # the reference's local-SGD kernel-vs-XLA bound
 DENSE_RTOL, DENSE_ATOL = 5e-4, 5e-5   # its MLP pallas-vs-xla bound
 LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # flash vs plain, by dtype
@@ -281,13 +308,6 @@ TRAIN_TOL = 1e-4           # float32 losses, grads and silo params, card/CPU
 # then a sum of at most K values) and the geometric median (eight Weiszfeld
 # steps, each a distance summed over every coordinate)
 RANK_TOL, GM_TOL = 1e-6, 1e-5
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS_PER_S = 67e12   # H100 SXM, float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12  # H100 SXM, dense bf16 tensor cores
-# exp2 on the special-function units: 16 results per clock per SM (CUDA C++
-# programming guide, arithmetic throughput, compute capability 9.0) on 132
-# SMs at the H100 SXM's 1.98 GHz boost clock
-SFU_PER_S = 16 * 132 * 1.98e9
 # device cycles of torch.cuda._sleep queued ahead of each timed call (~0.5
 # ms at 1.98 GHz): longer than the host takes to enqueue one call, even the
 # gather's wrapper on a slow host (a 256 MB flush alone, ~0.08 ms, was not)
@@ -393,25 +413,6 @@ def tensor_core_counts(counted) -> dict:
             if hasattr(fn, "tensor_core_launches")}
 
 
-def bound(nbytes: float, flops: float, flops_per_s: float = FP32_FLOPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def scan_bound(nbytes: float, flops: float, exps: float):
-    """The scan's bound: the largest of its bytes over the memory rate, its
-    float32 flop over the CUDA cores' rate and its exps over the
-    special-function units' rate, which run beside each other -> (ms,
-    bound_by, {"bytes": ms, "operations": ms, "exp": ms}).  An exp bound
-    is reported as bound by operations (they are, on the SFUs)."""
-    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": flops / FP32_FLOPS_PER_S * 1e3,
-             "exp": exps / SFU_PER_S * 1e3}
-    ms = max(parts.values())
-    return ms, ("bytes" if parts["bytes"] == ms else "operations"), parts
-
-
 def check_flash(torch, fa, ref, gen, dev):
     """Phase 2: flash attention against its plain version at Llama-3.2-3B's
     widths, then times at the serving path's shape.  Returns the kernel's
@@ -471,9 +472,7 @@ def check_flash(torch, fa, ref, gen, dev):
                     3)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    pairs = B * Hq * S * (S + 1) // 2          # unmasked (q, k) pairs
-    flops = 4 * hd * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S
+    flops, nbytes = flash_fwd_work(B, S, S, Hq, Hkv, hd, True)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     print(f"flash_attention_fwd B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16 "
           f"causal (tensor cores): kernel {ms:.4f} ms "
@@ -497,13 +496,6 @@ def scan_inputs(torch, B, S, d, N, gen, dev):
     x = torch.randn((B, S, d), generator=gen, device=dev)
     h0 = torch.randn((B, d, N), generator=gen, device=dev)
     return dt, A, Bm, Cm, x, h0
-
-
-def scan_work(B, S, d, N):
-    """(bytes, flop, exps) of one scan: dt, x, y, B, C, A, h0, hT once;
-    per state and step dt*A, the h update (3) and the y fma (2), one exp."""
-    nbytes = 4 * (3 * B * S * d + 2 * B * S * N + d * N + 2 * B * d * N)
-    return nbytes, 6 * B * S * d * N, B * S * d * N
 
 
 def check_scan(torch, ss, ref, gen, dev):
@@ -621,11 +613,7 @@ def check_flash_bwd(torch, fa, ref, gen, dev):
     dot = do.transpose(1, 2)
     lib = time_ms(torch, lambda: torch.autograd.grad(
         o, (qt, kt, vt), dot, retain_graph=True), 20)
-    pairs = B * Hq * S * (S + 1) // 2
-    flops = 10 * hd * pairs            # s, dp, dv, dk, dq: 2 hd flop each
-    # reads q, out, do, k, v and lse; writes dq, dk, dv
-    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
-        + 4 * B * Hq * S
+    flops, nbytes = flash_bwd_work(B, S, S, Hq, Hkv, hd, True)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     print(f"flash_attention_bwd B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} bf16 "
           f"causal (tensor cores): kernel {ms:.4f} ms "
@@ -756,13 +744,9 @@ def xent_times(torch, fx, bx, ops, ref, h, W, labels, lse, g, tag=""):
     del out, hg, Wg
     split_ms = profiled(torch, lambda: bx(h, W, labels, lse, g),
                         tuple(p for _, p in XENT_BWD_PARTS))[3]
-    flops = 2 * T * d * V
-    nbytes = 2 * (h.numel() + W.numel()) + 4 * T + 4 * T
+    flops, nbytes = xent_fwd_work(T, d, V)
     f_bound, f_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
-    # backward: the logits, dh and dW products; reads h, W, labels, lse and
-    # g, writes dh and dW
-    b_flops = 3 * flops
-    b_bytes = 4 * (h.numel() + W.numel()) + 12 * T
+    b_flops, b_bytes = xent_bwd_work(T, d, V)
     b_bound, b_by = bound(b_bytes, b_flops, BF16_FLOPS_PER_S)
     split = dict(zip((k for k, _ in XENT_BWD_PARTS), split_ms))
     print(f"fused_softmax_xent_fwd {tag}T={T} d={d} V={V} bf16 (tensor "
@@ -836,9 +820,7 @@ def check_slice_shapes(torch, counted, ref, gen, dev):
                     3)
     lib = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt),
                   20)
-    pairs = B * H * S * S
-    flops = 4 * hd * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
+    flops, nbytes = flash_fwd_work(B, S, S, H, H, hd, False)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     out["flash_attention_fwd"][label] = dict(
         max_abs_err=err, lse_max_abs_err=e_lse,
@@ -880,9 +862,7 @@ def check_slice_shapes(torch, counted, ref, gen, dev):
         q, k, v, o, want_lse, do, causal=False), 3)
     lib = time_ms(torch, lambda: torch.autograd.grad(
         og, (qg, kg, vg), dot, retain_graph=True), 20)
-    flops = 10 * hd * pairs
-    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
-        + 4 * B * H * S
+    flops, nbytes = flash_bwd_work(B, S, S, H, H, hd, False)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOPS_PER_S)
     out["flash_attention_bwd"][label] = dict(
         max_abs_err=max(errs), rounding_model_max_abs_err=e_model, ms=ms,
@@ -1326,12 +1306,15 @@ def profiled(torch, fn, part="flash_"):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        lost, n_launches = lost_records(prof)
+        events = trace_events(prof)
+        lost, n_launches = unrecorded_launches(events)
         if not lost:
             break
         print(f"profiled: window {attempt} of {TRACE_ATTEMPTS}: {lost} of "
-              f"its {n_launches} kernel launches have no device record; "
-              f"profiling it again", flush=True)
+              f"its {n_launches} kernel launches have no device record "
+              f"(their places in launch order: "
+              f"{unrecorded_ranks(events)[:16]}); profiling it again",
+              flush=True)
     else:
         raise TraceIncomplete(f"all {TRACE_ATTEMPTS} profiled windows lost "
                               f"device records")
@@ -1358,12 +1341,6 @@ def trace_events(prof) -> list:
         with open(path) as f:
             return [e for e in json.load(f)["traceEvents"]
                     if e.get("ph") == "X"]
-
-
-def lost_records(prof):
-    """(launches without a device record, launches) of a finished
-    profile's window: ``unrecorded_launches`` of its trace events."""
-    return unrecorded_launches(trace_events(prof))
 
 
 def serve_path(torch, get_config, build_model, serve, arch, batch, prompt,
@@ -1655,6 +1632,20 @@ def unrecorded_launches(events):
     launches = [c for c, e in calls.items()
                 if re.match(r"cu(da)?LaunchKernel", e["name"])]
     return sum(c not in recorded for c in launches), len(launches)
+
+
+def unrecorded_ranks(events):
+    """The places, in host launch order (0 the window's first), of the
+    kernel launches of ``unrecorded_launches`` that have no device
+    record."""
+    recorded = {e["args"].get("correlation") for e in events
+                if e.get("cat") == "kernel"}
+    launches = sorted((e for e in events
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and re.match(r"cu(da)?LaunchKernel", e["name"])),
+                      key=lambda e: e.get("ts", 0))
+    return [i for i, e in enumerate(launches)
+            if e["args"].get("correlation") not in recorded]
 
 
 def stage_ranges(path, launched, stages):
@@ -3624,6 +3615,240 @@ def padded_phase(torch, np, femnist, counted):
     return out
 
 
+#: the whole steps ``dryrun_phase`` runs at full width on the card: (label,
+#: arch, shape id, global batch); every leg is one sequence but decode's,
+#: which takes the 16x16 mesh's per-device batch (128 / 16) when the
+#: trace says its 32,768-slot cache fits beside the weights, else 4
+DRYRUN_LEGS = (("llama3.2-3b train_4k", "llama3.2-3b", "train_4k", 1),
+               ("llama3.2-3b prefill_32k", "llama3.2-3b", "prefill_32k", 1),
+               ("falcon-mamba-7b prefill_32k", "falcon-mamba-7b",
+                "prefill_32k", 1),
+               ("llama3.2-3b decode_32k", "llama3.2-3b", "decode_32k", 8))
+#: timed steps a leg, after one warm-up step
+DRYRUN_REPS = 3
+#: the share of the card's memory a leg's traced estimate may take
+DRYRUN_FIT = 0.9
+#: the reference scripts' twins, run on the card as subprocesses
+TWINS = ("scripts/smoke_models_torch.py", "scripts/smoke_fl_torch.py",
+         "examples/serve_batch_torch.py",
+         "examples/fl_silo_transformer_torch.py")
+
+
+def whole_step(torch, np, counted, get_config, build_model, arch, shape_id,
+               B):
+    """One full-width step of ``arch`` at ``shape_id`` with ``B`` rows on
+    the card (random float32 weights, bf16 compute), beside its dry-run
+    trace on mesh (1, 1): the median of ``DRYRUN_REPS`` CUDA-event step
+    times after a warm-up, the peak memory against the trace's estimate,
+    the trace's roofline terms, the step's share of the bf16 peak, the
+    launches of every kernel (counts set to 0 just before the warm-up and
+    read just after the last step) and, outside the count, one profiled
+    step's top kernels."""
+    from repro_torch.configs import ShapeConfig, get_shape
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.roofline import analysis as A
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    dev = torch.device("cuda")
+    base = get_shape(shape_id)
+    S, kind = base.seq_len, base.kind
+    shape = ShapeConfig(shape_id, S, B, kind)
+    t0 = time.perf_counter()
+    cost, _, mem = St.trace_step(model, shape,
+                                 AbstractMesh((1, 1), ("data", "model")))
+    est = mem["argument_bytes"] + mem["temp_bytes"]
+    model_flops = A.model_flops_estimate(cfg, shape)
+    rep = A.roofline_terms(cost, 1, arch=arch, shape=shape_id, mesh="1x1",
+                           model_flops=model_flops, bytes_per_device=est)
+    trace_s = time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()      # earlier phases' tensors
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)), dtype=torch.int32, device=dev)
+    if kind == "train":
+        opt = St.make_optimizer("sgd", lr=5e-3)
+        state, batch = opt.init(params), {"tokens": tokens, "labels": tokens}
+        train_step = St.make_train_step(model, opt)
+        step = lambda: train_step(params, state, batch)     # noqa: E731
+    elif kind == "prefill":
+        prefill = St.make_prefill_step(model)
+        step = lambda: prefill(params, {"tokens": tokens})  # noqa: E731
+    else:
+        cache = model.init_cache(B, S, dev)
+        decode = St.make_decode_step(model)
+        step = lambda: decode(params, cache, tokens[:, :1], S - 1)  # noqa
+    reset_counts(counted)
+    out = step()
+    del out
+    times = []
+    for _ in range(DRYRUN_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del out
+    launches = {k: fn.launches for k, fn in counted.items()}
+    tc = tensor_core_counts(counted)
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = statistics.median(times)
+    prof_wall, device_ms, top, _, n_launched = profiled(
+        torch, lambda: step(), part="flash_")
+    del params, step
+    if kind == "train":
+        del state, batch
+    if kind == "decode":
+        del cache
+    torch.cuda.empty_cache()
+    row = dict(
+        arch=arch, shape=shape_id, global_batch=B, seq_len=S, kind=kind,
+        step_ms=ms, step_ms_all=times, peak_bytes=peak,
+        allocated_before_bytes=base,
+        trace_estimate_bytes=est, trace_memory=mem, trace_s=trace_s,
+        t_compute_ms=rep.t_compute * 1e3, t_memory_ms=rep.t_memory * 1e3,
+        t_collective_ms=rep.t_collective * 1e3, bottleneck=rep.bottleneck,
+        roofline_ms=max(rep.t_compute, rep.t_memory, rep.t_collective) * 1e3,
+        trace_flops=cost.flops, trace_bytes=cost.bytes_accessed,
+        model_flops=model_flops,
+        peak_share=model_flops / (ms / 1e3 * BF16_FLOPS_PER_S),
+        launches=launches, tensor_core_launches=tc,
+        profiled_wall_ms=prof_wall, profiled_device_ms=device_ms,
+        profiled_device_launches=n_launched, top_kernels_ms=top)
+    print(f"dryrun leg {arch} {shape_id} B={B} S={S}: step "
+          f"{ms:.3f} ms (median of {times}); roofline (trace, mesh 1x1) "
+          f"compute {row['t_compute_ms']:.3f} ms, memory "
+          f"{row['t_memory_ms']:.3f} ms, collective "
+          f"{row['t_collective_ms']:.3f} ms -> {rep.bottleneck} "
+          f"({cost.flops:.4e} flop, {cost.bytes_accessed:.4e} B); share "
+          f"of the bf16 peak {row['peak_share']:.4f} ({model_flops:.4e} "
+          f"model flop); peak memory {peak / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB held before, against the "
+          f"trace's {est / 2**30:.3f} GiB (arguments "
+          f"{mem['argument_bytes'] / 2**30:.3f} + live "
+          f"{mem['temp_bytes'] / 2**30:.3f}); launches "
+          f"{json.dumps(launches)} (tensor cores {json.dumps(tc)}); one "
+          f"profiled step: wall {prof_wall:.1f} ms, device "
+          f"{device_ms:.1f} ms, {n_launched} launches, top "
+          f"{json.dumps(top)}", flush=True)
+    return row
+
+
+def dryrun_phase(torch, np, counted, get_config, build_model):
+    """The dry-run and its tooling on the card: (a) the whole steps of
+    ``DRYRUN_LEGS`` against their traces (``whole_step``), the flash
+    forward and backward, the cross-entropy forward and backward and the
+    scan each launched on them; (b) ``python -m repro_torch.launch.dryrun
+    --all`` (every pair on the 16x16 mesh, on the host, beside (c)) must
+    exit 0, its report table printed with its wall time; (c) the
+    reference scripts' twins (``TWINS``) on the card, each exiting 0."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import ShapeConfig, get_shape
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import AbstractMesh
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    legs, total = {}, {k: 0 for k in counted}
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    for label, arch, shape_id, B in DRYRUN_LEGS:
+        if get_shape(shape_id).kind == "decode":
+            _, _, mem = St.trace_step(
+                build_model(get_config(arch)),
+                ShapeConfig(shape_id, get_shape(shape_id).seq_len, B,
+                            "decode"),
+                AbstractMesh((1, 1), ("data", "model")))
+            est = mem["argument_bytes"] + mem["temp_bytes"]
+            if est > DRYRUN_FIT * total_mem:
+                print(f"dryrun leg {label}: the trace's estimate "
+                      f"{est / 2**30:.2f} GiB at B={B} exceeds "
+                      f"{DRYRUN_FIT} of the card's "
+                      f"{total_mem / 2**30:.2f} GiB: B=4", flush=True)
+                B = 4
+        row = whole_step(torch, np, counted, get_config, build_model,
+                         arch, shape_id, B)
+        legs[label] = row
+        for k, n in row["launches"].items():
+            total[k] += n
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "fused_softmax_xent_fwd", "fused_softmax_xent_bwd",
+                 "selective_scan_fwd"):
+        if total[name] <= 0:
+            raise RuntimeError(f"the dry-run legs never launched {name}")
+    n = DRYRUN_REPS + 1
+    want = {"llama3.2-3b train_4k": dict(
+                flash_attention_fwd=56 * n, flash_attention_bwd=28 * n,
+                fused_softmax_xent_fwd=4 * n,
+                fused_softmax_xent_bwd=4 * n),
+            "llama3.2-3b prefill_32k": dict(flash_attention_fwd=28 * n),
+            "falcon-mamba-7b prefill_32k": dict(
+                selective_scan_fwd=64 * n),
+            "llama3.2-3b decode_32k": {}}
+    for label, w in want.items():
+        got = legs[label]["launches"]
+        if got != dict({k: 0 for k in counted}, **w) or any(
+                legs[label]["tensor_core_launches"][k] != got[k]
+                for k in legs[label]["tensor_core_launches"]):
+            raise RuntimeError(f"dryrun leg {label}: launched {got} "
+                               f"(tensor cores "
+                               f"{legs[label]['tensor_core_launches']}),"
+                               f" wanted {w}, all on the tensor cores")
+
+    # the dry-run on the host beside the twins (not beside the legs, whose
+    # timed and profiled steps it would share the host with)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    t_dry = time.perf_counter()
+    dry = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out-dir", tmp], env=env, cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        twins = {}
+        for path in TWINS:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, os.path.join(HERE, path)],
+                                 env=env, cwd=HERE, capture_output=True,
+                                 text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            tail = (res.stdout.strip().splitlines() or [""])[-1]
+            print(f"dryrun twin {path}: rc {res.returncode}, wall "
+                  f"{wall:.1f}s, last line: {tail}", flush=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"{path} exited {res.returncode}:\n"
+                                   f"{res.stdout[-4000:]}\n"
+                                   f"{res.stderr[-4000:]}")
+            twins[path] = dict(rc=res.returncode, wall_s=wall, last=tail)
+
+        out, _ = dry.communicate(timeout=900)
+        dry_wall = time.perf_counter() - t_dry
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    if dry.returncode != 0:
+        raise RuntimeError(f"python -m repro_torch.launch.dryrun --all "
+                           f"exited {dry.returncode}:\n{out[-4000:]}")
+    n_pairs = out.count(": ok ")
+    table = subprocess.run(
+        [sys.executable, "-m", "repro_torch.roofline.report", "--dir", tmp],
+        env=env, cwd=HERE, capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"dryrun --all (16x16): rc 0, {n_pairs} pairs, wall "
+          f"{dry_wall:.1f}s (beside the twins)\n{table}",
+          flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"dryrun phase wall {wall:.1f}s", flush=True)
+    return dict(legs=legs, launches=total, twins=twins,
+                dryrun_all=dict(rc=0, pairs=n_pairs, wall_s=dry_wall),
+                report=table, wall_s=wall)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3631,12 +3856,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    src = os.path.join(HERE, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        print(f"chip_smoke: the port's package is not under {src}",
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: the port's package is not under {SRC}",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, src)
     from repro_torch.core import aggregation
     from repro_torch.core import compression as comp
     from repro_torch.core.aggregation import _flatten_clients
@@ -3718,7 +3941,7 @@ def main() -> int:
     g_ms, g_lib = g_med["kernel"], g_med["library"]
     g_plain = time_ms(torch, lambda: ref.fed_cohort_gather(
         flat_x, pk.y, starts, ns, max_n=max_n), 50, flush)
-    g_bytes = (2 * K * max_n * feat * 4 + 3 * K * max_n * 4 + 2 * K * 4)
+    g_bytes = gather_work(K, max_n, feat)[1]
     g_bound, g_by = bound(g_bytes, 0)
     print(f"fed_cohort_gather K={K} max_n={max_n} feat={feat}: bitwise "
           f"equal; kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
@@ -3813,10 +4036,8 @@ def main() -> int:
     s_plain = time_ms(torch, lambda: ref.fed_local_sgd_mclr(
         *s_args, lr=lr, prox_mu=0.0), 3)
     executed = int(torch.clamp(n_iters, 0, max_iters).sum())
-    s_flops = executed * (4 * B * feat * C + 2 * feat * C + 8 * B * C)
-    s_bytes = (x.numel() * 4 + y.numel() * 4 + idx.numel() * 4
-               + (w0.numel() + b0.numel()) * 4 + 2 * K * 4
-               + K * (feat * C + C + 1) * 4)
+    s_flops, s_bytes = mclr_sgd_work(executed, K, max_n, feat, C, B,
+                                     max_iters)
     s_bound, s_by = bound(s_bytes, s_flops)
     print(f"fed_local_sgd_mclr femnist: kernel {s_ms:.4f} ms, plain "
           f"{s_plain:.4f} ms, bound {s_bound:.4f} ms ({s_by}: {executed} "
@@ -3864,10 +4085,9 @@ def main() -> int:
     d_ms = time_ms(torch, lambda: dense(*d_args, lr, 0.0), 10)
     d_plain = time_ms(torch, lambda: ref.fed_local_sgd_dense(
         *d_args, lr=lr, prox_mu=0.0), 3)
-    d_flops = executed * (4 * B * feat * H + 6 * B * H * C)
     d_params = feat * H + H + H * C + C
-    d_bytes = (x.numel() * 4 + y.numel() * 4 + idx.numel() * 4
-               + d_params * 4 + 2 * K * 4 + K * (d_params + 1) * 4)
+    d_flops, d_bytes = dense_sgd_work(executed, K, max_n, feat, H, C, B,
+                                      max_iters)
     d_bound, d_by = bound(d_bytes, d_flops)
     print(f"fed_local_sgd_dense femnist: kernel {d_ms:.4f} ms, plain "
           f"{d_plain:.4f} ms, bound {d_bound:.4f} ms ({d_by}: {executed} "
@@ -3927,7 +4147,7 @@ def main() -> int:
     c_plain = time_ms(torch, lambda: ref.fed_compress_topk_q8(c_ef, k=c_k),
                       50)
     c_lib = time_ms(torch, lambda: torch.topk(c_ef.abs(), c_k, dim=1), 50)
-    c_bytes = K * d_params * (4 + 1) + 4 * K
+    c_bytes = compress_work(K, d_params)[1]
     c_bound, c_by = bound(c_bytes, 0)
     c_plan = fed_compress.plan(K, d_params)
     print(f"fed_compress_topk_q8 K={K} P={d_params} k={c_k} ({c_plan.route}, "
@@ -4312,19 +4532,6 @@ def main() -> int:
     path_launches["padded"] = padded["launches"]
     # why the full-width MoE legs scale w_down and cut the lr
     moe_scale = moe_scale_phase(torch, np, get_config, make_sent140_like)
-    launches = {k: sum(p[k] for p in path_launches.values())
-                for k in counted}
-    scan_single_steps = sum(serving[a]["scan_single_step_launches"]
-                            for a in serving)
-    tc_runs = [serving[a]["tensor_core_launches"] for a in serving] + [
-        training[t]["tensor_core_launches"] for t in training] + [
-        faults["tensor_core_launches"], lm_fed["tensor_core_launches"]]
-    tc_total = {k: sum(r[k] for r in tc_runs) for k in tc_runs[0]}
-    print(f"main path launches: {json.dumps(launches)}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"the main paths never launched {name}")
-
     # -- 5. where a steady round's time goes (outside the counted run) ---
     profiles = {}
     for label, cfg in (("iid", dict(sampling="iid")),
@@ -4360,6 +4567,28 @@ def main() -> int:
             top_kernels_ms=top[:5])
         print(f"profile {label}: {json.dumps(profiles[label])}",
               flush=True)
+
+    # this slice's path, last: the dry-run, whole steps against their
+    # roofline and the reference scripts' twins.  Its profiled steps come
+    # after every other phase's profiler windows, so that theirs keep the
+    # history they had before it (late windows lose device records:
+    # ``obs.profiling.PROFILER_WARMUP_LAUNCHES``)
+    torch.cuda.empty_cache()
+    dryrun = dryrun_phase(torch, np, counted, get_config, build_model)
+    path_launches["dryrun"] = dryrun["launches"]
+    launches = {k: sum(p[k] for p in path_launches.values())
+                for k in counted}
+    scan_single_steps = sum(serving[a]["scan_single_step_launches"]
+                            for a in serving)
+    tc_runs = [serving[a]["tensor_core_launches"] for a in serving] + [
+        training[t]["tensor_core_launches"] for t in training] + [
+        faults["tensor_core_launches"], lm_fed["tensor_core_launches"]] + [
+        leg["tensor_core_launches"] for leg in dryrun["legs"].values()]
+    tc_total = {k: sum(r[k] for r in tc_runs) for k in tc_runs[0]}
+    print(f"main path launches: {json.dumps(launches)}", flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"the main paths never launched {name}")
 
     kernels = [
         {"name": "fed_cohort_gather", "route": "cuda",
@@ -4437,7 +4666,8 @@ def main() -> int:
                       "training": training, "checks": checks,
                       "telemetry": telemetry, "faults": faults,
                       "scan": scan, "shard": shard, "lm_fed": lm_fed,
-                      "padded": padded, "moe_scale": moe_scale}))
+                      "padded": padded, "moe_scale": moe_scale,
+                      "dryrun": dryrun}))
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -7,4 +7,6 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeConfig,
     check_ported,
     get_config,
+    get_shape,
+    supported_shapes,
 )

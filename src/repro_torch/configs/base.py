@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Tuple
 
 import torch
 
@@ -150,6 +151,21 @@ def get_config(arch_id: str, smoke: bool = False) -> ArchConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.SMOKE_CONFIG if smoke else mod.CONFIG
+
+
+def get_shape(shape_id: str) -> ShapeConfig:
+    return INPUT_SHAPES[shape_id]
+
+
+def supported_shapes(cfg: ArchConfig) -> Tuple[str, ...]:
+    """Which of the four assigned shapes an architecture runs: all four,
+    but an encoder-decoder's bounded decoder context leaves out
+    ``long_500k`` (dense, MoE and VLM stacks run it through their
+    sliding-window variant, ``launch.dryrun.variant_for``)."""
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.is_encoder_decoder:
+        return tuple(shapes)
+    return tuple(shapes + ["long_500k"])
 
 
 def check_ported(cfg: ArchConfig) -> None:

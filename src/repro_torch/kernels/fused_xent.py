@@ -130,12 +130,19 @@ def tensor_core_route(h, W) -> bool:
     CUDA tensors, h contiguous with d a multiple of 8, W's rows contiguous
     and a multiple of 8 elements (and at least V) apart, and both data
     pointers 16-byte aligned (TMA's stride and address rules).  A pitched
-    W (``pitched``) meets them whatever V is."""
-    return (h.device.type == "cuda" and h.dtype == torch.bfloat16
+    W (``pitched``) meets them whatever V is.  Meta tensors (the dry-run's
+    shapes, ``roofline.costs``) take the route their dtypes and strides
+    would take on the card."""
+    if h.device.type == "meta":
+        aligned = True
+    elif h.device.type == "cuda":
+        aligned = h.data_ptr() % 16 == 0 and W.data_ptr() % 16 == 0
+    else:
+        return False
+    return (aligned and h.dtype == torch.bfloat16
             and W.dtype == torch.bfloat16 and h.dim() == 2 and W.dim() == 2
             and h.is_contiguous() and h.shape[1] % 8 == 0 and _rows_ok(W)
-            and W.stride(0) % 8 == 0
-            and h.data_ptr() % 16 == 0 and W.data_ptr() % 16 == 0)
+            and W.stride(0) % 8 == 0)
 
 
 def fused_softmax_xent_fwd_lse(h, W, labels):

@@ -20,6 +20,16 @@ The three model ops are differentiable, as the reference's ``custom_vjp``s
 ``[d, ceil8(V)]`` buffer, as its ``[:, :V]`` view, differentiable in the
 source.
 
+Every kernel call goes through ``roofline.costs.kernel``, which is the
+plain call unless the dry-run's cost counter is active (then the call is
+charged as one op, its bound's FLOPs and bytes) or the tensors are on the
+meta device (then only the kernel's output shapes are made, nothing
+runs).  On the meta device the cross-entropy backward takes the route the
+card would take for the same dtypes and strides
+(``fused_xent.tensor_core_route``), and the scan's backward charges its
+plain recompute from traces of one, two and three steps
+(``costs.extrapolated``).
+
 The federated ops are forward-only: round functions are never
 differentiated through (the local-SGD kernels compute their gradients in
 closed form).  Every op goes to its wrapper, which runs the plain version
@@ -40,6 +50,7 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
 from repro_torch.kernels import fed_local_sgd_dense as dense_sgd
 from repro_torch.kernels import selective_scan as ss
 from repro_torch.obs.profiling import annotate
+from repro_torch.roofline import costs
 
 
 def _recompute_vjp(fn, inputs, grads):
@@ -64,7 +75,9 @@ def _recompute_vjp(fn, inputs, grads):
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        out, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+        out, lse = costs.kernel("flash_attention_fwd",
+                                fa.flash_attention_fwd, q, k, v, causal,
+                                window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
@@ -72,9 +85,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse,
-                                            g.contiguous(), ctx.causal,
-                                            ctx.window)
+        dq, dk, dv = costs.kernel("flash_attention_bwd",
+                                  fa.flash_attention_bwd, q, k, v, out, lse,
+                                  g.contiguous(), ctx.causal, ctx.window)
         return dq, dk, dv, None, None
 
 
@@ -82,19 +95,30 @@ class _SelectiveScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dt, A, Bmat, Cmat, x, h0):
         ctx.save_for_backward(dt, A, Bmat, Cmat, x, h0)
-        return ss.selective_scan_fwd(dt, A, Bmat, Cmat, x, h0)
+        return costs.kernel("selective_scan_fwd", ss.selective_scan_fwd, dt,
+                            A, Bmat, Cmat, x, h0)
 
     @staticmethod
     def backward(ctx, gy, gh):
-        return _recompute_vjp(ref.selective_scan, ctx.saved_tensors,
-                              (gy, gh))
+        saved = ctx.saved_tensors
+        if saved[0].device.type != "meta":
+            return _recompute_vjp(ref.selective_scan, saved, (gy, gh))
+
+        dt, A, Bmat, Cmat, x, h0 = saved
+
+        def steps(s):       # the recompute over the first s steps
+            _recompute_vjp(ref.selective_scan,
+                           (dt[:, :s], A, Bmat[:, :s], Cmat[:, :s],
+                            x[:, :s], h0), (gy[:, :s], gh))
+        costs.extrapolated(steps, saved[0].shape[1])
+        return tuple(torch.empty_like(t) for t in saved)
 
 
 class _Pitched(torch.autograd.Function):
     @staticmethod
     def forward(ctx, W, dtype):
         ctx.src_dtype = W.dtype
-        return fused_xent.pitched(W, dtype)
+        return costs.kernel("pitched", fused_xent.pitched, W, dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -104,7 +128,9 @@ class _Pitched(torch.autograd.Function):
 class _FusedSoftmaxXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, W, labels):
-        loss, lse = fused_xent.fused_softmax_xent_fwd_lse(h, W, labels)
+        loss, lse = costs.kernel("fused_softmax_xent_fwd",
+                                 fused_xent.fused_softmax_xent_fwd_lse, h, W,
+                                 labels)
         ctx.save_for_backward(h, W, labels, lse)
         return loss
 
@@ -112,8 +138,9 @@ class _FusedSoftmaxXent(torch.autograd.Function):
     def backward(ctx, g):
         h, W, labels, lse = ctx.saved_tensors
         if fused_xent.tensor_core_route(h, W):
-            dh, dW = fused_xent.fused_softmax_xent_bwd(h, W, labels, lse,
-                                                       g.contiguous())
+            dh, dW = costs.kernel("fused_softmax_xent_bwd",
+                                  fused_xent.fused_softmax_xent_bwd, h, W,
+                                  labels, lse, g.contiguous())
         else:
             dh, dW, _ = _recompute_vjp(ref.softmax_xent, (h, W, labels),
                                        (g,))
@@ -160,7 +187,8 @@ def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
     client's samples (``FederatedDataset.packed`` pads at upload)."""
     feat_shape = tuple(flat_x.shape[1:])
     feat = math.prod(feat_shape)
-    x, y, mask = fed_gather.fed_cohort_gather(
+    x, y, mask = costs.kernel(
+        "fed_cohort_gather", fed_gather.fed_cohort_gather,
         flat_x.reshape(flat_x.shape[0], feat), flat_y, starts, ns, max_n)
     return x.reshape((x.shape[0], max_n) + feat_shape), y, mask
 
@@ -170,8 +198,9 @@ def fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters, lr: float,
                        prox_mu: float = 0.0):
     """Fused masked budgeted MCLR local SGD.
     Returns (w_k [K, d, C], b_k [K, C], losses [K])."""
-    return fed_local_sgd.fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters,
-                                            lr, prox_mu)
+    return costs.kernel("fed_local_sgd_mclr",
+                        fed_local_sgd.fed_local_sgd_mclr, x, y, idx, w0, b0,
+                        ns, n_iters, lr, prox_mu)
 
 
 @annotate("fed.local_sgd_dense.cuda")
@@ -179,15 +208,16 @@ def fed_local_sgd_dense(x, y, idx, w1, b1, w2, b2, ns, n_iters, lr: float,
                         prox_mu: float = 0.0):
     """Fused masked budgeted dense-MLP (tanh) local SGD.  Returns
     (w1_k [K, d, H], b1_k [K, H], w2_k [K, H, C], b2_k [K, C], losses [K])."""
-    return dense_sgd.fed_local_sgd_dense(
-        x, y, idx, w1, b1, w2, b2, ns, n_iters, lr, prox_mu)
+    return costs.kernel("fed_local_sgd_dense", dense_sgd.fed_local_sgd_dense,
+                        x, y, idx, w1, b1, w2, b2, ns, n_iters, lr, prox_mu)
 
 
 @annotate("fed.upload_transform.cuda")
 def fed_compress_topk_q8(ef, k: int):
     """Top-k + int8 compression of the [K, P] error-feedback rows.
     Returns (q [K, P] int8, scale [K] f32)."""
-    return fed_compress.fed_compress_topk_q8(ef, k)
+    return costs.kernel("fed_compress_topk_q8",
+                        fed_compress.fed_compress_topk_q8, ef, k)
 
 
 # the step families a fused local-SGD kernel exists for, by LocalStep.kind

@@ -1,5 +1,16 @@
-"""The client-axis data group: the port's counterpart of the reference's
-``make_data_mesh`` (``repro/launch/mesh.py``).
+"""Meshes of the port: the client-axis data group, the counterpart of the
+reference's ``make_data_mesh`` (``repro/launch/mesh.py``), and the
+abstract production meshes of the dry-run.
+
+``AbstractMesh`` is a shape and axis names, the meshes
+``make_production_mesh`` (16x16 ``("data", "model")`` or 2x16x16 ``("pod",
+"data", "model")``, the reference's) and ``make_host_mesh`` (the visible
+CUDA devices by 1) return it; ``set_mesh`` makes one ambient for
+``sharding.logical_spec``.  No process group is made for it: the dry-run
+traces one device's share (``launch.steps.trace_step``).  ``link`` says
+whether a collective over some of its axes stays inside one 8-GPU
+NVLink node or crosses the network between nodes, devices numbered in
+the mesh's row-major order.
 
 The reference runs one process over an S-device JAX mesh under
 ``shard_map``.  The port runs one process per shard in a
@@ -20,11 +31,12 @@ cohort's stack).  Both run under CUDA-graph capture on an NCCL group.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import shutil
 import tempfile
 import warnings
-from typing import Callable, List, NamedTuple, Sequence
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,6 +44,69 @@ import torch.distributed as dist
 #: a rank that dies fails its peers' collectives after this long instead
 #: of hanging them
 GROUP_TIMEOUT_S = 60.0
+#: GPUs of one NVLink node (``roofline.analysis.GPUS_PER_NODE``)
+NODE_SIZE = 8
+
+
+class _Devices(NamedTuple):
+    size: int
+
+
+class AbstractMesh:
+    """A device mesh by shape and axis names, with no devices behind it:
+    ``.shape`` maps each axis name to its size, ``.devices.size`` is the
+    device count."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        if len(shape) != len(axis_names):
+            raise ValueError(f"{len(shape)} sizes for {len(axis_names)} "
+                             f"axes")
+        self.axis_names: Tuple[str, ...] = tuple(axis_names)
+        self.axis_sizes: Tuple[int, ...] = tuple(int(n) for n in shape)
+        self.shape: Dict[str, int] = dict(zip(self.axis_names,
+                                              self.axis_sizes))
+        self.devices = _Devices(math.prod(self.axis_sizes))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.axis_sizes}, {self.axis_names})"
+
+    @property
+    def name(self) -> str:
+        return "x".join(str(n) for n in self.axis_sizes)
+
+    def link(self, axes: Sequence[str]) -> str:
+        """"nvlink" when every group of a collective over ``axes`` lies
+        inside one node of ``NODE_SIZE`` consecutive devices, else
+        "network"."""
+        stride, span = 1, 1
+        for name, size in reversed(list(zip(self.axis_names,
+                                            self.axis_sizes))):
+            if name in axes:
+                span += (size - 1) * stride
+            stride *= size
+        return "nvlink" if span <= NODE_SIZE else "network"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production meshes: 16x16 ("data", "model") or
+    2x16x16 ("pod", "data", "model")."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
+def make_host_mesh() -> AbstractMesh:
+    """(visible CUDA devices, or 1 without any) x 1, ("data", "model")."""
+    import torch
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return AbstractMesh((max(n, 1), 1), ("data", "model"))
+
+
+def set_mesh(mesh: AbstractMesh):
+    """``with set_mesh(mesh): ...`` makes ``mesh`` the ambient mesh of
+    ``sharding.logical_spec`` and ``sharding.shard``."""
+    from repro_torch.sharding.rules import ambient_mesh
+    return ambient_mesh(mesh)
 
 
 class DataGroup(NamedTuple):

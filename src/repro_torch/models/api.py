@@ -7,6 +7,12 @@ for a config, as ``repro.models.api`` does: the decoder-only stacks
 encoder-decoder (``models.encdec``), plus ``leaf_views``, the per-layer
 split of its params that the silo round trains.  ``from_model`` adapts a
 decoder-only one to the ``LocalStep`` seam.
+
+For the dry-run a ``Model`` also gives the reference's logical-axis spec
+trees (``param_specs``, ``cache_specs``) and abstract inputs
+(``batch_spec``: meta tensors and their axes); ``abstract_params`` and
+``abstract_cache`` build params and caches on the meta device through the
+ordinary ``init`` and ``init_cache``, which allocates nothing.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, check_ported
+from repro_torch.configs.base import ArchConfig, ShapeConfig, check_ported
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decoder, encdec
 from repro_torch.models import layers as L
@@ -25,15 +31,71 @@ from repro_torch.models import layers as L
 VLM_FRONTEND_DIM = 1024
 
 
+META = torch.device("meta")
+
+
 @dataclasses.dataclass
 class Model:
     cfg: ArchConfig
-    init: Callable[[torch.Generator], Any]           # generator -> params
+    init: Callable[..., Any]     # (generator, device=None) -> params
     prefill: Callable[[Any, Dict], Tuple[Any, Any]]
     decode_step: Callable[[Any, Any, Any, Any], Tuple[Any, Any]]
     init_cache: Callable[..., Any]     # (batch, max_len, device) -> cache
     train_loss: Callable[[Any, Dict], Any]   # -> (loss, metrics)
+    param_specs: Callable[[], Any]           # () -> logical-axis tree
+    cache_specs: Callable[[], Any]
+    batch_spec: Callable[[ShapeConfig], Tuple[Dict, Dict]]  # abstract inputs
     leaf_views: Callable[[Any], Any] = decoder.layer_views
+
+
+def _vlm_patches(cfg: ArchConfig, seq_len: int) -> int:
+    if not cfg.n_patches:
+        return 0
+    return min(cfg.n_patches, seq_len // 4)
+
+
+def _decoder_batch_spec(cfg: ArchConfig, shape: ShapeConfig):
+    """(meta tensor tree, logical-axes tree) of a train or prefill batch,
+    the reference's: a VLM's patches take the first ``_vlm_patches``
+    positions of the sequence."""
+    B, S = shape.global_batch, shape.seq_len
+    P = _vlm_patches(cfg, S)
+    tok = torch.empty((B, S - P), dtype=torch.int32, device=META)
+    batch = {"tokens": tok, "labels": tok}
+    axes = {"tokens": ("batch", None), "labels": ("batch", None)}
+    if P:
+        batch["patches"] = torch.empty((B, P, VLM_FRONTEND_DIM),
+                                       dtype=cfg.compute_dtype, device=META)
+        axes["patches"] = ("batch", None, None)
+    if shape.kind == "prefill":
+        del batch["labels"], axes["labels"]
+    return batch, axes
+
+
+def _audio_batch_spec(cfg: ArchConfig, shape: ShapeConfig):
+    """(meta tensor tree, logical-axes tree) of an encoder-decoder batch:
+    ``seq_len`` frames under ``min(max_decoder_len, seq_len)`` tokens."""
+    B, S = shape.global_batch, shape.seq_len
+    T = min(cfg.max_decoder_len, S)
+    batch = {
+        "frames": torch.empty((B, S, encdec.FRONTEND_DIM),
+                              dtype=cfg.compute_dtype, device=META),
+        "tokens": torch.empty((B, T), dtype=torch.int32, device=META),
+        "labels": torch.empty((B, T), dtype=torch.int32, device=META),
+    }
+    axes = {"frames": ("batch", None, None), "tokens": ("batch", None),
+            "labels": ("batch", None)}
+    if shape.kind == "prefill":
+        del batch["labels"], axes["labels"]
+    return batch, axes
+
+
+def _cache_device(device: DeviceLike):
+    """The cache's device: "meta" as it is (``abstract_cache``), any other
+    through ``resolve_device``."""
+    if device is not None and torch.device(device).type == "meta":
+        return META
+    return resolve_device(device)
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -45,31 +107,39 @@ def build_model(cfg: ArchConfig) -> Model:
         def enc_cache(batch: int, max_len: int, device: DeviceLike = None):
             return encdec.init_cache(cfg, batch, enc_len=max_len,
                                      dec_len=cfg.max_decoder_len,
-                                     device=resolve_device(device))
+                                     device=_cache_device(device))
 
         return Model(
             cfg=cfg,
-            init=lambda generator: encdec.init_params(generator, cfg),
+            init=lambda generator, device=None: encdec.init_params(
+                generator, cfg, device),
             prefill=lambda p, b: encdec.prefill(p, cfg, b),
             decode_step=lambda p, c, t, i: encdec.decode_step(p, cfg, c, t,
                                                               i),
             init_cache=enc_cache,
             train_loss=lambda p, b: encdec.train_loss(p, cfg, b),
+            param_specs=lambda: encdec.param_specs(cfg),
+            cache_specs=lambda: encdec.cache_specs(cfg),
+            batch_spec=lambda s: _audio_batch_spec(cfg, s),
             leaf_views=encdec.layer_views,
         )
 
     extra = VLM_FRONTEND_DIM if cfg.n_patches else 0
 
     def init_cache(batch: int, max_len: int, device: DeviceLike = None):
-        return decoder.init_cache(cfg, batch, max_len, resolve_device(device))
+        return decoder.init_cache(cfg, batch, max_len, _cache_device(device))
 
     return Model(
         cfg=cfg,
-        init=lambda generator: decoder.init_params(generator, cfg, extra),
+        init=lambda generator, device=None: decoder.init_params(
+            generator, cfg, extra, device),
         prefill=lambda p, b: decoder.prefill(p, cfg, b),
         decode_step=lambda p, c, t, i: decoder.decode_step(p, cfg, c, t, i),
         init_cache=init_cache,
         train_loss=lambda p, b: decoder.train_loss(p, cfg, b),
+        param_specs=lambda: decoder.param_specs(cfg, extra),
+        cache_specs=lambda: decoder.cache_specs(cfg),
+        batch_spec=lambda s: _decoder_batch_spec(cfg, s),
     )
 
 
@@ -133,3 +203,15 @@ def from_model(cfg_or_model, lm_seq_len: Optional[int] = None):
     return LocalStep(init_params=model.init, loss=loss, accuracy=accuracy,
                      kind="lm", name=f"model:{cfg.name}",
                      leaf_views=model.leaf_views)
+
+
+def abstract_params(model: Model):
+    """The params tree on the meta device: the reference's shapes and
+    dtypes (its ``jax.eval_shape`` of ``init``), no storage allocated."""
+    return model.init(torch.Generator(), device=META)
+
+
+def abstract_cache(model: Model, batch: int, max_len: int):
+    """The decode cache on the meta device (``init_cache``' shapes and
+    dtypes, no storage)."""
+    return model.init_cache(batch, max_len, device=META)

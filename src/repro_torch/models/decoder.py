@@ -69,8 +69,45 @@ def _init_one_pos(generator, cfg, pos: int, device, G: int):
     return params
 
 
-def init_params(generator: torch.Generator, cfg, extra_embed_dim: int = 0):
-    """Params on the generator's device, per-position leaves stacked over
+def _lift(tree):
+    """A spec tree of one block with the group axis ("none") prepended to
+    every leaf: the specs of the stacked [G, ...] leaves."""
+    if isinstance(tree, dict):
+        return {k: _lift(v) for k, v in tree.items()}
+    return ("none",) + tuple(tree)
+
+
+def _pos_specs(cfg, pos: int):
+    """Spec tree of one (unstacked) block position."""
+    mixer, ffn = block_kinds(cfg, pos)
+    specs: Dict[str, Any] = {
+        "mixer": dict(L.ATTN_SPECS if mixer == "attn" else Mb.MAMBA_SPECS)}
+    if ffn == "dense":
+        specs["ffn"] = dict(L.FFN_SPECS)
+    elif ffn == "moe":
+        specs["ffn"] = dict(Moe.MOE_SPECS)
+    return specs
+
+
+def param_specs(cfg, extra_embed_dim: int = 0):
+    """The reference's logical-axis spec tree of ``init_params``' tree:
+    a tuple of axis names a leaf, the stacked block leaves led by
+    "none"."""
+    specs: Dict[str, Any] = {"embeddings": dict(L.EMB_SPECS)}
+    if cfg.tie_embeddings:
+        del specs["embeddings"]["unembed"]
+    if extra_embed_dim:
+        specs["modality_proj"] = ("none", "embed")
+    specs["blocks"] = {f"pos{p}": _lift(_pos_specs(cfg, p))
+                       for p in range(cfg.attn_period or 1)}
+    return specs
+
+
+def init_params(generator: torch.Generator, cfg, extra_embed_dim: int = 0,
+                device=None):
+    """Params on the generator's device (or on ``device``: "meta" builds
+    the shapes and dtypes alone, ``models.api.abstract_params``),
+    per-position leaves stacked over
     the groups: {"embeddings": {...}, "blocks": {"pos<p>": {"mixer",
     "ffn"}}}, plus "modality_proj" [extra_embed_dim, d] when
     ``extra_embed_dim`` (a VLM's patch projection): the reference's tree.
@@ -78,7 +115,7 @@ def init_params(generator: torch.Generator, cfg, extra_embed_dim: int = 0):
     hand its params in instead
     (``repro_torch.convert.params_from_reference``)."""
     check_ported(cfg)
-    device = generator.device
+    device = generator.device if device is None else torch.device(device)
     period = cfg.attn_period or 1
     G = n_groups(cfg)
     params: Dict[str, Any] = {
@@ -130,7 +167,9 @@ def _kv_to_cache(cfg, kv, positions):
     S = k.shape[1]
     if window and S > window:
         k, v = k[:, -window:], v[:, -window:]
-        S0 = int(positions[0, 0]) + (positions.shape[1] - window)
+        # prefill's positions run from 0, so the first kept one is S - W
+        # (read from the shape: a meta trace has no values to read)
+        S0 = positions.shape[1] - window
         roll = S0 % window
         k = torch.roll(k, roll, dims=1)
         v = torch.roll(v, roll, dims=1)
@@ -152,6 +191,21 @@ def init_cache(cfg, batch: int, max_len: int, device=None):
                         for k, t in _cache_init_pos(cfg, p, batch, max_len,
                                                     device).items()}
             for p in range(period)}
+
+
+def cache_specs(cfg):
+    """The reference's logical-axis spec tree of ``init_cache``' tree."""
+    out = {}
+    for p in range(cfg.attn_period or 1):
+        mixer, _ = block_kinds(cfg, p)
+        if mixer == "attn":
+            kv = ("none", "cache_batch", "kv_seq", "kv_heads", "head_dim")
+            out[f"pos{p}"] = {"k": kv, "v": kv}
+        else:
+            out[f"pos{p}"] = {
+                "conv": ("none", "cache_batch", "none", "ssm_inner"),
+                "ssm": ("none", "cache_batch", "ssm_inner", "ssm_state")}
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -29,15 +29,25 @@ from repro_torch.models import layers as L
 #: width of the stub frontend's frame embeddings (the reference's)
 FRONTEND_DIM = 128
 
+#: logical axes of a cross-attention block's leaves (the reference's)
+CROSS_SPECS = {
+    "wq": ("fsdp", "heads"),
+    "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "fsdp"),
+    "norm": ("embed",),
+}
 
-def init_params(generator: torch.Generator, cfg):
-    """Params on the generator's device, the reference's tree:
+
+def init_params(generator: torch.Generator, cfg, device=None):
+    """Params on the generator's device (or on ``device``, "meta" for
+    shapes alone), the reference's tree:
     {"embeddings", "enc_proj" [FRONTEND_DIM, d], "enc_blocks": {"attn",
     "ffn"}, "dec_blocks": {"self", "cross", "ffn"}, "enc_norm"}, block
     leaves stacked over the layers.  Parity runs hand the reference's
     params in (``repro_torch.convert.params_from_reference``)."""
     check_ported(cfg)
-    device = generator.device
+    device = generator.device if device is None else torch.device(device)
     G_enc, G_dec = cfg.n_encoder_layers, cfg.n_layers
     dt = cfg.params_dtype
     return {
@@ -53,6 +63,30 @@ def init_params(generator: torch.Generator, cfg):
             "ffn": L.init_ffn(generator, cfg, device=device, stack=G_dec)},
         "enc_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
     }
+
+
+def param_specs(cfg):
+    """The reference's logical-axis spec tree of ``init_params``' tree."""
+    lift = decoder._lift
+    specs = {
+        "embeddings": dict(L.EMB_SPECS),
+        "enc_proj": ("none", "embed"),
+        "enc_blocks": lift({"attn": dict(L.ATTN_SPECS),
+                            "ffn": dict(L.FFN_SPECS)}),
+        "dec_blocks": lift({"self": dict(L.ATTN_SPECS),
+                            "cross": dict(CROSS_SPECS),
+                            "ffn": dict(L.FFN_SPECS)}),
+        "enc_norm": ("embed",),
+    }
+    if cfg.tie_embeddings:
+        del specs["embeddings"]["unembed"]
+    return specs
+
+
+def cache_specs(cfg):
+    """The reference's logical-axis spec tree of ``init_cache``' tree."""
+    kv = ("none", "cache_batch", "kv_seq", "kv_heads", "head_dim")
+    return {"self": {"k": kv, "v": kv}, "cross_k": kv, "cross_v": kv}
 
 
 def layer_views(params):

@@ -3,8 +3,10 @@ params dicts), the port's copy of ``repro/models/layers.py``.
 
 Params keep the reference's tree and layout, so reference params carry
 across unchanged (``repro_torch.convert.params_from_reference``).  Every
-``init_*`` returns the params dict alone: the reference's logical sharding
-specs have no counterpart on one card.  Every matmul casts the weight to
+``init_*`` returns the params dict alone; the reference's logical-axis
+specs of each block are the ``*_SPECS`` tables beside it, which the
+dry-run (``repro_torch.sharding``, ``launch.dryrun``) reads.  Every
+matmul casts the weight to
 the activation's dtype, as the reference does.  The LM loss
 (``chunked_lm_loss``) walks the sequence in chunks so that the [B, S, V]
 logits never exist at once; ``decoder.train_loss`` runs it through the
@@ -175,6 +177,16 @@ def attention_ref(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
 # ---------------------------------------------------------------------------
 
 
+#: logical axes of an attention block's leaves (the reference's)
+ATTN_SPECS = {
+    "wq": ("fsdp", "heads"),
+    "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"),
+    "wo": ("heads", "fsdp"),
+    "norm": ("embed",),
+}
+
+
 def init_attention(generator, cfg, device=None, stack: int = 0):
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
@@ -260,6 +272,15 @@ def attn_cache_init(cfg, batch: int, max_len: int, device=None):
 # ---------------------------------------------------------------------------
 
 
+#: logical axes of a SwiGLU FFN's leaves (the reference's)
+FFN_SPECS = {
+    "w_gate": ("fsdp", "ff"),
+    "w_up": ("fsdp", "ff"),
+    "w_down": ("ff", "fsdp"),
+    "norm": ("embed",),
+}
+
+
 def init_ffn(generator, cfg, d_ff: Optional[int] = None, device=None,
              stack: int = 0):
     d, f = cfg.d_model, d_ff or cfg.d_ff
@@ -285,6 +306,15 @@ def ffn_forward(params, cfg, x):
 # ---------------------------------------------------------------------------
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
+
+
+#: logical axes of the embedding leaves (the reference's; a tied config
+#: has no "unembed")
+EMB_SPECS = {
+    "tok": ("fsdp", "embed"),
+    "unembed": ("fsdp", "vocab"),
+    "final_norm": ("embed",),
+}
 
 
 def init_embeddings(generator, cfg, device=None):

@@ -25,6 +25,21 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import dense_init, linear, rms_norm, silu
 
 
+#: logical axes of a Mamba mixer's leaves (the reference's)
+MAMBA_SPECS = {
+    "in_proj": ("fsdp", "ssm_inner"),
+    "conv_w": ("none", "ssm_inner"),
+    "conv_b": ("ssm_inner",),
+    "x_proj": ("ssm_inner", "none"),
+    "dt_proj": ("none", "ssm_inner"),
+    "dt_bias": ("ssm_inner",),
+    "A_log": ("ssm_inner", "ssm_state"),
+    "D": ("ssm_inner",),
+    "out_proj": ("ssm_inner", "fsdp"),
+    "norm": ("embed",),
+}
+
+
 def init_mamba(generator, cfg, device=None, stack: int = 0):
     d, di, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
     dtr, K = cfg.resolved_dt_rank, cfg.ssm_conv

@@ -28,6 +28,16 @@ import torch
 from repro_torch.models.layers import dense_init, rms_norm, silu
 
 
+#: logical axes of an MoE FFN's leaves (the reference's)
+MOE_SPECS = {
+    "router": ("embed", "none"),
+    "w_gate": ("experts", "fsdp", "expert_ff"),
+    "w_up": ("experts", "fsdp", "expert_ff"),
+    "w_down": ("experts", "expert_ff", "fsdp"),
+    "norm": ("embed",),
+}
+
+
 def init_moe(generator, cfg, d_ff=None, device=None, stack: int = 0):
     """The reference's tree: router [d, E] float32, w_gate / w_up [E, d, f]
     and w_down [E, f, d] (scale f^-0.5) in ``params_dtype``, norm [d];

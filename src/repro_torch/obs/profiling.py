@@ -83,11 +83,15 @@ def annotate(name: Optional[str] = None):
 #: many kernels the collection drops the first device records of a window:
 #: on an NVIDIA H100 80GB HBM3 (700 W, torch 2.11+cu128), late in a
 #: ``chip_smoke.py`` run, the first 8-9 records in 23 of 24 windows opened
-#: plainly, and in none of 24 opened after this warm-up
-#: (``scripts/trace_record_probe.py``).  Apart from that, 4 of the probe's
-#: 96 windows, late or in a fresh process, warm-up or not, lost all or part
-#: of their records: a trace that must be whole is checked for it.
-PROFILER_WARMUP_LAUNCHES = 32
+#: plainly, and in none of 24 opened after 32 warm-up launches
+#: (``scripts/trace_record_probe.py``).  With the dry-run's four profiled
+#: whole steps added early in that run, its last windows lost 6 records
+#: each despite 32 warm-up launches (``chip_smoke.py``'s retries), so the
+#: warm-up takes 256 (~1 ms a window).  Apart
+#: from that, 4 of the probe's 96 windows, late or in a fresh process,
+#: warm-up or not, lost all or part of their records: a trace that must be
+#: whole is checked for it.
+PROFILER_WARMUP_LAUNCHES = 256
 
 
 @contextlib.contextmanager

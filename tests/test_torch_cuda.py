@@ -36,7 +36,10 @@ rounded once) is held per leaf to the plain recompute and to its rounding
 model ``ref.softmax_xent_bwd_tc`` at rtol 2^-7 and atol 2^-9 max|want|.
 The VLM and encoder-decoder smoke configs serve on the card as on the CPU
 (the same tokens, logits within 1e-4), one flash launch an attention
-layer of the prefill.
+layer of the prefill.  The dry-run's trace of a smoke step on the card
+(``launch.steps.trace_step``: the kernels launch, each charged as one op)
+charges exactly what its meta-device trace charges, and its launch
+counters match the kernel charges.
 """
 import numpy as np
 import pytest
@@ -47,7 +50,7 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  fused_xent, selective_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from torch_cases import (COMPRESS_CASES, FAULT_CFG, FAULT_DS, FAULT_PATHS,
+from torch_cases import (COMPRESS_CASES, DRYRUN_CASES, FAULT_CFG, FAULT_DS, FAULT_PATHS,
                          ROBUST_CASES, attention_case, cluster_case,
                          compress_case, dense_case, fault_kwargs,
                          LM_CFG, gather_case, gather_lanes_case, iid_draws,
@@ -1217,3 +1220,40 @@ def test_cuda_warm_profile_keeps_a_device_record_of_every_launch(
                if e.get("cat") == "kernel"]
     assert len(calls) == 40
     assert sorted(kernels) == sorted(calls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kind,S,B", DRYRUN_CASES)
+def test_cuda_trace_step_equals_meta(cuda_device, arch, kind, S, B):
+    """The dry-run's trace of a smoke step on the card (the kernels
+    launch, each charged as one op; a backward's kernels from the
+    autograd engine's device thread) charges what the meta-device trace
+    charges (the kernels' output shapes alone), op by op, and a train
+    step's launch counters show its flash and cross-entropy kernels."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.launch.steps import trace_step
+    from repro_torch.models.api import build_model
+    one = AbstractMesh((1, 1), ("data", "model"))
+    model = build_model(get_config(arch, smoke=True))
+    shape = ShapeConfig("t", S, B, kind)
+    meta, _, _ = trace_step(model, shape, one)
+    counted = (flash_attention.flash_attention_fwd,
+               flash_attention.flash_attention_bwd,
+               fused_xent.fused_softmax_xent_fwd,
+               fused_xent.fused_softmax_xent_bwd,
+               selective_scan.selective_scan_fwd)
+    before = [fn.launches for fn in counted]
+    card, _, _ = trace_step(model, shape, one, device=cuda_device)
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(counted, before)]
+    costly = lambda c: {k: v for k, v in c.by_op.items() if v[1] or v[2]}
+    assert costly(card) == costly(meta)
+    assert card.flops == meta.flops
+    assert card.bytes_accessed == meta.bytes_accessed
+    kernels = {k[7:]: v[0] for k, v in card.by_op.items()
+               if k.startswith("kernel.")}
+    for fn, n in zip(counted, launched):
+        assert n == kernels.get(fn.__name__, 0), fn.__name__
+    if kind == "train" and arch != "falcon-mamba-7b":
+        assert all(n > 0 for n in launched[:4]), launched

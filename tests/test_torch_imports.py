@@ -22,6 +22,11 @@ assert "repro_torch.configs.jamba_1_5_large_398b" in names
 assert "repro_torch.models.encdec" in names
 assert "repro_torch.configs.internvl2_2b" in names
 assert "repro_torch.configs.whisper_tiny" in names
+for name in ("repro_torch.sharding", "repro_torch.sharding.rules",
+             "repro_torch.roofline", "repro_torch.roofline.analysis",
+             "repro_torch.roofline.costs", "repro_torch.roofline.debug",
+             "repro_torch.roofline.report", "repro_torch.launch.dryrun"):
+    assert name in names, name
 for name in names:
     importlib.import_module(name)
 for name in repro_torch.__all__:
@@ -41,7 +46,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 68   # the MoE, encdec and all ten configs
+    assert int(n_modules) >= 75   # the MoE, encdec, ten configs, dry-run
     assert bad == "", f"port pulled in: {bad}"
 
 
@@ -73,3 +78,48 @@ def test_kernel_ab_script_imports_neither_jax_nor_reference():
     assert {"chip_smoke", "repro_torch", "torch"} <= roots
     assert not roots & {"jax", "jaxlib", "repro"}, sorted(roots)
 
+
+
+DRYRUN = r"""
+import runpy, sys
+sys.argv = ["dryrun", "--arch", "llama3.2-3b", "--shape", "train_4k",
+            "--out-dir", sys.argv[1]]
+runpy.run_module("repro_torch.launch.dryrun", run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+assert not bad, bad
+"""
+
+
+def test_dryrun_cli_runs_without_jax(tmp_path):
+    """``python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape
+    train_4k`` writes its JSON with no JAX module loaded."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    out = subprocess.run([sys.executable, "-c", DRYRUN, str(tmp_path)],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert '"status": "ok"' in out.stdout
+    assert os.path.exists(tmp_path / "llama3.2-3b__train_4k__16x16.json")
+
+
+TWINS = ("scripts/smoke_models_torch.py", "scripts/smoke_fl_torch.py",
+         "examples/serve_batch_torch.py",
+         "examples/fl_silo_transformer_torch.py")
+
+
+def test_twin_scripts_import_only_the_port():
+    """The reference scripts' twins run on the card's machine, which has
+    no JAX: they import ``repro_torch`` and never ``jax`` or ``repro``."""
+    for path in TWINS:
+        with open(os.path.join(ROOT, path)) as f:
+            tree = ast.parse(f.read())
+        roots = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom):
+                roots.add((node.module or "").split(".")[0])
+        assert "repro_torch" in roots, path
+        assert not roots & {"jax", "jaxlib", "repro"}, (path, sorted(roots))

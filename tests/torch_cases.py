@@ -353,3 +353,15 @@ def moe_case(S, B=2, seed=1):
     r = np.random.default_rng(seed)
     return (r.normal(size=(B, S, 128)).astype(np.float32),
             r.normal(size=(B, S, 128)).astype(np.float32))
+
+
+#: the dry-run's reduced step traces, shared by the CPU tests
+#: (test_torch_launch.py) and the card tests: (arch, kind, seq_len, batch);
+#: the trace's arguments are zeros on a real device (``launch.steps.
+#: trace_step``), its token ids the first of the vocabulary
+DRYRUN_CASES = (("llama3.2-3b", "train", 64, 2),
+                ("llama3.2-3b", "prefill", 64, 2),
+                ("llama3.2-3b", "decode", 64, 2),
+                ("falcon-mamba-7b", "train", 9, 2),
+                ("falcon-mamba-7b", "prefill", 64, 2),
+                ("whisper-tiny", "train", 64, 2))
