@@ -21,8 +21,10 @@ last line):
      (the card's copy yardstick), after a flush that leaves the L2 dirty
      and after one that leaves it clean; and on the Sent140 paper-scale
      federation (rows of 25 int32 tokens, the kernel's 4-byte path; K=10,
-     max_n=300, an empty and a full lane), timed against its plain
-     version;
+     max_n=300, an empty, a full and a clamped lane), timed against its
+     plain version, ``flat_x[idx]`` and its bound; and (in
+     ``experiments_phase``) the same at MNIST-like's K=30 and Synthetic
+     (1,1)'s max_n of 2,000;
    - MCLR local SGD within rtol = atol = 2e-5 at K=10, max_n=400, d=784,
      C=26, B=10, max_iters=960 (prox_mu 0 and 0.1) and at the synthetic
      set's shape (d=60, C=10, max_n=2000);
@@ -238,6 +240,19 @@ last line):
    scale their random expert ``w_down`` by ``MOE_DOWN_SCALE`` and train
    at ``MOE_LR`` (``moe_scale_phase``: the activations' growth through
    granite-moe's 24 layers at either scale, 8 SGD steps at each lr);
+   then the paper's experiments (``experiments_phase``,
+   ``repro_torch.experiments``, every run ``FedSAEServer`` on the host
+   driver with the plain shuffle SGD): the gather bitwise at MNIST-like's
+   K=30 (max_n 400, 784 floats) and Synthetic(1,1)'s largest max_n (2,000
+   rows of 60 floats), timed; a reduced FEMNIST Ira run card against CPU
+   from the same numpy init and shuffle draws (cohorts and workloads
+   bitwise, train loss within 2e-5, accuracy within 2/test_n); Table II
+   at paper scale on all four datasets, five algorithms each
+   (``EXP_TABLE2_ROUNDS`` rounds a run), Figs. 1, 5, 7 and 8 at reduced
+   scale (``EXP_FIG_ROUNDS``) and ``examples/paper_scale_fl_torch.py``
+   (1,000 clients, K=30, ``EXP_RECIPE_ROUNDS``); each run's CSV line,
+   rounds/s and budgets, every final accuracy finite, the gather's
+   launches exactly one a round run on the card;
 5. profile one steady round of each FL leg (Sent140's shuffle leg too,
    with its device launches per local step), one prefill plus four
    decode steps of each LM, and one full-width silo step (torch.profiler):
@@ -3615,6 +3630,265 @@ def padded_phase(torch, np, femnist, counted):
     return out
 
 
+# the experiments phase's cuts, in rounds only (every width is the
+# paper's): Table II at paper scale 2 rounds a run, the figures 5 of their
+# 40, the recipe 40 of its 200, which keeps the phase near 110-160 s on
+# an H100 (PERF.md §4, §6); the card-vs-CPU leg runs 5 reduced rounds
+EXP_CARD_CPU_ROUNDS = 5
+EXP_TABLE2_ROUNDS = 2
+EXP_FIG_ROUNDS = 5
+EXP_RECIPE_ROUNDS = 40
+RECIPE = os.path.join(HERE, "examples", "paper_scale_fl_torch.py")
+
+
+def nan_array(np, values):
+    """A history list (None for NaN, as the payload writes it) as float64."""
+    return np.array([np.nan if v is None else v for v in values], np.float64)
+
+
+def gather_shape_row(torch, np, ref, gather, ds, K, flush, seed):
+    """The gather on ``ds``'s paper-scale federation at cohort size K,
+    bitwise its plain version (an empty lane, the largest client's full
+    lane, a start past rows - max_n, clamped), then timed beside its
+    plain version, ``flat_x[idx]`` and its bound."""
+    dev = torch.device("cuda")
+    max_n = int(ds.sizes.max())
+    pk = ds.packed(max_n, device=dev)
+    flat_x = pk.x.contiguous()
+    rows, feat = flat_x.shape
+    ids = np.random.default_rng(seed).choice(ds.n_clients, K, replace=False)
+    ids[1] = int(np.argmax(ds.sizes))
+    ids_t = torch.as_tensor(ids, device=dev)
+    starts = pk.offsets[ids_t].contiguous()
+    ns = torch.clamp(pk.lengths[ids_t], max=max_n)
+    ns[0] = 0
+    starts[2] = rows - 5
+    got = gather(flat_x, pk.y, starts, ns, max_n)
+    want = ref.fed_cohort_gather(flat_x, pk.y, starts, ns, max_n=max_n)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("x", "y", "mask")):
+        if not torch.equal(g, w):
+            raise RuntimeError(f"gather kernel differs from plain on "
+                               f"{ds.name} at K={K} ({what})")
+    if int(got[2][0].sum()) != 0 or int(got[2][1].sum()) != max_n:
+        raise RuntimeError(f"{ds.name} gather case: no empty and full lane")
+    lib_idx = (torch.clamp(starts.long(), max=rows - max_n)[:, None]
+               + torch.arange(max_n, device=dev)[None, :])
+    spin(torch)
+    ms = time_ms(torch, lambda: gather(flat_x, pk.y, starts, ns, max_n), 50,
+                 flush)
+    plain = time_ms(torch, lambda: ref.fed_cohort_gather(
+        flat_x, pk.y, starts, ns, max_n=max_n), 20, flush)
+    lib = time_ms(torch, lambda: flat_x[lib_idx], 50, flush)
+    nbytes = gather_work(K, max_n, feat)[1]
+    b_ms, b_by = bound(nbytes, 0)
+    row = dict(K=K, max_n=max_n, feat=feat, rows=rows, ms=ms, plain_ms=plain,
+               library_ms=lib, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               max_abs_err=0.0)
+    print(f"fed_cohort_gather {ds.name} paper scale K={K} max_n={max_n} "
+          f"feat={feat} ({feat * 4} B rows, lanes n = {ns.tolist()}): "
+          f"bitwise equal; kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"flat_x[idx] {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{nbytes} B)", flush=True)
+    return row
+
+
+def experiments_phase(torch, np, counted, ref):
+    """The paper's experiments on the port (``repro_torch.experiments``,
+    each run ``FedSAEServer`` on the host driver, ``sampling="shuffle"``):
+    the gather at the new shapes, bitwise (MNIST-like at K=30, Synthetic
+    (1,1) at its largest ``max_n``); then, with every count set to 0, a
+    reduced FEMNIST Ira run on the card and on the CPU from the same
+    numpy init and shuffle draws (dropout, assigned, uploaded, true
+    workload and the cohorts bitwise, train loss within ``TOL``, accuracy
+    within 2/test_n); Table II at paper scale on all four datasets
+    (``EXP_TABLE2_ROUNDS`` rounds a run), Figs. 1, 5, 7 and 8 at reduced
+    scale (``EXP_FIG_ROUNDS``), and the paper-scale recipe
+    (``examples/paper_scale_fl_torch.py``: 1,000 clients, K=30, Fassa with
+    AL for the first quarter, ``EXP_RECIPE_ROUNDS``).  Each run's rounds/s
+    and longest budgets are printed beside its CSV line, every final
+    accuracy must be finite, and the gather's launches must be exactly
+    the rounds the configs run: one a round, a FedAvg round whose whole
+    cohort dropped included."""
+    import importlib.util
+    import tempfile
+
+    from repro_torch.data.federated import make_mnist_like, make_synthetic
+    from repro_torch.experiments import (common, fig1_motivation,
+                                         fig5_u_sweep, fig6_table2_main,
+                                         fig7_fassa_params, fig8_table3_al)
+    t_phase = time.perf_counter()
+    gather = counted["fed_cohort_gather"]
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    out = {"cuts": {"card_vs_cpu_rounds": EXP_CARD_CPU_ROUNDS,
+                    "table2_paper_rounds": EXP_TABLE2_ROUNDS,
+                    "figure_reduced_rounds": EXP_FIG_ROUNDS,
+                    "recipe_rounds": EXP_RECIPE_ROUNDS},
+           "gather_shapes": {}, "runs": []}
+    mnist_paper, synth_paper = make_mnist_like(), make_synthetic()
+    out["gather_shapes"]["mnist K=30"] = gather_shape_row(
+        torch, np, ref, gather, mnist_paper, 30, flush, 3)
+    out["gather_shapes"]["synthetic K=10"] = gather_shape_row(
+        torch, np, ref, gather, synth_paper, 10, flush, 4)
+    del flush, mnist_paper, synth_paper
+    torch.cuda.empty_cache()
+
+    # the launches every run makes, worked out from the configs
+    R2, Rf, Rr = EXP_TABLE2_ROUNDS, EXP_FIG_ROUNDS, EXP_RECIPE_ROUNDS
+    suites = (("fig1_motivation", fig1_motivation.run, 2 * 4),
+              ("fig5_u_sweep", fig5_u_sweep.run, 2 * 4),
+              ("fig7_fassa_params", fig7_fassa_params.run,
+               2 * len(fig7_fassa_params.GRID)),
+              ("fig8_table3_al", fig8_table3_al.run,
+               2 * len(fig8_table3_al.al_grid(Rf))))
+    n_table2 = len(fig6_table2_main.ALGOS) * len(fig6_table2_main.DATASETS)
+    want = dict({k: 0 for k in counted}, fed_cohort_gather=(
+        EXP_CARD_CPU_ROUNDS + n_table2 * R2 + sum(n for *_, n in suites) * Rf
+        + Rr))
+    current = {"suite": "card_vs_cpu"}
+    inner = common.run_made
+
+    def timed_run(srv, config, dataset_name):
+        budgets = record_budgets(srv)
+        on_card = srv.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = inner(srv, config, dataset_name)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        R = config["rounds"]
+        knobs = {k: v for k, v in config.items()
+                 if k not in ("algo", "rounds", "n_selected", "lr", "h_cap",
+                              "eval_every", "seed")}
+        longest = [max(b) for b in budgets]
+        run = dict(suite=current["suite"], dataset=dataset_name,
+                   algo=config["algo"], knobs=knobs, device=srv.device.type,
+                   clients=srv.ds.n_clients, K=config["n_selected"],
+                   rounds=R, wall_s=wall, rounds_per_s=R / wall,
+                   longest_budgets=longest,
+                   round_wall_s=[round(w, 4) for w in srv.wall_times],
+                   all_dropped_rounds=int(sum(
+                       d == 1.0 for d in payload["history"]["dropout"])),
+                   final_acc=payload["final_acc"],
+                   mean_dropout=payload["mean_dropout"])
+        if not math.isfinite(payload["final_acc"]):
+            raise RuntimeError(f"experiments: final accuracy not finite "
+                               f"({run})")
+        out["runs"].append(run)
+        print(f"experiments run {current['suite']} {dataset_name} "
+              f"{config['algo']} {json.dumps(knobs)} on {srv.device.type}: "
+              f"{R} rounds in {wall:.3f} s ({R / wall:.3f} rounds/s), "
+              f"longest budget a round {longest}, final_acc "
+              f"{payload['final_acc']:.4f}", flush=True)
+        return payload
+
+    common.run_made = timed_run
+    reset_counts(counted)
+    try:
+        # card against CPU: the same numpy init and shuffle draws
+        ds, model = common.build_dataset("femnist", "reduced")
+        max_n = int(ds.sizes.max())
+        init = {"w": (np.random.default_rng(5).normal(size=(64, 26)) * 0.01)
+                .astype(np.float32), "b": np.zeros(26, np.float32)}
+
+        def draws(t, ids, n):
+            return np.random.default_rng(200 + t).random(
+                (len(ids), max_n)).astype(np.float32)
+
+        pair = {}
+        for where in ("cuda", "cpu"):
+            srv, config = common.make_server(
+                ds, model, "ira", EXP_CARD_CPU_ROUNDS, "femnist",
+                device=where, init_params=init, data_draws=draws)
+            pair[where] = (srv, common.run_made(srv, config, "femnist"))
+        (c_srv, c_pay), (h_srv, h_pay) = pair["cuda"], pair["cpu"]
+        hc, hh = c_pay["history"], h_pay["history"]
+        same = all(np.array_equal(a, b)
+                   for a, b in zip(c_srv.cohorts, h_srv.cohorts))
+        for k in ("dropout", "assigned", "uploaded", "true_workload"):
+            same = same and hc[k] == hh[k]
+        loss_err = float(np.nanmax(np.abs(nan_array(np, hc["train_loss"])
+                                          - nan_array(np, hh["train_loss"]))))
+        acc_err = float(np.max(np.abs(np.subtract(hc["acc"], hh["acc"]))))
+        acc_tol = 2.0 / len(ds.test_y)
+        out["card_vs_cpu"] = dict(bitwise=same, train_loss_err=loss_err,
+                                  acc_err=acc_err, acc_tol=acc_tol,
+                                  acc=[hc["acc"], hh["acc"]])
+        print(f"experiments card vs CPU, femnist reduced, ira, "
+              f"{EXP_CARD_CPU_ROUNDS} shuffle rounds from the same init and "
+              f"draws: cohorts, dropout, assigned, uploaded, true_workload "
+              f"bitwise {same}; train_loss max_abs_err {loss_err:.3e} (tol "
+              f"{TOL}); acc max diff {acc_err:.4f} (limit {acc_tol:.4f})",
+              flush=True)
+        if not (same and loss_err <= TOL and acc_err <= acc_tol):
+            raise RuntimeError(f"experiments: card and CPU runs differ "
+                               f"{out['card_vs_cpu']}")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            current["suite"] = "fig6_table2_main"
+            t0 = time.perf_counter()
+            fig6_table2_main.run("paper", R2, dev, tmp)
+            out["table2_wall_s"] = time.perf_counter() - t0
+            with open(os.path.join(tmp, "fig6_table2_main.json")) as f:
+                t2 = json.load(f)
+            out["table2"] = dict(summary=t2["summary"],
+                                 avg_acc_gain=t2["avg_acc_gain"],
+                                 avg_straggler_reduction=t2[
+                                     "avg_straggler_reduction"])
+            for name, fn, _ in suites:
+                current["suite"] = name
+                t0 = time.perf_counter()
+                fn("reduced", Rf, dev, tmp)
+                out[f"{name}_wall_s"] = time.perf_counter() - t0
+                with open(os.path.join(tmp, f"{name}.json")) as f:
+                    if not json.load(f):
+                        raise RuntimeError(f"experiments: {name} wrote no "
+                                           f"runs")
+    finally:
+        common.run_made = inner
+
+    # the paper-scale recipe, through the example twin's own main()
+    spec = importlib.util.spec_from_file_location("paper_scale_fl_torch",
+                                                  RECIPE)
+    recipe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(recipe)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = recipe.main(["--rounds", str(Rr)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    final = hist["acc"][-1]
+    out["recipe"] = dict(clients=1000, K=30, rounds=Rr, wall_s=wall,
+                         rounds_per_s=Rr / wall, final_acc=final,
+                         mean_dropout=float(np.nanmean(hist["dropout"])))
+    print(f"experiments recipe examples/paper_scale_fl_torch.py --rounds "
+          f"{Rr}: 1,000 clients, K=30, fassa + AL for {Rr // 4} rounds: "
+          f"{Rr} rounds in {wall:.3f} s ({Rr / wall:.3f} rounds/s), final "
+          f"acc {final:.4f}", flush=True)
+    if not math.isfinite(final):
+        raise RuntimeError("experiments: the recipe's accuracy is not finite")
+
+    got = {k: fn.launches for k, fn in counted.items()}
+    ran = sum(r["rounds"] for r in out["runs"] if r["device"] == "cuda") + Rr
+    out["launches"], out["rounds_on_card"] = got, ran
+    out["all_dropped_rounds"] = sum(r["all_dropped_rounds"]
+                                    for r in out["runs"]
+                                    if r["device"] == "cuda")
+    if got != want or ran != want["fed_cohort_gather"]:
+        raise RuntimeError(f"experiments: launched {got}, wanted {want} "
+                           f"({ran} rounds run on the card)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"experiments phase: launches {json.dumps(got)} (one gather a "
+          f"round: {ran} rounds on the card, {out['all_dropped_rounds']} of "
+          f"them with every client dropped); wall {out['wall_s']:.1f}s",
+          flush=True)
+    print(json.dumps({"experiments": out}), flush=True)
+    return out
+
+
 #: the whole steps ``dryrun_phase`` runs at full width on the card: (label,
 #: arch, shape id, global batch); every leg is one sequence but decode's,
 #: which takes the 16x16 mesh's per-device batch (128 / 16) when the
@@ -3953,35 +4227,11 @@ def main() -> int:
     # a multiple of 4 (the kernel's 4-byte path), with an empty lane and a
     # full one (n = max_n = 300)
     sent140 = make_sent140_like()
-    t_max_n = int(sent140.sizes.max())
-    tpk = sent140.packed(t_max_n, device=dev)
-    t_ids = np.random.default_rng(1).choice(sent140.n_clients, K,
-                                            replace=False)
-    t_ids[1] = int(np.argmax(sent140.sizes))
-    t_ids_t = torch.as_tensor(t_ids, device=dev)
-    t_starts = tpk.offsets[t_ids_t].contiguous()
-    t_ns = torch.clamp(tpk.lengths[t_ids_t], max=t_max_n)
-    t_ns[0] = 0
-    t_got = gather(tpk.x, tpk.y, t_starts, t_ns, t_max_n)
-    t_want = ref.fed_cohort_gather(tpk.x, tpk.y, t_starts, t_ns,
-                                   max_n=t_max_n)
-    torch.cuda.synchronize()
-    for g, w, what in zip(t_got, t_want, ("x", "y", "mask")):
-        if not torch.equal(g, w):
-            raise RuntimeError(f"gather kernel differs from plain at "
-                               f"Sent140's shape ({what})")
-    if (tpk.x.dtype != torch.int32 or tpk.x.shape[1] != 25
-            or int(t_got[2][0].sum()) != 0
-            or int(t_got[2][1].sum()) != t_max_n):
-        raise RuntimeError("Sent140 gather case: not int32 x 25 with an "
-                           "empty and a full lane")
-    g25_ms = time_ms(torch, lambda: gather(tpk.x, tpk.y, t_starts, t_ns,
-                                           t_max_n), 50, flush)
-    g25_plain = time_ms(torch, lambda: ref.fed_cohort_gather(
-        tpk.x, tpk.y, t_starts, t_ns, max_n=t_max_n), 50, flush)
-    print(f"fed_cohort_gather Sent140 K={K} max_n={t_max_n} feat=25 int32 "
-          f"(lanes n = {t_ns.tolist()}): bitwise equal; kernel "
-          f"{g25_ms:.4f} ms, plain {g25_plain:.4f} ms", flush=True)
+    if sent140.clients_x[0].dtype != np.int32:
+        raise RuntimeError("Sent140 gather case: tokens are not int32")
+    g25 = gather_shape_row(torch, np, ref, gather, sent140, K, flush, 1)
+    if g25["feat"] != 25:
+        raise RuntimeError("Sent140 gather case: rows are not 25 tokens")
 
     x, y = got[0], got[1]
     B, C, max_iters, lr = 10, femnist.n_classes, 960, 0.03
@@ -4532,6 +4782,10 @@ def main() -> int:
     path_launches["padded"] = padded["launches"]
     # why the full-width MoE legs scale w_down and cut the lr
     moe_scale = moe_scale_phase(torch, np, get_config, make_sent140_like)
+    # this slice's path: the paper's experiments, Table II at paper scale
+    torch.cuda.empty_cache()
+    experiments = experiments_phase(torch, np, counted, ref)
+    path_launches["experiments"] = experiments["launches"]
     # -- 5. where a steady round's time goes (outside the counted run) ---
     profiles = {}
     for label, cfg in (("iid", dict(sampling="iid")),
@@ -4597,10 +4851,11 @@ def main() -> int:
          "launches": launches["fed_cohort_gather"], "max_abs_err": 0.0,
          "ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
          "bound_by": g_by, "library_ms": g_lib,
-         "sent140_ms": g25_ms, "sent140_plain_ms": g25_plain,
+         "sent140_ms": g25["ms"], "sent140_plain_ms": g25["plain_ms"],
          "copy_ms": g_med["copy"], "clean_flush_ms": g_med["clean kernel"],
          "clean_flush_library_ms": g_med["clean library"],
-         "clean_flush_copy_ms": g_med["clean copy"]},
+         "clean_flush_copy_ms": g_med["clean copy"],
+         "experiments_shapes": experiments["gather_shapes"]},
         {"name": "fed_local_sgd_mclr", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fed_local_sgd.cu",
          "replaces": "src/repro/kernels/fed_local_sgd.py:99",

@@ -25,7 +25,15 @@ assert "repro_torch.configs.whisper_tiny" in names
 for name in ("repro_torch.sharding", "repro_torch.sharding.rules",
              "repro_torch.roofline", "repro_torch.roofline.analysis",
              "repro_torch.roofline.costs", "repro_torch.roofline.debug",
-             "repro_torch.roofline.report", "repro_torch.launch.dryrun"):
+             "repro_torch.roofline.report", "repro_torch.launch.dryrun",
+             "repro_torch.experiments", "repro_torch.experiments.common",
+             "repro_torch.experiments.fig1_motivation",
+             "repro_torch.experiments.fig5_u_sweep",
+             "repro_torch.experiments.fig6_table2_main",
+             "repro_torch.experiments.fig7_fassa_params",
+             "repro_torch.experiments.fig8_table3_al",
+             "repro_torch.experiments.run",
+             "repro_torch.experiments.budget"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -46,7 +54,7 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("\n") + [""] * (
         2 - len(out.stdout.strip().split("\n")))
-    assert int(n_modules) >= 75   # the MoE, encdec, ten configs, dry-run
+    assert int(n_modules) >= 85   # ... dry-run, the nine experiments
     assert bad == "", f"port pulled in: {bad}"
 
 
@@ -106,7 +114,8 @@ def test_dryrun_cli_runs_without_jax(tmp_path):
 
 TWINS = ("scripts/smoke_models_torch.py", "scripts/smoke_fl_torch.py",
          "examples/serve_batch_torch.py",
-         "examples/fl_silo_transformer_torch.py")
+         "examples/fl_silo_transformer_torch.py",
+         "examples/quickstart_torch.py", "examples/paper_scale_fl_torch.py")
 
 
 def test_twin_scripts_import_only_the_port():
