@@ -6,7 +6,7 @@
 Phases, each of which must pass (any failure exits non-zero before the
 last line):
 
-1. print the card (nvidia-smi name and power limit) and build the nine
+1. print the card (nvidia-smi name and power limit) and build the ten
    CUDA sources from ``src/repro_torch/kernels/csrc`` with nvcc for
    sm_90a, one nvcc per source, started together, and print ptxas'
    registers and spill bytes for every kernel;
@@ -53,6 +53,16 @@ last line):
      at the prefill and at the decode shape; no library call computes it;
      bound: the largest of its bytes, its float32 flop and its exps at the
      special-function units' rate;
+   - the scan's backward (six gradients) at Falcon-Mamba-7B's width
+     against its plain reverse recurrence ``ref.selective_scan_bwd``:
+     B=1 at train_4k's S=4096, B=4 at S=1024, a ragged S=1000, S=1 and
+     N=8, each gradient within rtol 1e-4 and atol 1e-4 of its largest
+     magnitude, a second run bitwise the first; timed at B=1 and B=4,
+     S=4096 beside the forward kernel's time on the same inputs; the
+     plain version timed at B=1 and, for scale, the old backward
+     (autograd through the plain ``ref.selective_scan``) at S=256; no
+     library call computes it; bound: its bytes, float32 flop and exps
+     (``scan_bwd_work``);
    - flash-attention backward (dq, dk, dv) at Llama-3.2-3B's training
      shape (B=1, S=2048, 24/8 heads, hd=128, bf16 causal), plus a window
      of 512, a non-causal, a ragged S=1000 and a float32 case: 2e-2 in
@@ -106,7 +116,10 @@ last line):
    CLI's token-only batches leave its ``modality_proj`` as it was) and of
    whisper-tiny (frames; silo batches with frames), and for the
    Falcon-Mamba smoke with ``ssm_scan="sequential"`` and
-   ``ssm_input_dtype="bfloat16"`` (``SSM_OPTIONS``);
+   ``ssm_input_dtype="bfloat16"`` (``SSM_OPTIONS``); the Mamba smokes'
+   card side runs the scan and its backward as kernels, and no plain scan
+   on a CUDA tensor (``counting_plain``, as in every training leg
+   below);
 4. the main paths, each with every kernel's launch count set to 0 just
    before and read just after: ``FedSAEServer`` on FEMNIST at paper scale
    (200 clients, K=10), MCLR with algo="ira" for 5 rounds with
@@ -143,7 +156,12 @@ last line):
    1,024-position chunk), every flash and cross-entropy call on the tensor
    cores and no plain cross-entropy recompute, round wall, ms per step and
    peak memory, and one ``RoundRecord`` a round in its ``RingBufferSink``
-   (``train_loss`` the round's loss, a finite wall time); and
+   (``train_loss`` the round's loss, a finite wall time); then
+   Falcon-Mamba-7B the same way at full width, cut to
+   ``SILO_FALCON_LAYERS`` (32) of its 64 layers (per local step 64 scan
+   forwards under remat, 32 scan backwards, 2 cross-entropy forwards and 2
+   backwards on the tensor cores; its peak under ``DRYRUN_FIT`` of the
+   card); and
    ``repro_torch.launch.train --arch llama3.2-3b --smoke --steps 5`` (2, 2,
    1 and 1 calls per step, all on the tensor cores); then the telemetry
    path (``telemetry_phase``): femnist-iid with and without a
@@ -263,7 +281,9 @@ last line):
    (``DRYRUN_LEGS``): Llama-3.2-3B train_4k (one 4,096-token row, SGD,
    remat), prefill_32k (B=1) and decode_32k (the mesh's per-device batch
    of 8, or 4 when the trace says its 32,768-slot cache does not fit),
-   Falcon-Mamba-7B prefill_32k (B=1), each with its median step ms (CUDA
+   Falcon-Mamba-7B prefill_32k (B=1) and train_4k (B=1, SGD, remat, 32 of
+   its 64 layers: all 64 do not fit the card), each with its median step
+   ms (CUDA
    events), its own peak memory beside the trace's estimate on mesh
    (1, 1), the trace's compute, memory and collective terms, the step's
    share of the bf16 peak, its launches (counted like every main path's,
@@ -306,12 +326,16 @@ if os.path.isdir(os.path.join(SRC, "repro_torch")):
     from repro_torch.roofline.analysis import (  # noqa: F401
         BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S, SFU_PER_S,
         bound, compress_work, dense_sgd_work, flash_bwd_work,
-        flash_fwd_work, gather_work, mclr_sgd_work, scan_bound, scan_work,
-        xent_bwd_work, xent_fwd_work)
+        flash_fwd_work, gather_work, mclr_sgd_work, scan_bound,
+        scan_bwd_work, scan_work, xent_bwd_work, xent_fwd_work)
 TOL = 2e-5                 # the reference's local-SGD kernel-vs-XLA bound
 DENSE_RTOL, DENSE_ATOL = 5e-4, 5e-5   # its MLP pallas-vs-xla bound
 LM_TOL = {"bfloat16": 2e-2, "float32": 2e-5}   # flash vs plain, by dtype
 SCAN_TOL = 1e-4            # the reference's selective-scan kernel bound
+# the scan's backward against its plain version, per gradient: rtol 1e-4,
+# atol 1e-4 of the gradient's largest magnitude (dA sums B S terms, dB and
+# dC d terms, and lam carries a sum over the steps ahead)
+SCAN_BWD_TOL = 1e-4
 SERVE_TOL = 1e-4           # float32 logits, card vs CPU
 BWD_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (2e-5, 2e-4)}  # atol, rtol
 XENT_TOL = 1e-4            # the reference's fused-xent bound
@@ -561,6 +585,93 @@ def check_scan(torch, ss, ref, gen, dev):
                     f"{key}bound_ms": b_ms, f"{key}bound_by": b_by,
                     f"{key}bound_parts_ms": parts})
     row["library_ms"] = None
+    return row
+
+
+def check_scan_bwd(torch, sb, ss, ops, ref, gen, dev):
+    """Phase 2: the scan's backward against its plain reverse recurrence
+    (``ref.selective_scan_bwd``) at Falcon-Mamba-7B's width (d = 8,192,
+    N = 16): B = 1 at train_4k's S = 4,096 (the whole-step leg's shape),
+    B = 4 at S = 1,024, a ragged S = 1,000, S = 1, and N = 8; each of the
+    six gradients within rtol 1e-4 and atol 1e-4 of its largest magnitude
+    (``SCAN_BWD_TOL``), a second run bitwise the first.  Then times at
+    B = 1 and B = 4, S = 4,096, each beside its bound (``scan_bwd_work``:
+    bytes, float32 flop and exps) and the forward kernel's time on the same
+    inputs; the plain version's at B = 1, S = 4,096 (one call, host clock
+    around a device sync: it launches ~15 kernels a step); and, for scale
+    only,
+    the old backward (autograd through the plain ``ref.selective_scan``,
+    quadratic in S) at S = 256.  No library call computes it."""
+    d = 8192
+    err = rel = 0.0
+    for B, S, N in ((1, 4096, 16), (4, 1024, 16), (2, 1000, 16),
+                    (4, 1, 16), (2, 333, 8)):
+        args = scan_inputs(torch, B, S, d, N, gen, dev)
+        gy = torch.randn((B, S, d), generator=gen, device=dev)
+        gh = torch.randn((B, d, N), generator=gen, device=dev)
+        got = sb(*args, gy, gh)
+        again = sb(*args, gy, gh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ref.selective_scan_bwd(*args, gy, gh)
+        torch.cuda.synchronize()
+        if (B, S) == (1, 4096):      # one call: ~60k launches, 1.9 s
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        scales = [float(w.abs().max()) for w in want]
+        print(f"selective_scan_bwd B={B} S={S} d={d} N={N}: max_abs_err "
+              f"(ddt, dA, dB, dC, dx, dh0) "
+              f"{[float(f'{e:.3e}') for e in errs]} against scales "
+              f"{[float(f'{v:.3e}') for v in scales]} (rtol "
+              f"{SCAN_BWD_TOL}, atol {SCAN_BWD_TOL} x scale)", flush=True)
+        if not all(torch.allclose(g, w, rtol=SCAN_BWD_TOL,
+                                  atol=SCAN_BWD_TOL * max(sc, 1e-6))
+                   for g, w, sc in zip(got, want, scales)):
+            raise RuntimeError(f"scan backward differs from plain (B={B}, "
+                               f"S={S}, N={N})")
+        if not all(torch.isfinite(g).all() for g in got):
+            raise RuntimeError(f"scan backward: non-finite (S={S})")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"scan backward: two runs differ (S={S})")
+        err = max(err, *errs)
+        rel = max(rel, *(e / max(sc, 1e-6) for e, sc in zip(errs, scales)))
+        del args, gy, gh, got, again, want
+        torch.cuda.empty_cache()
+    spin(torch)
+    row = {"max_abs_err": err, "max_err_over_scale": rel,
+           "plain_ms": plain_ms, "library_ms": None}
+    N, S = 16, 4096
+    for B, key in ((1, ""), (4, "B4_")):
+        args = scan_inputs(torch, B, S, d, N, gen, dev)
+        gy = torch.randn((B, S, d), generator=gen, device=dev)
+        gh = torch.randn((B, d, N), generator=gen, device=dev)
+        ms = time_ms(torch, lambda: sb(*args, gy, gh), 10)
+        fwd = time_ms(torch, lambda: ss(*args), 10)
+        nbytes, flops, exps = scan_bwd_work(B, S, d, N)
+        b_ms, b_by, parts = scan_bound(nbytes, flops, exps)
+        row.update({f"{key}ms": ms, f"{key}fwd_ms": fwd,
+                    f"{key}bound_ms": b_ms, f"{key}bound_by": b_by,
+                    f"{key}bound_parts_ms": parts})
+        print(f"selective_scan_bwd B={B} S={S} d={d} N={N}: kernel "
+              f"{ms:.4f} ms (forward kernel {fwd:.4f} ms), "
+              f"plain {f'{plain_ms:.1f}' if B == 1 else '-'}"
+              f" ms, bound {b_ms:.4f} ms ({b_by}; bytes "
+              f"{parts['bytes']:.4f} ms for {nbytes} B, operations "
+              f"{parts['operations']:.4f} ms for {flops} flop, exp "
+              f"{parts['exp']:.4f} ms for {exps} exp)", flush=True)
+        del args, gy, gh
+        torch.cuda.empty_cache()
+    S = 256
+    args = scan_inputs(torch, 1, S, d, N, gen, dev)
+    gy = torch.randn((1, S, d), generator=gen, device=dev)
+    gh = torch.randn((1, d, N), generator=gen, device=dev)
+    row["old_recompute_S256_ms"] = time_ms(torch, lambda: ops._recompute_vjp(
+        ref.selective_scan, args, (gy, gh)), 1)
+    row["S256_ms"] = time_ms(torch, lambda: sb(*args, gy, gh), 10)
+    print(f"selective_scan_bwd B=1 S={S} d={d} N={N}: kernel "
+          f"{row['S256_ms']:.4f} ms; the old backward (autograd through "
+          f"ref.selective_scan, quadratic in S) "
+          f"{row['old_recompute_S256_ms']:.4f} ms", flush=True)
     return row
 
 
@@ -981,22 +1092,35 @@ def nan_padded(pitched, W):
     return P
 
 
+#: the plain scan and its plain backward, which no training leg may run on
+#: the card (its forward and backward are the kernels)
+PLAIN_SCANS = ("selective_scan", "selective_scan_bwd")
+
+
 @contextlib.contextmanager
-def counting_recomputes(ref):
-    """While the block runs, count the plain ``ref.softmax_xent``
-    recomputes (the cross-entropy op's backward off the tensor-core
-    route): yields a list that gets one entry a call."""
-    plain, calls = ref.softmax_xent, []
+def counting_plain(ref, *names):
+    """While the block runs, record every call of the plain versions
+    ``names`` of ``kernels.ref`` on a CUDA tensor: yields a list that gets
+    the function's name a call.  Counts the plain ``softmax_xent``
+    recompute (the cross-entropy op's backward off the tensor-core route)
+    and the ``PLAIN_SCANS``."""
+    plain = {k: getattr(ref, k) for k in names}
+    calls = []
 
-    def counted(*a):
-        calls.append(1)
-        return plain(*a)
+    def counted(name):
+        def call(*a):
+            if a[0].device.type == "cuda":
+                calls.append(name)
+            return plain[name](*a)
+        return call
 
-    ref.softmax_xent = counted
+    for k in plain:
+        setattr(ref, k, counted(k))
     try:
         yield calls
     finally:
-        ref.softmax_xent = plain
+        for k, fn in plain.items():
+            setattr(ref, k, fn)
 
 
 def silo_batches(torch, cfg, K, max_steps, B, S, ri, device, patches=False):
@@ -1036,9 +1160,12 @@ def train_card_vs_cpu(torch, np, get_config, build_model, train, arch,
     ``train.synth_batch_from``), then one SiloFedSAE round each on the
     silo CLI's batches (an encoder-decoder's with frames); a VLM's
     token-only silo round leaves its ``modality_proj`` as it was (a zero
-    gradient; FedAvg of the equal rows within 1e-6 of it)."""
+    gradient; FedAvg of the equal rows within 1e-6 of it).  A Mamba
+    layer's scan and its backward run as the kernels on the card: the
+    plain scan must not run on a CUDA tensor (``counting_plain``)."""
     from repro_torch.convert import params_from_reference, params_to_numpy
     from repro_torch.core.silo import SiloFedSAE
+    from repro_torch.kernels import ref
     from repro_torch.tree import tree_leaves
     cfg = get_config(arch, smoke=True).replace(dtype="float32",
                                                **(over or {}))
@@ -1051,16 +1178,28 @@ def train_card_vs_cpu(torch, np, get_config, build_model, train, arch,
     else:
         toks = ri.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
         batch = {"tokens": toks, "labels": toks}
-    runs = []
-    for where in ("cuda", "cpu"):
-        params = params_from_reference(init, where)
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        loss, _ = model.train_loss(params, {
-            k: torch.as_tensor(v, device=where) for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, leaves)
-        runs.append((float(loss.detach()), [g.cpu() for g in grads]))
+    runs, feds = [], []
+    with counting_plain(ref, *PLAIN_SCANS) as plain_calls:
+        for where in ("cuda", "cpu"):
+            params = params_from_reference(init, where)
+            leaves = tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, _ = model.train_loss(params, {
+                k: torch.as_tensor(v, device=where)
+                for k, v in batch.items()})
+            grads = torch.autograd.grad(loss, leaves)
+            runs.append((float(loss.detach()), [g.cpu() for g in grads]))
+        for where in ("cuda", "cpu"):
+            fed = SiloFedSAE(model, 2, lr=5e-3, max_steps=3,
+                             init_params=init, device=where)
+            fed.run_round(silo_batches(torch, cfg, 2, 3, 2, 32,
+                                       np.random.default_rng(4), where),
+                          np.array([300, 700]))
+            feds.append(fed)
+    if plain_calls:
+        raise RuntimeError(f"{arch} smoke: the plain scan ran on the card "
+                           f"({plain_calls[:4]}...)")
     (l_card, g_card), (l_cpu, g_cpu) = runs
     g_err = max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
     if abs(l_card - l_cpu) > TRAIN_TOL * (1 + abs(l_cpu)) or not all(
@@ -1068,14 +1207,6 @@ def train_card_vs_cpu(torch, np, get_config, build_model, train, arch,
             for a, b in zip(g_card, g_cpu)):
         raise RuntimeError(f"{arch} smoke: card and CPU train_loss {l_card} "
                            f"vs {l_cpu}, grads differ by {g_err}")
-    feds = []
-    for where in ("cuda", "cpu"):
-        fed = SiloFedSAE(model, 2, lr=5e-3, max_steps=3, init_params=init,
-                         device=where)
-        fed.run_round(silo_batches(torch, cfg, 2, 3, 2, 32,
-                                   np.random.default_rng(4), where),
-                      np.array([300, 700]))
-        feds.append(fed)
     on_card, on_cpu = feds
     if not (np.array_equal(on_card.L, on_cpu.L)
             and np.array_equal(on_card.H, on_cpu.H)
@@ -1106,9 +1237,10 @@ def train_card_vs_cpu(torch, np, get_config, build_model, train, arch,
 
 
 def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
-              arch="llama3.2-3b", lr=5e-3, B=1, S=2048):
+              arch="llama3.2-3b", lr=5e-3, B=1, S=2048, layers=None):
     """Phase 4 (and 5): cross-silo FedSAE training ``arch`` at full width
-    and depth, K=2 silos, B rows of S positions a step (a VLM's
+    and depth (``layers`` of them where given), K=2 silos, B rows of S
+    positions a step (a VLM's
     S // 4 of them patches, an encoder-decoder's S frames under
     min(448, S) tokens: ``silo_batches``).  Every kernel's count is set
     to 0 just before the counted rounds and read just after; each local
@@ -1123,16 +1255,22 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     92,553, whisper's 51,865) a step launches a backward a chunk and the
     plain ``ref.softmax_xent`` recompute must not run; off it the forward
     takes the CUDA cores and each chunk's backward is that plain recompute
-    (counted, printed)."""
+    (counted, printed).  A Mamba layer launches the scan forward once a
+    step, twice under remat, and its backward once, and neither plain scan
+    may run on the card (``counting_plain``)."""
     from repro_torch.core.silo import SiloFedSAE
     from repro_torch.obs import RingBufferSink
     from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     xent_tc = xent_on_tensor_cores(cfg)
     if cfg.is_encoder_decoder:
-        n_attn, fwd_per_attn = cfg.n_encoder_layers + cfg.n_layers, 1
+        n_attn, n_mamba = cfg.n_encoder_layers + cfg.n_layers, 0
+        fwd_per_attn = 1
     else:
-        n_attn, fwd_per_attn = mixer_layers(cfg)[0], 1 + bool(cfg.remat)
+        (n_attn, n_mamba), fwd_per_attn = mixer_layers(cfg), \
+            1 + bool(cfg.remat)
     model = build_model(cfg)
     K, max_steps = 2, 4
     torch.cuda.reset_peak_memory_stats()
@@ -1151,7 +1289,8 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     T_tok = all_batches[0]["tokens"].shape[-1]
     reset_counts(counted)
     rounds_out = []
-    with counting_recomputes(ref) as recomputes:
+    with counting_plain(ref, "softmax_xent") as recomputes, \
+            counting_plain(ref, *PLAIN_SCANS) as plain_scans:
         for r in range(rounds):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1180,18 +1319,23 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
         raise RuntimeError(f"silo records {[r.to_json() for r in recs]}, "
                            f"losses {stats['loss']}")
     chunks = T_tok // 1024 if T_tok % 1024 == 0 else 1
-    want = {"flash_attention_fwd": fwd_per_attn * n_attn * steps,
-            "flash_attention_bwd": n_attn * steps,
-            "fused_softmax_xent_fwd": chunks * steps,
+    want = {"fused_softmax_xent_fwd": chunks * steps,
             "fused_softmax_xent_bwd": chunks * steps if xent_tc else 0}
+    if n_attn:
+        want["flash_attention_fwd"] = fwd_per_attn * n_attn * steps
+        want["flash_attention_bwd"] = n_attn * steps
+    if n_mamba:
+        want["selective_scan_fwd"] = fwd_per_attn * n_mamba * steps
+        want["selective_scan_bwd"] = n_mamba * steps
     if {k: launches[k] for k in want} != want or any(
-            launches[k] for k in launches if k not in want):
+            launches[k] for k in launches if k not in want) or plain_scans:
         raise RuntimeError(f"silo path {arch} launched {launches} in "
-                           f"{steps} steps, wanted {want}")
+                           f"{steps} steps, wanted {want}; the plain scan "
+                           f"ran {len(plain_scans)} times on the card")
     # every flash call of the bf16 path on the tensor cores; the
     # cross-entropy on its route, its backward the kernel there or the
     # plain recompute on the CUDA-core route
-    want_tc = {k: want[k] for k in tc_launches}
+    want_tc = {k: want.get(k, 0) for k in tc_launches}
     if not xent_tc:
         want_tc["fused_softmax_xent_fwd"] = 0
     want_recomputes = 0 if xent_tc else chunks * steps
@@ -1207,7 +1351,8 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     walls = [r["wall_s"] for r in rounds_out]
     per_step = {k: v / steps for k, v in launches.items() if v}
     summary = dict(arch=arch, lr=lr, params=n_params, init_s=init_s, silos=K,
-                   max_steps=max_steps, batch=B, seq=S, tokens=T_tok,
+                   layers=cfg.n_layers, max_steps=max_steps, batch=B, seq=S,
+                   tokens=T_tok, plain_scan_calls=len(plain_scans),
                    rounds=rounds_out, local_steps=steps,
                    xent_route=xent_route,
                    plain_xent_recomputes=len(recomputes),
@@ -1217,7 +1362,8 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
                    tensor_core_launches=tc_launches,
                    records=[r.to_json() for r in recs])
     remat = "remat" if fwd_per_attn == 2 else "no remat"
-    print(f"main path silo {arch} (full width, {n_params} params f32, "
+    print(f"main path silo {arch} (full width, {cfg.n_layers} layers, "
+          f"{n_params} params f32, "
           f"bf16 compute, {remat}): {rounds} rounds x {K} silos, B={B}, "
           f"S={S} ({T_tok} tokens): round wall "
           f"{[round(w, 3) for w in walls]} s, {steps} local "
@@ -1243,15 +1389,16 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3
     before = torch.cuda.memory_stats()
-    wall, device, top, (flash, xent), _ = profiled(
+    wall, device, top, (flash, xent, scan), _ = profiled(
         torch, lambda: train_silo(row, fed.params, one, 1),
-        ("flash_", "xent_"))
+        ("flash_", "xent_", "selective_scan"))
     after = torch.cuda.memory_stats()
     summary["step_ms"] = step_ms
     summary["profile"] = dict(
         wall_ms=wall, device_ms=device, device_busy=device / wall,
         device_share_of_unprofiled_step=device / step_ms,
-        flash_kernels_ms=flash, xent_kernels_ms=xent, top_kernels_ms=top,
+        flash_kernels_ms=flash, xent_kernels_ms=xent,
+        scan_kernels_ms=scan, top_kernels_ms=top,
         alloc_retries=after["num_alloc_retries"]
         - before["num_alloc_retries"],
         cuda_mallocs=after["num_device_alloc"] - before["num_device_alloc"])
@@ -2884,6 +3031,10 @@ MOE_PROBE_LRS = (5e-3, 5e-4, MOE_LR)
 #: scan driver: K=2 (its 7.56 GB float32 copies fit where Llama's 14.4 GB
 #: did not)
 VLM_SCAN_K = 2
+#: the layers of the full-width Falcon-Mamba-7B silo leg: the silo holds
+#: ~4.2x the float32 params (Llama-3.2-3B's 3.61 B took 56.8 GiB), and 32
+#: layers (3.90 B params) stay under ``DRYRUN_FIT`` of the card
+SILO_FALCON_LAYERS = 32
 #: the scan options of ROADMAP A13 (ii) (d), served and trained card vs
 #: CPU on the Falcon-Mamba smoke config
 SSM_OPTIONS = {"ssm_scan": "sequential", "ssm_input_dtype": "bfloat16"}
@@ -2926,7 +3077,7 @@ def lm_launches(cfg, steps, evals=0, passes=0, xent_tc=True):
     ``from_model(cfg)``, derived from ``models/decoder.py``: a step runs
     each layer's mixer forward once, twice under remat (the group is
     recomputed in the backward), the flash backward once an attention
-    layer (the scan's backward is the plain recompute: no launch) and the
+    layer, the scan's backward once a Mamba layer, and the
     loss as one cross-entropy chunk forward and backward (25-token rows:
     S - 1 = 24 positions, below the 1,024-position chunk, so one chunk);
     an eval runs the forward without remat twice (``accuracy``, then
@@ -2942,6 +3093,7 @@ def lm_launches(cfg, steps, evals=0, passes=0, xent_tc=True):
         want["flash_attention_bwd"] = n_attn * steps
     if n_mamba:
         want["selective_scan_fwd"] = n_mamba * fwd
+        want["selective_scan_bwd"] = n_mamba * steps
     return want
 
 
@@ -2954,7 +3106,8 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen,
     backward) on q/k/v [rows, S, H, hd] with the config's window, on a
     Mamba layer the selective scan at [rows, S, d_inner, N], and the fused
     cross-entropy forward (and backward) on h [rows * S, d], W [d, V], all
-    bfloat16 as the legs run them, each against its plain version at
+    bfloat16 as the legs run them (the scan and, for a step, its backward
+    in float32), each against its plain version at
     phase 2's tolerances and each on the route the legs took: the flash
     calls on the tensor cores, the cross-entropy on the tensor cores
     whenever d is a multiple of 8 (``xent_on_tensor_cores``: W built into
@@ -3000,6 +3153,24 @@ def check_lm_fed_shapes(torch, counted, ops, ref, cfgs, rows, S, gen,
                      torch.allclose(y, wy, rtol=SCAN_TOL, atol=SCAN_TOL)
                      and torch.allclose(hT, wh, rtol=SCAN_TOL,
                                         atol=SCAN_TOL))
+                if step:
+                    gy = torch.randn(y.shape, generator=gen, device=dev)
+                    gh = torch.randn(hT.shape, generator=gen, device=dev)
+                    got = counted["selective_scan_bwd"](*args, gy, gh)
+                    wants = ref.selective_scan_bwd(*args, gy, gh)
+                    torch.cuda.synchronize()
+                    scales = [max(float(w.abs().max()), 1e-6)
+                              for w in wants]
+                    note("selective_scan_bwd",
+                         f"{label} B={B} S={S} d={cfg.d_inner} "
+                         f"N={cfg.ssm_state}",
+                         [float((g - w).abs().max())
+                          for g, w in zip(got, wants)],
+                         f"rtol {SCAN_BWD_TOL}, atol {SCAN_BWD_TOL} x "
+                         f"max|want|",
+                         all(torch.allclose(g, w, rtol=SCAN_BWD_TOL,
+                                            atol=SCAN_BWD_TOL * sc)
+                             for g, w, sc in zip(got, wants, scales)))
             if n_attn:
                 hd = cfg.resolved_head_dim
                 q, k, v, do = (torch.randn((B, S, H, hd), generator=gen,
@@ -3172,10 +3343,14 @@ def lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
             base, rounds=rounds, **cfg)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with counting_recomputes(ref) as recomputes:
+        with counting_plain(ref, "softmax_xent") as recomputes, \
+                counting_plain(ref, *PLAIN_SCANS) as plain_scans:
             srv.run(**(run_kw or {}))
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if plain_scans:
+            raise RuntimeError(f"lm {label}: the plain scan ran on the card"
+                               f" ({plain_scans[:4]}...)")
         got = {k: fn.launches - before[k] for k, fn in counted.items()}
         tc = {k: v - tc_before[k] for k, v in
               tensor_core_counts(counted).items()}
@@ -3631,13 +3806,15 @@ def padded_phase(torch, np, femnist, counted):
 
 
 # the experiments phase's cuts, in rounds only (every width is the
-# paper's): Table II at paper scale 2 rounds a run, the figures 5 of their
-# 40, the recipe 40 of its 200, which keeps the phase near 110-160 s on
-# an H100 (PERF.md §4, §6); the card-vs-CPU leg runs 5 reduced rounds
+# paper's): Table II at paper scale 1 round a run, the figures 3 of their
+# 40, the recipe 20 of its 200 (from 2, 5 and 40, whose 119, 38 and 13 s
+# of 183 in the phase pushed the script to 1,115 s on a slow host once
+# Falcon-Mamba-7B trained on the card; PERF.md §6); the card-vs-CPU leg
+# runs 5 reduced rounds
 EXP_CARD_CPU_ROUNDS = 5
-EXP_TABLE2_ROUNDS = 2
-EXP_FIG_ROUNDS = 5
-EXP_RECIPE_ROUNDS = 40
+EXP_TABLE2_ROUNDS = 1
+EXP_FIG_ROUNDS = 3
+EXP_RECIPE_ROUNDS = 20
 RECIPE = os.path.join(HERE, "examples", "paper_scale_fl_torch.py")
 
 
@@ -3890,14 +4067,21 @@ def experiments_phase(torch, np, counted, ref):
 
 
 #: the whole steps ``dryrun_phase`` runs at full width on the card: (label,
-#: arch, shape id, global batch); every leg is one sequence but decode's,
-#: which takes the 16x16 mesh's per-device batch (128 / 16) when the
-#: trace says its 32,768-slot cache fits beside the weights, else 4
-DRYRUN_LEGS = (("llama3.2-3b train_4k", "llama3.2-3b", "train_4k", 1),
-               ("llama3.2-3b prefill_32k", "llama3.2-3b", "prefill_32k", 1),
+#: arch, shape id, global batch, layers); every leg is one sequence but
+#: decode's, which takes the 16x16 mesh's per-device batch (128 / 16) when
+#: the trace says its 32,768-slot cache fits beside the weights, else 4;
+#: every leg at full depth (layers None) but Falcon-Mamba-7B's train_4k,
+#: whose 64 layers the trace puts at 111.8 GiB on mesh (1, 1): 32 of them
+#: (57.9 GiB; 40 would be 71.4 GiB, past ``DRYRUN_FIT`` of the card)
+DRYRUN_LEGS = (("llama3.2-3b train_4k", "llama3.2-3b", "train_4k", 1, None),
+               ("llama3.2-3b prefill_32k", "llama3.2-3b", "prefill_32k", 1,
+                None),
                ("falcon-mamba-7b prefill_32k", "falcon-mamba-7b",
-                "prefill_32k", 1),
-               ("llama3.2-3b decode_32k", "llama3.2-3b", "decode_32k", 8))
+                "prefill_32k", 1, None),
+               ("falcon-mamba-7b train_4k", "falcon-mamba-7b", "train_4k",
+                1, 32),
+               ("llama3.2-3b decode_32k", "llama3.2-3b", "decode_32k", 8,
+                None))
 #: timed steps a leg, after one warm-up step
 DRYRUN_REPS = 3
 #: the share of the card's memory a leg's traced estimate may take
@@ -3909,20 +4093,25 @@ TWINS = ("scripts/smoke_models_torch.py", "scripts/smoke_fl_torch.py",
 
 
 def whole_step(torch, np, counted, get_config, build_model, arch, shape_id,
-               B):
-    """One full-width step of ``arch`` at ``shape_id`` with ``B`` rows on
+               B, layers=None):
+    """One full-width step of ``arch`` (``layers`` of its layers where
+    given) at ``shape_id`` with ``B`` rows on
     the card (random float32 weights, bf16 compute), beside its dry-run
     trace on mesh (1, 1): the median of ``DRYRUN_REPS`` CUDA-event step
     times after a warm-up, the peak memory against the trace's estimate,
     the trace's roofline terms, the step's share of the bf16 peak, the
     launches of every kernel (counts set to 0 just before the warm-up and
     read just after the last step) and, outside the count, one profiled
-    step's top kernels."""
+    step's top kernels.  A train step must run no plain scan on the card
+    (``counting_plain``)."""
     from repro_torch.configs import ShapeConfig, get_shape
+    from repro_torch.kernels import ref
     from repro_torch.launch import steps as St
     from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.roofline import analysis as A
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
     model = build_model(cfg)
     dev = torch.device("cuda")
     base = get_shape(shape_id)
@@ -3956,18 +4145,22 @@ def whole_step(torch, np, counted, get_config, build_model, arch, shape_id,
         decode = St.make_decode_step(model)
         step = lambda: decode(params, cache, tokens[:, :1], S - 1)  # noqa
     reset_counts(counted)
-    out = step()
-    del out
-    times = []
-    for _ in range(DRYRUN_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    with counting_plain(ref, *PLAIN_SCANS) as plain_scans:
         out = step()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
         del out
+        times = []
+        for _ in range(DRYRUN_REPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            del out
+    if plain_scans:
+        raise RuntimeError(f"dryrun leg {arch} {shape_id}: the plain scan "
+                           f"ran on the card ({plain_scans[:4]}...)")
     launches = {k: fn.launches for k, fn in counted.items()}
     tc = tensor_core_counts(counted)
     peak = torch.cuda.max_memory_allocated() - base
@@ -3982,6 +4175,7 @@ def whole_step(torch, np, counted, get_config, build_model, arch, shape_id,
     torch.cuda.empty_cache()
     row = dict(
         arch=arch, shape=shape_id, global_batch=B, seq_len=S, kind=kind,
+        layers=cfg.n_layers,
         step_ms=ms, step_ms_all=times, peak_bytes=peak,
         allocated_before_bytes=base,
         trace_estimate_bytes=est, trace_memory=mem, trace_s=trace_s,
@@ -3994,7 +4188,8 @@ def whole_step(torch, np, counted, get_config, build_model, arch, shape_id,
         launches=launches, tensor_core_launches=tc,
         profiled_wall_ms=prof_wall, profiled_device_ms=device_ms,
         profiled_device_launches=n_launched, top_kernels_ms=top)
-    print(f"dryrun leg {arch} {shape_id} B={B} S={S}: step "
+    print(f"dryrun leg {arch} {shape_id} B={B} S={S} ({cfg.n_layers} "
+          f"layers): step "
           f"{ms:.3f} ms (median of {times}); roofline (trace, mesh 1x1) "
           f"compute {row['t_compute_ms']:.3f} ms, memory "
           f"{row['t_memory_ms']:.3f} ms, collective "
@@ -4030,7 +4225,7 @@ def dryrun_phase(torch, np, counted, get_config, build_model):
     env = dict(os.environ, PYTHONPATH=SRC)
     legs, total = {}, {k: 0 for k in counted}
     total_mem = torch.cuda.get_device_properties(0).total_memory
-    for label, arch, shape_id, B in DRYRUN_LEGS:
+    for label, arch, shape_id, B, layers in DRYRUN_LEGS:
         if get_shape(shape_id).kind == "decode":
             _, _, mem = St.trace_step(
                 build_model(get_config(arch)),
@@ -4045,13 +4240,13 @@ def dryrun_phase(torch, np, counted, get_config, build_model):
                       f"{total_mem / 2**30:.2f} GiB: B=4", flush=True)
                 B = 4
         row = whole_step(torch, np, counted, get_config, build_model,
-                         arch, shape_id, B)
+                         arch, shape_id, B, layers)
         legs[label] = row
         for k, n in row["launches"].items():
             total[k] += n
     for name in ("flash_attention_fwd", "flash_attention_bwd",
                  "fused_softmax_xent_fwd", "fused_softmax_xent_bwd",
-                 "selective_scan_fwd"):
+                 "selective_scan_fwd", "selective_scan_bwd"):
         if total[name] <= 0:
             raise RuntimeError(f"the dry-run legs never launched {name}")
     n = DRYRUN_REPS + 1
@@ -4062,6 +4257,12 @@ def dryrun_phase(torch, np, counted, get_config, build_model):
             "llama3.2-3b prefill_32k": dict(flash_attention_fwd=28 * n),
             "falcon-mamba-7b prefill_32k": dict(
                 selective_scan_fwd=64 * n),
+            # 32 layers, remat: each layer's scan twice a step, its
+            # backward once; four 1,024-position loss chunks
+            "falcon-mamba-7b train_4k": dict(
+                selective_scan_fwd=2 * 32 * n, selective_scan_bwd=32 * n,
+                fused_softmax_xent_fwd=4 * n,
+                fused_softmax_xent_bwd=4 * n),
             "llama3.2-3b decode_32k": {}}
     for label, w in want.items():
         got = legs[label]["launches"]
@@ -4154,6 +4355,14 @@ def main() -> int:
     card = nvidia_smi()
     print(f"card: {card}", flush=True)
     dev = resolve_device("cuda")
+    laps = {"at": time.perf_counter()}
+
+    def lap(name):
+        """Print the seconds since the last lap: where the script's time
+        limit goes."""
+        now = time.perf_counter()
+        print(f"lap {name}: {now - laps['at']:.1f}s", flush=True)
+        laps["at"] = now
 
     # -- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -4165,6 +4374,7 @@ def main() -> int:
             print(f"ptxas {name} {entry}: {regs} registers, {spill} bytes "
                   f"spilled")
 
+    lap("build")
     # -- 2. kernels against their plain versions --------------------------
     gather = fed_gather.fed_cohort_gather
     sgd = fed_local_sgd.fed_local_sgd_mclr
@@ -4413,6 +4623,8 @@ def main() -> int:
     fx_bwd = fused_xent.fused_softmax_xent_bwd
     flash_row = check_flash(torch, fa, ref, gen, dev)
     scan_row = check_scan(torch, ss, ref, gen, dev)
+    sb = selective_scan.selective_scan_bwd
+    scan_bwd_row = check_scan_bwd(torch, sb, ss, ops, ref, gen, dev)
     bwd_row = check_flash_bwd(torch, fa_bwd, ref, gen, dev)
     xent_row, xent_bwd_row = check_xent(
         torch, fx, fused_xent.fused_softmax_xent_fwd_lse, fx_bwd, ops, ref,
@@ -4423,6 +4635,7 @@ def main() -> int:
                 "fused_softmax_xent_fwd": fx,
                 "fused_softmax_xent_bwd": fx_bwd}, ref, gen, dev)
 
+    lap("kernels")
     # -- 3. end to end on a small federation: card vs CPU -----------------
     small = make_femnist_like(n_clients=30, total=900, dim=64, max_size=40)
     small_cfg = dict(rounds=3, n_selected=6, sampling="iid", batch_size=4,
@@ -4506,11 +4719,13 @@ def main() -> int:
     train_card_vs_cpu(torch, np, get_config, build_model, train,
                       "falcon-mamba-7b", SSM_OPTIONS)
 
+    lap("card vs CPU")
     # -- 4. the main paths ------------------------------------------------
     counted = {"fed_cohort_gather": gather, "fed_local_sgd_mclr": sgd,
                "fed_local_sgd_dense": dense,
                "fed_compress_topk_q8": compress,
                "flash_attention_fwd": fa, "selective_scan_fwd": ss,
+               "selective_scan_bwd": sb,
                "flash_attention_bwd": fa_bwd, "fused_softmax_xent_fwd": fx,
                "fused_softmax_xent_bwd": fx_bwd}
     summary, path_launches = {}, {}
@@ -4645,6 +4860,7 @@ def main() -> int:
                          ("krum", dict(n_byzantine=1)),
                          ("geometric_median", {}),
                          ("bulyan", dict(n_byzantine=1)))])
+    lap("FL paths")
     # the LM serving paths, one model after the other (each frees its
     # weights on return)
     gen_steps = 32
@@ -4683,12 +4899,27 @@ def main() -> int:
         gen_steps, counted, {"flash_attention_fwd": 8}, dec_tokens=4)
     path_launches["serve_whisper-tiny"] = serving["whisper-tiny"]["launches"]
     torch.cuda.empty_cache()
+    lap("serving")
     # this slice's path: cross-silo FedSAE training at full width, then the
     # centralized training CLI on the smoke config
     training = {"silo_llama3.2-3b": silo_path(torch, np, get_config,
                                               build_model, counted, ref)}
     path_launches["silo_llama3.2-3b"] = \
         training["silo_llama3.2-3b"]["launches"]
+    torch.cuda.empty_cache()
+    # Falcon-Mamba-7B at full width, cut to the deepest of 16 / 24 / 32
+    # layers whose peak stays under DRYRUN_FIT of the card: the scan and
+    # its backward kernel on every Mamba layer
+    falcon = silo_path(torch, np, get_config, build_model, counted, ref,
+                       arch="falcon-mamba-7b", layers=SILO_FALCON_LAYERS)
+    fit = DRYRUN_FIT * torch.cuda.get_device_properties(0).total_memory
+    if falcon["peak_gib"] * 2**30 >= fit:
+        raise RuntimeError(f"silo falcon-mamba-7b: peak "
+                           f"{falcon['peak_gib']:.2f} GiB at "
+                           f"{SILO_FALCON_LAYERS} layers, past "
+                           f"{fit / 2**30:.2f} GiB")
+    training["silo_falcon-mamba-7b"] = falcon
+    path_launches["silo_falcon-mamba-7b"] = falcon["launches"]
     torch.cuda.empty_cache()
     training["silo_granite-moe-1b-a400m"] = silo_path(
         torch, np, get_config, build_model, counted, ref,
@@ -4714,7 +4945,8 @@ def main() -> int:
         cross-entropy recompute."""
         reset_counts(counted)
         t0 = time.perf_counter()
-        with counting_recomputes(ref) as recomputes:
+        with counting_plain(ref, "softmax_xent") as recomputes, \
+                counting_plain(ref, *PLAIN_SCANS) as plain_scans:
             losses = train.main(["--arch", arch, "--smoke", "--steps",
                                  str(steps)])
             torch.cuda.synchronize()
@@ -4723,7 +4955,7 @@ def main() -> int:
         want = dict({k: 0 for k in counted},
                     **{k: n * steps for k, n in per_step.items()})
         want_tc = {k: want[k] for k in tc}
-        if (got != want or tc != want_tc or recomputes
+        if (got != want or tc != want_tc or recomputes or plain_scans
                 or not np.isfinite(losses).all()):
             raise RuntimeError(f"launch.train {arch} smoke: losses {losses},"
                                f" launched {got} (tensor cores {tc}), "
@@ -4750,42 +4982,50 @@ def main() -> int:
         one_each, flash_attention_fwd=2, flash_attention_bwd=2))
     train_cli("train_cli_whisper-tiny", "whisper-tiny", 2, dict(
         one_each, flash_attention_fwd=4, flash_attention_bwd=4))
+    lap("silo and train CLI")
     # this slice's path: telemetry on the FL paths
     telemetry = telemetry_phase(torch, np, FedSAEServer, ServerConfig,
                                 femnist, counted, frac)
     path_launches["telemetry"] = telemetry["launches"]
+    lap("telemetry")
     # this slice's path: failure handling (faults, the screen, checkpoints)
     torch.cuda.empty_cache()
     faults = faults_phase(torch, np, FedSAEServer, ServerConfig, femnist,
                           counted, frac, get_config, build_model)
     path_launches["faults"] = faults["launches"]
+    lap("faults")
     # this slice's path: the device-resident drivers, the scan driver's
     # rounds replayed from a CUDA graph
     torch.cuda.empty_cache()
     scan = scan_phase(torch, np, FedSAEServer, ServerConfig, femnist,
                       counted, frac, make_sent140_like)
     path_launches["scan"] = scan["launches"]
+    lap("scan")
     # this slice's path: client-axis sharding (world-1 NCCL, world-2 gloo
     # on the one card) and prefetch
     torch.cuda.empty_cache()
     shard = shard_phase(torch, np, FedSAEServer, ServerConfig, femnist,
                         counted, frac)
     path_launches["shard"] = shard["launches"]
+    lap("shard")
     # this slice's path: an architecture id as the packed round's local
     # step (Llama-3.2-3B at full width, the smoke LMs on every driver)
     torch.cuda.empty_cache()
     lm_fed = lm_fed_phase(torch, np, FedSAEServer, ServerConfig, counted,
                           get_config, make_sent140_like)
     path_launches["lm_fed"] = lm_fed["launches"]
+    lap("lm_fed")
     # this slice's path: the seed interface's padded round
     padded = padded_phase(torch, np, femnist, counted)
     path_launches["padded"] = padded["launches"]
     # why the full-width MoE legs scale w_down and cut the lr
     moe_scale = moe_scale_phase(torch, np, get_config, make_sent140_like)
+    lap("padded and moe_scale")
     # this slice's path: the paper's experiments, Table II at paper scale
     torch.cuda.empty_cache()
     experiments = experiments_phase(torch, np, counted, ref)
     path_launches["experiments"] = experiments["launches"]
+    lap("experiments")
     # -- 5. where a steady round's time goes (outside the counted run) ---
     profiles = {}
     for label, cfg in (("iid", dict(sampling="iid")),
@@ -4822,6 +5062,7 @@ def main() -> int:
         print(f"profile {label}: {json.dumps(profiles[label])}",
               flush=True)
 
+    lap("profiles")
     # this slice's path, last: the dry-run, whole steps against their
     # roofline and the reference scripts' twins.  Its profiled steps come
     # after every other phase's profiler windows, so that theirs keep the
@@ -4830,6 +5071,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dryrun = dryrun_phase(torch, np, counted, get_config, build_model)
     path_launches["dryrun"] = dryrun["launches"]
+    lap("dryrun")
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in counted}
     scan_single_steps = sum(serving[a]["scan_single_step_launches"]
@@ -4888,6 +5130,10 @@ def main() -> int:
          "decode_launches": scan_single_steps,
          "prefill_launches": launches["selective_scan_fwd"]
          - scan_single_steps, **scan_row},
+        {"name": "selective_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+         "replaces": "src/repro/kernels/ops.py:73",
+         "launches": launches["selective_scan_bwd"], **scan_bwd_row},
         {"name": "flash_attention_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "src/repro/kernels/flash_attention.py:197",

@@ -50,6 +50,23 @@ import torch
 from repro_torch.tree import tree_leaves, tree_map
 
 
+#: cuBLAS takes a product's dimensions below 2**31 - 1: a leaf of more
+#: elements (Falcon-Mamba-7B's in_proj stacked over 32 layers has 2**31)
+#: is mixed client by client, with no GEMM
+GEMM_MAX = 2**31 - 1
+
+
+def _mix(coef, stacked):
+    """sum_k coef[k] * stacked[k]: one ``tensordot``, or for a leaf of
+    ``GEMM_MAX`` elements or more, one ``addcmul_`` a client."""
+    if stacked[0].numel() < GEMM_MAX:
+        return torch.tensordot(coef, stacked, dims=1)
+    out = stacked[0] * coef[0]
+    for k in range(1, stacked.shape[0]):
+        out.addcmul_(stacked[k], coef[k])
+    return out
+
+
 class FedAvg:
     """Size-weighted average; keeps the old global on an empty round."""
 
@@ -62,8 +79,7 @@ class FedAvg:
                            torch.zeros_like(weights))
 
         def agg(stacked, g0):
-            mixed = torch.tensordot(coef.to(torch.float32),
-                                    stacked.to(torch.float32), dims=1)
+            mixed = _mix(coef.to(torch.float32), stacked.to(torch.float32))
             return torch.where(tot > 0, mixed,
                                g0.to(torch.float32)).to(g0.dtype)
 

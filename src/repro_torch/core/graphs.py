@@ -68,6 +68,7 @@ LM_KERNELS = {
     "fused_softmax_xent_fwd": fused_xent.fused_softmax_xent_fwd,
     "fused_softmax_xent_bwd": fused_xent.fused_softmax_xent_bwd,
     "selective_scan_fwd": selective_scan.selective_scan_fwd,
+    "selective_scan_bwd": selective_scan.selective_scan_bwd,
 }
 
 #: stats fields unpacked as integers (ids and counts are exact in float32:

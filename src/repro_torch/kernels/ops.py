@@ -6,9 +6,10 @@ The three model ops are differentiable, as the reference's ``custom_vjp``s
 - ``flash_attention``: forward through the flash-attention forward
   (saving q, k, v, out and lse), backward through the flash-attention
   backward;
-- ``selective_scan``: forward through the scan; backward by recomputing
-  the plain ``ref.selective_scan`` under autograd, as the reference's
-  ``_ss_bwd`` does (it has no backward kernel);
+- ``selective_scan``: forward through the scan (saving its inputs),
+  backward through the scan's backward kernel, the reverse recurrence
+  linear in S that the reference's ``_ss_bwd`` takes as ``jax.vjp`` of
+  its oracle;
 - ``fused_softmax_xent``: forward through the fused cross-entropy
   (saving h, W, labels and lse); on the bfloat16 tensor-core route (an odd
   vocabulary's too, where W comes ``pitched``) the backward runs the
@@ -26,9 +27,7 @@ charged as one op, its bound's FLOPs and bytes) or the tensors are on the
 meta device (then only the kernel's output shapes are made, nothing
 runs).  On the meta device the cross-entropy backward takes the route the
 card would take for the same dtypes and strides
-(``fused_xent.tensor_core_route``), and the scan's backward charges its
-plain recompute from traces of one, two and three steps
-(``costs.extrapolated``).
+(``fused_xent.tensor_core_route``).
 
 The federated ops are forward-only: round functions are never
 differentiated through (the local-SGD kernels compute their gradients in
@@ -100,18 +99,10 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gh):
-        saved = ctx.saved_tensors
-        if saved[0].device.type != "meta":
-            return _recompute_vjp(ref.selective_scan, saved, (gy, gh))
-
-        dt, A, Bmat, Cmat, x, h0 = saved
-
-        def steps(s):       # the recompute over the first s steps
-            _recompute_vjp(ref.selective_scan,
-                           (dt[:, :s], A, Bmat[:, :s], Cmat[:, :s],
-                            x[:, :s], h0), (gy[:, :s], gh))
-        costs.extrapolated(steps, saved[0].shape[1])
-        return tuple(torch.empty_like(t) for t in saved)
+        return costs.kernel(
+            "selective_scan_bwd", ss.selective_scan_bwd, *ctx.saved_tensors,
+            None if gy is None else gy.contiguous(),
+            None if gh is None else gh.contiguous())
 
 
 class _Pitched(torch.autograd.Function):

@@ -228,6 +228,53 @@ def selective_scan(dt, A, Bmat, Cmat, x, h0):
     return y, h
 
 
+def selective_scan_bwd(dt, A, Bmat, Cmat, x, h0, gy, ghT):
+    """Gradients of ``selective_scan`` for the cotangents ``gy`` [B, S, d]
+    of y and ``ghT`` [B, d, N] of hT (None: zeros), linear in S: the
+    forward once, keeping every h_t, then the reverse recurrence
+
+      lam_t = gy_t C_t + a_{t+1} * lam_{t+1}   (lam_S carried in as ghT)
+
+    with a_t = exp(dt_t A), from which
+
+      dC_t = sum_d gy_t h_t          dB_t = sum_d lam_t (dt_t x_t)
+      dx_t = dt_t sum_n lam_t B_t    ddt_t = x_t sum_n lam_t B_t
+                                             + sum_n lam_t h_{t-1} a_t A
+      dA = sum_{b,t} lam_t h_{t-1} a_t dt_t,   dh0 = a_0 * lam_0.
+
+    -> (ddt, dA, dB, dC, dx, dh0), each in its input's dtype."""
+    f32 = torch.float32
+    dtf, xf = dt.to(f32), x.to(f32)
+    Af, Bf, Cf = A.to(f32), Bmat.to(f32), Cmat.to(f32)
+    B, S, d = dt.shape
+    gyf = (torch.zeros((B, S, d), dtype=f32, device=dt.device) if gy is None
+           else gy.to(f32))
+    mu = (torch.zeros(h0.shape, dtype=f32, device=dt.device) if ghT is None
+          else ghT.to(f32).clone())
+    hs = [h0.to(f32)]                                  # h_{-1} .. h_{S-1}
+    for t in range(S):
+        a = torch.exp(dtf[:, t, :, None] * Af)
+        hs.append(a * hs[-1] + (dtf[:, t] * xf[:, t])[..., None]
+                  * Bf[:, t, None, :])
+    ddt, dx = torch.zeros_like(dtf), torch.zeros_like(xf)
+    dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
+    dA = torch.zeros_like(Af)
+    for t in reversed(range(S)):
+        dt_t, x_t, gy_t = dtf[:, t], xf[:, t], gyf[:, t]   # [B, d]
+        a = torch.exp(dt_t[..., None] * Af)                # [B, d, N]
+        lam = mu + gy_t[..., None] * Cf[:, t, None, :]
+        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], gy_t)
+        dB[:, t] = torch.einsum("bdn,bd->bn", lam, dt_t * x_t)
+        s1 = torch.einsum("bdn,bn->bd", lam, Bf[:, t])
+        r = lam * hs[t] * a
+        dA += (r * dt_t[..., None]).sum(0)
+        dx[:, t] = dt_t * s1
+        ddt[:, t] = x_t * s1 + (r * Af).sum(-1)
+        mu = a * lam
+    return (ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bmat.dtype),
+            dC.to(Cmat.dtype), dx.to(x.dtype), mu.to(h0.dtype))
+
+
 #: log2(e) as the scan kernel folds it into A (rounded to float32 there)
 LOG2E = 1.4426950408889634
 #: lanes over which the scan kernel splits each channel's states

@@ -1,16 +1,17 @@
-"""Wrapper of the Hopper selective-scan kernel (``csrc/selective_scan.cu``),
-which replaces the reference's ``repro/kernels/selective_scan.py``
-``selective_scan_fwd``.
+"""Wrappers of the Hopper selective-scan kernels: the forward
+(``csrc/selective_scan.cu``), which replaces the reference's
+``repro/kernels/selective_scan.py`` ``selective_scan_fwd``, and the
+backward (``csrc/selective_scan_bwd.cu``), the port's counterpart of the
+reference's ``_ss_bwd`` (``jax.vjp`` of its oracle, no TPU kernel).
 
-A CPU tensor goes to the plain version (``kernels.ref.selective_scan``); a
-CUDA tensor launches the kernel or raises, for every sequence length
-S >= 1 (prefill, and decode's S = 1 from the cached state).
-``selective_scan_fwd.launches`` counts the kernel launches, and
-``selective_scan_fwd.single_step_launches`` those of them at S = 1
-(decode's).  The kernel runs 64 channels per block, so the grid is
-(ceil(d / 64), B), and B is held to the grid's 65535.  Forward
-only: the backward recomputes through the plain version
-(``kernels.ops.selective_scan``), as the reference's ``_ss_bwd`` does.
+A CPU tensor goes to the plain version (``kernels.ref.selective_scan``,
+``ref.selective_scan_bwd``); a CUDA tensor launches the kernel or raises,
+for every sequence length S >= 1 (prefill, and decode's S = 1 from the
+cached state).  ``selective_scan_fwd.launches`` counts the forward's
+launches, and ``selective_scan_fwd.single_step_launches`` those of them
+at S = 1 (decode's); ``selective_scan_bwd.launches`` counts the
+backward's.  Both kernels run 64 channels per block, so the grid is
+(ceil(d / 64), B), and B is held to the grid's 65535.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import torch
 from repro_torch.kernels import build, ref
 
 MAX_STATE = 64
+#: channels a block of either kernel runs
+CHANNELS = 64
 
 
 def _check_cuda(dt, A, Bmat, Cmat, x, h0):
@@ -78,3 +81,61 @@ def selective_scan_fwd(dt, A, Bmat, Cmat, x, h0):
 
 selective_scan_fwd.launches = 0
 selective_scan_fwd.single_step_launches = 0
+
+
+def _check_cotangent(name, g, shape, like):
+    if g.device != like.device:
+        raise ValueError(f"{name} is on {g.device}, dt on {like.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {g.dtype}")
+    if not g.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if tuple(g.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(g.shape)}, want {shape}")
+
+
+def selective_scan_bwd(dt, A, Bmat, Cmat, x, h0, gy, ghT):
+    """The scan's gradients for the cotangents ``gy`` [B, S, d] of y and
+    ``ghT`` [B, d, N] of hT (None: zeros), all float32 -> (ddt, dA, dB,
+    dC, dx, dh0) in the inputs' shapes.  On the card it also holds a
+    [B, ceil(S / chunk), d, N] checkpoint buffer and [2, ceil(d / 64), B,
+    S, N] partial sums of dB and dC while it runs."""
+    if dt.device.type == "cpu":
+        return ref.selective_scan_bwd(dt, A, Bmat, Cmat, x, h0, gy, ghT)
+    if dt.device.type != "cuda":
+        raise ValueError(f"unsupported device {dt.device}")
+    _check_cuda(dt, A, Bmat, Cmat, x, h0)
+    B, S, d = dt.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=dt.device)
+    gy = torch.zeros((B, S, d), **f32) if gy is None else gy
+    ghT = torch.zeros((B, d, N), **f32) if ghT is None else ghT
+    _check_cotangent("gy", gy, (B, S, d), dt)
+    _check_cotangent("ghT", ghT, (B, d, N), dt)
+    if B == 0 or d == 0:
+        return (torch.zeros_like(dt), torch.zeros_like(A),
+                torch.zeros_like(Bmat), torch.zeros_like(Cmat),
+                torch.zeros_like(x), ghT.clone())
+    lib = build.load("selective_scan_bwd")
+    chunks = -(-S // lib.selective_scan_bwd_chunk(N))
+    blocks = -(-d // CHANNELS)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dB, dC = torch.empty_like(Bmat), torch.empty_like(Cmat)
+    dA, dh0 = torch.empty_like(A), torch.empty_like(h0)
+    ckpt = torch.empty((B, chunks, d, N), **f32)
+    part = torch.empty((2, blocks, B, S, N), **f32)
+    dA_part = torch.empty((B, d, N), **f32)
+    with torch.cuda.device(dt.device):
+        stream = torch.cuda.current_stream(dt.device).cuda_stream
+        code = lib.selective_scan_bwd_launch(
+            dt.data_ptr(), A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
+            x.data_ptr(), h0.data_ptr(), gy.data_ptr(), ghT.data_ptr(),
+            ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dx.data_ptr(), dh0.data_ptr(), ckpt.data_ptr(), part.data_ptr(),
+            dA_part.data_ptr(), B, S, d, N, stream)
+    build.check(lib, "selective_scan_bwd", code)
+    selective_scan_bwd.launches += 1
+    return ddt, dA, dB, dC, dx, dh0
+
+
+selective_scan_bwd.launches = 0

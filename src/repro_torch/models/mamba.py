@@ -4,8 +4,10 @@
 The recurrence goes through the selective-scan op for every sequence
 length: the hand-written kernel on a CUDA tensor (training and prefill,
 and decode's single step from the cached state), the plain step loop on a
-CPU tensor.  The op is differentiable: its backward recomputes the plain
-step loop, as the reference's does.
+CPU tensor.  The op is differentiable: its backward is the scan's
+backward kernel on a CUDA tensor and its plain reverse recurrence on a CPU
+tensor, both linear in S, as the reference's ``jax.vjp`` of its oracle
+is.
 The reference's chunked associative scan is a TPU formulation of the same
 function and is not copied.  Decode keeps a constant [B, d_inner, N] state
 plus a [B, K-1, d_inner] conv ring.

@@ -120,6 +120,17 @@ def scan_work(B, S, d, N):
     return nbytes, 6 * B * S * d * N, B * S * d * N
 
 
+def scan_bwd_work(B, S, d, N):
+    """(bytes, flop, exps) the least any scan backward can do: read dt, x,
+    gy, B, C, A, h0 and ghT once and write ddt, dx, dB, dC, dA and dh0
+    once; per state and step recompute h (dt*A, the update's 3), one exp,
+    the lam step (2) and its carry (1), and dC, dB, sum_n lam B, the
+    lam h a product (2), its A and dt sums (2 each); per channel and step
+    dt*x, dx and ddt (4)."""
+    nbytes = 4 * (5 * B * S * d + 4 * B * S * N + 2 * d * N + 3 * B * d * N)
+    return nbytes, 19 * B * S * d * N + 4 * B * S * d, B * S * d * N
+
+
 def gather_work(K, max_n, feat, itemsize=4):
     """Cohort gather: reads and writes K max_n rows of ``feat`` elements,
     the labels (read, written) and the mask, and the starts and counts."""

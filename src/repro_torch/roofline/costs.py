@@ -16,11 +16,11 @@ the way ``hlo.py`` charges an HLO op:
 
 The port's hand-written kernels (``kernels.ops``: flash forward and
 backward, the cross-entropy forward, its pitched W and its backward, the
-scan, the four federated ops) are charged as one op each through
-``kernel``: the kernel's own FLOPs and bytes, the formulas of its bound
-(``roofline.analysis``), and none of the ops inside the call.  On the
-meta device ``kernel`` returns the kernel's outputs as empty tensors (the
-plain version's shapes) without running anything.
+scan and its backward, the four federated ops) are charged as one op
+each through ``kernel``: the kernel's own FLOPs and bytes, the formulas of
+its bound (``roofline.analysis``), and none of the ops inside the call.
+On the meta device ``kernel`` returns the kernel's outputs as empty
+tensors (the plain version's shapes) without running anything.
 
 Collectives are not dispatched by one process; ``launch.steps`` adds them
 analytically (``StepCost.add_collective``), with the reference's ring
@@ -80,15 +80,6 @@ class StepCost:
                                other.collective_breakdown),
                         merged(self.collective_links, other.collective_links),
                         ops, self.collectives + other.collectives)
-
-    def scaled(self, m: float) -> "StepCost":
-        return StepCost(
-            self.flops * m, self.bytes_accessed * m,
-            self.collective_bytes * m,
-            {k: v * m for k, v in self.collective_breakdown.items()},
-            {k: v * m for k, v in self.collective_links.items()},
-            {k: [x * m for x in v] for k, v in self.by_op.items()},
-            [(c[0] * m,) + tuple(c[1:]) for c in self.collectives])
 
     def charge(self, name: str, flops: float, nbytes: float,
                calls: float = 1.0) -> None:
@@ -265,18 +256,6 @@ class CostCounter(TorchDispatchMode):
         finally:
             self.quiet -= 1
 
-    def sub_trace(self, fn):
-        """(StepCost, peak bytes above the live bytes at the start) of
-        ``fn()`` alone, traced into fresh accumulators."""
-        outer, outer_peak = self.cost, self.peak_bytes
-        self.cost, start = StepCost(), self.live_bytes
-        self.peak_bytes = start
-        try:
-            fn()
-            return self.cost, self.peak_bytes - start
-        finally:
-            self.cost, self.peak_bytes = outer, outer_peak
-
 
 def active():
     """The innermost ``counting()`` counter, or None.  Read from the
@@ -339,9 +318,11 @@ def _work(name: str, a):
     if name == "fused_softmax_xent_bwd":
         (T, d), V = a[0].shape, a[1].shape[1]
         return A.xent_bwd_work(T, d, V, a[0].element_size())
-    if name == "selective_scan_fwd":
+    if name in ("selective_scan_fwd", "selective_scan_bwd"):
         B, S, d = a[0].shape
-        nbytes, flops, _ = A.scan_work(B, S, d, a[1].shape[1])
+        work = A.scan_work if name == "selective_scan_fwd" \
+            else A.scan_bwd_work
+        nbytes, flops, _ = work(B, S, d, a[1].shape[1])
         return flops, nbytes
     if name == "pitched":
         W, dtype = a
@@ -385,6 +366,8 @@ def _meta_outputs(name: str, a):
         B, S, d = a[0].shape
         return (_f32(B, S, d, like=a[0]),
                 _f32(B, d, a[1].shape[1], like=a[0]))
+    if name == "selective_scan_bwd":
+        return tuple(torch.empty_like(t) for t in a[:6])
     if name == "fed_cohort_gather":
         flat_x, flat_y, starts, _, max_n = a
         K = starts.shape[0]
@@ -431,25 +414,3 @@ def kernel(name: str, fn, *args):
             out = fn(*args)
     counter.cost.charge(f"kernel.{name}", flops, nbytes)
     return out
-
-
-def extrapolated(run, n: int) -> None:
-    """Charge the active counter with ``run(n)``'s cost from traces of
-    ``run(1)``, ``run(2)`` and ``run(3)``: exact for a loop of n steps
-    whose cost is at most quadratic in n (each step's ops a fixed cost
-    plus one linear in n, as autograd's full-size gradients of the slices
-    of a step loop are).  The peak of live bytes is extrapolated the same
-    way.  Nothing happens without an active counter."""
-    counter = active()
-    if counter is None:
-        return
-    traced = [counter.sub_trace(lambda s=s: run(s)) for s in (1, 2, 3)]
-    # Lagrange weights of the points 1, 2, 3 at n
-    w = ((n - 2) * (n - 3) / 2, -(n - 1) * (n - 3), (n - 1) * (n - 2) / 2)
-    total = StepCost()
-    for wi, (cost, _) in zip(w, traced):
-        total = total + cost.scaled(wi)
-    counter.cost = counter.cost + total
-    peak = sum(wi * p for wi, (_, p) in zip(w, traced))
-    counter.peak_bytes = max(counter.peak_bytes,
-                             counter.live_bytes + int(peak))

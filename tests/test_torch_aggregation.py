@@ -279,3 +279,20 @@ def test_packed_round_with_a_robust_aggregator_matches_reference(name):
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-5,
                                atol=2e-5)
     _assert_close(params_to_numpy(tp), jax.tree.map(np.asarray, jp), 2e-5)
+
+
+@pytest.mark.parametrize("name", ["fedavg", "fedprox"])
+def test_leaves_past_the_gemm_limit_mix_client_by_client(name,
+                                                         monkeypatch):
+    """A leaf of ``GEMM_MAX`` elements or more (cuBLAS's bound on a
+    product's dimensions) is mixed by one ``addcmul_`` a client: with the
+    bound lowered to 10, ``w`` [6, 3] takes that path and ``b`` [3] the
+    ``tensordot``; both hold the reference's FedAvg at 1e-6, an empty
+    round keeps the global."""
+    stack, glob, w = _stack(6)
+    monkeypatch.setattr(tagg, "GEMM_MAX", 10)
+    got, want = _both(name, stack, glob, w)
+    _assert_close(got, want, RANK_TOL)
+    got, _ = _both(name, stack, glob, np.zeros_like(w))
+    for k in glob:
+        np.testing.assert_array_equal(got[k], glob[k])

@@ -11,7 +11,11 @@ SGD rtol 5e-4, atol 5e-5 (the reference's MLP pallas-vs-xla bound); flash
 attention 2e-5 in float32 and 2e-2 in bfloat16, its backward atol 2e-5 /
 rtol 2e-4 in float32 and 2e-2 in bfloat16, the selective scan 1e-4, the
 fused cross-entropy 1e-4 (the reference's kernel-vs-oracle bounds,
-tests/test_kernels.py).  The Sent140 LSTM's loss and gradients on the card
+tests/test_kernels.py).  The scan's backward is held to its plain
+reverse recurrence per gradient at rtol 1e-4 and atol 1e-4 of that
+gradient's largest magnitude (dA sums B S terms, dB and dC d terms, and
+lam carries a sum over the steps ahead), and two runs must give the same
+bits.  The Sent140 LSTM's loss and gradients on the card
 are held to the CPU's at 1e-5, the robust aggregators at 1e-6 (1e-5 for
 the geometric median) with Krum's and Bulyan's chosen clients equal, and
 two card runs of one LSTM round must give the same bits.  The packed round
@@ -56,7 +60,8 @@ from torch_cases import (COMPRESS_CASES, DRYRUN_CASES, FAULT_CFG, FAULT_DS, FAUL
                          LM_CFG, gather_case, gather_lanes_case, iid_draws,
                          lm_fed_case, lstm_case, mclr_init, moe_case,
                          padded_round_case, pitched_xent_case,
-                         robust_stack_case, scan_case, sgd_case, xent_case)
+                         robust_stack_case, scan_bwd_case, scan_case, sgd_case,
+                         xent_case)
 
 TOL = 2e-5
 
@@ -402,6 +407,63 @@ def test_cuda_selective_scan_kernel_vs_plain(cuda_device, B, S, d, N):
     assert ss.launches == before + 1
     torch.testing.assert_close(y, want_y, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(hT, want_h, rtol=1e-4, atol=1e-4)
+
+
+# (B, S, d, N) of the scan's backward: Falcon-Mamba-7B's width at
+# train_4k's S; a ragged S (no multiple of the 16-step chunk) and d (no
+# multiple of the 64-channel block); one step; N = 8, 3 and 64 (the 4- and
+# 8-step chunks of N > 16)
+SCAN_BWD_CASES = [
+    (1, 4096, 8192, 16),
+    (2, 37, 200, 16),
+    (4, 1, 256, 16),
+    (2, 100, 128, 8),
+    (2, 40, 50, 3),
+    (1, 33, 64, 64),
+    (1, 29, 96, 32),
+]
+SCAN_BWD_TOL = 1e-4
+SCAN_BWD_NAMES = ("ddt", "dA", "dB", "dC", "dx", "dh0")
+
+
+def _scan_bwd_close(got, want):
+    for g, w, name in zip(got, want, SCAN_BWD_NAMES):
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        torch.testing.assert_close(g, w, rtol=SCAN_BWD_TOL,
+                                   atol=SCAN_BWD_TOL * max(scale, 1e-6),
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,N", SCAN_BWD_CASES)
+def test_cuda_selective_scan_bwd_kernel_vs_plain(cuda_device, B, S, d, N):
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in scan_bwd_case(B, S, d, N)]
+    sb = selective_scan.selective_scan_bwd
+    before = sb.launches
+    got = sb(*t)
+    again = sb(*t)
+    want = tref.selective_scan_bwd(*t)
+    torch.cuda.synchronize()
+    assert sb.launches == before + 2
+    _scan_bwd_close(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_cuda_selective_scan_bwd_misaligned_base_and_no_cotangent(
+        cuda_device):
+    """dt, x and gy 4 bytes off 16-byte alignment; and hT's cotangent
+    None (zeros)."""
+    arrays = scan_bwd_case(2, 50, 128, 16)
+    t = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    for i in (0, 4, 6):                               # dt, x, gy
+        buf = torch.empty(t[i].numel() + 1, device=cuda_device)
+        buf[1:].copy_(t[i].reshape(-1))
+        t[i] = buf[1:].view(t[i].shape)
+    sb = selective_scan.selective_scan_bwd
+    _scan_bwd_close(sb(*t), tref.selective_scan_bwd(*t))
+    _scan_bwd_close(sb(*t[:7], None), tref.selective_scan_bwd(*t[:7], None))
 
 
 @pytest.mark.cuda
@@ -1242,7 +1304,8 @@ def test_cuda_trace_step_equals_meta(cuda_device, arch, kind, S, B):
                flash_attention.flash_attention_bwd,
                fused_xent.fused_softmax_xent_fwd,
                fused_xent.fused_softmax_xent_bwd,
-               selective_scan.selective_scan_fwd)
+               selective_scan.selective_scan_fwd,
+               selective_scan.selective_scan_bwd)
     before = [fn.launches for fn in counted]
     card, _, _ = trace_step(model, shape, one, device=cuda_device)
     torch.cuda.synchronize()
@@ -1257,3 +1320,5 @@ def test_cuda_trace_step_equals_meta(cuda_device, arch, kind, S, B):
         assert n == kernels.get(fn.__name__, 0), fn.__name__
     if kind == "train" and arch != "falcon-mamba-7b":
         assert all(n > 0 for n in launched[:4]), launched
+    if kind == "train" and arch == "falcon-mamba-7b":
+        assert launched[5] == model.cfg.n_layers > 0, launched

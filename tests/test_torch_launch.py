@@ -177,10 +177,10 @@ def _costly(cost):
 @pytest.mark.parametrize("arch,kind,S,B", DRYRUN_CASES)
 def test_trace_step_on_the_cpu_equals_meta(arch, kind, S, B):
     """The same step traced on CPU tensors (the plain versions run, their
-    inner ops uncounted; a Mamba train step's plain scan recompute runs
-    its whole step loop) and on the meta device (the recompute charged
-    from one-, two- and three-step traces, ``costs.extrapolated``)
-    charges the same FLOPs, and the same bytes op by op.  The one
+    inner ops uncounted, a Mamba train step's plain scan backward too)
+    and on the meta device (each kernel charged at its bound, the scan's
+    backward as one ``selective_scan_bwd``) charges the same FLOPs, and
+    the same bytes op by op.  The one
     exception: the plain flash backward's dq/dk/dv come in another
     layout than the kernel's (which the meta device models), so a train
     step with attention copies some of them on the CPU: 0.1% of the

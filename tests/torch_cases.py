@@ -130,6 +130,15 @@ def scan_case(B, S, d, N, seed=7):
     return dt, A, Bm, Cm, x, h0
 
 
+def scan_bwd_case(B, S, d, N, seed=7):
+    """``scan_case``'s six inputs and the cotangents (gy [B, S, d], ghT
+    [B, d, N]) of y and hT, standard normal, from the same seed."""
+    rng = np.random.default_rng(seed + 1)
+    return scan_case(B, S, d, N, seed) + (
+        rng.normal(size=(B, S, d)).astype(np.float32),
+        rng.normal(size=(B, d, N)).astype(np.float32))
+
+
 def xent_case(T, d, V, seed=21):
     """(h [T, d], W [d, V] * 0.05, labels [T] int32) as the reference's
     cross-entropy tests make them."""
