@@ -57,12 +57,14 @@ last line):
      against its plain reverse recurrence ``ref.selective_scan_bwd``:
      B=1 at train_4k's S=4096, B=4 at S=1024, a ragged S=1000, S=1 and
      N=8, each gradient within rtol 1e-4 and atol 1e-4 of its largest
-     magnitude, a second run bitwise the first; timed at B=1 and B=4,
-     S=4096 beside the forward kernel's time on the same inputs; the
-     plain version timed at B=1 and, for scale, the old backward
-     (autograd through the plain ``ref.selective_scan``) at S=256; no
-     library call computes it; bound: its bytes, float32 flop and exps
-     (``scan_bwd_work``);
+     magnitude, a second run bitwise the first, and the backward given
+     the forward's checkpoints (what training runs) bitwise the one that
+     launches the checkpointing forward itself; timed at B=1 and B=4,
+     S=4096 both ways, beside the forward's serving and checkpointing
+     instances on the same inputs; the plain version timed at B=1 and,
+     for scale, the old backward (autograd through the plain
+     ``ref.selective_scan``) at S=256; no library call computes it;
+     bound: its bytes, float32 flop and exps (``scan_bwd_work``);
    - flash-attention backward (dq, dk, dv) at Llama-3.2-3B's training
      shape (B=1, S=2048, 24/8 heads, hd=128, bf16 causal), plus a window
      of 512, a non-causal, a ragged S=1000 and a float32 case: 2e-2 in
@@ -439,10 +441,12 @@ def time_ms(torch, fn, reps: int, flush=None, clean: bool = False) -> float:
 
 def reset_counts(counted) -> None:
     """Set every wrapper's launch count (and the flash and cross-entropy
-    wrappers' tensor-core counts, the scan's single-step count) to 0."""
+    wrappers' tensor-core counts, the scan's single-step count, the scan
+    backward's count of checkpointing forwards of its own) to 0."""
     for fn in counted.values():
         fn.launches = 0
-        for extra in ("tensor_core_launches", "single_step_launches"):
+        for extra in ("tensor_core_launches", "single_step_launches",
+                      "own_checkpoint_launches"):
             if hasattr(fn, extra):
                 setattr(fn, extra, 0)
 
@@ -594,14 +598,18 @@ def check_scan_bwd(torch, sb, ss, ops, ref, gen, dev):
     N = 16): B = 1 at train_4k's S = 4,096 (the whole-step leg's shape),
     B = 4 at S = 1,024, a ragged S = 1,000, S = 1, and N = 8; each of the
     six gradients within rtol 1e-4 and atol 1e-4 of its largest magnitude
-    (``SCAN_BWD_TOL``), a second run bitwise the first.  Then times at
-    B = 1 and B = 4, S = 4,096, each beside its bound (``scan_bwd_work``:
-    bytes, float32 flop and exps) and the forward kernel's time on the same
-    inputs; the plain version's at B = 1, S = 4,096 (one call, host clock
-    around a device sync: it launches ~15 kernels a step); and, for scale
-    only,
-    the old backward (autograd through the plain ``ref.selective_scan``,
-    quadratic in S) at S = 256.  No library call computes it."""
+    (``SCAN_BWD_TOL``), a second run bitwise the first, and the backward
+    given the checkpoints of the forward's checkpointing instance (what
+    training runs) bitwise the one that launches that forward itself.
+    Then times at B = 1 and B = 4, S = 4,096, each beside its bound
+    (``scan_bwd_work``: bytes, float32 flop and exps): the backward given
+    the forward's checkpoints (the row's ``ms``) and alone (``alone_ms``,
+    the checkpointing forward included), and the forward's serving and
+    checkpointing instances on the same inputs; the plain version's at
+    B = 1, S = 4,096 (one call, host clock around a device sync: it
+    launches ~15 kernels a step); and, for scale only, the old backward
+    (autograd through the plain ``ref.selective_scan``, quadratic in S)
+    at S = 256.  No library call computes it."""
     d = 8192
     err = rel = 0.0
     for B, S, N in ((1, 4096, 16), (4, 1024, 16), (2, 1000, 16),
@@ -609,13 +617,15 @@ def check_scan_bwd(torch, sb, ss, ops, ref, gen, dev):
         args = scan_inputs(torch, B, S, d, N, gen, dev)
         gy = torch.randn((B, S, d), generator=gen, device=dev)
         gh = torch.randn((B, d, N), generator=gen, device=dev)
-        got = sb(*args, gy, gh)
-        again = sb(*args, gy, gh)
+        ckpt = ss(*args, checkpoints=True)[2]
+        got = sb(*args, gy, gh, ckpt)
+        again = sb(*args, gy, gh, ckpt)
+        alone = sb(*args, gy, gh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = ref.selective_scan_bwd(*args, gy, gh)
         torch.cuda.synchronize()
-        if (B, S) == (1, 4096):      # one call: ~60k launches, 1.9 s
+        if (B, S) == (1, 4096):      # one call: ~60k launches, 2-3 s
             plain_ms = (time.perf_counter() - t0) * 1e3
         errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
         scales = [float(w.abs().max()) for w in want]
@@ -633,9 +643,12 @@ def check_scan_bwd(torch, sb, ss, ops, ref, gen, dev):
             raise RuntimeError(f"scan backward: non-finite (S={S})")
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise RuntimeError(f"scan backward: two runs differ (S={S})")
+        if not all(torch.equal(a, b) for a, b in zip(got, alone)):
+            raise RuntimeError(f"scan backward: the forward's checkpoints "
+                               f"and its own give different bits (S={S})")
         err = max(err, *errs)
         rel = max(rel, *(e / max(sc, 1e-6) for e, sc in zip(errs, scales)))
-        del args, gy, gh, got, again, want
+        del args, gy, gh, ckpt, got, again, alone, want
         torch.cuda.empty_cache()
     spin(torch)
     row = {"max_abs_err": err, "max_err_over_scale": rel,
@@ -645,21 +658,27 @@ def check_scan_bwd(torch, sb, ss, ops, ref, gen, dev):
         args = scan_inputs(torch, B, S, d, N, gen, dev)
         gy = torch.randn((B, S, d), generator=gen, device=dev)
         gh = torch.randn((B, d, N), generator=gen, device=dev)
-        ms = time_ms(torch, lambda: sb(*args, gy, gh), 10)
+        ckpt = ss(*args, checkpoints=True)[2]
+        ms = time_ms(torch, lambda: sb(*args, gy, gh, ckpt), 10)
+        alone = time_ms(torch, lambda: sb(*args, gy, gh), 10)
         fwd = time_ms(torch, lambda: ss(*args), 10)
+        fwd_ck = time_ms(torch, lambda: ss(*args, checkpoints=True), 10)
         nbytes, flops, exps = scan_bwd_work(B, S, d, N)
         b_ms, b_by, parts = scan_bound(nbytes, flops, exps)
-        row.update({f"{key}ms": ms, f"{key}fwd_ms": fwd,
+        row.update({f"{key}ms": ms, f"{key}alone_ms": alone,
+                    f"{key}fwd_ms": fwd, f"{key}fwd_checkpointing_ms": fwd_ck,
                     f"{key}bound_ms": b_ms, f"{key}bound_by": b_by,
                     f"{key}bound_parts_ms": parts})
         print(f"selective_scan_bwd B={B} S={S} d={d} N={N}: kernel "
-              f"{ms:.4f} ms (forward kernel {fwd:.4f} ms), "
+              f"{ms:.4f} ms given the forward's checkpoints, {alone:.4f} ms "
+              f"alone (the checkpointing forward first); the forward "
+              f"{fwd:.4f} ms serving, {fwd_ck:.4f} ms checkpointing; "
               f"plain {f'{plain_ms:.1f}' if B == 1 else '-'}"
               f" ms, bound {b_ms:.4f} ms ({b_by}; bytes "
               f"{parts['bytes']:.4f} ms for {nbytes} B, operations "
               f"{parts['operations']:.4f} ms for {flops} flop, exp "
               f"{parts['exp']:.4f} ms for {exps} exp)", flush=True)
-        del args, gy, gh
+        del args, gy, gh, ckpt
         torch.cuda.empty_cache()
     S = 256
     args = scan_inputs(torch, 1, S, d, N, gen, dev)
@@ -667,10 +686,10 @@ def check_scan_bwd(torch, sb, ss, ops, ref, gen, dev):
     gh = torch.randn((1, d, N), generator=gen, device=dev)
     row["old_recompute_S256_ms"] = time_ms(torch, lambda: ops._recompute_vjp(
         ref.selective_scan, args, (gy, gh)), 1)
-    row["S256_ms"] = time_ms(torch, lambda: sb(*args, gy, gh), 10)
-    print(f"selective_scan_bwd B=1 S={S} d={d} N={N}: kernel "
-          f"{row['S256_ms']:.4f} ms; the old backward (autograd through "
-          f"ref.selective_scan, quadratic in S) "
+    row["S256_alone_ms"] = time_ms(torch, lambda: sb(*args, gy, gh), 10)
+    print(f"selective_scan_bwd B=1 S={S} d={d} N={N}: kernel alone "
+          f"{row['S256_alone_ms']:.4f} ms; the old backward (autograd "
+          f"through ref.selective_scan, quadratic in S) "
           f"{row['old_recompute_S256_ms']:.4f} ms", flush=True)
     return row
 
@@ -1108,10 +1127,10 @@ def counting_plain(ref, *names):
     calls = []
 
     def counted(name):
-        def call(*a):
+        def call(*a, **kw):
             if a[0].device.type == "cuda":
                 calls.append(name)
-            return plain[name](*a)
+            return plain[name](*a, **kw)
         return call
 
     for k in plain:
@@ -1327,11 +1346,15 @@ def silo_path(torch, np, get_config, build_model, counted, ref, rounds=2,
     if n_mamba:
         want["selective_scan_fwd"] = fwd_per_attn * n_mamba * steps
         want["selective_scan_bwd"] = n_mamba * steps
+    own_ckpt = counted["selective_scan_bwd"].own_checkpoint_launches
     if {k: launches[k] for k in want} != want or any(
-            launches[k] for k in launches if k not in want) or plain_scans:
+            launches[k] for k in launches if k not in want) or plain_scans \
+            or own_ckpt:
         raise RuntimeError(f"silo path {arch} launched {launches} in "
                            f"{steps} steps, wanted {want}; the plain scan "
-                           f"ran {len(plain_scans)} times on the card")
+                           f"ran {len(plain_scans)} times on the card; the "
+                           f"scan backward ran {own_ckpt} checkpointing "
+                           f"forwards of its own")
     # every flash call of the bf16 path on the tensor cores; the
     # cross-entropy on its route, its backward the kernel there or the
     # plain recompute on the CUDA-core route
@@ -4086,6 +4109,9 @@ DRYRUN_LEGS = (("llama3.2-3b train_4k", "llama3.2-3b", "train_4k", 1, None),
 DRYRUN_REPS = 3
 #: the share of the card's memory a leg's traced estimate may take
 DRYRUN_FIT = 0.9
+#: how far the Falcon-Mamba-7B train_4k leg's peak may stray from the
+#: trace's estimate (the scan's checkpoints included in both)
+DRYRUN_PEAK_TOL = 0.02
 #: the reference scripts' twins, run on the card as subprocesses
 TWINS = ("scripts/smoke_models_torch.py", "scripts/smoke_fl_torch.py",
          "examples/serve_batch_torch.py",
@@ -4161,6 +4187,11 @@ def whole_step(torch, np, counted, get_config, build_model, arch, shape_id,
     if plain_scans:
         raise RuntimeError(f"dryrun leg {arch} {shape_id}: the plain scan "
                            f"ran on the card ({plain_scans[:4]}...)")
+    own_ckpt = counted["selective_scan_bwd"].own_checkpoint_launches
+    if own_ckpt:
+        raise RuntimeError(f"dryrun leg {arch} {shape_id}: the scan "
+                           f"backward ran {own_ckpt} checkpointing forwards "
+                           f"of its own, not given the forward's")
     launches = {k: fn.launches for k, fn in counted.items()}
     tc = tensor_core_counts(counted)
     peak = torch.cuda.max_memory_allocated() - base
@@ -4273,6 +4304,19 @@ def dryrun_phase(torch, np, counted, get_config, build_model):
                                f"(tensor cores "
                                f"{legs[label]['tensor_core_launches']}),"
                                f" wanted {w}, all on the tensor cores")
+    falcon = legs["falcon-mamba-7b train_4k"]
+    ratio = falcon["peak_bytes"] / falcon["trace_estimate_bytes"]
+    print(f"dryrun leg falcon-mamba-7b train_4k: {falcon['step_ms']:.3f} "
+          f"ms a step, peak {falcon['peak_bytes'] / 2**30:.3f} GiB = "
+          f"{ratio:.4f} x the trace's estimate (tolerance "
+          f"{DRYRUN_PEAK_TOL}), per step "
+          f"{falcon['launches']['selective_scan_fwd'] // n} / "
+          f"{falcon['launches']['selective_scan_bwd'] // n} scan forward / "
+          f"backward launches, no checkpointing forward of the backward's "
+          f"own", flush=True)
+    if abs(ratio - 1) > DRYRUN_PEAK_TOL:
+        raise RuntimeError(f"dryrun leg falcon-mamba-7b train_4k: peak "
+                           f"{ratio:.4f} x the trace's estimate")
 
     # the dry-run on the host beside the twins (not beside the legs, whose
     # timed and profiled steps it would share the host with)

@@ -9,7 +9,7 @@ sources, on one CUDA card.
             > _scratch/old/$k.cu
     done
     python3 scripts/kernel_ab.py --old-dir _scratch/old [--split] [--ab] \
-        [--sgd] [--compress] [--stamps] [--xent]
+        [--sgd] [--compress] [--stamps] [--xent] [--scan-bwd]
 
 ``--split`` takes the old scan apart (the scan of the port's first
 version, one thread per channel with a staged chunk of 32 steps): it
@@ -68,6 +68,33 @@ device array; made by textual edits in the build directory) and one that
 returns at once, and prints, at K in {1, 10, 20} with P = 51,930, each
 phase's cycles (least, median and most over the CTAs) beside the
 stamped call's time and the empty launch's.
+
+``--scan-bwd`` times the scan's backward against an older
+``selective_scan_bwd.cu`` (``git show <commit>:.../selective_scan_bwd.cu
+> _scratch/old/selective_scan_bwd.cu``; the first version's, whose C
+entry takes h0 and recomputes the forward's checkpoints itself), called
+through the old source's own C entry, in turns (old, new given the
+forward's checkpoints, new alone, the same again, new alone, new given,
+old) at Falcon-Mamba-7B's width (d = 8,192, N = 16), B = 1 and B = 4,
+S = 4,096; "new given" is the backward as training runs it, from the
+checkpoints of the forward's checkpointing instance, and "new alone" the
+wrapper without them, which launches that forward first.  Each result,
+from a second call (the first call's errors
+are printed beside: the first version's kernel once wrote a wrong ddt on
+its first call in a process at B = 1), is first held against the plain
+``ref.selective_scan_bwd`` (per gradient rtol 1e-4, atol 1e-4 of its
+largest magnitude, ``chip_smoke.SCAN_BWD_TOL``; the plain result is kept
+on the host, since on the card it came out changed after the first
+version's kernel had run beside it at B = 4) and a third call must give
+its bits again; the forward's two instances (serving's, the
+checkpointing one) are timed in turns beside it.  Then ptxas' registers and spills of both sources' kernels: the new
+one's from its build log (every N instance), the old one's from its
+``nvcc -Xptxas -v`` here.
+
+With ``--scan-bwd``, ``--split`` takes the current backward apart in
+place of the scan: variants made by textual edits in the build directory
+(``SCAN_BWD_SPLIT_EDITS``: staging only, compute only, no epilogue, no
+dB/dC shuffles) timed in turns with the full kernel at B = 1 and 4.
 
 ``--xent`` times the fused cross-entropy against the old
 ``fused_xent.cu`` and ``fused_xent_bwd.cu`` (``git show <commit>:...`` of
@@ -171,14 +198,18 @@ def scan_inputs(torch, B, S, d, N, seed=0):
                           torch.Generator("cuda").manual_seed(seed), "cuda")
 
 
-def scan_caller(torch, lib, args):
-    """A call of ``lib``'s scan entry on ``args``, into fresh outputs."""
+def scan_caller(torch, lib, args, ckpt_arg=False):
+    """A call of ``lib``'s scan entry on ``args``, into fresh outputs;
+    ``ckpt_arg``: the entry takes a checkpoint buffer (null here: serving's
+    instance), as the current source's does."""
     dt, A, Bm, Cm, x, h0 = args
     B, S, d = dt.shape
     N = A.shape[1]
     y = torch.empty_like(dt)
     hT = torch.empty_like(h0)
     ptrs = [t.data_ptr() for t in (dt, A, Bm, Cm, x, h0, y, hT)]
+    if ckpt_arg:
+        ptrs.append(None)
 
     def call():
         stream = torch.cuda.current_stream().cuda_stream
@@ -246,7 +277,7 @@ def run_ab(torch, old_dir, build_dir, out):
     for B, S, d, N, reps in shapes:
         args = scan_inputs(torch, B, S, d, N)
         old_call = scan_caller(torch, old_scan, args)
-        new_call = scan_caller(torch, new_scan, args)
+        new_call = scan_caller(torch, new_scan, args, ckpt_arg=True)
         oy, oh = (t.clone() for t in old_call())
         ny, nh = new_call()
         wy, wh = ref.selective_scan(*args)
@@ -776,6 +807,244 @@ OLD_XENT_FWD_ARGS = [P] * 6 + [I] * 6 + [P]
 OLD_XENT_BWD_ARGS = [P] * 10 + [I] * 4 + [P]
 
 
+OLD_SCAN_BWD_ARGS = [P] * 17 + [I] * 4 + [P]
+
+
+def old_scan_bwd_caller(torch, lib, args, gy, gh):
+    """A call of an older ``selective_scan_bwd.cu``'s C entry (the first
+    version's:
+    inputs, cotangents, outputs, its own checkpoint and partial buffers,
+    B, S, d, N, stream) on ``args``, into fresh outputs."""
+    dt, A, Bm, Cm, x, h0 = args
+    B, S, d = dt.shape
+    N = A.shape[1]
+    chunk = lib.selective_scan_bwd_chunk(N)
+    outs = [torch.empty_like(t) for t in (dt, A, Bm, Cm, x, h0)]
+    ckpt = torch.empty((B, -(-S // chunk), d, N), device="cuda")
+    part = torch.empty((2, -(-d // 64), B, S, N), device="cuda")
+    dA_part = torch.empty((B, d, N), device="cuda")
+    ddt, dA, dB, dC, dx, dh0 = outs
+    ptrs = [t.data_ptr() for t in (dt, A, Bm, Cm, x, h0, gy, gh, ddt, dA,
+                                   dB, dC, dx, dh0, ckpt, part, dA_part)]
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.selective_scan_bwd_launch(*ptrs, B, S, d, N, stream)
+        if code:
+            raise RuntimeError(f"old scan backward failed: CUDA error "
+                               f"{code}")
+        return outs
+    return call
+
+
+def ptxas_lines(log: str, kernel: str):
+    """ptxas' register and spill lines of ``kernel``'s instances in an
+    ``-Xptxas -v`` log: [(function line, usage lines)]."""
+    lines, out = log.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            usage = [ln.strip() for ln in lines[i + 1:i + 5]
+                     if "Used" in ln or "spill" in ln]
+            out.append((line.split("'")[1] if "'" in line else line,
+                        usage))
+    return out
+
+
+#: (find, replace) edits of the current selective_scan_bwd.cu for the
+#: variants of --scan-bwd --split; each must match the source exactly once
+SCAN_BWD_SPLIT_EDITS = {
+    # staging, the epilogue and the partials, no recompute or reverse step
+    "staging_only": [
+        ("    float hp[NPL];                            // h before the chunk",
+         "    if (d < 0) {\n    float hp[NPL];"),
+        ("    __syncthreads();\n    // the chunk's ddt and dx rows",
+         "    }\n    __syncthreads();\n    // the chunk's ddt and dx rows")],
+    # the first chunks staged only: every other chunk computes on them
+    "compute_only": [
+        ("    if (k - (STAGES - 1) >= 0)\n      stage_chunk(",
+         "    if (d < 0)\n      stage_chunk(")],
+    # no ddt/dx rows and no dB/dC block sums or partials
+    "no_epilogue": [
+        ("    for (int i = tid; i < 2 * CH * CHANNELS; i += THREADS) {",
+         "    if (d < 0) for (int i = tid; i < 2 * CH * CHANNELS; "
+         "i += THREADS) {"),
+        ("    for (int e = tid; e < E; e += THREADS) {\n"
+         "      float s = sm.red[0][e];",
+         "    if (d < 0) for (int e = tid; e < E; e += THREADS) {\n"
+         "      float s = sm.red[0][e];")],
+    # dB and dC not summed over the warp's channels (no shuffles)
+    "no_dbdc_shuffles": [
+        ("const int off = reduce_scatter<V>(v, wl, 16, LANES, cnt);",
+         "cnt = 1; const int off = wl >> 3;")],
+}
+
+
+def run_scan_bwd_split(torch, build_dir, out):
+    """The current backward and its variants (``SCAN_BWD_SPLIT_EDITS``, made
+    in the build directory) in turns at Falcon's width, B = 1 and 4,
+    S = 4,096, given the forward's checkpoints, all through the current C
+    entry."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import selective_scan as ss
+    with open(build.source_path("selective_scan_bwd")) as f:
+        text = f.read()
+    sources = {"full": build.source_path("selective_scan_bwd")}
+    for name, edits in SCAN_BWD_SPLIT_EDITS.items():
+        t = text
+        for find, repl in edits:
+            if t.count(find) != 1:
+                raise RuntimeError(f"the backward does not hold {find!r} "
+                                   f"once")
+            t = t.replace(find, repl)
+        sources[name] = os.path.join(build_dir, f"scan_bwd_{name}.cu")
+        with open(sources[name], "w") as f:
+            f.write(t)
+    procs = {name: subprocess.Popen(
+        [build.find_nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC, "-o",
+         os.path.join(build_dir, f"scan_bwd_{name}.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, src in sources.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        lib = ctypes.CDLL(os.path.join(build_dir, f"scan_bwd_{name}.so"))
+        for fn, (argtypes, restype) in build.SIGNATURES[
+                "selective_scan_bwd"].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        libs[name] = lib
+    d, N, S = 8192, 16, 4096
+    rows = []
+    for B in (1, 4):
+        args = scan_inputs(torch, B, S, d, N, seed=B)
+        g = torch.Generator("cuda").manual_seed(100 + B)
+        gy = torch.randn((B, S, d), generator=g, device="cuda")
+        gh = torch.randn((B, d, N), generator=g, device="cuda")
+        ckpt = ss.selective_scan_fwd(*args, checkpoints=True)[2]
+        dt, A, Bm, Cm, x, h0 = args
+        outs = [torch.empty_like(t) for t in args]
+        part = torch.empty(
+            (2, libs["full"].selective_scan_bwd_blocks(d), B, S, N),
+            device="cuda")
+        dA_part = torch.empty((B, d, N), device="cuda")
+        ptrs = [t.data_ptr() for t in (dt, A, Bm, Cm, x, gy, gh, ckpt)] + [
+            outs[i].data_ptr() for i in (0, 1, 2, 3, 4, 5)] + [
+            part.data_ptr(), dA_part.data_ptr()]
+
+        def caller(lib):
+            def call():
+                code = lib.selective_scan_bwd_launch(
+                    *ptrs, B, S, d, N, torch.cuda.current_stream()
+                    .cuda_stream)
+                if code:
+                    raise RuntimeError(f"CUDA error {code}")
+            return call
+        cs.spin(torch)
+        order = list(libs) + list(libs)[::-1]
+        times = {k: [] for k in libs}
+        for k in order:
+            times[k].append(cs.time_ms(torch, caller(libs[k]), 10))
+        row = {"shape": [B, S, d, N], "ms": times}
+        print(f"scan_bwd split {json.dumps(row)}", flush=True)
+        rows.append(row)
+        del args, gy, gh, ckpt, outs, part, dA_part
+        torch.cuda.empty_cache()
+    out["scan_bwd_split"] = rows
+
+
+def run_scan_bwd(torch, old_dir, build_dir, out):
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels import selective_scan as ss
+    old_src = os.path.join(old_dir, "selective_scan_bwd.cu")
+    old_so = os.path.join(build_dir, "old_scan_bwd.so")
+    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-o", old_so, old_src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {old_src}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    old_log = proc.stdout + proc.stderr
+    old = ctypes.CDLL(old_so)
+    old.selective_scan_bwd_launch.argtypes = OLD_SCAN_BWD_ARGS
+    old.selective_scan_bwd_launch.restype = I
+    old.selective_scan_bwd_chunk.argtypes = [I]
+    old.selective_scan_bwd_chunk.restype = I
+    build.load("selective_scan_bwd")
+    build.load("selective_scan")
+    ptxas = {
+        "new": ptxas_lines(build.build_log("selective_scan_bwd"),
+                           "selective_scan_bwd_kernel"),
+        "old": ptxas_lines(old_log, "selective_scan_bwd_kernel"),
+        "forward": ptxas_lines(build.build_log("selective_scan"),
+                               "selective_scan_kernel")}
+    for k, rows in ptxas.items():
+        for fn, usage in rows:
+            print(f"ptxas {k} {fn}: {' | '.join(usage)}", flush=True)
+    d, N, S = 8192, 16, 4096
+    rows = []
+    for B in (1, 4):
+        args = scan_inputs(torch, B, S, d, N, seed=B)
+        g = torch.Generator("cuda").manual_seed(100 + B)
+        gy = torch.randn((B, S, d), generator=g, device="cuda")
+        gh = torch.randn((B, d, N), generator=g, device="cuda")
+        ckpt = ss.selective_scan_fwd(*args, checkpoints=True)[2]
+        old_call = old_scan_bwd_caller(torch, old, args, gy, gh)
+        calls = {"old": old_call,
+                 "new given": lambda: ss.selective_scan_bwd(*args, gy, gh,
+                                                            ckpt),
+                 "new alone": lambda: ss.selective_scan_bwd(*args, gy, gh)}
+        # kept on the host, out of reach of the card's kernels
+        want = [w.cpu() for w in ref.selective_scan_bwd(*args, gy, gh)]
+        scales = [float(w.abs().max()) for w in want]
+        errs, first_errs, bad = {}, {}, []
+        for name, fn in calls.items():
+            first = [t.cpu() for t in fn()]
+            got = [t.cpu() for t in fn()]
+            again = [t.cpu() for t in fn()]
+            first_errs[name] = [float((a - w).abs().max())
+                                for a, w in zip(first, want)]
+            errs[name] = [float((a - w).abs().max())
+                          for a, w in zip(got, want)]
+            if not all(torch.allclose(a, w, rtol=cs.SCAN_BWD_TOL,
+                                      atol=cs.SCAN_BWD_TOL * max(sc, 1e-6))
+                       for a, w, sc in zip(got, want, scales)):
+                bad.append(f"{name} differs from plain")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                bad.append(f"{name}: two runs differ")
+            del first, got, again
+        del want
+        print(f"scan_bwd B={B} S={S}: max_abs_err {json.dumps(errs)}, on "
+              f"each one's first call in this process "
+              f"{json.dumps(first_errs)}, against scales {scales}",
+              flush=True)
+        if bad:
+            raise RuntimeError(f"scan backward at B={B}: {bad}")
+        fwd = {"serving": scan_caller(torch, build.load("selective_scan"),
+                                      args, ckpt_arg=True),
+               "checkpointing": lambda: ss.selective_scan_fwd(
+                   *args, checkpoints=True)}
+        cs.spin(torch)
+        times = {k: [] for k in calls}
+        for k in ("old", "new given", "new alone", "new alone",
+                  "new given", "old"):
+            times[k].append(cs.time_ms(torch, calls[k], 10))
+        ftimes = {k: [] for k in fwd}
+        for k in ("serving", "checkpointing", "checkpointing", "serving"):
+            ftimes[k].append(cs.time_ms(torch, fwd[k], 10))
+        nbytes, flops, exps = cs.scan_bwd_work(B, S, d, N)
+        b_ms, b_by, parts = cs.scan_bound(nbytes, flops, exps)
+        row = {"shape": [B, S, d, N], "ms": times, "forward_ms": ftimes,
+               "max_abs_err": errs, "first_call_max_abs_err": first_errs,
+               "scales": scales, "bound_ms": b_ms,
+               "bound_by": b_by, "bound_parts_ms": parts}
+        print(f"scan_bwd {json.dumps(row)}", flush=True)
+        rows.append(row)
+        del args, gy, gh, ckpt, calls, fwd, old_call
+        torch.cuda.empty_cache()
+    out["scan_bwd_ab"] = {"rows": rows, "ptxas": ptxas}
+
+
 def xent_inputs(torch, T, d, V, seed=0):
     """(h, W, labels, g) bf16 on the card, W contiguous; g like a training
     step's cotangent (mask / count, with some spread)."""
@@ -964,13 +1233,15 @@ def main() -> int:
                          "fed_gather.cu, fed_local_sgd.cu, "
                          "fed_local_sgd_dense.cu and fed_compress.cu, or "
                          "for --xent fused_xent.cu, fused_xent_bwd.cu, "
-                         "xent_tc.cuh and hopper_tc.cuh")
+                         "xent_tc.cuh and hopper_tc.cuh, or for --scan-bwd "
+                         "selective_scan_bwd.cu")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--ab", action="store_true")
     ap.add_argument("--sgd", action="store_true")
     ap.add_argument("--compress", action="store_true")
     ap.add_argument("--stamps", action="store_true")
     ap.add_argument("--xent", action="store_true")
+    ap.add_argument("--scan-bwd", action="store_true")
     ap.add_argument("--build-dir", default=os.path.join(ROOT, "_scratch",
                                                         "kernel_ab"))
     ap.add_argument("--out", default=os.path.join(ROOT, "_scratch",
@@ -984,7 +1255,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     out = {"card": card, "kind": torch.cuda.get_device_name(0)}
     t0 = time.perf_counter()
-    if a.split and not a.compress:
+    if a.split and not (a.compress or a.scan_bwd):
         run_split(torch, os.path.join(a.old_dir, "selective_scan.cu"),
                   a.build_dir, out)
     if a.ab:
@@ -997,6 +1268,10 @@ def main() -> int:
         run_stamps(torch, a.build_dir, out)
     if a.xent:
         run_xent(torch, a.old_dir, a.build_dir, out)
+    if a.scan_bwd:
+        run_scan_bwd(torch, a.old_dir, a.build_dir, out)
+    if a.scan_bwd and a.split:
+        run_scan_bwd_split(torch, a.build_dir, out)
     out["seconds"] = time.perf_counter() - t0
     os.makedirs(os.path.dirname(a.out), exist_ok=True)
     with open(a.out, "w") as f:

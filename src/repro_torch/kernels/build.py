@@ -84,12 +84,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "fused_xent_bwd_error_string": ([I], ctypes.c_char_p),
     },
     "selective_scan": {
-        "selective_scan_fwd_launch": ([P] * 8 + [I] * 4 + [P], I),
+        "selective_scan_fwd_launch": ([P] * 9 + [I] * 4 + [P], I),
+        "selective_scan_ckpt_steps": ([I], I),
         "selective_scan_fwd_error_string": ([I], ctypes.c_char_p),
     },
     "selective_scan_bwd": {
-        "selective_scan_bwd_launch": ([P] * 17 + [I] * 4 + [P], I),
-        "selective_scan_bwd_chunk": ([I], I),
+        "selective_scan_bwd_launch": ([P] * 16 + [I] * 4 + [P], I),
+        "selective_scan_bwd_blocks": ([I], I),
         "selective_scan_bwd_error_string": ([I], ctypes.c_char_p),
     },
 }

@@ -41,10 +41,21 @@
 //   past d and states past N are zero-filled; decode's S = 1 skips the
 //   ring and reads its one step straight from global memory;
 // - 128-thread blocks of 64 channels: Falcon's B * d / 64 = 512 blocks sit
-//   on the 132 SMs in one wave, ~16 warps each.
+//   on the 132 SMs in one wave, ~16 warps each;
+// - training's instance (CKPT) also stores h at the start of every chunk
+//   of CK = ckpt_steps(NP) steps (scan_ckpt.cuh: 16 up to N = 16, 8 up to 32, 4 up to 64)
+//   into a [B, ceil(S / CK), d, N] buffer, from the same registers the
+//   recurrence runs in: the backward (selective_scan_bwd.cu) recomputes
+//   each chunk from it with the same ex2.approx and FMA order, so its h_t
+//   are this kernel's bit for bit, and it never re-runs the forward.  At
+//   Falcon's width, B = 1, S = 4,096, that is 134 MB of stores beside the
+//   forward's 0.27 GB of traffic.  Serving's instance (prefill, decode)
+//   has no such stores: the C entry takes a null buffer there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "scan_ckpt.cuh"
 
 namespace {
 
@@ -131,7 +142,7 @@ __device__ __forceinline__ void stage_chunk(Stage<NP>& st,
   }
 }
 
-template <int NP, bool VEC>
+template <int NP, bool VEC, bool CKPT>
 __global__ void __launch_bounds__(THREADS, 4)
 selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ A,
@@ -139,9 +150,12 @@ selective_scan_kernel(const float* __restrict__ dt,
                       const float* __restrict__ Cm,
                       const float* __restrict__ x,
                       const float* __restrict__ h0, float* __restrict__ y,
-                      float* __restrict__ hT, int S, int d, int N) {
+                      float* __restrict__ hT, float* __restrict__ ckpt,
+                      int S, int d, int N) {
   constexpr int NPL = NP / LANES;             // states per lane
   constexpr int STAGES = NP >= 64 ? 2 : 3;    // chunks in the ring
+  constexpr int CK = ckpt_steps(NP);
+  static_assert(CH % CK == 0, "a chunk holds whole checkpoint intervals");
   __shared__ Stage<NP> ring[STAGES];
 
   const int tid = threadIdx.x;
@@ -170,6 +184,32 @@ selective_scan_kernel(const float* __restrict__ dt,
   float* yb = y + seq * d;
   const float* Bb = Bm + seq * N;
   const float* Cb = Cm + seq * N;
+  // h before step t (t a multiple of CK) into checkpoint t / CK: a lane's
+  // NPL states in 16-byte stores where N == NP (NPL % 4 == 0), else one
+  // by one
+  const int n_ck = (S + CK - 1) / CK;
+  auto store_ckpt = [&](int t) {
+#pragma unroll
+    for (int u = 0; u < CPT; ++u) {
+      const int ch = c0 + cl + u;
+      float* p = ckpt + (((long long)b * n_ck + t / CK) * d + ch) * N
+                 + lane * NPL;
+      if constexpr (NPL % 4 == 0) {
+        if (N == NP) {
+          if (ch < d) {
+#pragma unroll
+            for (int i = 0; i < NPL; i += 4)
+              *reinterpret_cast<float4*>(p + i) = make_float4(
+                  h[u][i], h[u][i + 1], h[u][i + 2], h[u][i + 3]);
+          }
+          continue;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < NPL; ++i)
+        if (ch < d && lane * NPL + i < N) p[i] = h[u][i];
+    }
+  };
 
   if (S == 1) {                 // decode's one step: straight from global
     float bv[NPL], cv[NPL];     // memory, no staging and no barrier
@@ -179,6 +219,7 @@ selective_scan_kernel(const float* __restrict__ dt,
       bv[i] = n < N ? Bb[n] : 0.f;
       cv[i] = n < N ? Cb[n] : 0.f;
     }
+    if (CKPT) store_ckpt(0);
 #pragma unroll
     for (int u = 0; u < CPT; ++u) {
       const int ch = c0 + cl + u;
@@ -222,7 +263,8 @@ selective_scan_kernel(const float* __restrict__ dt,
       for (int s = 0; s < GROUP; ++s) {
         const int t = g + s;
         if (t < len) {                        // uniform; false only at S's
-          float bv[NPL], cv[NPL];             // ragged end
+          if (CKPT && t % CK == 0) store_ckpt(t0 + t);    // ragged end
+          float bv[NPL], cv[NPL];
 #pragma unroll
           for (int i = 0; i < NPL; ++i) {
             bv[i] = st.B[t][lane * NPL + i];
@@ -286,43 +328,67 @@ selective_scan_kernel(const float* __restrict__ dt,
   }
 }
 
+template <int NP, bool VEC, bool CKPT>
+void launch_one(dim3 grid, const void* dt, const void* A, const void* Bm,
+                const void* Cm, const void* x, const void* h0, void* y,
+                void* hT, void* ckpt, int S, int d, int N,
+                cudaStream_t stream) {
+  selective_scan_kernel<NP, VEC, CKPT><<<grid, THREADS, 0, stream>>>(
+      (const float*)dt, (const float*)A, (const float*)Bm, (const float*)Cm,
+      (const float*)x, (const float*)h0, (float*)y, (float*)hT,
+      (float*)ckpt, S, d, N);
+}
+
 template <int NP>
 int launch(const void* dt, const void* A, const void* Bm, const void* Cm,
-           const void* x, const void* h0, void* y, void* hT, int B, int S,
-           int d, int N, cudaStream_t stream) {
+           const void* x, const void* h0, void* y, void* hT, void* ckpt,
+           int B, int S, int d, int N, cudaStream_t stream) {
   const dim3 grid((d + CHANNELS - 1) / CHANNELS, B);
   const bool vec = d % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(dt) |
                      reinterpret_cast<uintptr_t>(x) |
                      reinterpret_cast<uintptr_t>(y)) % 16 == 0);
-  if (vec)
-    selective_scan_kernel<NP, true><<<grid, THREADS, 0, stream>>>(
-        (const float*)dt, (const float*)A, (const float*)Bm,
-        (const float*)Cm, (const float*)x, (const float*)h0, (float*)y,
-        (float*)hT, S, d, N);
+  if (ckpt && vec)
+    launch_one<NP, true, true>(grid, dt, A, Bm, Cm, x, h0, y, hT, ckpt, S,
+                               d, N, stream);
+  else if (ckpt)
+    launch_one<NP, false, true>(grid, dt, A, Bm, Cm, x, h0, y, hT, ckpt, S,
+                                d, N, stream);
+  else if (vec)
+    launch_one<NP, true, false>(grid, dt, A, Bm, Cm, x, h0, y, hT, ckpt, S,
+                                d, N, stream);
   else
-    selective_scan_kernel<NP, false><<<grid, THREADS, 0, stream>>>(
-        (const float*)dt, (const float*)A, (const float*)Bm,
-        (const float*)Cm, (const float*)x, (const float*)h0, (float*)y,
-        (float*)hT, S, d, N);
+    launch_one<NP, false, false>(grid, dt, A, Bm, Cm, x, h0, y, hT, ckpt, S,
+                                 d, N, stream);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Steps between the checkpoints of h for state size N (the checkpoint
+// buffer is [B, ceil(S / steps), d, N] float32).
+extern "C" int selective_scan_ckpt_steps(int N) {
+  return ckpt_steps(N);
+}
+
+// ``ckpt``: null for serving's instance, else the checkpoint buffer.
 extern "C" int selective_scan_fwd_launch(const void* dt, const void* A,
                                          const void* Bm, const void* Cm,
                                          const void* x, const void* h0,
-                                         void* y, void* hT, int B, int S,
-                                         int d, int N, void* stream) {
+                                         void* y, void* hT, void* ckpt,
+                                         int B, int S, int d, int N,
+                                         void* stream) {
   if (B <= 0 || d <= 0) return 0;
   if (N <= 0 || N > 64 || S < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (N <= 4) return launch<4>(dt, A, Bm, Cm, x, h0, y, hT, B, S, d, N, st);
-  if (N <= 8) return launch<8>(dt, A, Bm, Cm, x, h0, y, hT, B, S, d, N, st);
-  if (N <= 16) return launch<16>(dt, A, Bm, Cm, x, h0, y, hT, B, S, d, N, st);
-  if (N <= 32) return launch<32>(dt, A, Bm, Cm, x, h0, y, hT, B, S, d, N, st);
-  return launch<64>(dt, A, Bm, Cm, x, h0, y, hT, B, S, d, N, st);
+#define SS_LAUNCH(NP) \
+  launch<NP>(dt, A, Bm, Cm, x, h0, y, hT, ckpt, B, S, d, N, st)
+  if (N <= 4) return SS_LAUNCH(4);
+  if (N <= 8) return SS_LAUNCH(8);
+  if (N <= 16) return SS_LAUNCH(16);
+  if (N <= 32) return SS_LAUNCH(32);
+  return SS_LAUNCH(64);
+#undef SS_LAUNCH
 }
 
 extern "C" const char* selective_scan_fwd_error_string(int code) {

@@ -6,10 +6,12 @@ The three model ops are differentiable, as the reference's ``custom_vjp``s
 - ``flash_attention``: forward through the flash-attention forward
   (saving q, k, v, out and lse), backward through the flash-attention
   backward;
-- ``selective_scan``: forward through the scan (saving its inputs),
-  backward through the scan's backward kernel, the reverse recurrence
-  linear in S that the reference's ``_ss_bwd`` takes as ``jax.vjp`` of
-  its oracle;
+- ``selective_scan``: forward through the scan (saving its inputs and,
+  when the call records a graph, the chunk checkpoints of h that the
+  forward's checkpointing instance writes), backward through the scan's
+  backward kernel from those checkpoints, the reverse recurrence linear
+  in S that the reference's ``_ss_bwd`` takes as ``jax.vjp`` of its
+  oracle;
 - ``fused_softmax_xent``: forward through the fused cross-entropy
   (saving h, W, labels and lse); on the bfloat16 tensor-core route (an odd
   vocabulary's too, where W comes ``pitched``) the backward runs the
@@ -92,17 +94,23 @@ class _FlashAttention(torch.autograd.Function):
 
 class _SelectiveScan(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, dt, A, Bmat, Cmat, x, h0):
-        ctx.save_for_backward(dt, A, Bmat, Cmat, x, h0)
-        return costs.kernel("selective_scan_fwd", ss.selective_scan_fwd, dt,
-                            A, Bmat, Cmat, x, h0)
+    def forward(ctx, dt, A, Bmat, Cmat, x, h0, graph):
+        if not graph:
+            return costs.kernel("selective_scan_fwd", ss.selective_scan_fwd,
+                                dt, A, Bmat, Cmat, x, h0)
+        y, hT, ckpt = costs.kernel("selective_scan_fwd",
+                                   ss.selective_scan_fwd, dt, A, Bmat, Cmat,
+                                   x, h0, True)
+        ctx.save_for_backward(dt, A, Bmat, Cmat, x, h0, ckpt)
+        return y, hT
 
     @staticmethod
     def backward(ctx, gy, gh):
+        *inputs, ckpt = ctx.saved_tensors
         return costs.kernel(
-            "selective_scan_bwd", ss.selective_scan_bwd, *ctx.saved_tensors,
+            "selective_scan_bwd", ss.selective_scan_bwd, *inputs,
             None if gy is None else gy.contiguous(),
-            None if gh is None else gh.contiguous())
+            None if gh is None else gh.contiguous(), ckpt) + (None,)
 
 
 class _Pitched(torch.autograd.Function):
@@ -148,8 +156,13 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
 def selective_scan(dt, A, Bmat, Cmat, x, h0):
     """Mamba-1 recurrence.  dt/x: [B, S, d]; A: [d, N]; Bmat/Cmat:
     [B, S, N]; h0: [B, d, N] -> (y [B, S, d] f32, hT [B, d, N] f32).
-    Differentiable in every input."""
-    return _SelectiveScan.apply(dt, A, Bmat, Cmat, x, h0)
+    Differentiable in every input.  A call that records a graph runs the
+    forward's checkpointing instance and saves its chunk checkpoints of h
+    for the backward; any other call (serving, ``no_grad``) runs the plain
+    forward instance."""
+    inputs = (dt, A, Bmat, Cmat, x, h0)
+    graph = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    return _SelectiveScan.apply(*inputs, graph)
 
 
 def pitched(W, dtype):

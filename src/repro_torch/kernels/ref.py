@@ -201,22 +201,36 @@ def softmax_xent_bwd_tc(h, W, labels, lse, g):
     return dh.to(h.dtype), dW.to(W.dtype)
 
 
-def selective_scan(dt, A, Bmat, Cmat, x, h0):
+def scan_checkpoint_steps(N: int) -> int:
+    """Steps between the scan's checkpoints of h for state size N: 16 up
+    to N = 16, then 8 up to 32 and 4 up to 64, so that the backward
+    kernel keeps a chunk's h_t and a_t in registers (its chunk is this
+    many steps; ``csrc/selective_scan.cu`` and ``selective_scan_bwd.cu``
+    hold the same rule)."""
+    return 16 if N <= 16 else 8 if N <= 32 else 4
+
+
+def selective_scan(dt, A, Bmat, Cmat, x, h0, checkpoints: bool = False):
     """Step-by-step Mamba-1 recurrence, op for op the reference's
     ``ref.selective_scan``:
 
       h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t,   y_t = h_t . C_t
 
     dt/x: [B, S, d]; A: [d, N]; Bmat/Cmat: [B, S, N]; h0: [B, d, N] ->
-    (y [B, S, d] f32, hT [B, d, N] f32)."""
+    (y [B, S, d] f32, hT [B, d, N] f32), and with ``checkpoints`` also
+    the chunk checkpoints [B, ceil(S / CK), d, N] f32: h before step k CK
+    for CK = ``scan_checkpoint_steps(N)`` (checkpoint 0 is h0)."""
     dt = dt.to(torch.float32)
     x = x.to(torch.float32)
     A = A.to(torch.float32)
     Bmat = Bmat.to(torch.float32)
     Cmat = Cmat.to(torch.float32)
     h = h0.to(torch.float32)
-    ys = []
+    CK = scan_checkpoint_steps(A.shape[1])
+    ys, ckpt = [], []
     for t in range(dt.shape[1]):
+        if checkpoints and t % CK == 0:
+            ckpt.append(h)
         dt_t, x_t = dt[:, t], x[:, t]                          # [B, d]
         dA = torch.exp(dt_t[..., None] * A)                    # [B, d, N]
         h = dA * h + (dt_t * x_t)[..., None] * Bmat[:, t, None, :]
@@ -225,13 +239,20 @@ def selective_scan(dt, A, Bmat, Cmat, x, h0):
         y = torch.stack(ys, dim=1)
     else:
         y = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
-    return y, h
+    if not checkpoints:
+        return y, h
+    if ckpt:
+        return y, h, torch.stack(ckpt, dim=1)
+    return y, h, h.new_zeros((h.shape[0], 0) + tuple(h.shape[1:]))
 
 
-def selective_scan_bwd(dt, A, Bmat, Cmat, x, h0, gy, ghT):
+def selective_scan_bwd(dt, A, Bmat, Cmat, x, h0, gy, ghT, ckpt=None):
     """Gradients of ``selective_scan`` for the cotangents ``gy`` [B, S, d]
     of y and ``ghT`` [B, d, N] of hT (None: zeros), linear in S: the
-    forward once, keeping every h_t, then the reverse recurrence
+    chunks of CK = ``scan_checkpoint_steps(N)`` steps in reverse, each
+    recomputing its h_t from its checkpoint ``ckpt[:, k]`` (the forward's,
+    ``selective_scan(..., checkpoints=True)``; None: one forward pass
+    makes them here), then the reverse recurrence
 
       lam_t = gy_t C_t + a_{t+1} * lam_{t+1}   (lam_S carried in as ghT)
 
@@ -247,32 +268,57 @@ def selective_scan_bwd(dt, A, Bmat, Cmat, x, h0, gy, ghT):
     dtf, xf = dt.to(f32), x.to(f32)
     Af, Bf, Cf = A.to(f32), Bmat.to(f32), Cmat.to(f32)
     B, S, d = dt.shape
+    CK = scan_checkpoint_steps(A.shape[1])
     gyf = (torch.zeros((B, S, d), dtype=f32, device=dt.device) if gy is None
            else gy.to(f32))
     mu = (torch.zeros(h0.shape, dtype=f32, device=dt.device) if ghT is None
           else ghT.to(f32).clone())
-    hs = [h0.to(f32)]                                  # h_{-1} .. h_{S-1}
-    for t in range(S):
-        a = torch.exp(dtf[:, t, :, None] * Af)
-        hs.append(a * hs[-1] + (dtf[:, t] * xf[:, t])[..., None]
-                  * Bf[:, t, None, :])
+    if ckpt is None:
+        ckpt = _scan_checkpoints(dtf, Af, Bf, xf, h0.to(f32), CK)
+    else:
+        want = (B, -(-S // CK)) + tuple(h0.shape[1:])
+        if tuple(ckpt.shape) != want:
+            raise ValueError(f"checkpoints of shape {tuple(ckpt.shape)}, "
+                             f"want {want}")
+        ckpt = ckpt.to(f32)
     ddt, dx = torch.zeros_like(dtf), torch.zeros_like(xf)
     dB, dC = torch.zeros_like(Bf), torch.zeros_like(Cf)
     dA = torch.zeros_like(Af)
-    for t in reversed(range(S)):
-        dt_t, x_t, gy_t = dtf[:, t], xf[:, t], gyf[:, t]   # [B, d]
-        a = torch.exp(dt_t[..., None] * Af)                # [B, d, N]
-        lam = mu + gy_t[..., None] * Cf[:, t, None, :]
-        dC[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], gy_t)
-        dB[:, t] = torch.einsum("bdn,bd->bn", lam, dt_t * x_t)
-        s1 = torch.einsum("bdn,bn->bd", lam, Bf[:, t])
-        r = lam * hs[t] * a
-        dA += (r * dt_t[..., None]).sum(0)
-        dx[:, t] = dt_t * s1
-        ddt[:, t] = x_t * s1 + (r * Af).sum(-1)
-        mu = a * lam
+    for k in reversed(range(ckpt.shape[1])):
+        t0, t1 = k * CK, min(S, (k + 1) * CK)
+        hs = [ckpt[:, k]]                              # h_{t0-1} .. h_{t1-1}
+        for t in range(t0, t1):
+            a = torch.exp(dtf[:, t, :, None] * Af)
+            hs.append(a * hs[-1] + (dtf[:, t] * xf[:, t])[..., None]
+                      * Bf[:, t, None, :])
+        for t in reversed(range(t0, t1)):
+            dt_t, x_t, gy_t = dtf[:, t], xf[:, t], gyf[:, t]   # [B, d]
+            a = torch.exp(dt_t[..., None] * Af)                # [B, d, N]
+            lam = mu + gy_t[..., None] * Cf[:, t, None, :]
+            dC[:, t] = torch.einsum("bdn,bd->bn", hs[t - t0 + 1], gy_t)
+            dB[:, t] = torch.einsum("bdn,bd->bn", lam, dt_t * x_t)
+            s1 = torch.einsum("bdn,bn->bd", lam, Bf[:, t])
+            r = lam * hs[t - t0] * a
+            dA += (r * dt_t[..., None]).sum(0)
+            dx[:, t] = dt_t * s1
+            ddt[:, t] = x_t * s1 + (r * Af).sum(-1)
+            mu = a * lam
     return (ddt.to(dt.dtype), dA.to(A.dtype), dB.to(Bmat.dtype),
             dC.to(Cmat.dtype), dx.to(x.dtype), mu.to(h0.dtype))
+
+
+def _scan_checkpoints(dt, A, Bmat, x, h, CK):
+    """h before every CK-th step of ``selective_scan``'s recurrence (its
+    ops, without y) -> [B, ceil(S / CK), d, N]."""
+    ckpt = []
+    for t in range(dt.shape[1]):
+        if t % CK == 0:
+            ckpt.append(h)
+        a = torch.exp(dt[:, t, :, None] * A)
+        h = a * h + (dt[:, t] * x[:, t])[..., None] * Bmat[:, t, None, :]
+    if not ckpt:
+        return h.new_zeros((h.shape[0], 0) + tuple(h.shape[1:]))
+    return torch.stack(ckpt, dim=1)
 
 
 #: log2(e) as the scan kernel folds it into A (rounded to float32 there)

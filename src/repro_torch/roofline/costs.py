@@ -42,6 +42,7 @@ import torch
 from torch.utils._python_dispatch import (TorchDispatchMode,
                                           _get_current_dispatch_mode_stack)
 
+from repro_torch.kernels import ref
 from repro_torch.roofline import analysis as A
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -364,8 +365,12 @@ def _meta_outputs(name: str, a):
         return torch.empty_like(a[0]), _xent_dw(a[0], a[1])
     if name == "selective_scan_fwd":
         B, S, d = a[0].shape
-        return (_f32(B, S, d, like=a[0]),
-                _f32(B, d, a[1].shape[1], like=a[0]))
+        N = a[1].shape[1]
+        out = (_f32(B, S, d, like=a[0]), _f32(B, d, N, like=a[0]))
+        if len(a) > 6 and a[6]:         # the checkpointing instance
+            out += (_f32(B, -(-S // ref.scan_checkpoint_steps(N)), d, N,
+                         like=a[0]),)
+        return out
     if name == "selective_scan_bwd":
         return tuple(torch.empty_like(t) for t in a[:6])
     if name == "fed_cohort_gather":

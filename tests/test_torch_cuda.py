@@ -49,9 +49,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
-                                 fed_local_sgd_dense, flash_attention,
-                                 fused_xent, selective_scan)
+from repro_torch.kernels import (build, fed_compress, fed_gather,
+                                 fed_local_sgd, fed_local_sgd_dense,
+                                 flash_attention, fused_xent, selective_scan)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from torch_cases import (COMPRESS_CASES, DRYRUN_CASES, FAULT_CFG, FAULT_DS, FAULT_PATHS,
@@ -411,8 +411,9 @@ def test_cuda_selective_scan_kernel_vs_plain(cuda_device, B, S, d, N):
 
 # (B, S, d, N) of the scan's backward: Falcon-Mamba-7B's width at
 # train_4k's S; a ragged S (no multiple of the 16-step chunk) and d (no
-# multiple of the 64-channel block); one step; N = 8, 3 and 64 (the 4- and
-# 8-step chunks of N > 16)
+# multiple of the 64-channel block); one step; N = 8, 3, 64 and 32 (the 4-
+# and 8-step chunks of N > 16), those two also over more than one block
+# and with a ragged last chunk
 SCAN_BWD_CASES = [
     (1, 4096, 8192, 16),
     (2, 37, 200, 16),
@@ -421,6 +422,8 @@ SCAN_BWD_CASES = [
     (2, 40, 50, 3),
     (1, 33, 64, 64),
     (1, 29, 96, 32),
+    (2, 70, 600, 32),
+    (1, 66, 520, 64),
 ]
 SCAN_BWD_TOL = 1e-4
 SCAN_BWD_NAMES = ("ddt", "dA", "dB", "dC", "dx", "dh0")
@@ -451,6 +454,80 @@ def test_cuda_selective_scan_bwd_kernel_vs_plain(cuda_device, B, S, d, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,N", SCAN_BWD_CASES)
+def test_cuda_scan_checkpoints_are_the_serving_forwards(cuda_device, B, S, d,
+                                                        N):
+    """The forward's checkpointing instance: y and hT bitwise serving's
+    instance; checkpoint k bitwise serving's hT over the first k CK steps
+    (checkpoint 0 is h0); counted as one forward launch."""
+    t = [torch.from_numpy(a).to(cuda_device) for a in scan_case(B, S, d, N)]
+    ss = selective_scan.selective_scan_fwd
+    CK = selective_scan.checkpoint_steps(N)
+    assert build.load("selective_scan").selective_scan_ckpt_steps(N) == CK
+    before = ss.launches
+    y, hT, ckpt = ss(*t, checkpoints=True)
+    assert ss.launches == before + 1
+    want_y, want_h = ss(*t)
+    assert ckpt.shape == (B, -(-S // CK), d, N)
+    assert torch.equal(y, want_y) and torch.equal(hT, want_h)
+    dt, A, Bm, Cm, x, h0 = t
+    chunks = ckpt.shape[1]
+    for k in sorted({0, 1, 2, chunks - 1} & set(range(chunks))):
+        n = k * CK
+        head = ss(dt[:, :n].contiguous(), A, Bm[:, :n].contiguous(),
+                  Cm[:, :n].contiguous(), x[:, :n].contiguous(), h0)[1]
+        assert torch.equal(ckpt[:, k], head), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d,N", SCAN_BWD_CASES)
+def test_cuda_scan_bwd_from_the_forwards_checkpoints(cuda_device, B, S, d,
+                                                     N):
+    """The backward given the forward's checkpoints (what training runs)
+    is bitwise the backward that launches the checkpointing forward itself
+    (counted as its own checkpointing launch, not as a forward launch), and
+    within the tolerance of the plain backward given the same
+    checkpoints."""
+    t = [torch.from_numpy(a).to(cuda_device)
+         for a in scan_bwd_case(B, S, d, N)]
+    ss = selective_scan.selective_scan_fwd
+    sb = selective_scan.selective_scan_bwd
+    ckpt = ss(*t[:6], checkpoints=True)[2]
+    fwd, mine = ss.launches, sb.own_checkpoint_launches
+    own = sb(*t)
+    assert (ss.launches, sb.own_checkpoint_launches) == (fwd, mine + 1)
+    given = sb(*t, ckpt)
+    assert sb.own_checkpoint_launches == mine + 1
+    assert all(torch.equal(a, b) for a, b in zip(own, given))
+    _scan_bwd_close(given, tref.selective_scan_bwd(*t, ckpt))
+
+
+@pytest.mark.cuda
+def test_cuda_scan_op_saves_the_checkpoints(cuda_device):
+    """The autograd op: one forward launch (the checkpointing instance)
+    and one backward launch a call that records a graph, and the backward
+    launches no checkpointing forward of its own; none but the serving
+    forward under no_grad."""
+    arrays = scan_case(2, 45, 96, 16)
+    ts = [torch.from_numpy(a).to(cuda_device).requires_grad_(True)
+          for a in arrays]
+    ss = selective_scan.selective_scan_fwd
+    sb = selective_scan.selective_scan_bwd
+    f0, b0, own0 = ss.launches, sb.launches, sb.own_checkpoint_launches
+    y, hT = tops.selective_scan(*ts)
+    grads = torch.autograd.grad(y.square().sum() + hT.sum(), ts)
+    assert (ss.launches - f0, sb.launches - b0) == (1, 1)
+    assert sb.own_checkpoint_launches == own0
+    ck = ss(*[t.detach() for t in ts], checkpoints=True)[2]
+    want = tref.selective_scan_bwd(*[t.detach() for t in ts], 2 * y.detach(),
+                                   torch.ones_like(hT), ck)
+    _scan_bwd_close(grads, want)
+    with torch.no_grad():
+        tops.selective_scan(*ts)
+    assert (ss.launches - f0, sb.launches - b0) == (3, 1)
+
+
+@pytest.mark.cuda
 def test_cuda_selective_scan_bwd_misaligned_base_and_no_cotangent(
         cuda_device):
     """dt, x and gy 4 bytes off 16-byte alignment; and hT's cotangent
@@ -464,6 +541,8 @@ def test_cuda_selective_scan_bwd_misaligned_base_and_no_cotangent(
     sb = selective_scan.selective_scan_bwd
     _scan_bwd_close(sb(*t), tref.selective_scan_bwd(*t))
     _scan_bwd_close(sb(*t[:7], None), tref.selective_scan_bwd(*t[:7], None))
+    again = sb(*t)
+    assert all(torch.equal(a, b) for a, b in zip(sb(*t), again))
 
 
 @pytest.mark.cuda

@@ -99,6 +99,84 @@ def test_op_gradients_match_the_reference_vjp(B, S, d, N, zero_h0,
     _close([g.numpy() for g in got], _reference(arrays, gy, ghT))
 
 
+@pytest.mark.parametrize("B,S,d,N,zero_h0,with_ghT", CASES)
+def test_plain_backward_from_checkpoints_matches_the_reference_vjp(
+        B, S, d, N, zero_h0, with_ghT):
+    """The plain forward's chunk checkpoints (h before every CK-th step,
+    bitwise the forward's h there), handed to the plain backward: bitwise
+    the backward that makes its own, and within 1e-4 of ``jax.vjp`` of
+    the reference."""
+    arrays = _case(B, S, d, N, zero_h0, seed=13)
+    gy, ghT = _cotangents(B, S, d, N, seed=14)
+    ts = [torch.from_numpy(a) for a in arrays]
+    y, hT, ckpt = tref.selective_scan(*ts, checkpoints=True)
+    CK = tref.scan_checkpoint_steps(N)
+    assert CK == tss.checkpoint_steps(N) == (16 if N <= 16 else 8)
+    assert ckpt.shape == (B, -(-S // CK), d, N)
+    plain_y, plain_h = tref.selective_scan(*ts)
+    assert torch.equal(y, plain_y) and torch.equal(hT, plain_h)
+    for k in range(ckpt.shape[1]):
+        n = k * CK
+        head = tref.selective_scan(ts[0][:, :n], ts[1], ts[2][:, :n],
+                                   ts[3][:, :n], ts[4][:, :n], ts[5])[1]
+        assert torch.equal(ckpt[:, k], head), k
+    cot = (torch.from_numpy(gy), torch.from_numpy(ghT) if with_ghT else None)
+    given = tref.selective_scan_bwd(*ts, *cot, ckpt)
+    own = tref.selective_scan_bwd(*ts, *cot)
+    assert all(torch.equal(g, o) for g, o in zip(given, own))
+    if not with_ghT:
+        ghT = np.zeros_like(ghT)
+    _close([g.numpy() for g in given], _reference(arrays, gy, ghT))
+    with pytest.raises(ValueError, match="checkpoints of shape"):
+        tref.selective_scan_bwd(*ts, *cot, ckpt[:, :0])
+
+
+def test_checkpoint_steps_by_state_size():
+    assert [tref.scan_checkpoint_steps(n) for n in (1, 3, 8, 16, 17, 32, 33,
+                                                    64)] == [16] * 4 + [8] * 2 \
+        + [4] * 2
+
+
+def test_op_hands_the_forwards_checkpoints_to_the_backward(monkeypatch):
+    """The CPU autograd op: the forward makes the checkpoints (the plain
+    checkpointing forward) and the backward takes exactly those, with no
+    second forward (neither ``ref.selective_scan`` nor the plain
+    backward's own checkpoint pass runs in it); under no_grad the forward
+    makes none."""
+    arrays = _case(2, 40, 16, 8, False)
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    made, taken = [], []
+    fwd, bwd = tref.selective_scan, tref.selective_scan_bwd
+
+    def forward(*a, checkpoints=False):
+        out = fwd(*a, checkpoints=checkpoints)
+        made.append(out[2] if checkpoints else None)
+        return out
+
+    def backward(*a):
+        taken.append(a[8])
+        return bwd(*a)
+
+    def refuse(*a, **k):
+        raise AssertionError("the backward ran a forward pass")
+
+    monkeypatch.setattr(tref, "selective_scan", forward)
+    monkeypatch.setattr(tref, "selective_scan_bwd", backward)
+    y, hT = tops.selective_scan(*ts)
+    want = bwd(*[t.detach() for t in ts], 2 * y.detach(),
+               torch.ones_like(hT))
+    monkeypatch.setattr(tref, "selective_scan", refuse)
+    monkeypatch.setattr(tref, "_scan_checkpoints", refuse)
+    grads = torch.autograd.grad(y.square().sum() + hT.sum(), ts)
+    assert len(made) == len(taken) == 1 and taken[0] is made[0]
+    assert made[0].shape == (2, 3, 16, 8)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    monkeypatch.setattr(tref, "selective_scan", forward)
+    with torch.no_grad():
+        tops.selective_scan(*ts)
+    assert made[-1] is None
+
+
 def test_backward_is_linear_and_never_runs_the_plain_forward(monkeypatch):
     """The op's CPU backward does not call ``ref.selective_scan`` (the old
     quadratic recompute did), and its ops and bytes at 2S are twice
@@ -147,6 +225,13 @@ def test_meta_charge_equals_the_bound_formula():
         y, hT = tops.selective_scan(*args)
         grads = torch.autograd.grad(y.sum() + hT.sum(), args)
     assert [tuple(g.shape) for g in grads] == [tuple(a.shape) for a in args]
+    assert c.cost.by_op["kernel.selective_scan_fwd"] == [
+        1, A.scan_work(B, S, d, N)[1], A.scan_work(B, S, d, N)[0]]
+    ck = costs.kernel("selective_scan_fwd", tss.selective_scan_fwd,
+                      *[a.detach() for a in args], True)
+    assert [tuple(t.shape) for t in ck] == [(B, S, d), (B, d, N),
+                                           (B, 1, d, N)]
+    assert all(t.device.type == "meta" for t in ck)
     nbytes, flops, exps = A.scan_bwd_work(B, S, d, N)
     assert c.cost.by_op["kernel.selective_scan_bwd"] == [1, flops, nbytes]
     assert nbytes == 4 * (5 * B * S * d + 4 * B * S * N + 2 * d * N
