@@ -125,8 +125,10 @@ from repro_torch.faults.screen import (eligibility, quarantine_update,
                                        screen_uploads, screen_uploads_device)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.fl_models import as_local_step
-from repro_torch.obs.profiling import (STAGE_AGGREGATE, STAGE_GATHER,
-                                       STAGE_LOCAL_SGD, STAGE_UPLOAD, stage)
+from repro_torch.obs.profiling import (
+    SPAN_LOCAL_STEP, SPAN_LOCAL_STEP_BACKWARD, SPAN_LOCAL_STEP_FORWARD,
+    SPAN_LOCAL_STEP_UPDATE, STAGE_AGGREGATE, STAGE_GATHER, STAGE_LOCAL_SGD,
+    STAGE_UPLOAD, stage)
 from repro_torch.obs.schema import (LOSS_HIST_BINS, LOSS_HIST_MAX,
                                     WORKLOAD_HIST_BINS)
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -293,38 +295,45 @@ class RoundEngine:
         tree = views(params)
         leaves = tree_leaves(tree)
         anchor = views(global_params) if self.prox_mu else None
-        lr = self.lr
         total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         with torch.enable_grad():
             for p in leaves:
                 p.requires_grad_(True)
             try:
                 for i in range(steps):
-                    loss = self._prox(loss_fn(tree, batch_at(i)), tree,
-                                      anchor)
-                    grads = torch.autograd.grad(
-                        loss, leaves, materialize_grads=True)
-                    with torch.no_grad():
-                        if active is None:
-                            for p, g in zip(leaves, grads):
-                                p.sub_(g.to(p.dtype) * lr)
-                            total = total + loss.detach()
-                        else:
-                            # where(a, p - lr * g, p) through one
-                            # temporary a leaf (a full-width LM's largest
-                            # leaf is 1.6 GB)
-                            a = active[i]
-                            for p, g in zip(leaves, grads):
-                                t = g.to(p.dtype) * lr
-                                torch.where(a, torch.sub(p, t, out=t), p,
-                                            out=p)
-                            total = total + torch.where(
-                                a, loss.detach(), 0.0)
-                    del loss, grads     # free them before the next forward
+                    with stage(SPAN_LOCAL_STEP):
+                        total = self._local_step(loss_fn, tree, leaves,
+                                                 anchor, batch_at(i), total,
+                                                 None if active is None
+                                                 else active[i])
             finally:
                 for p in leaves:
                     p.requires_grad_(False)
         return total
+
+    def _local_step(self, loss_fn, tree, leaves, anchor, batch, total,
+                    active):
+        """One SGD step of ``_train_in_place`` on ``leaves`` (the autograd
+        leaves of ``tree``), its forward, backward and update each in its
+        span; returns ``total`` plus the step's counted loss.  ``active``
+        (a 0-d bool device tensor, or None for a step that always updates)
+        masks the update and the loss."""
+        with stage(SPAN_LOCAL_STEP_FORWARD):
+            loss = self._prox(loss_fn(tree, batch), tree, anchor)
+        with stage(SPAN_LOCAL_STEP_BACKWARD):
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        lr = self.lr
+        with stage(SPAN_LOCAL_STEP_UPDATE), torch.no_grad():
+            if active is None:
+                for p, g in zip(leaves, grads):
+                    p.sub_(g.to(p.dtype) * lr)
+                return total + loss.detach()
+            # where(a, p - lr * g, p) through one temporary a leaf (a
+            # full-width LM's largest leaf is 1.6 GB)
+            for p, g in zip(leaves, grads):
+                t = g.to(p.dtype) * lr
+                torch.where(active, torch.sub(p, t, out=t), p, out=p)
+            return total + torch.where(active, loss.detach(), 0.0)
 
     def _lane_sgd(self, model, global_params, x, y, mask, n_iters, idx,
                   bmask, sampling: str, walk_all: bool, max_iters: int):

@@ -155,6 +155,10 @@ from repro_torch.launch.mesh import make_data_group
 from repro_torch.faults.inject import (apply_availability_stragglers,
                                        block_fault_draws, round_fault_draws)
 from repro_torch.models.fl_models import resolve_local_step
+from repro_torch.obs.profiling import (
+    SPAN_BLOCK, SPAN_BLOCK_CAPTURE, SPAN_BLOCK_CHECKPOINT, SPAN_BLOCK_EVAL,
+    SPAN_BLOCK_INPUTS, SPAN_BLOCK_PULL, SPAN_BLOCK_RECORDS, SPAN_BLOCK_REPLAY,
+    SPAN_BLOCK_UPLOAD, SPAN_HISTORY, stage)
 from repro_torch.obs.schema import (HISTORY_KEYS, LOSS_HIST_BINS,
                                     LOSS_HIST_MAX, WORKLOAD_HIST_BINS,
                                     RoundRecord, histogram_counts,
@@ -747,36 +751,40 @@ class FedSAEServer:
         self.host_syncs += 1
         return self._take_block(stats, t, 1)[0]
 
-    def _run_scan(self, T: int, verbose: bool, t_start: int,
-                  checkpoint_dir: Optional[str], checkpoint_every: int):
-        """The scan driver: blocks of ``block_size`` rounds, one stats pull
-        a block, the eval at block ends where a round was due."""
+    def _scan_block(self, prog: RoundProgram, t0: int, b: int, T: int,
+                    verbose: bool, checkpoint_dir: Optional[str],
+                    checkpoint_every: int) -> int:
+        """Rounds t0 .. t0 + b - 1 of the scan driver, each part of the
+        block's host work in its span; returns the next round."""
         cfg = self.cfg
-        prog = self._program_loaded()
-        t0 = t_start
-        while t0 < T:
-            b = min(self.block_size, T - t0)
-            start = time.perf_counter()
+        start = time.perf_counter()
+        with stage(SPAN_BLOCK_INPUTS):
             inputs = self._block_inputs(t0, b)
-            if prog.graphed and prog.graph is None:
+        if prog.graphed and prog.graph is None:
+            with stage(SPAN_BLOCK_CAPTURE):
                 prog.begin_block(t0, inputs)
                 prog.capture()                # synchronizes: outside
-            with sync_checked(self.device):   # no host read in a block
+        with sync_checked(self.device):       # no host read in a block
+            with stage(SPAN_BLOCK_UPLOAD):
                 prog.begin_block(t0, inputs)
+            with stage(SPAN_BLOCK_REPLAY):
                 prog.run(b)
+        with stage(SPAN_BLOCK_PULL):
             stats = prog.pull(b)              # the block's one host pull
-            self.host_syncs += 1
-            recs = self._take_block(stats, t0, b)
-            due = (t0 + b == T) or any(
-                (t0 + i) % cfg.eval_every == 0 for i in range(b))
-            prev = self._records.last
-            prev_acc = prev.acc if prev is not None else float("nan")
-            acc, tl = prev_acc, float("nan")
-            if due:
+        self.host_syncs += 1
+        prev = self._records.last
+        prev_acc = prev.acc if prev is not None else float("nan")
+        acc, tl = prev_acc, float("nan")
+        if (t0 + b == T) or any((t0 + i) % cfg.eval_every == 0
+                                for i in range(b)):
+            with stage(SPAN_BLOCK_EVAL):
                 acc, tl = self.eval_fn(prog.carry["params"], self.test_x,
                                        self.test_y)
                 acc, tl = float(acc), float(tl)
-                self.host_syncs += 1          # ...plus the eval readback
+            self.host_syncs += 1              # ...plus the eval readback
+        # the records carry the eval's accuracy, so they follow it
+        with stage(SPAN_BLOCK_RECORDS):
+            recs = self._take_block(stats, t0, b)
             wall = time.perf_counter() - start
             for i, rec in enumerate(recs):
                 last = i == b - 1
@@ -788,16 +796,29 @@ class FedSAEServer:
                 print(self._progress_line(
                     f"{cfg.algo}/scan", f"rounds {t0:3d}-{t0 + b - 1:3d}",
                     recs[-1], float(np.sum(stats["overflowed"]))))
-            t0 += b
-            if checkpoint_dir and (
-                    (checkpoint_every > 0 and t0 % checkpoint_every == 0)
-                    or t0 == T):
-                # block boundaries only: align checkpoint_every with
-                # block_size for a resumed run's eval cadence to match
+        t0 += b
+        if checkpoint_dir and (
+                (checkpoint_every > 0 and t0 % checkpoint_every == 0)
+                or t0 == T):
+            # block boundaries only: align checkpoint_every with
+            # block_size for a resumed run's eval cadence to match
+            with stage(SPAN_BLOCK_CHECKPOINT):
                 self._absorb_state(prog.carry)
                 save_server_state(self, checkpoint_dir, t0)
+        return t0
+
+    def _run_scan(self, T: int, verbose: bool, t_start: int,
+                  checkpoint_dir: Optional[str], checkpoint_every: int):
+        """The scan driver: blocks of ``block_size`` rounds, one stats pull
+        a block, the eval at block ends where a round was due."""
+        prog = self._program_loaded()
+        t0 = t_start
+        while t0 < T:
+            b = min(self.block_size, T - t0)
+            with stage(SPAN_BLOCK):
+                t0 = self._scan_block(prog, t0, b, T, verbose,
+                                      checkpoint_dir, checkpoint_every)
         self._absorb_state(prog.carry)
-        return self.history
 
     # ------------------------------------------------------------------
     def run_round(self, t: int) -> Dict:
@@ -929,8 +950,18 @@ class FedSAEServer:
                 raise ValueError("resume=True requires checkpoint_dir")
             t_start = restore_server_state(self, checkpoint_dir)
         if self.cfg.driver == "scan":
-            return self._run_scan(T, verbose, t_start, checkpoint_dir,
-                                  int(checkpoint_every))
+            self._run_scan(T, verbose, t_start, checkpoint_dir,
+                           int(checkpoint_every))
+        else:
+            self._run_host(T, verbose, t_start, checkpoint_dir,
+                           int(checkpoint_every))
+        # a view over every record so far, built anew on each call
+        with stage(SPAN_HISTORY):
+            return self.history
+
+    def _run_host(self, T: int, verbose: bool, t_start: int,
+                  checkpoint_dir: Optional[str], checkpoint_every: int):
+        """The host driver: one Python iteration a round."""
         device = self.rng_impl == "device"
         prog = self._program_loaded() if device else None
         for t in range(t_start, T):
@@ -961,4 +992,3 @@ class FedSAEServer:
                 save_server_state(self, checkpoint_dir, t + 1)
         if device:
             self._absorb_state(prog.carry)
-        return self.history

@@ -34,11 +34,9 @@ card would take for the same dtypes and strides
 The federated ops are forward-only: round functions are never
 differentiated through (the local-SGD kernels compute their gradients in
 closed form).  Every op goes to its wrapper, which runs the plain version
-on a CPU tensor and the hand-written kernel on a CUDA tensor.  Each
-federated op is a profiler range of its own (``obs.profiling.annotate``),
-named as the reference's with the port's suffix: ``fed.gather.cuda``,
-``fed.local_sgd.cuda``, ``fed.local_sgd_dense.cuda`` and
-``fed.upload_transform.cuda``.
+on a CPU tensor and the hand-written kernel on a CUDA tensor.  They open
+no profiler range of their own: each runs inside its round stage's range
+(``obs.profiling.stage``), and a device trace names its kernel.
 """
 from __future__ import annotations
 
@@ -50,7 +48,6 @@ from repro_torch.kernels import (fed_compress, fed_gather, fed_local_sgd,
                                  flash_attention as fa, fused_xent, ref)
 from repro_torch.kernels import fed_local_sgd_dense as dense_sgd
 from repro_torch.kernels import selective_scan as ss
-from repro_torch.obs.profiling import annotate
 from repro_torch.roofline import costs
 
 
@@ -181,7 +178,6 @@ def fused_softmax_xent(h, W, labels):
     return _FusedSoftmaxXent.apply(h, W, labels)
 
 
-@annotate("fed.gather.cuda")
 def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
     """Fused gather + mask over the packed federation.  ``flat_x`` may have
     any feature shape; it is flattened to [rows, feat] for the kernel and
@@ -197,7 +193,6 @@ def fed_cohort_gather(flat_x, flat_y, starts, ns, max_n: int):
     return x.reshape((x.shape[0], max_n) + feat_shape), y, mask
 
 
-@annotate("fed.local_sgd.cuda")
 def fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters, lr: float,
                        prox_mu: float = 0.0):
     """Fused masked budgeted MCLR local SGD.
@@ -207,7 +202,6 @@ def fed_local_sgd_mclr(x, y, idx, w0, b0, ns, n_iters, lr: float,
                         ns, n_iters, lr, prox_mu)
 
 
-@annotate("fed.local_sgd_dense.cuda")
 def fed_local_sgd_dense(x, y, idx, w1, b1, w2, b2, ns, n_iters, lr: float,
                         prox_mu: float = 0.0):
     """Fused masked budgeted dense-MLP (tanh) local SGD.  Returns
@@ -216,7 +210,6 @@ def fed_local_sgd_dense(x, y, idx, w1, b1, w2, b2, ns, n_iters, lr: float,
                         x, y, idx, w1, b1, w2, b2, ns, n_iters, lr, prox_mu)
 
 
-@annotate("fed.upload_transform.cuda")
 def fed_compress_topk_q8(ef, k: int):
     """Top-k + int8 compression of the [K, P] error-feedback rows.
     Returns (q [K, P] int8, scale [K] f32)."""

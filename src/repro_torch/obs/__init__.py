@@ -7,9 +7,10 @@ the reference's ``repro.obs``.
   sinks      pluggable record consumers: JSONL file, in-memory ring
              buffer, null, tee
   profiling  stage ranges (gather / local SGD / upload transform /
-             aggregate) as torch.profiler ranges (NVTX on the card), a
-             profile whose device collection is warmed up, and
-             chrome-trace capture
+             aggregate) and host spans (a scan block and its parts, a
+             local step and its parts) as torch.profiler ranges (NVTX on
+             the card), a profile whose device collection is warmed up,
+             and chrome-trace capture
   report     markdown straggler/health report renderer
              (CLI: ``python -m repro_torch.launch.fl_report``)
 
@@ -29,8 +30,7 @@ from repro_torch.obs.sinks import (JsonlSink, NullSink, RingBufferSink, Sink,
                                    TeeSink)
 from repro_torch.obs.profiling import (STAGE_AGGREGATE, STAGE_GATHER,
                                        STAGE_LOCAL_SGD, STAGE_UPLOAD,
-                                       annotate, stage, trace_if,
-                                       warm_profile)
+                                       stage, trace_if, warm_profile)
 from repro_torch.obs.report import client_reliability, render_report
 
 __all__ = [
@@ -39,6 +39,6 @@ __all__ = [
     "record_from_row", "records_from_block_stats",
     "JsonlSink", "NullSink", "RingBufferSink", "Sink", "TeeSink",
     "STAGE_AGGREGATE", "STAGE_GATHER", "STAGE_LOCAL_SGD", "STAGE_UPLOAD",
-    "annotate", "stage", "trace_if", "warm_profile",
+    "stage", "trace_if", "warm_profile",
     "client_reliability", "render_report",
 ]

@@ -6,12 +6,18 @@ The round is a four-stage pipeline (gather -> local SGD -> upload transform
 as a ``torch.profiler.record_function`` range while a torch profiler
 records, which a captured trace shows on the host thread, with the device
 kernels launched inside it linked to it; while CUDA is in use it is also an
-NVTX range, for external profilers.
-``annotate(name)`` does the same around a function (the kernel entry points
-of ``repro_torch.kernels.ops``).
+NVTX range, for external profilers.  It only marks time: it adds no op
+and no device synchronisation, so a marked round computes the same bits
+as an unmarked one.
 
-Both only mark time: they add no op and no device synchronisation, so a
-marked round computes the same bits as an unmarked one.
+The host's own work has spans of the same kind (the SPAN_* names below):
+on the scan driver a ``fed.block`` span a block of rounds, with children
+for the block's injected inputs, their upload, the replays, the stats
+pull, the records and the eval (a capture and a checkpoint too, when the
+block holds one), and a ``fed.history`` span for the history view a
+server's ``run`` returns; on the silo path and the LM lanes a
+``fed.local_step`` span a local step, with its forward, backward and
+in-place update.
 
 ``trace_if(dir)`` (``fl_train --trace-dir``) captures a
 ``torch.profiler.profile`` trace of the block it wraps (host activity, and
@@ -27,7 +33,6 @@ window loses (a window can still, rarely, lose records: see
 from __future__ import annotations
 
 import contextlib
-import functools
 import os
 import time
 from typing import Iterator, Optional
@@ -40,10 +45,29 @@ STAGE_LOCAL_SGD = "fed.local_sgd"
 STAGE_UPLOAD = "fed.upload_transform"
 STAGE_AGGREGATE = "fed.aggregate"
 
+# host spans of the scan driver (``FedSAEServer._run_scan``): one a block,
+# its children in the order they run
+SPAN_BLOCK = "fed.block"
+SPAN_BLOCK_INPUTS = "fed.block.inputs"          # injected draws, stacked
+SPAN_BLOCK_CAPTURE = "fed.block.capture"        # the first block's capture
+SPAN_BLOCK_UPLOAD = "fed.block.upload"          # ``begin_block``
+SPAN_BLOCK_REPLAY = "fed.block.replay"          # the block's rounds
+SPAN_BLOCK_PULL = "fed.block.pull"              # the stats' host read
+SPAN_BLOCK_EVAL = "fed.block.eval"              # where an eval is due
+SPAN_BLOCK_RECORDS = "fed.block.records"        # records made and emitted
+SPAN_BLOCK_CHECKPOINT = "fed.block.checkpoint"  # where one is written
+# the history view over every record that ``FedSAEServer.run`` returns
+SPAN_HISTORY = "fed.history"
+# host spans of a local step (``RoundEngine._train_in_place``)
+SPAN_LOCAL_STEP = "fed.local_step"
+SPAN_LOCAL_STEP_FORWARD = "fed.local_step.forward"
+SPAN_LOCAL_STEP_BACKWARD = "fed.local_step.backward"
+SPAN_LOCAL_STEP_UPDATE = "fed.local_step.update"
+
 
 @contextlib.contextmanager
 def stage(name: str) -> Iterator[None]:
-    """Named profiler range for one pipeline stage.  The
+    """Named profiler range for one pipeline stage or host span.  The
     ``record_function`` range is opened only while a torch profiler is
     recording (opening one costs ~10 µs of host even with none, and a round
     opens 5-8); the NVTX range is pushed only once CUDA is initialised in
@@ -59,23 +83,6 @@ def stage(name: str) -> Iterator[None]:
         finally:
             if nvtx:
                 torch.cuda.nvtx.range_pop()
-
-
-def annotate(name: Optional[str] = None):
-    """Decorator: a ``stage`` range named ``name`` (default: the function's
-    qualified name) around every call of the function."""
-
-    def wrap(fn):
-        label = name or fn.__qualname__
-
-        @functools.wraps(fn)
-        def marked(*args, **kwargs):
-            with stage(label):
-                return fn(*args, **kwargs)
-
-        return marked
-
-    return wrap
 
 
 #: launches made, and synchronised, between enabling the device activity

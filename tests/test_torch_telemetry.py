@@ -305,8 +305,6 @@ def test_cli_metrics_trace_and_report(tmp_path, capsys):
     with open(tfile) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert set(STAGES) <= names
-    assert {"fed.gather.cuda", "fed.local_sgd_dense.cuda",
-            "fed.upload_transform.cuda"} <= names
 
     assert fl_report.main([path, "--validate", "--expect-rounds", "2"]) == 0
     assert capsys.readouterr().out == (
